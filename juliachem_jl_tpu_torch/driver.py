@@ -4,7 +4,8 @@ Port of ``juliachem_jl_tpu/driver.py`` (the reference's canonical script
 sequence, example_scripts/full-rhf.jl):
   initialize -> JCInput.run -> JCMolecule.run -> JCBasis.run ->
   JCRHF.Energy.run -> JCRHF.Properties.run -> finalize.
-Closed-shell DF-RHF energies only; every other method or driver raises
+Closed-shell RHF energies, density-fitted or conventional (no auxiliary
+basis needed for ``scf_type: "rhf"``); every other method or driver raises
 NotImplementedError naming its ROADMAP.md item.
 """
 
@@ -19,7 +20,7 @@ from .models import rhf as rhf_mod
 
 def run_spec(spec, output: int = 0, device=None) -> dict:
     """Run a parsed input on ``device`` (default: the one given to
-    ``initialize``)."""
+    ``initialize``, the card unless it named the CPU)."""
     method = str(spec.model.get("method", "RHF")).upper()
     if method != "RHF":
         raise NotImplementedError(

@@ -1,6 +1,7 @@
 """RHF energy driver (API parity with JCRHF.Energy.run, src/rhf/energy/Energy.jl).
 
-Port of ``juliachem_jl_tpu/models/rhf.py`` for density-fitted RHF.  Returns
+Port of ``juliachem_jl_tpu/models/rhf.py``: density-fitted and conventional
+(direct-SCF) RHF, and the DF guess (DF iterations, then conventional).  Returns
 the same result dictionary shape as the JAX package (Fock, Density, W, MO
 Coeff, MO Energies, Overlap as tensors on the calculation's device; Energy,
 Converged?, Iterations, Timings).  The route taken is recorded in
@@ -9,6 +10,7 @@ Converged?, Iterations, Timings).  The route taken is recorded in
 
 from __future__ import annotations
 
+import os
 import time
 
 from .. import config
@@ -36,14 +38,6 @@ def _check_ported(scf_flags: dict, opts) -> None:
         if scf_flags.get(key):
             raise NotImplementedError(
                 f"scf keyword {key!r} is not ported yet (ROADMAP.md {item})")
-    if opts.scf_type != C.SCFType.density_fitting:
-        raise NotImplementedError(
-            "conventional RHF is not ported yet (ROADMAP.md A7); use "
-            "scf_type 'df'")
-    if opts.guess == C.Guess.density_fitting:
-        raise NotImplementedError(
-            "the DF guess runs conventional iterations after it, which are "
-            "not ported yet (ROADMAP.md A7)")
     if opts.num_devices > 1:
         raise NotImplementedError(
             "num_devices > 1 is not ported yet (ROADMAP.md A11)")
@@ -52,12 +46,44 @@ def _check_ported(scf_flags: dict, opts) -> None:
             "df_b_dtype 'f32' is not ported yet (ROADMAP.md B16)")
 
 
-def _make_fock_builder(basis_sets, opts, device, timings=None):
-    """DF branch of the JAX package's router (models/rhf.py:45-55): dense B
-    while it stays under 2 GB, else the packed screened builder."""
+def _conventional_builder(basis, opts, device):
+    """Conventional branch of the JAX package's router (models/rhf.py:79-96),
+    reading the same environment: DenseFock for contraction_mode "dense" up
+    to 160 functions; StreamingDirectFock past JCHEM_CONV_STREAM_THRESHOLD
+    (3e7) screened quartets or with JCHEM_CONV_STREAM=1 (0 never);
+    ScreenedDirectFock otherwise (in-core while its ERIs fit
+    JCHEM_INCORE_BUDGET)."""
+    from ..ops.fock import (DEFAULT_CUTOFF, DenseFock, ScreenedDirectFock,
+                            schwarz_blocks)
+    from ..ops.fock_stream import StreamingDirectFock, count_screened_quartets
+
+    if opts.contraction_mode == C.ContractionMode.dense and basis.nbf <= 160:
+        return DenseFock(basis, device)
+    # the Schwarz diagonal, computed once for the count and the builder
+    schwarz = schwarz_blocks(basis, DEFAULT_CUTOFF, 1.0e-4, device)
+    force = os.environ.get("JCHEM_CONV_STREAM")
+    if force == "1":
+        return StreamingDirectFock(basis, device=device, schwarz=schwarz)
+    if force != "0":
+        thresh = float(os.environ.get("JCHEM_CONV_STREAM_THRESHOLD", 3e7))
+        if count_screened_quartets(basis, device=device,
+                                   schwarz=schwarz) > thresh:
+            return StreamingDirectFock(basis, device=device, schwarz=schwarz)
+    return ScreenedDirectFock(basis, device=device, schwarz=schwarz)
+
+
+def _make_fock_builder(basis_sets, opts, device, prefer_df: bool,
+                       timings=None):
+    """The JAX package's router (models/rhf.py:21-96): for DF, dense B while
+    it stays under 2 GB, else the packed screened builder; conventional
+    builders otherwise."""
     from .df import DFFockBuilder
     from .df_screened import ScreenedDFFockBuilder
 
+    if not prefer_df:
+        # Schwarz diagonal + quartet enumeration
+        with (timings or Timings()).timed("conventional_setup_time"):
+            return _conventional_builder(basis_sets.primary, opts, device)
     if basis_sets.auxiliary is None:
         raise ValueError(
             "density-fitted SCF requires an auxiliary basis "
@@ -78,8 +104,8 @@ def _make_fock_builder(basis_sets, opts, device, timings=None):
 
 def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
            device=None) -> dict:
-    """Compute the DF-RHF energy on ``device`` (default: the one given to
-    ``initialize``).
+    """Compute the RHF (or DF-RHF) energy on ``device`` (default: the one
+    given to ``initialize``, the card unless it named the CPU).
 
     scf_flags follows the reference keyword surface (Constants.jl), e.g.
     {"scf_type": "df", "guess": "sad", "niter": 100, "dele": 1e-8, "rmsd": 1e-6}.
@@ -106,8 +132,27 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
 
     e_nuc = mol.nuclear_repulsion()
     state = scf_mod.initial_state(mol, primary, opts, timings, device, output)
-    fock_builder = _make_fock_builder(basis_sets, opts, device, timings)
+    use_df = opts.scf_type == C.SCFType.density_fitting
+    df_guess = opts.guess == C.Guess.density_fitting
+    fock_builder = _make_fock_builder(basis_sets, opts, device,
+                                      use_df or df_guess, timings)
+    if df_guess and not use_df:
+        # DF warm-up phase, then conventional iterations (SCF.jl:527-550)
+        scf_mod.scf_loop(
+            state, fock_builder, opts, timings, e_nuc, output,
+            max_iterations=opts.df_max_iterations,
+            energy_convergence=opts.df_energy_convergence,
+            density_convergence=opts.df_density_convergence,
+        )
+        fock_builder.finalize()
+        timings.non_timing_data["df_guess_builder"] = type(
+            fock_builder).__name__
+        timings.non_timing_data["df_guess_iterations"] = str(state.iteration)
+        fock_builder = _make_fock_builder(basis_sets, opts, device, False,
+                                          timings)
     timings.non_timing_data["fock_builder"] = type(fock_builder).__name__
+    if hasattr(fock_builder, "incore"):
+        timings.non_timing_data["incore"] = str(fock_builder.incore)
     timings.non_timing_data["device"] = str(device)
 
     converged = scf_mod.scf_loop(state, fock_builder, opts, timings, e_nuc,

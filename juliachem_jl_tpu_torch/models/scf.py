@@ -65,14 +65,20 @@ def electronic_energy(D, H, F) -> float:
 
 
 def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
-             timings: Timings, e_nuc: float, output: int = 0) -> bool:
+             timings: Timings, e_nuc: float, output: int = 0,
+             max_iterations: int | None = None,
+             energy_convergence: float | None = None,
+             density_convergence: float | None = None) -> bool:
     """Iterate to convergence; returns True if converged.
 
-    Convergence test: |dE| <= dele and rms(dD) <= rmsd (SCF.jl:549).
+    Convergence test: |dE| <= dele and rms(dD) <= rmsd (SCF.jl:549); the
+    keyword arguments override the options' limits (the DF-guess warm-up).
     """
-    dele = opts.energy_convergence
-    rmsd = opts.density_convergence
-    niter = opts.max_iterations
+    dele = (opts.energy_convergence if energy_convergence is None
+            else energy_convergence)
+    rmsd = (opts.density_convergence if density_convergence is None
+            else density_convergence)
+    niter = opts.max_iterations if max_iterations is None else max_iterations
 
     diis = linalg.DIIS(max_vec=opts.ndiis)
     E_old = state.energy_elec

@@ -41,9 +41,17 @@ _FUNCS = {
     "jc_df_gather_w_f32": ("df_gather_w", [_P, _LL, _LL, _P, _P, _I, _I,
                                            _I, _P]),
     "jc_boys_probe": ("boys_probe", [_P, _LL, _I, _P]),
+    "jc_eri4c": ("eri4c", [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P,
+                           _P, _P, _LL, _P]),
+    "jc_eri4c_jk": ("eri4c_jk_list", [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
+                                      _I, _P, _P, _P, _P, _P, _LL, _I, _LL,
+                                      _P, _LL, _P]),
+    "jc_digest_jk": ("digest_jk", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _LL,
+                                   _P, _P, _LL, _P]),
 }
 
-launches = {"eri3c": 0, "df_gather_w": 0, "boys_probe": 0}
+launches = {"eri3c": 0, "df_gather_w": 0, "boys_probe": 0, "eri4c": 0,
+            "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -140,9 +148,10 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(symbol: str, *args) -> None:
+def launch(symbol: str, *args, count_as: str | None = None) -> None:
     """Call one C entry point on PyTorch's current stream; raise on a CUDA
-    error, else count the launch."""
+    error, else count the launch (under ``count_as`` when one entry point
+    serves two modes)."""
     import torch
 
     lib = library()
@@ -150,4 +159,4 @@ def launch(symbol: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{symbol} failed: CUDA error {rc} "
                            f"({lib.jc_error_string(rc).decode()})")
-    launches[_FUNCS[symbol][0]] += 1
+    launches[count_as or _FUNCS[symbol][0]] += 1

@@ -62,3 +62,48 @@ def test_package_sources_never_import_jax():
              REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
+
+
+def _h2_spec(jc):
+    return jc.io.parse_input({
+        "molecule": {"symbols": ["H", "H"], "geometry": [0, 0, 0, 0, 0, 0.74]},
+        "model": {"method": "RHF", "basis": "6-31G"},
+        "keywords": {"scf": {"scf_type": "rhf", "guess": "sad"}}})
+
+
+def test_initialize_defaults_to_the_card():
+    """initialize() with no argument selects CUDA and raises without it; it
+    never falls back to the CPU.  finalize() restores the card default."""
+    import torch
+
+    import juliachem_jl_tpu_torch as jc
+
+    if torch.cuda.is_available():
+        assert jc.initialize().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            jc.initialize()
+    assert jc.initialize("cpu").type == "cpu"
+    jc.finalize()
+    assert jc.config.resolve_device("cpu").type == "cpu"
+    assert jc.config._default_device.type == "cuda"
+
+
+def test_run_spec_without_a_device_needs_the_card():
+    """run_spec with no device and no initialize runs on the card: without
+    CUDA it raises instead of running on the CPU."""
+    import torch
+
+    import juliachem_jl_tpu_torch as jc
+
+    jc.finalize()
+    if torch.cuda.is_available():
+        out = jc.run_spec(_h2_spec(jc))
+        assert out["Energy"]["Density"].is_cuda
+    else:
+        with pytest.raises(RuntimeError):
+            jc.run_spec(_h2_spec(jc))
+    out = jc.run_spec(_h2_spec(jc), device="cpu")
+    assert out["Energy"]["Converged?"]
+    assert not out["Energy"]["Density"].is_cuda
+

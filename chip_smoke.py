@@ -20,18 +20,26 @@ card's name and power limit):
    K6 (digestion of cached blocks), K5 in list and in staircase mode (the
    integrals digested at once);
 4. ammonia_trimer DF-RHF through run_spec (dense-B route);
-5. benzene_2_water DF-RHF through run_spec (packed route);
+5. benzene_2_water DF-RHF through run_spec (packed route); then K7 (the
+   fused MP2 pair energy, modes rmp2, ss, os) against its plain version at
+   its full width; RI-MP2 with SCS on those orbitals (E2 and its
+   opposite-spin part held to the JAX package's and to the plain
+   version's); the radical cation (charge 1,
+   doublet) through run_spec with method UHF (packed ScreenedDFJKBuilder)
+   and RI-UMP2, and the vertical ionisation energy at the HF and MP2 level;
 6. ammonia_trimer conventional RHF through run_spec (in-core
-   ScreenedDirectFock: K4 fills, K6 digests), then at its converged density
-   one build through the direct ScreenedDirectFock (K5 list mode) and one
-   through StreamingDirectFock (K5 staircase mode), each held to the
-   in-core G;
+   ScreenedDirectFock: K4 fills, K6 digests); its cation by conventional UHF
+   and ROHF (in-core) and DF-UHF (dense B); then at the converged RHF
+   density and the cation's UHF (Da, Db) one build through the direct
+   ScreenedDirectFock (K5 list mode) and one through StreamingDirectFock (K5
+   staircase mode), G and J, K(Da), K(Db) each held to the in-core ones;
+   the identities closed-shell UHF = RHF and RI-UMP2 = RI-MP2;
 7. benzene_2_water conventional RHF through run_spec with the DF guess (DF
    iterations on the packed builder, then StreamingDirectFock), with
    ``damp: false`` (ROADMAP.md C8).
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  Energies are held to the JAX package's recorded DF energies
+after.  Energies are held to the JAX package's recorded DF and MP2 energies
 (juliachem_jl_tpu_torch/data/smoke_reference.json, 1e-6 Eh) and to GAMESS
 (tests/data/s22x3_gamess_goldens.json: DF within 1.5e-3 Eh, conventional
 within 1.49e-8 relative).  The second-to-last line is ``{"kernels": [...]}``;
@@ -60,6 +68,9 @@ CONV_SCF = {"scf_type": "rhf", "niter": 60, "dele": 1e-9, "rmsd": 1e-7}
 E_REF_TOL = 1e-6       # vs the JAX package's energy (CPU, f64)
 E_GAMESS_TOL = 1.5e-3  # DF vs conventional GAMESS
 E_GAMESS_REL = 1.49e-8  # conventional vs GAMESS (tests/test_s22x3.py:61)
+E2_PLAIN_TOL = 1e-9    # K7 vs its plain version on the card (Eh)
+E_DF_UHF_TOL = 1.5e-3  # DF-UHF vs conventional UHF (tests/test_uhf.py:95)
+HARTREE_EV = 27.211386245988
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_F64_OPS_S = 67e12
@@ -217,15 +228,18 @@ def staircase_prims(sdf) -> list[dict]:
 
 
 def system_input(name: str, golden: dict, extra: dict | None = None,
-                 scf: dict | None = None, aux: bool = True) -> dict:
+                 scf: dict | None = None, aux: bool = True,
+                 method: str = "RHF", charge: int = 0,
+                 multiplicity: int = 1) -> dict:
     atoms = golden["atoms"]
-    model = {"method": "RHF", "basis": golden["basis"]}
+    model = {"method": method, "basis": golden["basis"]}
     if aux:
         model["auxiliary_basis"] = "cc-pVTZ-JKFIT"
     return {
         "molecule": {"symbols": [a["symbol"] for a in atoms],
                      "geometry": [x * BOHR for a in atoms for x in a["xyz_bohr"]],
-                     "molecular_charge": 0},
+                     "molecular_charge": charge,
+                     "molecular_multiplicity": multiplicity},
         "driver": "energy",
         "model": model,
         "keywords": {"scf": {**(scf or SCF), **(extra or {})}, "prop": PROPS},
@@ -599,6 +613,104 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
             "jk_scale": scale, "kernels": out, "full": full}
 
 
+def check_k7(tag: str, dev, bsets, rhf) -> dict:
+    """K7 against its plain version at benzene_2_water's full width: mode
+    rmp2 on the B_ia of the DF-RHF orbitals (47 occupied, 468 virtual);
+    modes ss (beta) and os on numpy-seeded spin orbitals of the radical
+    cation's occupations (47 alpha, 46 beta): the RHF orbitals, each spin
+    turned by its own random orthogonal matrix, with the RHF orbital
+    energies (beta virtuals shifted up by 0.1 Eh).  Per mode: |E_kernel -
+    E_plain| (mode rmp2: the larger of its E2's and its opposite-spin
+    part's), CUDA-event times of the kernel, the plain version and the
+    library's (ia|jb) product alone (torch.matmul of the [no nv, A] x
+    [A, no nv] views: the yardstick of a product-bound kernel; the port
+    never calls it), and the bound: the product's operations the energy
+    needs, all of them for os, the pairs (ia) <= (jb) for rmp2 and ss
+    ((ia|jb) = (jb|ia) and D is symmetric)."""
+    import numpy as np
+    import torch
+
+    from juliachem_jl_tpu_torch.models import df, mp2
+    from juliachem_jl_tpu_torch.ops import kernels
+    from juliachem_jl_tpu_torch.utils.options import create_scf_options
+
+    prim = bsets.primary
+    na = prim.nels // 2
+    nb = na - 1
+    B = df.build_B(prim, bsets.auxiliary, create_scf_options(SCF), dev)
+    C, eps = rhf["MO Coeff"], rhf["MO Energies"]
+    rng = np.random.default_rng(7)
+
+    def turned(C):
+        n = C.shape[1]   # MOs: nbf less the near-dependent combinations
+        Q, _ = np.linalg.qr(np.eye(n) + 0.1 * rng.standard_normal((n, n)))
+        return C @ torch.as_tensor(Q, device=dev)
+
+    Ca, Cb = turned(C), turned(C)
+    Bia = mp2.mo_b(B, C[:, :na], C[:, na:])
+    Ba = mp2.mo_b(B, Ca[:, :na], Ca[:, na:])
+    Bb = mp2.mo_b(B, Cb[:, :nb], Cb[:, nb:])
+    A = B.shape[0]
+    del B
+    eo, ev = eps[:na].contiguous(), eps[na:].contiguous()
+    eo_b, ev_b = eps[:nb].contiguous(), (eps[nb:] + 0.1).contiguous()
+    cases = {
+        "rmp2": ((Bia, eo, ev), (Bia, eo, ev), mp2.e2_rmp2,
+                 mp2.e2_rmp2_plain, "juliachem_jl_tpu/models/mp2.py:41"),
+        "ss": ((Bb, eo_b, ev_b), (Bb, eo_b, ev_b), mp2.e2_ss,
+               mp2.e2_ss_plain, "juliachem_jl_tpu/models/mp2.py:158"),
+        "os": ((Ba, eo, ev), (Bb, eo_b, ev_b), mp2.e2_os,
+               mp2.e2_os_plain, "juliachem_jl_tpu/models/mp2.py:175"),
+    }
+    out = {}
+    for mode, (x, y, kern, plain, rep) in cases.items():
+        args = (x[0], y[0], x[1], x[2], y[1], y[2]) if mode == "os" else x
+        name = f"e2_{mode}"
+        n0 = kernels.launches[name]
+        got = kern(*args)
+        check(kernels.launches[name] == n0 + 1,
+              f"K7 {mode} comparison did not launch the kernel")
+        ref = plain(*args)
+        # mode rmp2 gives (E2, E_os) from one launch
+        got_os, ref_os = (got[1], ref[1]) if mode == "rmp2" else (None, None)
+        got, ref = (got[0], ref[0]) if mode == "rmp2" else (got, ref)
+        err = abs(got - ref)
+        if mode == "rmp2":
+            err = max(err, abs(got_os - ref_os))
+        check(err <= E2_PLAIN_TOL,
+              f"K7 {mode}: |E_kernel - E_plain| {err:.3e} > {E2_PLAIN_TOL}")
+        Bx, By = x[0], y[0]
+        _, nox, nvx = Bx.shape
+        _, noy, nvy = By.shape
+        ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args))
+        library_ms = cuda_ms(lambda: Bx.reshape(A, -1).T @ By.reshape(A, -1))
+        nbytes = 8.0 * (Bx.numel() + (By.numel() if mode == "os" else 0)
+                        + nox + nvx + (noy + nvy if mode == "os" else 0) + 1)
+        pairs = (nox * nvx * (noy * nvy) if mode == "os"
+                 else nox * nvx * (nox * nvx + 1) / 2)
+        b = bound_of(nbytes, 2.0 * A * pairs)
+        os_part = (f" (opposite-spin part: kernel {got_os:.12f}, plain "
+                   f"{ref_os:.12f})" if mode == "rmp2" else "")
+        print(f"{tag} K7 {name} A={A} no={nox}/{noy} nv={nvx}/{nvy}: E kernel "
+              f"{got:.12f}, plain {ref:.12f}{os_part}, |diff| {err:.3e} (bound "
+              f"{E2_PLAIN_TOL}); kernel {ms:.3f} ms, plain torch {plain_ms:.3f} "
+              f"ms, library (ia|jb) product alone {library_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
+        out[name] = {"name": name, "route": "cuda",
+                     "source": "juliachem_jl_tpu_torch/csrc/mp2_e2.cu",
+                     "replaces": rep, "shapes": [A, nox, nvx, noy, nvy],
+                     "energy": got, "plain_energy": ref, "max_abs_err": err,
+                     **({"energy_opposite_spin": got_os,
+                         "plain_energy_opposite_spin": ref_os}
+                        if mode == "rmp2" else {}),
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library": "torch.matmul of the [no*nv, A] x [A, no*nv] "
+                                "views: the (ia|jb) product alone",
+                     **b}
+    return out
+
+
 # --------------------------------------------------------------- phases 4-5
 
 def steady_mean(vals: list[float]) -> float:
@@ -702,21 +814,110 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
     check(abs(d_gms) <= gms_tol,
           f"{name}: |E - GAMESS| = {abs(d_gms):.3e} > {gms_tol:.3e}")
     check(summary["on_cuda"], f"{name}: SCF tensors are not on the card")
-    summary["density"] = res["Density"]
+    summary.update(density=res["Density"], result=res, basis=out["Basis"])
     return summary
 
 
-def builds_at(tag: str, dev, prim, D) -> dict:
-    """At a converged density: one in-core build (reference G), one direct
-    build (K5 list mode) and one streaming build (K5 staircase mode), each
-    with the launch counts of its own path; G of each held to the in-core G
-    at 1e-11 x max|G|."""
+def run_open(tag: str, jc, name: str, golden: dict, method: str, charge: int,
+             multiplicity: int, route: str, scf: dict, aux: bool = True,
+             trajectory: bool = False) -> dict:
+    """One UHF/ROHF run_spec to convergence on its expected route;
+    trajectory: keep the SCF table (iteration, E, dE, D rms) that
+    ``output=2`` prints and print every 20th row."""
+    import contextlib
+    import io
+
+    import torch
+
+    from juliachem_jl_tpu_torch.utils.timings import JCTC
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    inp = jc.io.parse_input(system_input(
+        name, golden, scf=scf, aux=aux, method=method, charge=charge,
+        multiplicity=multiplicity))
+    table = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(table if trajectory else sys.stdout):
+        out = jc.run_spec(inp, output=2 if trajectory else 0)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    rows = [[float(x) for x in f[:4]] for f in (
+        ln.split() for ln in table.getvalue().splitlines())
+        if len(f) >= 5 and f[0].isdigit()]
+    res = out["Energy"]
+    tm = res["Timings"]
+    nt = tm.non_timing_data
+    iters = int(res["Iterations"])
+    fock = [tm.timings[f"{JCTC.fock_time}-{i}"] for i in range(1, iters + 1)]
+    summary = {
+        "system": f"{name} {method} charge {charge} multiplicity "
+                  f"{multiplicity}",
+        "route": nt["fock_builder"], "incore": nt.get("incore"),
+        "converged": bool(res["Converged?"]), "iterations": iters,
+        "energy": float(res["Energy"]), "S2": float(res["S2"]),
+        "n_alpha": int(res["N Alpha"]), "n_beta": int(res["N Beta"]),
+        "fock_s_per_iter_steady": steady_mean(fock[1:] if iters > 2 else fock),
+        "fock_s_first_iter": fock[0] if fock else None, "wall_s": wall,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "on_cuda": all(t.is_cuda for t in (res["Density"], res["Fock"],
+                                           res["MO Coeff"], res["Overlap"])),
+        "trajectory": rows,
+    }
+    for r in rows:
+        if r[0] == 1 or r[0] % 20 == 0 or r[0] == rows[-1][0]:
+            print(f"{tag} {summary['system']} iteration {int(r[0])}: E = "
+                  f"{r[1]:.10f} Eh, dE {r[2]:.3e}, D rms {r[3]:.3e}",
+                  flush=True)
+    print(f"{tag} {summary['system']}: route {summary['route']} (incore "
+          f"{summary['incore']}), converged {summary['converged']} in {iters} "
+          f"iterations, E = {summary['energy']:.10f} Eh, S2 = "
+          f"{summary['S2']:.6f}, Fock {summary['fock_s_per_iter_steady']:.5f} "
+          f"s/iter, wall {wall:.2f} s, peak device memory "
+          f"{summary['peak_device_bytes'] / 1e9:.3f} GB", flush=True)
+    check(summary["route"] == route,
+          f"{summary['system']}: route {summary['route']}, expected {route}")
+    check(summary["converged"], f"{summary['system']}: SCF did not converge")
+    check(summary["on_cuda"], f"{summary['system']}: tensors not on the card")
+    summary.update(result=res, basis=out["Basis"])
+    return summary
+
+
+def run_mp2(tag: str, label: str, scf: dict, ump2: bool) -> dict:
+    """RI-MP2 with SCS (RHF reference) or RI-UMP2 on a converged run."""
+    import torch
+
+    from juliachem_jl_tpu_torch.models import mp2
+
+    t0 = time.perf_counter()
+    if ump2:
+        m = mp2.ri_ump2_energy(scf["result"], scf["basis"])
+    else:
+        m = mp2.ri_mp2_energy(scf["result"], scf["basis"], scs=True)
+    torch.cuda.synchronize()
+    m["wall_s"] = time.perf_counter() - t0
+    print(f"{tag} {label}: E2 = {m['E2']:.10f} Eh (opposite spin "
+          f"{m['E2 Opposite Spin']:.10f}, same spin {m['E2 Same Spin']:.10f},"
+          f" SCS {m['E2 SCS']:.10f}), E(MP2) = {m['Energy']:.10f} Eh, wall "
+          f"{m['wall_s']:.3f} s", flush=True)
+    check(m["E2 Opposite Spin"] < m["E2 Same Spin"] < 0.0,
+          f"{label}: expected E_os < E_ss < 0")
+    return m
+
+
+def builds_at(tag: str, dev, prim, D, Da, Db) -> dict:
+    """At a converged RHF density D and a converged UHF pair (Da, Db): one
+    in-core build (reference G and J, K(Da), K(Db)), one direct build (K5
+    list mode) and one streaming build (K5 staircase mode), each with the
+    launch counts of its own path; G, J, Ka, Kb of each held to the in-core
+    ones at 1e-11 x their max-abs."""
     import torch
 
     from juliachem_jl_tpu_torch.ops import fock, fock_stream, kernels
+    from juliachem_jl_tpu_torch.utils.timings import Timings
 
     out = {}
-    G_ref = None
+    G_ref = jk_ref = None
     for label, make in (
             ("incore", lambda: fock.ScreenedDirectFock(prim, incore=True,
                                                        device=dev)),
@@ -737,23 +938,35 @@ def builds_at(tag: str, dev, prim, D) -> dict:
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
         G = J - 0.5 * K
+        jk = fb.two_electron_jk(Da, Db, 1, Timings())
+        torch.cuda.synchronize(dev)
+        t4 = time.perf_counter()
         counts = {k: v for k, v in kernels.launches.items() if v}
         if G_ref is None:
-            G_ref = G
+            G_ref, jk_ref = G, jk
         err = float((G - G_ref).abs().max())
         scale = float(G_ref.abs().max())
+        err_jk = max(float((a - b).abs().max()) for a, b in zip(jk, jk_ref))
+        scale_jk = max(float(x.abs().max()) for x in jk_ref)
         out[label] = {"setup_s": t1 - t0, "build_s": t2 - t1,
                       "cached_build_s": t3 - t2 if label == "incore" else None,
-                      "max_abs_err_vs_incore": err, "launches": counts,
-                      "quartets": fb.n_quartets}
+                      "uhf_jk_s": t4 - t3,
+                      "max_abs_err_vs_incore": err,
+                      "uhf_jk_max_abs_err_vs_incore": err_jk,
+                      "launches": counts, "quartets": fb.n_quartets}
         print(f"{tag} ammonia_trimer {label} build at the converged D: setup "
               f"{t1 - t0:.3f} s, build {t2 - t1:.4f} s"
               + (f" (cached blocks: {t3 - t2:.4f} s)" if label == "incore"
                  else "")
               + f", |G - G_incore| {err:.3e} (bound 1e-11 x {scale:.3e}); "
+              f"UHF J, K(Da), K(Db) at the cation's (Da, Db) {t4 - t3:.4f} s, "
+              f"max |. - incore| {err_jk:.3e} (bound 1e-11 x {scale_jk:.3e}); "
               f"launches {counts}", flush=True)
         check(err <= 1e-11 * scale,
               f"{label} build: |G - G_incore| {err:.3e} > 1e-11 x {scale:.3e}")
+        check(err_jk <= 1e-11 * scale_jk,
+              f"{label} UHF J/K: max err {err_jk:.3e} > 1e-11 x "
+              f"{scale_jk:.3e}")
         fb.finalize()
     check(out["direct"]["launches"].get("eri4c_jk_list", 0) > 0,
           "K5 list mode never launched on the direct build")
@@ -807,8 +1020,10 @@ def main() -> int:
 
     goldens = json.loads((ROOT / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
-    refs = json.loads((ROOT / "juliachem_jl_tpu_torch" / "data" /
-                       "smoke_reference.json").read_text())["systems"]
+    smoke_ref = json.loads((ROOT / "juliachem_jl_tpu_torch" / "data" /
+                            "smoke_reference.json").read_text())
+    refs = smoke_ref["systems"]
+    refs_corr = smoke_ref["correlated"]["systems"]
 
     # 3. kernels vs plain: K1/K2/K3 at benzene_2_water's DF shapes; K4, K5,
     #    K6 at ammonia_trimer's and benzene_2_water's 4-center shapes
@@ -852,16 +1067,117 @@ def main() -> int:
         tag, jc, "benzene_2_water", goldens["benzene_2_water"],
         refs["benzene_2_water"], "ScreenedDFFockBuilder",
         {"mixed_precision": False}))
-    # 6. conventional, in-core; then the direct and streaming builds at its D
+    # 5b. K7 at benzene_2_water's full width, on the packed route's orbitals
+    k7 = check_k7(tag, dev, benzene["basis"], benzene["result"])
+    # 5c. RI-MP2 (SCS) on the same orbitals
+    jax_mp2 = refs_corr["benzene_2_water RI-MP2"]["mp2"]
+    neutral_mp2 = path("benzene_2_water RI-MP2", lambda: run_mp2(
+        tag, "benzene_2_water RI-MP2", benzene, ump2=False))
+    d_jax = max(neutral_mp2["E2"] - jax_mp2["E2"],
+                neutral_mp2["E2 Opposite Spin"] - jax_mp2["E2 Opposite Spin"],
+                key=abs)
+    d_plain = neutral_mp2["E2"] - k7["e2_rmp2"]["plain_energy"]
+    d_os = (neutral_mp2["E2 Opposite Spin"]
+            - k7["e2_rmp2"]["plain_energy_opposite_spin"])
+    print(f"{tag} benzene_2_water RI-MP2: E2, E_os - JAX = {d_jax:.3e} Eh "
+          f"(bound {E_REF_TOL}), E2 - plain version on the card = "
+          f"{d_plain:.3e} Eh, E_os - plain = {d_os:.3e} Eh (bound "
+          f"{E2_PLAIN_TOL})", flush=True)
+    check(abs(d_jax) <= E_REF_TOL,
+          f"RI-MP2: |E2 or E_os - JAX| = {abs(d_jax):.3e} > {E_REF_TOL}")
+    check(max(abs(d_plain), abs(d_os)) <= E2_PLAIN_TOL,
+          f"RI-MP2: |E2 - plain| = {abs(d_plain):.3e} or |E_os - plain| = "
+          f"{abs(d_os):.3e} > {E2_PLAIN_TOL}")
+    # 5d. the radical cation: DF-UHF on the packed route, then RI-UMP2; from
+    #     SAD its DIIS needs more than 60 iterations (ROADMAP.md C9): niter
+    #     150, as in the JAX package's recorded run
+    cation_scf = dict(SCF, mixed_precision=False, niter=150)
+
+    def cation_path():
+        scf = run_open(tag, jc, "benzene_2_water", goldens["benzene_2_water"],
+                       "UHF", 1, 2, "ScreenedDFJKBuilder", cation_scf,
+                       trajectory=True)
+        return scf, run_mp2(tag, "benzene_2_water cation RI-UMP2", scf,
+                            ump2=True)
+
+    label_cat = "benzene_2_water cation DF-UHF + RI-UMP2"
+    cation, cation_mp2 = path(label_cat, cation_path)
+    check(counts[label_cat]["df_gather_w"] >= 2 * cation["iterations"],
+          "cation DF-UHF: K2 did not run in every iteration's two passes")
+    check(cation["S2"] >= 0.75 - 1e-9, f"cation S2 {cation['S2']} < 0.75")
+    jax_cat = refs_corr["benzene_2_water cation"]
+    d_e = cation["energy"] - jax_cat["energy"]
+    d_e2 = cation_mp2["E2"] - jax_cat["mp2"]["E2"]
+    print(f"{tag} benzene_2_water cation: E(UHF) - JAX = {d_e:.3e} Eh, "
+          f"E2 - JAX = {d_e2:.3e} Eh (bound {E_REF_TOL})", flush=True)
+    check(abs(d_e) <= E_REF_TOL and abs(d_e2) <= E_REF_TOL,
+          "cation: UHF or RI-UMP2 energy off the JAX package's")
+    ie_hf = cation["energy"] - benzene["energy"]
+    ie_mp2 = cation_mp2["Energy"] - neutral_mp2["Energy"]
+    print(f"{tag} benzene_2_water vertical ionisation energy: HF "
+          f"{ie_hf:.6f} Eh ({ie_hf * HARTREE_EV:.4f} eV), MP2 {ie_mp2:.6f} Eh "
+          f"({ie_mp2 * HARTREE_EV:.4f} eV)", flush=True)
+    # 6. conventional, in-core
     ammonia_conv = path("ammonia_trimer conventional", lambda: run_system(
         tag, jc, "ammonia_trimer", goldens["ammonia_trimer"], None,
         "ScreenedDirectFock", {"guess": "sad"}, conventional=True,
         aux=False))
     check(ammonia_conv["incore"] == "True",
           "ammonia_trimer conventional did not run in-core")
-    builds = builds_at(tag, dev, bsets_a.primary, ammonia_conv["density"])
+    # 6b. the ammonia_trimer cation: conventional UHF and ROHF (in-core),
+    #     DF-UHF (dense B)
+    g_a = goldens["ammonia_trimer"]
+    conv_scf = dict(CONV_SCF, guess="sad")
+    amm_uhf = path("ammonia_trimer cation conventional UHF", lambda: run_open(
+        tag, jc, "ammonia_trimer", g_a, "UHF", 1, 2, "ScreenedDirectFock",
+        conv_scf, aux=False))
+    amm_rohf = path("ammonia_trimer cation conventional ROHF",
+                    lambda: run_open(tag, jc, "ammonia_trimer", g_a, "ROHF", 1,
+                                     2, "ScreenedDirectFock", conv_scf,
+                                     aux=False))
+    amm_df = path("ammonia_trimer cation DF-UHF", lambda: run_open(
+        tag, jc, "ammonia_trimer", g_a, "UHF", 1, 2, "DFFockBuilder", SCF))
+    d_df = amm_df["energy"] - amm_uhf["energy"]
+    print(f"{tag} ammonia_trimer cation: E(ROHF) - E(UHF) = "
+          f"{amm_rohf['energy'] - amm_uhf['energy']:.6e} Eh, ROHF S2 "
+          f"{amm_rohf['S2']}, E(DF-UHF) - E(UHF) = {d_df:.3e} Eh", flush=True)
+    check(amm_uhf["incore"] == "True" and amm_rohf["incore"] == "True",
+          "ammonia_trimer cation conventional did not run in-core")
+    check(amm_uhf["energy"] <= amm_rohf["energy"], "E(UHF) > E(ROHF)")
+    check(amm_rohf["S2"] == 0.75, "ROHF S2 is not exactly 0.75")
+    check(abs(d_df) <= E_DF_UHF_TOL,
+          f"|E(DF-UHF) - E(UHF)| = {abs(d_df):.3e} > {E_DF_UHF_TOL}")
+    # 6c. the direct and streaming builds at the RHF D and the cation's
+    #     UHF (Da, Db), held to the in-core builds
+    r_u = amm_uhf["result"]
+    Da = 0.5 * (r_u["Density"] + r_u["Spin Density"])
+    Db = 0.5 * (r_u["Density"] - r_u["Spin Density"])
+    builds = builds_at(tag, dev, bsets_a.primary, ammonia_conv["density"],
+                       Da, Db)
     counts["ammonia_trimer direct build"] = builds["direct"]["launches"]
     counts["ammonia_trimer streaming build"] = builds["streaming"]["launches"]
+    # 6d. identities at full width: closed-shell UHF = RHF; RI-UMP2 = RI-MP2
+    #     on one closed-shell DF-UHF reference
+    amm_singlet = path("ammonia_trimer conventional UHF singlet",
+                       lambda: run_open(tag, jc, "ammonia_trimer", g_a, "UHF",
+                                        0, 1, "ScreenedDirectFock", conv_scf,
+                                        aux=False))
+    d_id = amm_singlet["energy"] - ammonia_conv["energy"]
+
+    def identity_path():
+        u = run_open(tag, jc, "ammonia_trimer", g_a, "UHF", 0, 1,
+                     "DFFockBuilder", SCF)
+        return (run_mp2(tag, "ammonia_trimer DF-UHF singlet RI-MP2", u, False),
+                run_mp2(tag, "ammonia_trimer DF-UHF singlet RI-UMP2", u, True))
+
+    m_r, m_u = path("ammonia_trimer DF-UHF singlet MP2 identity",
+                    identity_path)
+    d_mp2 = m_u["E2"] - m_r["E2"]
+    print(f"{tag} ammonia_trimer identities: E(UHF singlet) - E(RHF) = "
+          f"{d_id:.3e} Eh (bound 1e-8); RI-UMP2 - RI-MP2 on one closed-shell "
+          f"DF-UHF reference = {d_mp2:.3e} Eh (bound 1e-10)", flush=True)
+    check(abs(d_id) <= 1e-8, f"|E(UHF singlet) - E(RHF)| = {abs(d_id):.3e}")
+    check(abs(d_mp2) <= 1e-10, f"|RI-UMP2 - RI-MP2| = {abs(d_mp2):.3e}")
     # 7. conventional through the DF guess, streaming route; the DF guess
     #    starts from the core Hamiltonian, where the dynamic damping makes
     #    the SCF oscillate on this system (ROADMAP.md C8): damp off
@@ -883,7 +1199,9 @@ def main() -> int:
                  "eri4c": "ammonia_trimer conventional",
                  "digest_jk": "ammonia_trimer conventional",
                  "eri4c_jk_list": "ammonia_trimer direct build",
-                 "eri4c_jk_stair": "benzene_2_water conventional"}
+                 "eri4c_jk_stair": "benzene_2_water conventional",
+                 "e2_rmp2": "benzene_2_water RI-MP2", "e2_ss": label_cat,
+                 "e2_os": label_cat}
     for name, label in main_path.items():
         check(counts[label].get(name, 0) > 0,
               f"kernel {name} never launched on {label}")
@@ -913,11 +1231,22 @@ def main() -> int:
             "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None})
-    kern_line = [k1, k2] + new_kernels
+    for name, v in k7.items():
+        v["launches"] = counts[main_path[name]][name]
+        v["path"] = main_path[name]
+    kern_line = [k1, k2] + new_kernels + list(k7.values())
 
-    systems = [ammonia, benzene, ammonia_conv, benzene_conv]
+    systems = [ammonia, benzene, ammonia_conv, benzene_conv, cation, amm_uhf,
+               amm_rohf, amm_df, amm_singlet]
     for x in systems:
-        x.pop("density", None)
+        for key in ("density", "result", "basis"):
+            x.pop(key, None)
+    correlated = {"benzene_2_water RI-MP2": neutral_mp2,
+                  "benzene_2_water cation RI-UMP2": cation_mp2,
+                  "ammonia_trimer singlet RI-MP2": m_r,
+                  "ammonia_trimer singlet RI-UMP2": m_u,
+                  "ionisation_energy_eV": {"HF": ie_hf * HARTREE_EV,
+                                           "MP2": ie_mp2 * HARTREE_EV}}
     if args.out:
         Path(args.out).write_text(json.dumps({
             "device": kind, "nvidia_smi": smi, "torch": torch.__version__,
@@ -926,7 +1255,8 @@ def main() -> int:
             "four_center": {k: {kk: vv for kk, vv in v.items()}
                             for k, v in fourc.items()},
             "builds_at_ammonia_convergence": builds,
-            "launches_per_path": counts, "systems": systems}, indent=1))
+            "launches_per_path": counts, "systems": systems,
+            "correlated": correlated}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kern_line, "probes": [k3]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ Port of ``juliachem_jl_tpu/driver.py`` (the reference's canonical script
 sequence, example_scripts/full-rhf.jl):
   initialize -> JCInput.run -> JCMolecule.run -> JCBasis.run ->
   JCRHF.Energy.run -> JCRHF.Properties.run -> finalize.
-Closed-shell RHF energies, density-fitted or conventional (no auxiliary
-basis needed for ``scf_type: "rhf"``); every other method or driver raises
-NotImplementedError naming its ROADMAP.md item.
+RHF, UHF and ROHF energies, density-fitted or conventional (no auxiliary
+basis needed for ``scf_type: "rhf"``); every other driver raises
+NotImplementedError naming its ROADMAP.md item, and any other method name
+raises ValueError.
 """
 
 from __future__ import annotations
@@ -16,15 +17,24 @@ from . import io as io_mod
 from . import molecule as molecule_mod
 from .models import properties as properties_mod
 from .models import rhf as rhf_mod
+from .models import rohf as rohf_mod
+from .models import uhf as uhf_mod
+
+_ENERGY = {"RHF": rhf_mod.energy, "UHF": uhf_mod.energy,
+           "ROHF": rohf_mod.energy}
 
 
 def run_spec(spec, output: int = 0, device=None) -> dict:
     """Run a parsed input on ``device`` (default: the one given to
-    ``initialize``, the card unless it named the CPU)."""
+    ``initialize``, the card unless it named the CPU).  ``model.method``
+    picks RHF (the default), UHF or ROHF, as the JAX package's
+    ``_energy_for`` does.  Unlike that one, which runs RHF for any other
+    name, this raises ValueError, so that a mistyped open-shell request
+    does not return a closed-shell energy."""
     method = str(spec.model.get("method", "RHF")).upper()
-    if method != "RHF":
-        raise NotImplementedError(
-            f"method {method} is not ported yet (ROADMAP.md A8: UHF/ROHF)")
+    if method not in _ENERGY:
+        raise ValueError(f"model.method {method!r}: expected one of "
+                         f"{', '.join(_ENERGY)}")
     if spec.driver != "energy":
         raise NotImplementedError(
             f"driver {spec.driver!r} is not ported yet (ROADMAP.md A10)")
@@ -33,8 +43,8 @@ def run_spec(spec, output: int = 0, device=None) -> dict:
     scf_flags = dict(spec.scf_keywords)
     if spec.auxiliary_basis and "scf_type" not in scf_flags:
         scf_flags["scf_type"] = "df"
-    result = rhf_mod.energy(mol, bsets, scf_flags, output=output,
-                            device=device)
+    result = _ENERGY[method](
+        mol, bsets, scf_flags, output=output, device=device)
     props = properties_mod.run(mol, bsets, result, spec.prop_keywords,
                                output=output)
     return {

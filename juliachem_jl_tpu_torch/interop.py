@@ -2,8 +2,9 @@
 
 The JAX package's objects are read by attribute, as plain numpy arrays; this
 module imports neither jax nor juliachem_jl_tpu.  The tests use it to feed
-the identical basis to both packages, and to feed a B tensor built by the
-JAX package into this package's Fock builders.
+the identical basis to both packages, to feed a B tensor built by the JAX
+package into this package's Fock builders, and to feed the JAX package's
+SCF orbitals into this package's MP2.
 """
 
 from __future__ import annotations
@@ -71,3 +72,12 @@ def tensor(x, device) -> torch.Tensor:
     """A (folded, packed or dense) B or any other float array as float64 on
     ``device``."""
     return torch.as_tensor(_a(x, np.float64), device=device)
+
+
+def scf_result(jres: dict, device) -> dict:
+    """A JAX RHF/UHF/ROHF result dict in this package's form: the same keys,
+    every matrix and vector as a float64 tensor on ``device`` (so both
+    packages' correlated methods see identical orbitals); scalars and other
+    entries as they are."""
+    return {k: tensor(v, device) if getattr(v, "ndim", 0) > 0 else v
+            for k, v in jres.items()}

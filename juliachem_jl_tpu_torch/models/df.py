@@ -98,6 +98,29 @@ def df_fock(B, D, C, s=None) -> torch.Tensor:
     return J - Ws.T @ Wm                         # K/2 for D = 2 C C^T
 
 
+def df_j(B, Dt) -> torch.Tensor:
+    """Coulomb matrix of Dt from the dense fitted tensor (UHF shares one V_Q
+    of the total density)."""
+    A, nbf = B.shape[0], B.shape[1]
+    Bm = B.reshape(A, nbf * nbf)
+    return ((Bm @ Dt.reshape(-1)) @ Bm).reshape(nbf, nbf)
+
+
+def df_k(B, C) -> torch.Tensor:
+    """Exchange K(C C^T) from orbitals (or a factor) C [nbf, k]."""
+    nbf = B.shape[1]
+    Wm = torch.einsum("qmn,mi->qin", B, C).reshape(-1, nbf)
+    return Wm.T @ Wm
+
+
+def psd_factor(D: torch.Tensor) -> torch.Tensor:
+    """C with C C^T = D over the eigenvalues of D above 1e-12 (a spin
+    density on the iterations before orbitals exist)."""
+    w, U = torch.linalg.eigh(D)
+    keep = w > 1e-12
+    return U[:, keep] * torch.sqrt(w[keep])[None, :]
+
+
 class DFFockBuilder(FockBuilder):
     """Dense (single-device) DF Fock builder over a fitted B[A, nbf, nbf]
     (``build`` makes B with screening applied to the 3-center build)."""
@@ -123,6 +146,16 @@ class DFFockBuilder(FockBuilder):
         if precision == "f32" and self.B32 is not None:
             return df_fock(self.B32, D.float(), C_occ.float()).double()
         return df_fock(self.B, D, C_occ)
+
+    def two_electron_jk(self, Da, Db, iteration, timings: Timings, Ca=None,
+                        Cb=None):
+        """J from one V_Q of the total density; K per spin from W = B C_s
+        (or a PSD eigen-factor of D_s while no orbitals exist)."""
+        J = df_j(self.B, Da + Db)
+        Ka = df_k(self.B, psd_factor(Da) if Ca is None else Ca)
+        if Ca is None and Cb is None and torch.equal(Da, Db):
+            return J, Ka, Ka
+        return J, Ka, df_k(self.B, psd_factor(Db) if Cb is None else Cb)
 
     def finalize(self):
         self.B = None

@@ -139,6 +139,12 @@ def df_gather_w(Bc, col_map, C) -> torch.Tensor:
 # ---------------------------------------------------------------- builder
 
 
+def _sync(dev) -> None:
+    """Wait for the card, so that the phase timings are the device's."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 class ScreenedDFFockBuilder(FockBuilder):
     """Packed-B DF Fock builder with Q-blocked exchange (the scale path;
     replaces ScreenedDF.jl + GPUDF.jl's single-rank duties)."""
@@ -194,12 +200,60 @@ class ScreenedDFFockBuilder(FockBuilder):
         B, screen = build_B_packed(primary, auxiliary, opts, device, timings)
         return cls(B, screen, opts, primary.nels // 2)
 
+    def q_blocks(self, src) -> list[torch.Tensor]:
+        """The Q-blocks of packed B (f64 or its f32 copy), as views."""
+        return [src[q:q + self.q_chunk] for q in range(0, self.A, self.q_chunk)]
+
+    def sweep(self, blocks, Vs, Cs, s):
+        """One pass over the Q-blocks: K = sum_Q (W s)^T W of the density
+        factored by (Cs, s) (W from K2; s None for orbitals; the upper
+        block triangle, mirrored, when k_blocks > 1), and, when Vs (each
+        block's V_Q = B_Q d) is given, the packed Coulomb vector
+        Jp = sum_Q V_Q B_Q.  Returns (K [nbf, nbf], Jp or None) in the
+        blocks' dtype."""
+        nbf, fdt, dev = self.nbf, blocks[0].dtype, blocks[0].device
+        nb = self.k_blocks
+        kb = -(-nbf // nb)
+        Jp = None if Vs is None else torch.zeros(self.screen.npq + 1,
+                                                 dtype=fdt, device=dev)
+        K = torch.zeros((nb * kb, nb * kb), dtype=fdt, device=dev)
+        for n, blk in enumerate(blocks):
+            if Jp is not None:
+                Jp += Vs[n] @ blk
+            if Cs.shape[1] == 0:   # an empty spin channel
+                continue
+            W = df_gather_w(blk, self._col_map, Cs)          # [qc, k, nbf]
+            Wm = W.reshape(-1, nbf)
+            Ws = Wm if s is None else (W * s[None, :, None]).reshape(-1, nbf)
+            if nb == 1:
+                K += Ws.T @ Wm
+                continue
+            pad = nb * kb - nbf
+            W2 = torch.nn.functional.pad(Wm, (0, pad)).reshape(-1, nb, kb)
+            Ws2 = torch.nn.functional.pad(Ws, (0, pad)).reshape(-1, nb, kb)
+            for I in range(nb):
+                for J in range(I, nb):
+                    K[I * kb:(I + 1) * kb, J * kb:(J + 1) * kb] += \
+                        Ws2[:, I, :].T @ W2[:, J, :]
+        if nb > 1:
+            # mirror the upper block triangle (diagonal blocks once)
+            idx = torch.arange(nb * kb, device=dev) // kb
+            bd = idx[:, None] == idx[None, :]
+            K = K + K.T - torch.where(bd, K, 0.0)
+        return K[:nbf, :nbf], Jp
+
+    def scatter_j(self, Jp) -> torch.Tensor:
+        """The dense f64 J [nbf, nbf] of the packed Coulomb vector."""
+        nbf = self.nbf
+        J = torch.zeros(nbf * nbf, dtype=torch.float64, device=Jp.device)
+        J[self._pq_flat] = Jp[:-1].double()
+        return J.reshape(nbf, nbf)
+
     def two_electron_fock(self, D, iteration, timings: Timings, C_occ=None,
                           precision: str = "f64"):
         use_f32 = precision == "f32" and self.supports_f32_phase
         fdt = torch.float32 if use_f32 else torch.float64
-        src = self.B32 if use_f32 else self.B
-        nbf, dev = self.nbf, D.device
+        dev = D.device
         d = torch.cat([D.reshape(-1)[self._pq_flat],
                        D.new_zeros(1)]).to(fdt)
         if C_occ is None:
@@ -207,46 +261,16 @@ class ScreenedDFFockBuilder(FockBuilder):
             Cs, s = Cs.to(fdt).contiguous(), s.to(fdt)
         else:
             Cs, s = C_occ.to(fdt).contiguous(), None
-
-        def sync():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-
-        blocks = [src[q:q + self.q_chunk] for q in range(0, self.A, self.q_chunk)]
+        blocks = self.q_blocks(self.B32 if use_f32 else self.B)
         with timings.timed(JCTC.V_time, iteration):
             Vs = [blk @ d for blk in blocks]
-            sync()
-        nb = self.k_blocks
-        kb = -(-nbf // nb)
-        Jp = torch.zeros(self.screen.npq + 1, dtype=fdt, device=dev)
-        K = torch.zeros((nb * kb, nb * kb), dtype=fdt, device=dev)
+            _sync(dev)
         with timings.timed(JCTC.K_time, iteration):
-            for blk, Vc in zip(blocks, Vs):
-                Jp += Vc @ blk
-                W = df_gather_w(blk, self._col_map, Cs)      # [qc, k, nbf]
-                Wm = W.reshape(-1, nbf)
-                Ws = Wm if s is None else (W * s[None, :, None]).reshape(-1, nbf)
-                if nb == 1:
-                    K += Ws.T @ Wm
-                    continue
-                pad = nb * kb - nbf
-                W2 = torch.nn.functional.pad(Wm, (0, pad)).reshape(-1, nb, kb)
-                Ws2 = torch.nn.functional.pad(Ws, (0, pad)).reshape(-1, nb, kb)
-                for I in range(nb):
-                    for J in range(I, nb):
-                        K[I * kb:(I + 1) * kb, J * kb:(J + 1) * kb] += \
-                            Ws2[:, I, :].T @ W2[:, J, :]
-            sync()
+            K, Jp = self.sweep(blocks, Vs, Cs, s)
+            _sync(dev)
         with timings.timed(JCTC.J_time, iteration):
-            if nb > 1:
-                # mirror the upper block triangle (diagonal blocks once)
-                idx = torch.arange(nb * kb, device=dev) // kb
-                bd = idx[:, None] == idx[None, :]
-                K = K + K.T - torch.where(bd, K, 0.0)
-            J = torch.zeros(nbf * nbf, dtype=torch.float64, device=dev)
-            J[self._pq_flat] = Jp[:-1].double()
-            G = J.reshape(nbf, nbf) - K[:nbf, :nbf].double()
-            sync()
+            G = self.scatter_j(Jp) - K.double()
+            _sync(dev)
         return G
 
     def finalize(self):

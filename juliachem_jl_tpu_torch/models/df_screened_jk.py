@@ -1,0 +1,53 @@
+"""Spin-resolved J/K on the packed screened-DF path (UHF/ROHF at scale).
+
+Port of ``juliachem_jl_tpu/models/df_screened_jk.py``.  The closed-shell
+ScreenedDFFockBuilder fuses J - K/2 into one pass over the packed Q-blocks of
+B; open-shell SCF needs (J(Da+Db), K(Da), K(Db)).  This builder makes two
+passes of the same sweep (``ScreenedDFFockBuilder.sweep``, K2 for the
+exchange factor): J of the total density with K(Da), then K(Db).
+
+Factor conventions: uhf.py passes factor-1 spin densities (Da = Ca Ca^T);
+the sweep builds K(C C^T) from explicit orbitals, which is K(Da).  Without
+orbitals (the SAD first iteration) the factor is ``signed_factor(2 D)``,
+whose sqrt(|w| / 2) scaling then gives K(D) for a factor-1 D.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.timings import JCTC, Timings
+from .df import signed_factor
+from .df_screened import ScreenedDFFockBuilder, _sync
+
+
+class ScreenedDFJKBuilder(ScreenedDFFockBuilder):
+    """ScreenedDFFockBuilder plus the spin-resolved two_electron_jk."""
+
+    def _k_pass(self, d, Cs, s):
+        """One sweep over the packed f64 B blocks: (K of the density
+        factored by (Cs, s), the packed Coulomb vector of d, or None when d
+        is None)."""
+        blocks = self.q_blocks(self.B)
+        Vs = None if d is None else [blk @ d for blk in blocks]
+        return self.sweep(blocks, Vs, Cs, s)
+
+    @staticmethod
+    def _spin_factor(D, C_occ):
+        if C_occ is not None and C_occ.shape[1] > 0:
+            return C_occ.contiguous(), None
+        Cs, s = signed_factor(2.0 * D)
+        return Cs.contiguous(), s
+
+    def two_electron_jk(self, Da, Db, iteration, timings: Timings,
+                        Ca=None, Cb=None):
+        d = torch.cat([(Da + Db).reshape(-1)[self._pq_flat], Da.new_zeros(1)])
+        Cs_a, s_a = self._spin_factor(Da, Ca)
+        Cs_b, s_b = self._spin_factor(Db, Cb)
+        with timings.timed(JCTC.K_time, iteration):
+            Ka, Jp = self._k_pass(d, Cs_a, s_a)
+            Kb, _ = self._k_pass(None, Cs_b, s_b)
+            _sync(Da.device)
+        with timings.timed(JCTC.J_time, iteration):
+            J = self.scatter_j(Jp)
+        return J, Ka, Kb

@@ -104,7 +104,8 @@ class DIIS:
         except torch.linalg.LinAlgError:
             # singular subspace: the minimum-norm least-squares solution
             c = torch.linalg.pinv(B) @ rhs
-        return torch.einsum("k,kij->ij", c[:n], torch.stack(self.F_hist))
+        # F may be one matrix (RHF) or a stack of them (UHF: [Fa, Fb])
+        return torch.einsum("k,k...->...", c[:n], torch.stack(self.F_hist))
 
 
 def damping_factor(delta_e: float) -> float:

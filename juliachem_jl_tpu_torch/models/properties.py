@@ -91,6 +91,15 @@ def run(mol, basis_sets, rhf_result, prop_keywords: dict | None = None,
         out["Mulliken Population"] = mulliken_populations(mol, basis, rhf_result)
         if output >= 1:
             print("Mulliken populations:", out["Mulliken Population"])
+        if rhf_result.get("Spin Density") is not None:
+            # open shell (UHF/ROHF): per-atom spin populations, the
+            # Mulliken sums of the spin density (alpha minus beta)
+            out["Mulliken Spin Population"] = mulliken_populations(
+                mol, basis, {"Density": rhf_result["Spin Density"],
+                             "Overlap": rhf_result["Overlap"]})
+            if output >= 1:
+                print("Mulliken spin populations:",
+                      out["Mulliken Spin Population"])
     if kw.get("lowdin"):
         out["Lowdin Population"] = lowdin_populations(mol, basis, rhf_result)
         if output >= 1:

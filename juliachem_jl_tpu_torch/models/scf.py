@@ -54,6 +54,15 @@ class FockBuilder:
                           precision: str = "f64") -> torch.Tensor:
         raise NotImplementedError
 
+    def two_electron_jk(self, Da: torch.Tensor, Db: torch.Tensor,
+                        iteration: int, timings: Timings, Ca=None, Cb=None):
+        """Spin-resolved contractions for UHF/ROHF (models/uhf.py): given
+        factor-1 spin densities, return (J(Da+Db), K(Da), K(Db))."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the spin-resolved "
+            "J/K interface (UHF); use the dense, screened-direct or dense-DF "
+            "builder")
+
     def finalize(self):  # release per-geometry tensors
         pass
 

@@ -50,7 +50,34 @@ def incore_budget() -> int:
     return int(float(env)) if env else INCORE_BUDGET_ELEMENTS
 
 
-class DenseFock(FockBuilder):
+class JKFock(FockBuilder):
+    """A builder that digests one symmetric density D into (J, K)
+    (``jk_halves``): RHF's G = J - K/2, and UHF's spin-resolved J/K from two
+    passes."""
+
+    def jk_halves(self, D, iteration=None, timings: Timings | None = None):
+        raise NotImplementedError
+
+    def two_electron_fock(self, D, iteration, timings: Timings, C_occ=None,
+                          precision: str = "f64"):
+        J, K = self.jk_halves(D, iteration, timings)
+        return J - 0.5 * K
+
+    def two_electron_jk(self, Da, Db, iteration, timings: Timings,
+                        Ca=None, Cb=None):
+        """(J(Dt), K(Da), K(Db)) from two digestion passes: J and K are
+        linear in D, so with Dt = Da + Db and Ds = Da - Db,
+        K(Da) = [K(Dt) + K(Ds)] / 2 and K(Db) = [K(Dt) - K(Ds)] / 2; one
+        pass when Da == Db."""
+        J, Kt = self.jk_halves(Da + Db, iteration, timings)
+        if torch.equal(Da, Db):
+            Ka = 0.5 * Kt
+            return J, Ka, Ka
+        _, Ks = self.jk_halves(Da - Db, iteration, timings)
+        return J, 0.5 * (Kt + Ks), 0.5 * (Kt - Ks)
+
+
+class DenseFock(JKFock):
     """Full in-memory ERI tensor; correctness reference for small systems."""
 
     def __init__(self, basis: Basis, device=None):
@@ -60,11 +87,6 @@ class DenseFock(FockBuilder):
         J = torch.einsum("pqrs,rs->pq", self.G, D)
         K = torch.einsum("prqs,rs->pq", self.G, D)
         return J, K
-
-    def two_electron_fock(self, D, iteration, timings, C_occ=None,
-                          precision: str = "f64"):
-        J, K = self.jk_halves(D)
-        return J - 0.5 * K
 
     def finalize(self):
         self.G = None
@@ -274,7 +296,7 @@ class _Group:
     I: torch.Tensor = None   # cached blocks (in-core mode)
 
 
-class ScreenedDirectFock(FockBuilder):
+class ScreenedDirectFock(JKFock):
     """Class-batched, Schwarz-screened direct Fock build (replaces
     SCF.jl:665-1054).
 
@@ -336,11 +358,6 @@ class ScreenedDirectFock(FockBuilder):
             else:
                 eri4c_jk(JK, g.bra, g.ket, g.sel_bra, g.sel_ket, g.weight, D)
         return JK[0] + JK[0].T, JK[1] + JK[1].T
-
-    def two_electron_fock(self, D, iteration, timings: Timings, C_occ=None,
-                          precision: str = "f64"):
-        J, K = self.jk_halves(D, iteration, timings)
-        return J - 0.5 * K
 
     def finalize(self):
         for g in self.groups:

@@ -21,11 +21,11 @@ import torch
 
 from .. import config
 from ..basis.structs import Basis
-from ..models.scf import FockBuilder
 from ..utils.timings import Timings
 from . import kernels
 from .eri import PairTable, eri4c_plain, pair_table, plain_chunk
-from .fock import DEFAULT_CUTOFF, digest_plain, launch_eri4c_jk, schwarz_blocks
+from .fock import (DEFAULT_CUTOFF, JKFock, digest_plain, launch_eri4c_jk,
+                   schwarz_blocks)
 from .schwarz import staircase_limits
 
 
@@ -111,7 +111,7 @@ class _ClassPair:
     cum: torch.Tensor    # [n_bra] int64 cumulative counts on the device
 
 
-class StreamingDirectFock(FockBuilder):
+class StreamingDirectFock(JKFock):
     """Schwarz-staircase, device-enumerated direct Fock (the conventional
     scale mode past ~3e7 quartets; reference composite-index walk analog).
     schwarz: as for ``count_screened_quartets``."""
@@ -150,11 +150,6 @@ class StreamingDirectFock(FockBuilder):
                                self.blocks[cp.ki].table, cp.cum, cp.N,
                                cp.same, D)
         return JK[0] + JK[0].T, JK[1] + JK[1].T
-
-    def two_electron_fock(self, D, iteration, timings: Timings, C_occ=None,
-                          precision: str = "f64"):
-        J, K = self.jk_halves(D, iteration, timings)
-        return J - 0.5 * K
 
     def finalize(self):
         self.blocks = []

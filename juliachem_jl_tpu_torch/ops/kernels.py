@@ -48,10 +48,13 @@ _FUNCS = {
                                       _P, _LL, _P]),
     "jc_digest_jk": ("digest_jk", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _LL,
                                    _P, _P, _LL, _P]),
+    "jc_mp2_e2": ("e2_rmp2", [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _LL, _P]),
 }
 
 launches = {"eri3c": 0, "df_gather_w": 0, "boys_probe": 0, "eri4c": 0,
-            "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0}
+            "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0,
+            "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -144,6 +147,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = _I
             lib.jc_error_string.argtypes = [_I]
             lib.jc_error_string.restype = ctypes.c_char_p
+            lib.jc_mp2_e2_partials.argtypes = [_I] * 5
+            lib.jc_mp2_e2_partials.restype = _LL
             _lib = lib
         return _lib
 

@@ -10,8 +10,10 @@ a machine that has only torch:
 Bounds: K1 and K4 1e-12 x the output's max-abs, K2 1e-12 relative in f64
 and 1e-5 in f32, K3 1e-14 relative; K5 (list and staircase modes) and K6:
 J and K within 1e-11 x max(|J|, |K|) of the plain versions (f64 atomics sum
-in no fixed order); the DF-RHF and conventional RHF energies on the card
-within 1e-9 Eh of the same runs on the CPU.
+in no fixed order); K7 (the MP2 pair energy, modes rmp2, ss, os) within
+1e-12 x max(1, |E|) of its plain version; the DF-RHF, conventional RHF and
+UHF/ROHF energies on the card within 1e-9 Eh of the same runs on the CPU,
+RI-UMP2 on the card's orbitals within 1e-10 Eh.
 """
 
 import numpy as np
@@ -218,3 +220,122 @@ def test_conventional_rhf_on_card_matches_cpu(cuda_device, guess):
         "ScreenedDirectFock"
     assert e_card["Density"].is_cuda
     assert abs(e_card["Energy"] - e_cpu["Energy"]) <= 1e-9
+
+
+# (A, no_x, nv_x, no_y, nv_y): one occupied orbital, virtual counts off
+# K7's 64-wide tile, A off its 16-row Q-chunk
+E2_SHAPES = {"one-occupied": (37, 1, 5, 1, 5), "ragged": (203, 7, 70, 6, 131),
+             "tiles": (100, 5, 129, 4, 128)}
+
+
+def _e2_inputs(shape, seed, dev, dtype=torch.float64):
+    A, nox, nvx, noy, nvy = shape
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((A, nox, nvx)) * 0.1,
+              rng.standard_normal((A, noy, nvy)) * 0.1,
+              *(np.sort(rng.uniform(lo, hi, n)) for lo, hi, n in (
+                  (-20.0, -0.3, nox), (0.1, 30.0, nvx), (-20.0, -0.3, noy),
+                  (0.1, 30.0, nvy)))]
+    return [torch.tensor(a, device=dev, dtype=dtype) for a in arrays]
+
+
+def _e2(mode, Bx, By, eox, evx, eoy, evy):
+    from juliachem_jl_tpu_torch.models import mp2
+
+    if mode == "os":
+        return mp2.e2_os(Bx, By, eox, evx, eoy, evy)
+    return (mp2.e2_rmp2 if mode == "rmp2" else mp2.e2_ss)(Bx, eox, evx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(E2_SHAPES))
+@pytest.mark.parametrize("mode", ["rmp2", "ss", "os"])
+def test_k7_e2_matches_plain(cuda_device, mode, shape):
+    """K7 in each mode against its plain version on the same numbers, within
+    1e-12 x max(1, |E|) (the sums run in another order); one launch each.
+    Mode rmp2 gives E2 and its opposite-spin part from that one launch."""
+    args = _e2_inputs(E2_SHAPES[shape], 17, cuda_device)
+    n0 = kernels.launches[f"e2_{mode}"]
+    got = np.atleast_1d(_e2(mode, *args))
+    assert kernels.launches[f"e2_{mode}"] == n0 + 1
+    ref = np.atleast_1d(_e2(mode, *(a.cpu() for a in args)))
+    assert got.shape == ref.shape == ((2,) if mode == "rmp2" else (1,))
+    assert np.all(np.abs(got - ref) <= 1e-12 * np.maximum(1.0, np.abs(ref)))
+
+
+@pytest.mark.cuda
+def test_k7_partial_buffer_follows_the_launch_grid(cuda_device):
+    """jc_mp2_e2_partials, the only copy of K7's grid: the i <= j pairs and
+    tile pairs of modes rmp2 (two energies per block) and ss, all of them
+    for os; -1 for shapes K7 does not take."""
+    n = kernels.library().jc_mp2_e2_partials
+    assert n(0, 31, 486, 31, 486) == 2 * 496 * 36
+    assert n(1, 30, 487, 30, 487) == 465 * 36
+    assert n(2, 31, 486, 30, 487) == 930 * 64
+    assert n(2, 1, 64, 1, 65) == 2
+    assert n(1, 30, 487, 29, 487) == -1      # ss needs one spin's factor
+    assert n(2, 1, 64 * 65536, 1, 64) == -1  # over the grid's y limit
+    assert n(2, 0, 64, 1, 64) == -1          # empty channel: no launch
+
+
+@pytest.mark.cuda
+def test_k7_empty_channel_returns_zero_without_a_launch(cuda_device):
+    """A one-electron doublet's beta channel (no_y = 0) is empty: 0.0, and
+    the kernel is not launched (a grid of 0 blocks is an invalid launch)."""
+    args = _e2_inputs((40, 1, 8, 0, 9), 5, cuda_device)
+    n0 = dict(kernels.launches)
+    assert _e2("os", *args) == 0.0
+    assert _e2("ss", args[1], args[1], args[4], args[5], args[4],
+               args[5]) == 0.0
+    assert kernels.launches == n0
+
+
+@pytest.mark.cuda
+def test_k7_wrapper_raises_on_f32_and_strided_input(cuda_device):
+    args = _e2_inputs(E2_SHAPES["ragged"], 2, cuda_device)
+    with pytest.raises(ValueError):
+        _e2("os", args[0].float(), *args[1:])
+    with pytest.raises(ValueError):
+        _e2("rmp2", args[0].transpose(1, 2).contiguous().transpose(1, 2),
+            *args[1:])
+    with pytest.raises(ValueError):
+        _e2("os", args[0], args[1][:, :, ::2], args[2], args[3], args[4],
+            args[5][::2])
+
+
+OH = {"symbols": ["O", "H"], "geometry": [0.0, 0.0, 0.0, 0.0, 0.0, 0.97],
+      "molecular_multiplicity": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,scf_type,kernel", [
+    ("UHF", "rhf", "digest_jk"), ("ROHF", "rhf", "digest_jk"),
+    ("UHF", "df", "eri3c")])
+def test_open_shell_on_card_matches_cpu(cuda_device, method, scf_type, kernel):
+    """UHF/ROHF of the OH radical through run_spec on the card and on the
+    CPU: energies within 1e-9 Eh; then RI-UMP2 on the card's orbitals
+    through K7 (modes ss and os) within 1e-10 Eh of the same on the CPU."""
+    from juliachem_jl_tpu_torch.models import mp2
+
+    spec = jc.io.parse_input({
+        "molecule": OH,
+        "model": {"method": method, "basis": "6-31G*",
+                  "auxiliary_basis": "cc-pVTZ-JKFIT"},
+        "keywords": {"scf": {"scf_type": scf_type, "niter": 80,
+                             "dele": 1e-10, "rmsd": 1e-8, "guess": "sad"}}})
+    n0 = kernels.launches[kernel]
+    out = jc.run_spec(spec, device=cuda_device)
+    assert kernels.launches[kernel] > n0
+    e_cpu = jc.run_spec(spec, device=CPU)["Energy"]
+    e_card = out["Energy"]
+    assert e_card["Converged?"] and e_cpu["Converged?"]
+    assert e_card["Density"].is_cuda
+    assert abs(e_card["Energy"] - e_cpu["Energy"]) <= 1e-9
+    launches = (kernels.launches["e2_ss"], kernels.launches["e2_os"])
+    m_card = mp2.ri_ump2_energy(e_card, out["Basis"])
+    assert (kernels.launches["e2_ss"], kernels.launches["e2_os"]) == (
+        launches[0] + 2, launches[1] + 1)
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in e_card.items()}
+    m_cpu = mp2.ri_ump2_energy(cpu, out["Basis"])
+    assert abs(m_card["E2"] - m_cpu["E2"]) <= 1e-10

@@ -5,7 +5,7 @@ energies 1e-8, dipole (Debye) and Mulliken/Lowdin populations 1e-6.
 ``mixed_precision`` is pinned the same on both sides (ROADMAP.md C4).
 Out-of-slice options raise NotImplementedError instead of running some
 other path; conventional RHF and the DF guess are held in
-tests/test_torch_conventional*.py.
+tests/test_torch_conventional*.py, UHF/ROHF in tests/test_torch_open_shell.py.
 """
 
 import pytest
@@ -61,7 +61,8 @@ def test_run_spec_matches_jax(case):
 
 
 OUT_OF_SLICE = {
-    "uhf": {"method": "UHF"},
+    # UHF energies run (tests/test_torch_open_shell.py); its gradient not
+    "uhf": {"method": "UHF", "driver": "gradient"},
     "gradient": {"driver": "gradient"},
     "multi-device": {"scf": {"num_devices": 2}},
     "conventional-multi-device": {"scf": {"scf_type": "rhf",

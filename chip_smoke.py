@@ -18,9 +18,18 @@ card's name and power limit):
    ammonia_trimer and benzene_2_water (6-311++G(2d,2p)), the first quartets
    of every class pair of the Schwarz staircase: K4 (4-center integrals),
    K6 (digestion of cached blocks), K5 in list and in staircase mode (the
-   integrals digested at once);
+   integrals digested at once); K1's f32 store (bit for bit the f64 output
+   rounded), K2's f32-B instance (bit for bit K2 f64 on the upcast block),
+   and K8 (the split fold) at the fold shapes of the first 8 waters of the
+   w32 cluster and of w32 itself against its plain version, two cuBLAS
+   SGEMMs and the f64 fold;
 4. ammonia_trimer DF-RHF through run_spec (dense-B route);
-5. benzene_2_water DF-RHF through run_spec (packed route); then K7 (the
+5. benzene_2_water DF-RHF through run_spec (packed route); the same on an
+   f32 B (``df_b_dtype: f32``), held to the JAX package's f32-B energy, and
+   with ``JCHEM_SPLIT_FOLD=1`` (K8), recorded only: the split fold does not
+   converge there, in either package; the first 8 waters of the w32 cluster
+   with f64 B, f32 B (each held to the JAX package's) and the split fold
+   (held to the f64 fold within the DF gate); then K7 (the
    fused MP2 pair energy, modes rmp2, ss, os) against its plain version at
    its full width; RI-MP2 with SCS on those orbitals (E2 and its
    opposite-spin part held to the JAX package's and to the plain
@@ -33,14 +42,24 @@ card's name and power limit):
    density and the cation's UHF (Da, Db) one build through the direct
    ScreenedDirectFock (K5 list mode) and one through StreamingDirectFock (K5
    staircase mode), G and J, K(Da), K(Db) each held to the in-core ones;
-   the identities closed-shell UHF = RHF and RI-UMP2 = RI-MP2;
+   the identities closed-shell UHF = RHF and RI-UMP2 = RI-MP2; the
+   incremental Fock (``fdiff``) conventional and on dense DF with f32
+   increments, each held to its full-build run within 1e-8 Eh;
 7. benzene_2_water conventional RHF through run_spec with the DF guess (DF
    iterations on the packed builder, then StreamingDirectFock), with
-   ``damp: false`` (ROADMAP.md C8).
+   ``damp: false`` (ROADMAP.md C8);
+8. the large-system chain on the generated 32-water cluster (6-31+G* /
+   cc-pVTZ-JKFIT, nbf 736): f64 B; f32 B with the B, raw-3c and
+   one-electron caches and checkpoints (within 3e-4 Eh of f64, half the B
+   bytes, at most half the build's peak memory); again from those caches
+   and the checkpoint (no 3-center build, the same B, at most 2
+   iterations, within 1e-9 Eh), in a temporary directory removed after;
+   the split fold (K8) on the f32 B, recorded beside the f64 fold, not
+   gated: at this size it lies outside the DF gate.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  Energies are held to the JAX package's recorded DF and MP2 energies
-(juliachem_jl_tpu_torch/data/smoke_reference.json, 1e-6 Eh) and to GAMESS
+after.  Energies are held to the JAX package's recorded DF, f32-B and MP2
+energies (juliachem_jl_tpu_torch/data/smoke_reference.json, 1e-6 Eh) and to GAMESS
 (tests/data/s22x3_gamess_goldens.json: DF within 1.5e-3 Eh, conventional
 within 1.49e-8 relative).  The second-to-last line is ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": ...}``.  Any failed check exits
@@ -53,8 +72,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -74,6 +96,25 @@ HARTREE_EV = 27.211386245988
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_F64_OPS_S = 67e12
+PEAK_F32_OPS_S = 67e12  # FP32 outside the tensor cores
+# the large-system chain (water clusters, juliachem_jl_tpu_torch/data/
+# water_clusters.json): bench.py's basis pair, converged to dele 1e-10 and
+# rmsd 1e-8: at dele 1e-8, rmsd 1e-6 the loop may stop while E still swings
+# by 1e-7 Eh (ROADMAP.md C0; 2.3e-7 Eh on two waters of the w32 cluster,
+# 6-31G, on the CPU), which would hide a restart that lands elsewhere
+W_SCF = {"scf_type": "df", "niter": 50, "dele": 1e-10, "rmsd": 1e-8,
+         "guess": "sad"}
+W_BASIS, W_AUX = "6-31+G*", "cc-pVTZ-JKFIT"
+# w32: f32 B vs f64 B.  The shift of f32 storage grows with the system
+# (-1.04e-5 Eh at w8 in both packages, smoke_reference.json f32_b;
+# -1.661e-4 Eh at w32 on an H100 80GB HBM3), so 1e-4 does not hold at w32;
+# the gate sits just above the measured shift, so a worse f32 B fails
+E_F32_B_TOL = 3e-4
+# the first 8 waters of w32 as the JAX package's recorded runs have them
+W8_SCF = {"niter": 60, "dele": 1e-9, "rmsd": 1e-7,
+          "contraction_mode": "screened", "mixed_precision": False}
+E_RESTART_TOL = 1e-9   # restart from the caches vs the run that wrote them
+E_FDIFF_TOL = 1e-8     # incremental Fock vs the full build each iteration
 SUBSET = 4096  # quartets per class pair in the 4-center kernel checks
 BOYS_TCRIT = 35.0  # csrc/boys.cuh: the series up to this T, asymptotic above
 T_BUDGET = 1 << 25  # Boys arguments per chunk when counting them
@@ -111,10 +152,11 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_of(nbytes: float, ops: float) -> dict:
+def bound_of(nbytes: float, ops: float, peak: float = PEAK_F64_OPS_S) -> dict:
     """Least time the card could take: the larger of bytes over the memory
-    rate and operations over the f64 peak, and which one binds."""
-    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F64_OPS_S * 1e3
+    rate and operations over the peak of their type (default f64), and
+    which one binds."""
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, ops / peak * 1e3
     return {"bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "bytes": nbytes, "operations": ops}
@@ -281,15 +323,15 @@ def check_k3(tag: str, dev) -> dict:
                        + (n - n_series) * 3 + n * 3 * 8)}
 
 
-def check_k1(tag: str, dev, bsets, n_pairs: int = 64) -> dict:
+def k1_calls(dev, bsets, n_pairs: int = 64) -> list:
     """Every (bra class | aux class) of the system, the first n_pairs bra
-    pairs of each class against every aux shell, kernel vs plain, written
-    into compact [A, 2*n*nab] outputs."""
+    pairs of each class against every aux shell, as K1's arguments into a
+    compact [A, 2*n*nab] output (its width last)."""
     import numpy as np
     import torch
 
     from juliachem_jl_tpu_torch.basis.structs import ncart
-    from juliachem_jl_tpu_torch.ops import eri3c, kernels
+    from juliachem_jl_tpu_torch.ops import eri3c
     from juliachem_jl_tpu_torch.ops.pairs import unique_pair_blocks
 
     prim, aux = bsets.primary, bsets.auxiliary
@@ -306,9 +348,13 @@ def check_k1(tag: str, dev, bsets, n_pairs: int = 64) -> dict:
             calls.append((blk.la, blk.lb, lq, blk.aexp.shape[1],
                           blk.bexp.shape[1], pair, aux_t, qrow, cols,
                           cols + blk.n * nab, mirror, 2 * blk.n * nab))
-    # bound: every pair/aux row read once, every (aux row, column) written
-    # once; operations over the nonzero-coefficient primitives, the Boys
-    # series only where T <= 35
+    return calls
+
+
+def k1_bound(calls, out_size: int) -> dict:
+    """K1's bound over the calls: every pair/aux row read once, every (aux
+    row, column) written once (out_size bytes each); operations over the
+    nonzero-coefficient primitives, the Boys series only where T <= 35."""
     nbytes = ops = 0.0
     for (la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror,
          width) in calls:
@@ -321,45 +367,62 @@ def check_k1(tag: str, dev, bsets, n_pairs: int = 64) -> dict:
             aux_t[None, None, :, :Kq], aux_t[None, None, :, None, 2 * Kq:], live)
         nab, ncq, nhb = ncart(la) * ncart(lb), ncart(lq), nherm(la + lb)
         nbytes += 8.0 * (pair.numel() + aux_t.numel() + qrow.numel()
-                         + 2 * cols.numel() + 2 * cols.numel() * ncq * aux_t.shape[0])
+                         + 2 * cols.numel()) \
+            + out_size * 2.0 * cols.numel() * ncq * aux_t.shape[0]
         ops += (boys_r_ops(la + lb + lq, n_prim, n_series)
                 + n_prim * 2 * nhb * ncq * nherm(lq)
                 + float(live_p.sum()) * aux_t.shape[0] * (4 * nab * nhb
                                                           + 2 * nab * nhb * ncq))
-    worst_rel, worst_abs = 0.0, 0.0
-    n0 = kernels.launches["eri3c"]
+    return bound_of(nbytes, ops)
+
+
+def run_k1(fn, calls, A, dtype):
+    """Every call of K1 (or its plain version) into fresh zeroed outputs."""
+    import torch
+
+    outs = []
     for (la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror,
          width) in calls:
-        outs = []
-        for fn in (eri3c.eri3c_class, eri3c.eri3c_class_plain):
-            out = torch.zeros((aux.nbf, width), dtype=torch.float64, device=dev)
-            fn(out, la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror)
-            outs.append(out)
-        err = float((outs[0] - outs[1]).abs().max())
-        scale = float(outs[1].abs().max())
+        out = torch.zeros((A, width), dtype=dtype, device=pair.device)
+        fn(out, la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror)
+        outs.append(out)
+    return outs
+
+
+def check_k1(tag: str, dev, bsets, calls) -> dict:
+    """K1 against its plain version on every class of ``calls``."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import eri3c, kernels
+
+    A = bsets.auxiliary.nbf
+    worst_rel, worst_abs = 0.0, 0.0
+    n0 = kernels.launches["eri3c"]
+    got = run_k1(eri3c.eri3c_class, calls, A, torch.float64)
+    ref = run_k1(eri3c.eri3c_class_plain, calls, A, torch.float64)
+    for c, g, r in zip(calls, got, ref):
+        err = float((g - r).abs().max())
+        scale = float(r.abs().max())
         check(err <= 1e-12 * scale,
-              f"K1 class ({la},{lb}|{lq}): max abs err {err:.3e} > 1e-12 x "
-              f"{scale:.3e}")
+              f"K1 class ({c[0]},{c[1]}|{c[2]}): max abs err {err:.3e} > "
+              f"1e-12 x {scale:.3e}")
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / scale if scale else 0.0)
     check(kernels.launches["eri3c"] - n0 == len(calls),
           "K1 comparison did not launch the kernel for every class")
-
-    def run(fn):
-        for (la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror,
-             width) in calls:
-            out = torch.zeros((aux.nbf, width), dtype=torch.float64, device=dev)
-            fn(out, la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror)
-
-    ms = cuda_ms(lambda: run(eri3c.eri3c_class), reps=2)
-    plain = cuda_ms(lambda: run(eri3c.eri3c_class_plain), reps=2)
+    del got, ref
+    n_pairs = max(c[5].shape[0] for c in calls)
+    ms = cuda_ms(lambda: run_k1(eri3c.eri3c_class, calls, A, torch.float64),
+                 reps=2)
+    plain = cuda_ms(lambda: run_k1(eri3c.eri3c_class_plain, calls, A,
+                                   torch.float64), reps=2)
     print(f"{tag} K1 eri3c: {len(calls)} classes x {n_pairs} bra pairs x all "
           f"aux shells: max abs err {worst_abs:.3e}, max err/block max-abs "
           f"{worst_rel:.3e} (bound 1e-12); kernel {ms:.3f} ms, plain torch "
           f"{plain:.3f} ms", flush=True)
-    b = bound_of(nbytes, ops)
+    b = k1_bound(calls, 8)
     print(f"{tag} K1 eri3c bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
-          f"{nbytes:.3e} B, {ops:.3e} operations)", flush=True)
+          f"{b['bytes']:.3e} B, {b['operations']:.3e} operations)", flush=True)
     return {"name": "eri3c", "route": "cuda",
             "source": "juliachem_jl_tpu_torch/csrc/eri3c.cuh",
             "replaces": "juliachem_jl_tpu/ops/eri3c.py:126",
@@ -367,9 +430,117 @@ def check_k1(tag: str, dev, bsets, n_pairs: int = 64) -> dict:
             "ms": ms, "plain_ms": plain, "library_ms": None, **b}
 
 
-def check_k2(tag: str, dev, bsets, opts) -> dict:
+def check_k1_f32(tag: str, dev, bsets, calls) -> dict:
+    """K1's f32 store on the same classes: its output is the f64 output
+    rounded to f32, bit for bit (K1 has no atomics)."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import eri3c, kernels
+
+    A = bsets.auxiliary.nbf
+    n0 = kernels.launches["eri3c_f32"]
+    got = run_k1(eri3c.eri3c_class, calls, A, torch.float32)
+    check(kernels.launches["eri3c_f32"] - n0 == len(calls),
+          "K1 f32 comparison did not launch the kernel for every class")
+    ref = run_k1(eri3c.eri3c_class, calls, A, torch.float64)
+    differ = sum(int((g != r.float()).sum()) for g, r in zip(got, ref))
+    check(differ == 0, f"K1 f32 store: {differ} elements differ from the "
+          "f64 output rounded")
+    plain = run_k1(eri3c.eri3c_class_plain, calls, A, torch.float32)
+    err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+    del got, ref, plain
+    ms = cuda_ms(lambda: run_k1(eri3c.eri3c_class, calls, A, torch.float32),
+                 reps=2)
+    plain_ms = cuda_ms(lambda: run_k1(eri3c.eri3c_class_plain, calls, A,
+                                      torch.float32), reps=2)
+    b = k1_bound(calls, 4)
+    print(f"{tag} K1 eri3c f32 store: {len(calls)} classes, 0 elements off "
+          f"the f64 output rounded (bit for bit); max abs err vs the plain "
+          f"f32 version {err:.3e}; kernel {ms:.3f} ms, plain torch "
+          f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})",
+          flush=True)
+    return {"name": "eri3c_f32", "route": "cuda",
+            "source": "juliachem_jl_tpu_torch/csrc/eri3c.cuh",
+            "replaces": "juliachem_jl_tpu/ops/eri3c.py:126",
+            "max_abs_err": err, "elements_off_f64_rounded": differ,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+
+
+def check_k8(tag: str, dev, A: int, label: str) -> dict:
+    """K8 at a fold's shape (``label``): A fitted rows, one column chunk
+    (``linalg.fold_chunk(A)`` columns) of a wider f32 B (a strided view, as
+    the fold reads it), random Mh, Ml of an f64 lower-triangular M, launched
+    as the fold launches it (``lower``).  Gate, elementwise: |K8 - plain|
+    and |K8 - f64((Mh + Ml) X)| <= 4 sqrt(A) 2^-24 (|Mh| + |Ml|) |X|.
+    Times: the kernel, its plain version, the library (two cuBLAS SGEMMs,
+    TF32 off, and the add) and the f64 fold the port takes without
+    JCHEM_SPLIT_FOLD (DGEMM of the upcast chunk, f32 store).  The bound
+    counts the triangle: 2 A (A+1) C FP32 operations, (A (A+1) + 2 A C) x 4
+    bytes."""
+    import torch
+
+    from juliachem_jl_tpu_torch.models import linalg
+    from juliachem_jl_tpu_torch.ops import kernels
+
+    C = linalg.fold_chunk(A)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    M = torch.randn((A, A), dtype=torch.float64, device=dev,
+                    generator=gen).tril_() / A ** 0.5
+    B = torch.randn((A, C + 64), dtype=torch.float32, device=dev,
+                    generator=gen)
+    X = B[:, 32:32 + C]
+    Mh = M.float()
+    Ml = (M - Mh.double()).float()
+    n0 = kernels.launches["split_fold"]
+    got = linalg.split_fold(Mh, Ml, X, lower=True)
+    torch.cuda.synchronize()
+    check(kernels.launches["split_fold"] == n0 + 1,
+          "K8 comparison did not launch the kernel")
+    plain = linalg.split_fold_plain(Mh, Ml, X)
+    bound = 4 * A ** 0.5 * 2.0 ** -24 * ((Mh.abs() + Ml.abs()).double()
+                                         @ X.abs().double())
+    d_plain = (got - plain).double().abs()
+    d_exact = (got.double() - (Mh.double() + Ml.double()) @ X.double()).abs()
+    r_plain = float((d_plain / bound).max())
+    r_exact = float((d_exact / bound).max())
+    err = float(d_plain.max())
+    del plain, bound, d_plain, d_exact
+    check(r_plain <= 1.0 and r_exact <= 1.0,
+          f"K8: error / gate {r_plain:.3e} (plain), {r_exact:.3e} (f64)")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ms = cuda_ms(lambda: linalg.split_fold(Mh, Ml, X, lower=True))
+        plain_ms = cuda_ms(lambda: linalg.split_fold_plain(Mh, Ml, X))
+        library_ms = cuda_ms(lambda: torch.add(torch.mm(Mh, X),
+                                               torch.mm(Ml, X)))
+        f64_ms = cuda_ms(lambda: (M @ X.double()).float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    b = bound_of(4.0 * (A * (A + 1) + 2 * A * C), 2.0 * A * (A + 1) * C,
+                 PEAK_F32_OPS_S)
+    print(f"{tag} K8 split_fold at the {label} fold, A={A} C={C}: max "
+          f"|K8 - plain| {err:.3e}, "
+          f"largest error / gate {max(r_plain, r_exact):.3e} (gate 4 sqrt(A) "
+          f"2^-24 (|Mh|+|Ml|)|X|, elementwise); kernel {ms:.3f} ms, plain "
+          f"torch {plain_ms:.3f} ms, library (2 SGEMM + add, TF32 off) "
+          f"{library_ms:.3f} ms, f64 fold (DGEMM + f32 store) {f64_ms:.3f} "
+          f"ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
+    return {"name": "split_fold", "route": "cuda",
+            "source": "juliachem_jl_tpu_torch/csrc/split_fold.cu",
+            "replaces": "juliachem_jl_tpu/models/linalg.py:57",
+            "shapes": [A, A, C], "at": label, "max_abs_err": err,
+            "max_err_over_gate": max(r_plain, r_exact), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "two torch.mm (cuBLAS SGEMM, TF32 off) and the add",
+            "f64_fold_ms": f64_ms, **b}
+
+
+def check_k2(tag: str, dev, bsets, opts) -> tuple[dict, dict]:
     """K2 at the system's packed shapes: the real screen (Schwarz-screened
-    col_map), one Q-block of all fitted aux rows, the occupied count."""
+    col_map), one Q-block of all fitted aux rows, the occupied count; f64,
+    f32, and the f32-B instance (f32 B, f64 C and W).  Returns the kernel
+    line entries of K2 and of its f32-B instance."""
     import torch
 
     from juliachem_jl_tpu_torch.models.df import screened_pair_blocks
@@ -416,13 +587,40 @@ def check_k2(tag: str, dev, bsets, opts) -> dict:
               + 8.0 * qc * k * nbf, 2.0 * qc * live * k)
     print(f"{tag} K2 df_gather_w f64 bound {b['bound_ms']:.3f} ms "
           f"({b['bound_by']})", flush=True)
-    return {"name": "df_gather_w", "route": "cuda",
-            "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
-            "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
-            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain, "library_ms": None, **b,
-            "f32_ms": res[torch.float32][2],
-            "f32_plain_ms": res[torch.float32][3]}
+    k2 = {"name": "df_gather_w", "route": "cuda",
+          "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
+          "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
+          "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+          "plain_ms": plain, "library_ms": None, **b,
+          "f32_ms": res[torch.float32][2],
+          "f32_plain_ms": res[torch.float32][3]}
+    # the f32-B instance (f64 iterations on an f32 B): bit for bit the f64
+    # instance on the upcast block
+    B32 = Bc.float()
+    n0 = kernels.launches["df_gather_w_f32b"]
+    got = df_gather_w(B32, col_map, C)
+    check(kernels.launches["df_gather_w_f32b"] == n0 + 1,
+          "K2 f32-B comparison did not launch the kernel")
+    differ = int((got != df_gather_w(B32.double(), col_map, C)).sum())
+    check(differ == 0, f"K2 f32-B: {differ} elements differ from the f64 "
+          "instance on Bc.double()")
+    err32 = float((got - df_gather_w_plain(B32, col_map, C)).abs().max())
+    del got
+    ms32 = cuda_ms(lambda: df_gather_w(B32, col_map, C))
+    plain32 = cuda_ms(lambda: df_gather_w_plain(B32, col_map, C))
+    b32 = bound_of(4.0 * B32.numel() + 4.0 * col_map.numel()
+                   + 8.0 * C.numel() + 8.0 * qc * k * nbf, 2.0 * qc * live * k)
+    print(f"{tag} K2 df_gather_w_f32b (f32 B, f64 C and W) Qc={qc}: 0 "
+          f"elements off the f64 instance on Bc.double() (bit for bit); max "
+          f"abs err vs plain {err32:.3e}; kernel {ms32:.3f} ms, plain torch "
+          f"{plain32:.3f} ms, bound {b32['bound_ms']:.3f} ms "
+          f"({b32['bound_by']})", flush=True)
+    k2b = {"name": "df_gather_w_f32b", "route": "cuda",
+           "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
+           "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
+           "max_abs_err": err32, "elements_off_f64": differ, "ms": ms32,
+           "plain_ms": plain32, "library_ms": None, **b32}
+    return k2, k2b
 
 
 def k1_primitive_counts(tag: str, dev, bsets, opts) -> dict:
@@ -723,6 +921,191 @@ def steady_mean(vals: list[float]) -> float:
     return sum(vals) / len(vals) if vals else float("nan")
 
 
+def fock_stats(tm, iterations: int) -> dict:
+    """Fock s/iter of a run's Timings, as bench.py reads them: the steady
+    f64 mean (iteration 1 and the f32 phase left out), the f32 phase's
+    mean, and the mean of the post-SCF ``fock_rep`` builds."""
+    from juliachem_jl_tpu_torch.utils.timings import JCTC
+
+    pref = JCTC.fock_time + "-"
+    keys = sorted(int(k[len(pref):]) for k in tm.timings if k.startswith(pref))
+    reps = [tm.timings[f"{pref}{i}"] for i in keys
+            if f"fock_rep-{i}" in tm.timings]
+    # after a DF guess the conventional loop rewrote fock_time-1..n; the
+    # keys above n are the DF iterations' (or timing reps)
+    iters = [i for i in keys if i <= iterations]
+    f32 = {i for i in iters if f"fock_f32-{i}" in tm.timings}
+    steady = iters[1:] if len(iters) > 2 else iters
+    f64 = [tm.timings[f"{pref}{i}"] for i in steady if i not in f32]
+    f32v = [tm.timings[f"{pref}{i}"] for i in steady if i in f32]
+    # packed route: per-iteration split of the f64 build (V = B d; the J/K
+    # pass of K2 + W^T W + V B; scatter of J and G = J - K/2)
+    split = {k: steady_mean([tm.timings[f"{key}-{i}"] for i in steady
+                             if i not in f32 and f"{key}-{i}" in tm.timings])
+             for k, key in (("V", JCTC.V_time), ("JK_pass", JCTC.K_time),
+                            ("finalize", JCTC.J_time))}
+    return {"fock_s_per_iter_f64_steady": steady_mean(f64),
+            "f64_steady_iters": len(f64),
+            "fock_s_first_iter": (tm.timings[f"{pref}{iters[0]}"] if iters
+                                  else None),
+            "fock_s_per_iter_f32_phase": steady_mean(f32v) if f32v else None,
+            "f32_phase_iters": len(f32v), "fock_split_s": split,
+            "fock_s_rep_mean": sum(reps) / len(reps) if reps else None,
+            "fock_reps": len(reps)}
+
+
+def cluster_input(name: str, extra: dict | None = None,
+                  waters: int | None = None) -> dict:
+    """A generated water cluster (juliachem_jl_tpu_torch/data/
+    water_clusters.json), or its first ``waters`` waters, as a run_spec
+    input: 6-31+G* / cc-pVTZ-JKFIT and the convergence keywords of W_SCF."""
+    c = json.loads((ROOT / "juliachem_jl_tpu_torch" / "data" /
+                    "water_clusters.json").read_text())[name]
+    n = waters or c["n_waters"]
+    return {"molecule": {"symbols": c["symbols"][:3 * n],
+                         "geometry": c["geometry"][:9 * n],
+                         "molecular_charge": 0},
+            "driver": "energy",
+            "model": {"method": "RHF", "basis": W_BASIS,
+                      "auxiliary_basis": W_AUX},
+            "keywords": {"scf": {**W_SCF, **(extra or {})}}}
+
+
+def build_peak(jc, inp: dict) -> int:
+    """Device bytes the packed builder's build of ``inp`` adds at its peak
+    (3-center build, projection, fold, the builder): the peak memory is
+    reset just before ``ScreenedDFFockBuilder.build`` and read after it,
+    less what was allocated before.  Disk caches are left out of ``inp``."""
+    import torch
+
+    from juliachem_jl_tpu_torch.models.df_screened import ScreenedDFFockBuilder
+    from juliachem_jl_tpu_torch.utils.options import create_scf_options
+
+    spec = jc.io.parse_input(inp)
+    bsets = jc.basis.run(jc.molecule.run(spec), spec.model)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fb = ScreenedDFFockBuilder.build(bsets.primary, bsets.auxiliary,
+                                     create_scf_options(spec.scf_keywords),
+                                     dev)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    fb.finalize()
+    del fb
+    torch.cuda.empty_cache()
+    return peak
+
+
+def b_checksum(B) -> tuple[float, float]:
+    """(sum, sum of squares) of B's elements in f64, 256 rows at a time: two
+    numbers that tell one B from another (a cached B from the one built)."""
+    s = sq = 0.0
+    for r in range(0, B.shape[0], 256):
+        sub = B[r:r + 256].double()
+        s += float(sub.sum())
+        sq += float((sub * sub).sum())
+    return s, sq
+
+
+def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
+                waters: int | None = None, measure_build: bool = False,
+                gated: bool = True) -> dict:
+    """One DF-RHF run_spec of a water cluster on the card (peak device memory
+    reset just before it); with ``measure_build``, first the peak of the
+    packed builder's build alone (``build_peak``).  Returns the energy,
+    iterations, B's bytes and checksum, the build's and the run's peak
+    device memory, the setup phases, the Fock s/iter and which caches were
+    read (from the port's notes on stderr, which are passed through).  B's
+    checksum is taken from the builder ``ScreenedDFFockBuilder.build``
+    returns, wrapped for this run only.  A run that is not ``gated`` is
+    recorded whether it converges or not."""
+    import contextlib
+    import io
+
+    import torch
+
+    from juliachem_jl_tpu_torch.models.df_screened import ScreenedDFFockBuilder
+    from juliachem_jl_tpu_torch.utils.timings import JCTC
+
+    dev = torch.device("cuda")
+    peak_build = None
+    if measure_build:
+        nocache = {k: v for k, v in extra.items()
+                   if k not in ("df_b_cache", "oei_cache", "checkpoint",
+                                "restart")}
+        peak_build = build_peak(jc, cluster_input(name, nocache, waters))
+        # the path's launch counts start at run_spec, not at this build
+        from juliachem_jl_tpu_torch.ops import kernels
+        kernels.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    notes = io.StringIO()
+    sums = []
+    build = ScreenedDFFockBuilder.__dict__["build"]
+
+    def build_and_sum(cls, *args, **kwargs):
+        fb = build.__func__(cls, *args, **kwargs)
+        sums.append(b_checksum(fb.B))
+        return fb
+
+    ScreenedDFFockBuilder.build = classmethod(build_and_sum)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(notes):
+            out = jc.run_spec(jc.io.parse_input(cluster_input(name, extra,
+                                                              waters)))
+    finally:
+        ScreenedDFFockBuilder.build = build
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    sys.stderr.write(notes.getvalue())
+    res = out["Energy"]
+    tm = res["Timings"]
+    nt = tm.non_timing_data
+    setup = {k: tm.timings.get(key) for k, key in (
+        ("two_center", JCTC.two_center_time),
+        ("three_center", JCTC.three_center_time), ("B", JCTC.B_time),
+        ("screening", JCTC.screening_time), ("H", JCTC.H_time),
+        ("guess", JCTC.guess_time))}
+    fmt = lambda v, f=".3f": "absent" if v is None else format(v, f)
+    summary = {
+        "system": label, "route": nt["fock_builder"],
+        "converged": bool(res["Converged?"]),
+        "iterations": int(res["Iterations"]), "energy": float(res["Energy"]),
+        "nbf": out["Basis"].primary.nbf, "naux": out["Basis"].auxiliary.nbf,
+        "B_shape": nt.get("B_shape"), "B_bytes": int(nt.get("B_bytes", 0)),
+        "B_checksum": sums[-1] if sums else None,
+        "build_peak_device_bytes": peak_build,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+        "setup_s": setup, **fock_stats(tm, int(res["Iterations"])),
+        "wall_s": wall,
+        "loaded_B_cache": "loaded cached B" in notes.getvalue(),
+        "loaded_S_T_V": "loaded cached S/T/V" in notes.getvalue(),
+    }
+    print(f"{tag} {label}: nbf {summary['nbf']}, naux {summary['naux']} "
+          f"(Cartesian), B {summary['B_shape']} {summary['B_bytes'] / 1e9:.3f}"
+          f" GB; converged {summary['converged']} in {summary['iterations']} "
+          f"iterations, E = {summary['energy']:.10f} Eh; wall {wall:.2f} s; "
+          f"build peak {fmt(peak_build and peak_build / 1e9)} GB, run peak "
+          f"{summary['peak_device_bytes'] / 1e9:.3f} GB", flush=True)
+    print(f"{tag} {label}: setup s " + ", ".join(
+        f"{k} {fmt(v)}" for k, v in setup.items())
+        + f"; Fock f64 steady {fmt(summary['fock_s_per_iter_f64_steady'], '.4f')}"
+        f" s/iter over {summary['f64_steady_iters']}, f32 phase "
+        f"{fmt(summary['fock_s_per_iter_f32_phase'], '.4f')} s/iter over "
+        f"{summary['f32_phase_iters']}, fock_rep mean "
+        f"{fmt(summary['fock_s_rep_mean'], '.4f')} s over "
+        f"{summary['fock_reps']}; f64 split s/iter " + ", ".join(
+            f"{k} {v:.4f}" for k, v in summary["fock_split_s"].items()),
+        flush=True)
+    check(summary["route"] == "ScreenedDFFockBuilder",
+          f"{label}: route {summary['route']}")
+    check(summary["converged"] or not gated, f"{label}: SCF did not converge")
+    return summary
+
+
 def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
                route: str, extra: dict | None = None,
                conventional: bool = False, aux: bool = True) -> dict:
@@ -746,27 +1129,12 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
     d_ref = E - ref["energy"] if ref else None
     nt = tm.non_timing_data
     builder = nt["fock_builder"]
-    pref = JCTC.fock_time + "-"
-    iters = sorted(int(k[len(pref):]) for k in tm.timings if k.startswith(pref))
-    # after a DF guess the conventional loop rewrote fock_time-1..n; the
-    # keys above n are the DF iterations'
-    iters = [i for i in iters if i <= int(res["Iterations"])]
-    fock = {i: tm.timings[f"{pref}{i}"] for i in iters}
-    f32 = {i for i in iters if f"fock_f32-{i}" in tm.timings}
-    steady = iters[1:] if len(iters) > 2 else iters
-    f64_steady = [fock[i] for i in steady if i not in f32]
-    f32_phase = [fock[i] for i in steady if i in f32]
+    stats = fock_stats(tm, int(res["Iterations"]))
     setup = {k: tm.timings.get(key, float("nan")) for k, key in (
         ("two_center", JCTC.two_center_time), ("three_center", JCTC.three_center_time),
         ("B", JCTC.B_time), ("screening", JCTC.screening_time),
         ("H", JCTC.H_time), ("guess", JCTC.guess_time),
         ("conventional_setup", "conventional_setup_time"))}
-    # packed route: per-iteration split of the Fock build (V = B d; the
-    # J/K pass of K2 + W^T W + V B; scatter of J and G = J - K/2)
-    fock_split = {k: steady_mean([tm.timings[f"{key}-{i}"] for i in steady
-                                  if i not in f32 and f"{key}-{i}" in tm.timings])
-                  for k, key in (("V", JCTC.V_time), ("JK_pass", JCTC.K_time),
-                                 ("finalize", JCTC.J_time))}
     peak = torch.cuda.max_memory_allocated(dev)
     summary = {
         "system": name, "route": builder, "incore": nt.get("incore"),
@@ -775,12 +1143,7 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
         "converged": bool(res["Converged?"]),
         "iterations": int(res["Iterations"]), "energy": E,
         "minus_jax_reference": d_ref, "minus_gamess": d_gms,
-        "setup_s": setup, "fock_s_per_iter_f64_steady": steady_mean(f64_steady),
-        "fock_s_first_iter": fock.get(iters[0]) if iters else None,
-        "f64_steady_iters": len(f64_steady),
-        "fock_s_per_iter_f32_phase": steady_mean(f32_phase) if f32_phase else None,
-        "f32_phase_iters": len(f32_phase), "fock_split_s": fock_split,
-        "wall_s": wall,
+        "setup_s": setup, **stats, "wall_s": wall,
         "peak_device_bytes": peak,
         "on_cuda": all(t.is_cuda for t in (res["Density"], res["Fock"],
                                            res["MO Coeff"], res["Overlap"])),
@@ -796,14 +1159,16 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
     print(f"{tag} {name}: setup s " + ", ".join(
         f"{k} {v:.3f}" for k, v in setup.items()), flush=True)
     f32_txt = (f"; f32 phase {summary['fock_s_per_iter_f32_phase']:.5f} s/iter "
-               f"over {len(f32_phase)} iters" if f32_phase else "; no f32 phase")
+               f"over {summary['f32_phase_iters']} iters"
+               if summary["f32_phase_iters"] else "; no f32 phase")
     print(f"{tag} {name}: Fock f64 steady {summary['fock_s_per_iter_f64_steady']:.5f}"
-          f" s/iter over {len(f64_steady)} iters, first iteration "
+          f" s/iter over {summary['f64_steady_iters']} iters, first iteration "
           f"{summary['fock_s_first_iter']:.5f} s{f32_txt}; peak device memory "
           f"{peak / 1e9:.3f} GB", flush=True)
-    if not math.isnan(fock_split["JK_pass"]):  # recorded by the packed builder
+    if not math.isnan(stats["fock_split_s"]["JK_pass"]):  # packed builder
         print(f"{tag} {name}: f64 Fock split s/iter " + ", ".join(
-            f"{k} {v:.5f}" for k, v in fock_split.items()), flush=True)
+            f"{k} {v:.5f}" for k, v in stats["fock_split_s"].items()),
+            flush=True)
     check(builder == route, f"{name}: route {builder}, expected {route}")
     check(summary["converged"], f"{name}: SCF did not converge")
     if ref:
@@ -997,6 +1362,7 @@ def main() -> int:
     from juliachem_jl_tpu_torch.utils.options import create_scf_options
 
     # 1. device
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader").splitlines()[0]
@@ -1024,15 +1390,33 @@ def main() -> int:
                             "smoke_reference.json").read_text())
     refs = smoke_ref["systems"]
     refs_corr = smoke_ref["correlated"]["systems"]
+    refs_f32 = smoke_ref["f32_b"]["systems"]
 
     # 3. kernels vs plain: K1/K2/K3 at benzene_2_water's DF shapes; K4, K5,
     #    K6 at ammonia_trimer's and benzene_2_water's 4-center shapes
     spec = jc.io.parse_input(system_input("benzene_2_water",
                                           goldens["benzene_2_water"]))
     bsets = jc.basis.run(jc.molecule.run(spec), spec.model)
-    k1 = check_k1(tag, dev, bsets)
-    k2 = check_k2(tag, dev, bsets, create_scf_options(spec.scf_keywords))
+    calls = k1_calls(dev, bsets)
+    k1 = check_k1(tag, dev, bsets, calls)
+    k1_f32 = check_k1_f32(tag, dev, bsets, calls)
+    del calls
+    k2, k2_f32b = check_k2(tag, dev, bsets,
+                           create_scf_options(spec.scf_keywords))
     k3 = check_k3(tag, dev)
+    # K8 at the fold shapes of the paths that launch it: the fitted rows of
+    # the aux set of w32's first 8 waters and of w32
+    from juliachem_jl_tpu_torch.models.df_screened import fitted_rows
+    k8_at = {}
+    for label, waters in (("w8", 8), ("w32", None)):
+        spec_w = jc.io.parse_input(cluster_input("w32", waters=waters))
+        rows = fitted_rows(jc.basis.run(jc.molecule.run(spec_w),
+                                        spec_w.model).auxiliary,
+                           create_scf_options(spec_w.scf_keywords))
+        k8_at[label] = check_k8(tag, dev, rows, label)
+    k8 = {**k8_at["w32"], "at_w8_fold": {
+        k: v for k, v in k8_at["w8"].items()
+        if k not in ("name", "route", "source", "replaces", "library")}}
     k1["primitive_products"] = k1_primitive_counts(
         tag, dev, bsets, create_scf_options(spec.scf_keywords))
     spec_a = jc.io.parse_input(system_input(
@@ -1067,6 +1451,63 @@ def main() -> int:
         tag, jc, "benzene_2_water", goldens["benzene_2_water"],
         refs["benzene_2_water"], "ScreenedDFFockBuilder",
         {"mixed_precision": False}))
+    # 5a. the same on an f32 B (K1's f32 store, K2's f32-B instance in
+    #     every f64 iteration), held to the JAX package's f32-B energy; the
+    #     split fold there is recorded, not gated: it does not converge in
+    #     either package (smoke_reference.json, f32_b)
+    bz_flags = {"mixed_precision": False, "df_b_dtype": "f32"}
+    bz_f32 = path("benzene_2_water DF f32 B", lambda: run_system(
+        tag, jc, "benzene_2_water", goldens["benzene_2_water"],
+        refs_f32["benzene_2_water"], "ScreenedDFFockBuilder", bz_flags))
+    jax_bz_split = refs_f32["benzene_2_water split fold"]
+    os.environ["JCHEM_SPLIT_FOLD"] = "1"
+    try:
+        r = jc.run_spec(jc.io.parse_input(system_input(
+            "benzene_2_water", goldens["benzene_2_water"], bz_flags)))["Energy"]
+    finally:
+        del os.environ["JCHEM_SPLIT_FOLD"]
+    bz_split = {"system": "benzene_2_water DF f32 B split fold (not gated)",
+                "energy": float(r["Energy"]), "converged": bool(r["Converged?"]),
+                "iterations": int(r["Iterations"])}
+    print(f"{tag} benzene_2_water f32 B: E(f32) - E(f64) = "
+          f"{bz_f32['energy'] - benzene['energy']:.3e} Eh (JAX package: "
+          f"{refs_f32['benzene_2_water']['energy'] - refs['benzene_2_water']['energy']:.3e});"
+          f" split fold (not gated): converged {bz_split['converged']} in "
+          f"{bz_split['iterations']} iterations, E = {bz_split['energy']:.6f} "
+          f"Eh (JAX package: converged {jax_bz_split['converged']} in "
+          f"{jax_bz_split['iterations']}, E = {jax_bz_split['energy']:.6f})",
+          flush=True)
+    # 5a'. the split fold where it serves: the first 8 waters of w32 (the
+    #     packed builder, mixed precision off), f64 B, f32 B, f32 B with
+    #     JCHEM_SPLIT_FOLD=1 (K8); f64 and f32 held to the JAX package's,
+    #     the split fold to the f64 fold within the DF gate
+    w8 = {}
+    for key, flags, env in (("f64 B", {}, "0"), ("f32 B", {"df_b_dtype": "f32"}, "0"),
+                            ("split fold", {"df_b_dtype": "f32"}, "1")):
+        os.environ["JCHEM_SPLIT_FOLD"] = env
+        try:
+            w8[key] = path(f"w8 {key}", lambda: run_cluster(
+                tag, jc, "w32", {**W8_SCF, **flags}, f"w8 {key}", waters=8))
+        finally:
+            del os.environ["JCHEM_SPLIT_FOLD"]
+        ref = refs_f32[f"w8 {key}"]["energy"]
+        w8[key]["minus_jax_reference"] = w8[key]["energy"] - ref
+    d_split = w8["split fold"]["energy"] - w8["f32 B"]["energy"]
+    jax_d_split = (refs_f32["w8 split fold"]["energy"]
+                   - refs_f32["w8 f32 B"]["energy"])
+    print(f"{tag} w8: E - JAX = {w8['f64 B']['minus_jax_reference']:.3e} (f64 "
+          f"B), {w8['f32 B']['minus_jax_reference']:.3e} (f32 B), "
+          f"{w8['split fold']['minus_jax_reference']:.3e} (split fold, not "
+          f"gated: f32 sums in another order); E(split) - E(f64 fold) = "
+          f"{d_split:.3e} Eh (bound {E_GAMESS_TOL}; JAX package "
+          f"{jax_d_split:.3e}); E(f32 B) - E(f64 B) = "
+          f"{w8['f32 B']['energy'] - w8['f64 B']['energy']:.3e} Eh", flush=True)
+    for key in ("f64 B", "f32 B"):
+        check(abs(w8[key]["minus_jax_reference"]) <= E_REF_TOL,
+              f"w8 {key}: |E - JAX| > {E_REF_TOL}")
+    check(abs(d_split) <= E_GAMESS_TOL,
+          f"w8 split fold: |E - E(f64 fold)| = {abs(d_split):.3e} > "
+          f"{E_GAMESS_TOL}")
     # 5b. K7 at benzene_2_water's full width, on the packed route's orbitals
     k7 = check_k7(tag, dev, benzene["basis"], benzene["result"])
     # 5c. RI-MP2 (SCS) on the same orbitals
@@ -1178,6 +1619,24 @@ def main() -> int:
           f"DF-UHF reference = {d_mp2:.3e} Eh (bound 1e-10)", flush=True)
     check(abs(d_id) <= 1e-8, f"|E(UHF singlet) - E(RHF)| = {abs(d_id):.3e}")
     check(abs(d_mp2) <= 1e-10, f"|RI-UMP2 - RI-MP2| = {abs(d_mp2):.3e}")
+    # 6e. the incremental Fock: conventional in-core (K6 digests the
+    #     indefinite dD) and dense DF with f32 increments
+    amm_fdiff = path("ammonia_trimer conventional fdiff", lambda: run_system(
+        tag, jc, "ammonia_trimer", g_a, None, "ScreenedDirectFock",
+        {"guess": "sad", "fdiff": True}, conventional=True, aux=False))
+    amm_df_fdiff = path("ammonia_trimer DF fdiff f32", lambda: run_system(
+        tag, jc, "ammonia_trimer", g_a, refs["ammonia_trimer"],
+        "DFFockBuilder", {"fdiff": True, "fdiff_f32": True}))
+    d_fc = amm_fdiff["energy"] - ammonia_conv["energy"]
+    d_fd = amm_df_fdiff["energy"] - ammonia["energy"]
+    print(f"{tag} ammonia_trimer fdiff: conventional {amm_fdiff['iterations']} "
+          f"iterations (full builds: {ammonia_conv['iterations']}), E - E(full)"
+          f" = {d_fc:.3e} Eh; dense DF with f32 increments "
+          f"{amm_df_fdiff['iterations']} iterations (full builds: "
+          f"{ammonia['iterations']}), E - E(full) = {d_fd:.3e} Eh (bound "
+          f"{E_FDIFF_TOL})", flush=True)
+    check(abs(d_fc) <= E_FDIFF_TOL and abs(d_fd) <= E_FDIFF_TOL,
+          "fdiff: energy off the full-build run's")
     # 7. conventional through the DF guess, streaming route; the DF guess
     #    starts from the core Hamiltonian, where the dynamic damping makes
     #    the SCF oscillate on this system (ROADMAP.md C8): damp off
@@ -1192,22 +1651,94 @@ def main() -> int:
           f"{benzene_conv['fock_s_per_iter_f64_steady']:.4f} s/iter over "
           f"{benzene_conv['f64_steady_iters']} steady conventional iterations",
           flush=True)
+    # 8. the large-system chain at w32 (6-31+G* / cc-pVTZ-JKFIT, nbf 736):
+    #    (a) f64 B; (b) f32 B with the B, raw-3c and one-electron caches
+    #    and checkpoints; (c) again from (b)'s caches and checkpoint.  (c)
+    #    restarts from a converged state, so it runs without the f32 phase,
+    #    whose first f32 iteration would move the density off it, and
+    #    accepts |dE| <= E_RESTART_TOL (the gate on E(c) - E(b)): the
+    #    first iterations after a restart, without DIIS history, move E by
+    #    ~1e-10 Eh, which (b)'s dele of 1e-10 would not let pass.
+    tmp = tempfile.mkdtemp(prefix="jchem_smoke_")
+    try:
+        cache = os.path.join(tmp, "w32")
+        ckpt = os.path.join(tmp, "w32_ckpt.npz")
+        w32a = path("w32 f64 B", lambda: run_cluster(
+            tag, jc, "w32", {"bench_fock_reps": 4}, "w32 f64 B",
+            measure_build=True))
+        w32b = path("w32 f32 B", lambda: run_cluster(
+            tag, jc, "w32", {"df_b_dtype": "f32", "df_b_cache": cache,
+                             "oei_cache": cache, "checkpoint": ckpt,
+                             "bench_fock_reps": 4}, "w32 f32 B",
+            measure_build=True))
+        w32c = path("w32 f32 B from the caches", lambda: run_cluster(
+            tag, jc, "w32", {"df_b_dtype": "f32", "df_b_cache": cache,
+                             "oei_cache": cache, "restart": ckpt,
+                             "mixed_precision": False,
+                             "dele": E_RESTART_TOL},
+            "w32 f32 B from the caches"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # 8d. the split fold (K8) at w32, recorded beside the f64 fold of the
+    #     same f32 B, not gated: at this size it lies outside the DF gate
+    os.environ["JCHEM_SPLIT_FOLD"] = "1"
+    try:
+        w32s = path("w32 split fold", lambda: run_cluster(
+            tag, jc, "w32", {"df_b_dtype": "f32"}, "w32 split fold",
+            gated=False))
+    finally:
+        del os.environ["JCHEM_SPLIT_FOLD"]
+    w32s["minus_f64_fold"] = w32s["energy"] - w32b["energy"]
+    print(f"{tag} w32 split fold (not gated): converged {w32s['converged']} "
+          f"in {w32s['iterations']} iterations, E(split) - E(f64 fold) = "
+          f"{w32s['minus_f64_fold']:.3e} Eh (the DF gate {E_GAMESS_TOL}; w8: "
+          f"{d_split:.3e})", flush=True)
+    d_ab = w32b["energy"] - w32a["energy"]
+    w32b["minus_f64_B"] = d_ab
+    d_bc = w32c["energy"] - w32b["energy"]
+    peak_ratio = w32b["build_peak_device_bytes"] / w32a["build_peak_device_bytes"]
+    print(f"{tag} w32: E(f32 B) - E(f64 B) = {d_ab:.3e} Eh (bound "
+          f"{E_F32_B_TOL}; the JAX package's test allows 5e-5 at one "
+          f"water); B bytes {w32b['B_bytes']} vs {w32a['B_bytes']}; build peak "
+          f"ratio {peak_ratio:.3f} (bound 0.5); from the caches: "
+          f"{w32c['iterations']} iterations, E - E(f32 B) = {d_bc:.3e} Eh "
+          f"(bound {E_RESTART_TOL}), 3-center time "
+          f"{w32c['setup_s']['three_center']}, B checksum equal "
+          f"{w32c['B_checksum'] == w32b['B_checksum']}", flush=True)
+    check(abs(d_ab) <= E_F32_B_TOL, f"w32: |E(f32 B) - E(f64 B)| = {abs(d_ab):.3e}")
+    check(2 * w32b["B_bytes"] == w32a["B_bytes"], "w32: f32 B is not half the bytes")
+    check(peak_ratio <= 0.5, f"w32: f32 build peak / f64 = {peak_ratio:.3f} > 0.5")
+    check(w32b["loaded_B_cache"] is False and w32c["loaded_B_cache"],
+          "w32: the B cache was not written and read")
+    check(not w32c["setup_s"]["three_center"],
+          "w32 from the caches built a 3-center tensor")
+    check(w32c["setup_s"]["H"] is None,
+          "w32 from the caches built S/T/V (the restart carries them)")
+    check(w32c["B_checksum"] == w32b["B_checksum"],
+          "w32: the cached B differs from the one built")
+    check(w32c["iterations"] <= 2,
+          f"w32 from the caches took {w32c['iterations']} iterations")
+    check(abs(d_bc) <= E_RESTART_TOL, f"w32 restart: |dE| = {abs(d_bc):.3e}")
     jc.finalize()
 
     # each kernel's launches on its path
     main_path = {"eri3c": "benzene_2_water DF", "df_gather_w": "benzene_2_water DF",
+                 "eri3c_f32": "w32 f32 B", "df_gather_w_f32b": "w32 f32 B",
+                 "split_fold": "w32 split fold",
                  "eri4c": "ammonia_trimer conventional",
                  "digest_jk": "ammonia_trimer conventional",
                  "eri4c_jk_list": "ammonia_trimer direct build",
                  "eri4c_jk_stair": "benzene_2_water conventional",
                  "e2_rmp2": "benzene_2_water RI-MP2", "e2_ss": label_cat,
                  "e2_os": label_cat}
-    for name, label in main_path.items():
+    for name, label in (*main_path.items(), ("split_fold", "w8 split fold")):
         check(counts[label].get(name, 0) > 0,
               f"kernel {name} never launched on {label}")
-    for k in (k1, k2):
+    for k in (k1, k1_f32, k2, k2_f32b, k8):
         k["launches"] = counts[main_path[k["name"]]][k["name"]]
         k["path"] = main_path[k["name"]]
+    k8["at_w8_fold"]["launches"] = counts["w8 split fold"]["split_fold"]
+    k8["at_w8_fold"]["path"] = "w8 split fold"
     k3["launches"] = counts["benzene_2_water DF"]["boys_probe"]
     shapes = {"eri4c": "ammonia_trimer", "digest_jk": "ammonia_trimer",
               "eri4c_jk_list": "ammonia_trimer",
@@ -1234,10 +1765,13 @@ def main() -> int:
     for name, v in k7.items():
         v["launches"] = counts[main_path[name]][name]
         v["path"] = main_path[name]
-    kern_line = [k1, k2] + new_kernels + list(k7.values())
+    kern_line = ([k1, k2] + new_kernels + list(k7.values())
+                 + [k8, k1_f32, k2_f32b])
 
-    systems = [ammonia, benzene, ammonia_conv, benzene_conv, cation, amm_uhf,
-               amm_rohf, amm_df, amm_singlet]
+    systems = [ammonia, benzene, bz_f32, bz_split, *w8.values(),
+               ammonia_conv, benzene_conv,
+               cation, amm_uhf, amm_rohf, amm_df, amm_singlet, amm_fdiff,
+               amm_df_fdiff, w32a, w32b, w32c, w32s]
     for x in systems:
         for key in ("density", "result", "basis"):
             x.pop(key, None)
@@ -1247,16 +1781,18 @@ def main() -> int:
                   "ammonia_trimer singlet RI-UMP2": m_u,
                   "ionisation_energy_eV": {"HF": ie_hf * HARTREE_EV,
                                            "MP2": ie_mp2 * HARTREE_EV}}
+    total_s = time.perf_counter() - t_start
     if args.out:
         Path(args.out).write_text(json.dumps({
             "device": kind, "nvidia_smi": smi, "torch": torch.__version__,
-            "cuda": torch.version.cuda, "build_s": build_s,
+            "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
             "spills": spills, "kernels": kern_line, "probes": [k3],
             "four_center": {k: {kk: vv for kk, vv in v.items()}
                             for k, v in fourc.items()},
             "builds_at_ammonia_convergence": builds,
             "launches_per_path": counts, "systems": systems,
             "correlated": correlated}, indent=1))
+    print(f"{tag} chip_smoke: all phases passed in {total_s:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kern_line, "probes": [k3]}))
     print(json.dumps({"ok": True, "device": {

@@ -212,6 +212,36 @@ def cart_to_sph_basis(basis: Basis) -> np.ndarray:
     return out
 
 
+def project_rows_sph_(basis: Basis, X):
+    """In-place solid-harmonic projection of the aux-index rows of the torch
+    tensor X [nbf_cart, ncols] (f64 or f32); returns X[:nbf_sph], a view, in
+    cart_to_sph_basis shell order.
+
+    Port of ``juliachem_jl_tpu/basis/spherical.py::project_rows_sph``: per
+    shell, a (nsph, ncart) product on the shell's row slice, computed in f64
+    and stored in X's dtype.  In place because a shell's output rows never
+    lie above its input rows (each shell keeps or loses rows): in
+    increasing shell order, each shell's rows are read before they are
+    written, and no later shell's rows are touched."""
+    import torch
+
+    shells = sorted(basis.shells, key=lambda s: s.offset)
+    Tn = {l: cart_to_sph_shell(l) for l in sorted({s.l for s in shells})}
+    Tc = {l: torch.as_tensor(T, dtype=torch.float64, device=X.device)
+          for l, T in Tn.items()}
+    col = 0
+    for s in shells:
+        nc, ns = Tn[s.l].shape
+        if col == s.offset and nc == ns and np.array_equal(Tn[s.l],
+                                                           np.eye(nc)):
+            col += ns   # the identity on its own rows: nothing moves
+            continue
+        X[col:col + ns] = Tc[s.l].T @ X[s.offset:s.offset + nc].to(
+            torch.float64)
+        col += ns
+    return X[:col]
+
+
 def aux_needs_sph(basis: Basis) -> bool:
     """True when the solid-harmonic aux projection changes anything
     (a d or higher shell exists; s/p transforms are the identity)."""

@@ -13,10 +13,14 @@
 // tile of KT orbitals and 128 consecutive n; consecutive threads walk
 // consecutive n, so the col_map reads are coalesced and, pq_flat being
 // sorted, the B gathers of one m mostly are too.  The C tile of a slab of m
-// is staged in shared memory and read by every thread.  Templated on double
-// (f64 iterations) and float (the mixed-precision f32 phase).  The signed
-// factor of an indefinite density is just another C; its sign is applied in
-// the W^T W product outside.
+// is staged in shared memory and read by every thread.  Templated on B's type
+// apart from C's and W's: double (f64 iterations), float (the
+// mixed-precision f32 phase) and an f32 B with f64 C and W (the f64
+// iterations on a df_b_dtype "f32" B, where the JAX package promotes the f32
+// block against f64 C: the B load converts to double and the rest is the
+// f64 body, so the result equals the f64 instance on Bc.double() bit for
+// bit).  The signed factor of an indefinite density is just another C; its
+// sign is applied in the W^T W product outside.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,9 +31,9 @@ constexpr int kThreads = 128;  // consecutive n per block
 constexpr int kKT = 16;        // orbitals per block
 constexpr int kMT = 32;        // rows of C staged per slab
 
-template <typename T>
+template <typename TB, typename T>
 __global__ void __launch_bounds__(kThreads)
-df_gather_w_kernel(const T* __restrict__ Bc, int64_t ldb, int64_t trash,
+df_gather_w_kernel(const TB* __restrict__ Bc, int64_t ldb, int64_t trash,
                    const int32_t* __restrict__ col_map,
                    const T* __restrict__ C, int nbf, int k,
                    T* __restrict__ W) {
@@ -37,7 +41,7 @@ df_gather_w_kernel(const T* __restrict__ Bc, int64_t ldb, int64_t trash,
   const int n = blockIdx.x * kThreads + threadIdx.x;
   const int64_t q = blockIdx.y;
   const int i0 = blockIdx.z * kKT;
-  const T* Bq = Bc + q * ldb;
+  const TB* Bq = Bc + q * ldb;
   T acc[kKT];
 #pragma unroll
   for (int ii = 0; ii < kKT; ++ii) acc[ii] = T(0);
@@ -53,7 +57,7 @@ df_gather_w_kernel(const T* __restrict__ Bc, int64_t ldb, int64_t trash,
       for (int mm = 0; mm < mend; ++mm) {
         const int64_t c = col_map[(int64_t)(m0 + mm) * nbf + n];
         if (c == trash) continue;
-        const T b = Bq[c];
+        const T b = static_cast<T>(Bq[c]);
 #pragma unroll
         for (int ii = 0; ii < kKT; ++ii) acc[ii] += b * Cs[mm][ii];
       }
@@ -67,11 +71,11 @@ df_gather_w_kernel(const T* __restrict__ Bc, int64_t ldb, int64_t trash,
   }
 }
 
-template <typename T>
-int launch(const T* Bc, long long ldb, long long trash, const int32_t* col_map,
+template <typename TB, typename T>
+int launch(const TB* Bc, long long ldb, long long trash, const int32_t* col_map,
            const T* C, int nbf, int k, int qc, T* W, void* stream) {
   const dim3 grid((nbf + kThreads - 1) / kThreads, qc, (k + kKT - 1) / kKT);
-  df_gather_w_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  df_gather_w_kernel<TB, T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       Bc, ldb, trash, col_map, C, nbf, k, W);
   return (int)cudaGetLastError();
 }
@@ -84,12 +88,20 @@ extern "C" int jc_df_gather_w_f64(const double* Bc, long long ldb,
                                   long long trash, const int32_t* col_map,
                                   const double* C, int nbf, int k, int qc,
                                   double* W, void* stream) {
-  return launch<double>(Bc, ldb, trash, col_map, C, nbf, k, qc, W, stream);
+  return launch<double, double>(Bc, ldb, trash, col_map, C, nbf, k, qc, W, stream);
 }
 
 extern "C" int jc_df_gather_w_f32(const float* Bc, long long ldb,
                                   long long trash, const int32_t* col_map,
                                   const float* C, int nbf, int k, int qc,
                                   float* W, void* stream) {
-  return launch<float>(Bc, ldb, trash, col_map, C, nbf, k, qc, W, stream);
+  return launch<float, float>(Bc, ldb, trash, col_map, C, nbf, k, qc, W, stream);
+}
+
+extern "C" int jc_df_gather_w_f32b(const float* Bc, long long ldb,
+                                   long long trash, const int32_t* col_map,
+                                   const double* C, int nbf, int k, int qc,
+                                   double* W, void* stream) {
+  return launch<float, double>(Bc, ldb, trash, col_map, C, nbf, k, qc, W,
+                               stream);
 }

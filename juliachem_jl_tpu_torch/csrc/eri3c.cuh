@@ -20,6 +20,11 @@
 // belongs to exactly one (pair, aux function), so outputs are plain stores:
 // no atomics.  Simple and right first; wgmma/DMMA, TMA and persistent
 // blocks are later work.
+//
+// The output type is a template parameter: double, or float for an f32 B
+// (df_b_dtype "f32", juliachem_jl_tpu/ops/eri3c.py:264-270).  The f32
+// instances compute in f64 exactly as the f64 ones and round once at the
+// store, so their output is the f64 output rounded to f32, bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,13 +63,13 @@ constexpr int kEri3cQTile = 8;  // aux shells per block
 // pair: [n][2Ka+2Kb+6] = aexp | acoef | bexp | bcoef | A | B
 // aux:  [nq][2Kq+3]    = qexp | qcoef | Q
 // out[(qrow[q] + c) * ld + cols[p*NAB + ab]] (and cols_t when mirror[p])
-template <int LA, int LB, int LQ>
+template <int LA, int LB, int LQ, typename TOut>
 __global__ void __launch_bounds__(kEri3cThreads)
 eri3c_kernel(const double* __restrict__ pair, int Ka, int Kb,
              const double* __restrict__ aux, const int64_t* __restrict__ qrow,
              int nq, int Kq, const int64_t* __restrict__ cols,
              const int64_t* __restrict__ cols_t,
-             const uint8_t* __restrict__ mirror, double* __restrict__ out,
+             const uint8_t* __restrict__ mirror, TOut* __restrict__ out,
              int64_t ld) {
   using S = Eri3cSmem<LA, LB, LQ>;
   constexpr int NCB = ncart(LB), NAB = S::NAB, NHB = S::NHB, NCQ = S::NCQ;
@@ -191,21 +196,22 @@ eri3c_kernel(const double* __restrict__ pair, int Ka, int Kb,
         const double* Tk = sT1 + k * NHB * NCQ + c;
         for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * NCQ];
       }
-      double* orow = out + (row0 + c) * ld;
-      orow[cols[pidx * NAB + ab]] = acc;
-      if (mir) orow[cols_t[pidx * NAB + ab]] = acc;
+      TOut* orow = out + (row0 + c) * ld;
+      const TOut v = static_cast<TOut>(acc);  // round to nearest for float
+      orow[cols[pidx * NAB + ab]] = v;
+      if (mir) orow[cols_t[pidx * NAB + ab]] = v;
     }
   }
 }
 
-template <int LA, int LB, int LQ>
+template <int LA, int LB, int LQ, typename TOut>
 int eri3c_launch(const double* pair, long long n, int Ka, int Kb,
                  const double* aux, const long long* qrow, int nq, int Kq,
                  const long long* cols, const long long* cols_t,
-                 const unsigned char* mirror, double* out, long long ld,
+                 const unsigned char* mirror, TOut* out, long long ld,
                  cudaStream_t stream) {
   const size_t bytes = sizeof(double) * Eri3cSmem<LA, LB, LQ>(Ka * Kb, Kq).total;
-  auto kern = eri3c_kernel<LA, LB, LQ>;
+  auto kern = eri3c_kernel<LA, LB, LQ, TOut>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -222,20 +228,22 @@ int eri3c_launch(const double* pair, long long n, int Ka, int Kb,
 
 }  // namespace jc
 
-// One translation unit per aux angular momentum LQ, so nvcc builds the
-// classes in parallel: defines jc_eri3c_lq<LQ>(la, lb, ...).
+// One translation unit per (aux angular momentum LQ, output type), so nvcc
+// builds the classes in parallel: JC_ERI3C_LQ(LQ) defines
+// jc_eri3c_lq<LQ>(la, lb, ...) writing double, JC_ERI3C_F32_LQ(LQ)
+// jc_eri3c_f32_lq<LQ> writing float.
 #define JC_ERI3C_CASE(LA, LB, LQ)                                            \
   if (la == LA && lb == LB)                                                  \
     return jc::eri3c_launch<LA, LB, LQ>(pair, n, Ka, Kb, aux, qrow, nq, Kq,  \
                                         cols, cols_t, mirror, out, ld,       \
                                         (cudaStream_t)stream);
 
-#define JC_ERI3C_LQ(LQ)                                                      \
-  extern "C" int jc_eri3c_lq##LQ(                                            \
+#define JC_ERI3C_ENTRY(NAME, TOUT, LQ)                                       \
+  extern "C" int NAME(                                                       \
       int la, int lb, const double* pair, long long n, int Ka, int Kb,      \
       const double* aux, const long long* qrow, int nq, int Kq,              \
       const long long* cols, const long long* cols_t,                        \
-      const unsigned char* mirror, double* out, long long ld, void* stream) { \
+      const unsigned char* mirror, TOUT* out, long long ld, void* stream) {  \
     JC_ERI3C_CASE(0, 0, LQ)                                                  \
     JC_ERI3C_CASE(0, 1, LQ)                                                  \
     JC_ERI3C_CASE(0, 2, LQ)                                                  \
@@ -246,3 +254,6 @@ int eri3c_launch(const double* pair, long long n, int Ka, int Kb,
     JC_ERI3C_CASE(0, 4, LQ)                                                  \
     return (int)cudaErrorInvalidValue;                                       \
   }
+
+#define JC_ERI3C_LQ(LQ) JC_ERI3C_ENTRY(jc_eri3c_lq##LQ, double, LQ)
+#define JC_ERI3C_F32_LQ(LQ) JC_ERI3C_ENTRY(jc_eri3c_f32_lq##LQ, float, LQ)

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ..basis.spherical import aux_needs_sph, cart_to_sph_basis
+from ..basis.spherical import (aux_needs_sph, cart_to_sph_basis,
+                               project_rows_sph_)
 from ..ops import eri3c, schwarz
 from ..ops.eri import as_f64
 from ..ops.pairs import unique_pair_blocks
@@ -46,11 +47,12 @@ def screened_pair_blocks(primary, sigma: float, metric_diag_max: float,
 def fitted_metric_and_rows(aux, metric, P3, opts):
     """Project metric and 3-center rows onto the solid-harmonic aux span
     when the aux set has d or higher shells (df_spherical_aux, default on;
-    juliachem_jl_tpu/models/df.py:71-77), then fold: returns B."""
+    juliachem_jl_tpu/models/df.py:71-77), then fold.  Works in place on
+    P3 (f64 or f32): returns B, the first fitted rows of P3 (a view)."""
     if opts.df_spherical_aux and aux_needs_sph(aux):
         T = as_f64(cart_to_sph_basis(aux), metric.device)
         metric = T.T @ metric @ T
-        P3 = T.T @ P3
+        P3 = project_rows_sph_(aux, P3)
     return fold_metric(metric, P3)
 
 

@@ -18,20 +18,32 @@ ScreenedDF.jl as packed tensors):
   screened symmetric J via per-p gemv        packed matvec pair
   (:318-365)                                 V = B d, J = V B
 
-B lives on the device.  The JAX package's host-streamed mode and its B/raw
-caches are not ported: a B that does not fit the device budget raises.
+B lives on the device, in f64 or, with ``df_b_dtype: "f32"``, in f32: K1
+stores f32, the row projection and the metric fold work in place, and the
+f64 iterations read the f32 B through f64 products (K2's f32-B
+instantiation for W, upcast row slices for V = B d and J = V B, where the
+JAX package promotes the f32 blocks against the f64 d and C).  The B,
+raw-3c and one-electron disk caches are ported with the port's own files;
+the host-streamed mode is not (ROADMAP.md A4): a B over the device budget
+raises ``MemoryError`` before its 3-center build.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import sys
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..basis.spherical import aux_needs_sph, nsph
 from ..ops import eri3c, kernels
 from ..utils.timings import JCTC, Timings
-from .df import fitted_metric_and_rows, screened_pair_blocks, signed_factor
+from . import df
+from .df import screened_pair_blocks, signed_factor
 from .scf import FockBuilder
 
 
@@ -71,14 +83,44 @@ def build_packed_screen(primary, pair_blocks) -> PackedScreen:
     return PackedScreen(nbf=nbf, npq=npq, pq_flat=pq_flat, col_map=col_map)
 
 
+def _b_dtype(opts) -> torch.dtype:
+    return torch.float32 if str(opts.df_b_dtype) == "f32" else torch.float64
+
+
+def fitted_rows(aux, opts) -> int:
+    """Rows of the fitted B: the solid-harmonic count when the aux set is
+    projected (df_spherical_aux and a d or higher shell), else aux.nbf."""
+    if opts.df_spherical_aux and aux_needs_sph(aux):
+        return sum(nsph(s.l) for s in aux.shells)
+    return aux.nbf
+
+
 def build_B_packed(primary, aux, opts, device,
-                   timings: Timings | None = None):
+                   timings: Timings | None = None, check_budget=None):
     """Packed B[A, npq+1] with the metric folded in, plus the screen maps.
 
     Same pipeline as df.build_B (2-center metric -> screening -> 3-center ->
-    triangular solve) but the 3-center tensor is written directly into
-    packed columns — the dense [A, nbf, nbf] intermediate never exists."""
+    fold) but the 3-center tensor is written directly into packed columns —
+    the dense [A, nbf, nbf] intermediate never exists — in B's dtype
+    (``opts.df_b_dtype``), and projected and folded in place: the build
+    holds one copy of B.  ``check_budget(rows, width, dtype)``, when given,
+    runs before the 3-center build.
+
+    With ``opts.df_b_cache`` (a path prefix), as the JAX package
+    (``models/df_screened.py:86-167``): a valid B cache is loaded and nothing
+    is built; else the unfolded 3-center tensor is checkpointed before the
+    fold overwrites it (and resumed from on the next call), and dropped once
+    the B cache is written.  The caches are the port's own files."""
     timings = timings or Timings()
+    dtype = _b_dtype(opts)
+    cache = opts.df_b_cache or ""
+    fp = cache and _cache_fingerprint(primary, aux, opts)
+    if cache:
+        hit = _load_b_cache(cache, fp, device)
+        if hit is not None:
+            if check_budget is not None:
+                check_budget(*hit[0].shape, hit[0].dtype)
+            return hit
     with timings.timed(JCTC.two_center_time):
         metric = eri3c.two_center_metric(aux, device)
     with timings.timed(JCTC.screening_time):
@@ -86,15 +128,138 @@ def build_B_packed(primary, aux, opts, device,
             primary, opts.df_screening_sigma,
             float(torch.diagonal(metric).max()), device)
         screen = build_packed_screen(primary, pair_blocks)
-    with timings.timed(JCTC.three_center_time):
-        P3 = eri3c.three_center_tensor(
-            primary, aux, device, pair_blocks, col_map=screen.col_map,
-            packed_width=screen.npq + 1)
+    width = screen.npq + 1
+    if check_budget is not None:
+        check_budget(fitted_rows(aux, opts), width, dtype)
+    P3 = _load_raw_cache(cache, fp, screen, dtype, device) if cache else None
+    if P3 is not None:
+        timings.timings.setdefault(JCTC.three_center_time, 0.0)
+    else:
+        with timings.timed(JCTC.three_center_time):
+            P3 = eri3c.three_center_tensor(
+                primary, aux, device, pair_blocks, col_map=screen.col_map,
+                packed_width=width, out_dtype=dtype)
+        if cache:
+            _save_raw_cache(cache, fp, screen, P3)
     with timings.timed(JCTC.B_time):
-        B = fitted_metric_and_rows(aux, metric, P3, opts)
+        B = df.fitted_metric_and_rows(aux, metric, P3, opts)
         del P3
         B[:, -1] = 0.0
+    if cache:
+        _save_b_cache(cache, fp, B, screen)
+        _drop_raw_cache(cache)
     return B, screen
+
+
+# ---------------------------------------------------------------- caches
+
+
+def _colmap_hash(col_map: np.ndarray) -> str:
+    return hashlib.sha256(
+        np.ascontiguousarray(col_map, dtype=np.int64).tobytes()).hexdigest()
+
+
+def _cache_fingerprint(primary, aux, opts) -> str:
+    """Geometry, basis and build options a cached B depends on: both bases'
+    shells (centers, exponents, coefficients), the solid-harmonic
+    projection, the screening sigma and B's dtype.  The JAX package's
+    fingerprint lacks the sigma (ROADMAP.md C3)."""
+    h = hashlib.sha256()
+    sph = bool(opts.df_spherical_aux and aux_needs_sph(aux))
+    h.update(f"{primary.nbf}|{aux.nbf}|{sph}|{float(opts.df_screening_sigma)!r}"
+             f"|{_b_dtype(opts)}".encode())
+    for b in (primary, aux):
+        for l, cl in sorted(b.classes.items()):
+            h.update(f"{l}|{cl.nshell}".encode())
+            for a in (cl.centers, cl.exps, cl.coefs):
+                h.update(np.ascontiguousarray(a, dtype=np.float64).tobytes())
+    return h.hexdigest()
+
+
+def _note(msg: str) -> None:
+    print(f"# build_B_packed: {msg}", file=sys.stderr, flush=True)
+
+
+def _save_npy(path: str, t: torch.Tensor) -> None:
+    """Write t (any device) as .npy, atomically."""
+    tmp = path + ".tmp.npy"
+    np.save(tmp, t.cpu().numpy())
+    os.replace(tmp, path)
+
+
+def _load_b_cache(prefix: str, fp: str, device):
+    bp, mp = prefix + "_torch_B.npy", prefix + "_torch_Bmeta.npz"
+    if not (os.path.exists(bp) and os.path.exists(mp)):
+        return None
+    meta = np.load(mp)
+    if str(meta["fingerprint"]) != fp:
+        _note(f"B cache {bp} was written for another system or options; "
+              "rebuilding")
+        return None
+    screen = PackedScreen(nbf=int(meta["nbf"]), npq=int(meta["npq"]),
+                          pq_flat=meta["pq_flat"], col_map=meta["col_map"])
+    B = np.load(bp, mmap_mode="r")
+    if (B.shape != (int(meta["arows"]), screen.npq + 1)
+            or str(meta["colmap_sha"]) != _colmap_hash(screen.col_map)):
+        _note(f"B cache {bp} is inconsistent; rebuilding")
+        return None
+    _note(f"loaded cached B from {bp} ({B.nbytes / 1e9:.2f} GB)")
+    return torch.from_numpy(np.array(B)).to(device), screen
+
+
+def _save_b_cache(prefix: str, fp: str, B: torch.Tensor, screen) -> None:
+    try:
+        os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
+        _note(f"writing B cache to {prefix}_torch_B.npy")
+        _save_npy(prefix + "_torch_B.npy", B)
+        np.savez(prefix + "_torch_Bmeta.npz", fingerprint=fp, nbf=screen.nbf,
+                 npq=screen.npq, pq_flat=screen.pq_flat,
+                 col_map=screen.col_map, arows=B.shape[0],
+                 colmap_sha=_colmap_hash(screen.col_map))
+    except OSError as exc:
+        warnings.warn(f"B cache write failed ({exc}); continuing without",
+                      stacklevel=2)
+
+
+def _load_raw_cache(prefix: str, fp: str, screen, dtype, device):
+    """The unfolded (pre-projection, pre-fold) 3-center checkpoint, when its
+    fingerprint, dtype and screen (a hash of col_map) match this build."""
+    rp, mp = prefix + "_torch_raw.npy", prefix + "_torch_rawmeta.npz"
+    if not (os.path.exists(rp) and os.path.exists(mp)):
+        return None
+    meta = np.load(mp)
+    P3 = np.load(rp, mmap_mode="r")
+    want = np.float32 if dtype == torch.float32 else np.float64
+    if (str(meta["fingerprint"]) != fp
+            or str(meta["colmap_sha"]) != _colmap_hash(screen.col_map)
+            or P3.dtype != want or P3.ndim != 2
+            or P3.shape[1] != screen.npq + 1):
+        _note(f"raw 3c checkpoint {rp} does not match this build; ignoring it")
+        return None
+    _note(f"resuming from raw 3c checkpoint {rp} ({P3.nbytes / 1e9:.2f} GB); "
+          "skipping the 3c build")
+    return torch.from_numpy(np.array(P3)).to(device)
+
+
+def _save_raw_cache(prefix: str, fp: str, screen, P3: torch.Tensor) -> None:
+    try:
+        os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
+        _note(f"checkpointing raw 3c tensor to {prefix}_torch_raw.npy "
+              f"({P3.numel() * P3.element_size() / 1e9:.2f} GB)")
+        _save_npy(prefix + "_torch_raw.npy", P3)
+        np.savez(prefix + "_torch_rawmeta.npz", fingerprint=fp,
+                 colmap_sha=_colmap_hash(screen.col_map))
+    except OSError as exc:
+        warnings.warn(f"raw 3c checkpoint write failed ({exc}); continuing "
+                      "without", stacklevel=2)
+
+
+def _drop_raw_cache(prefix: str) -> None:
+    for suffix in ("_torch_raw.npy", "_torch_rawmeta.npz"):
+        try:
+            os.remove(prefix + suffix)
+        except OSError:
+            pass
 
 
 # ---------------------------------------------------------------- kernel K2
@@ -102,38 +267,43 @@ def build_B_packed(primary, aux, opts, device,
 
 def df_gather_w_plain(Bc, col_map, C) -> torch.Tensor:
     """Plain version of K2: expand the block to a dense [Qc, nbf, nbf] tile
-    through col_map (trash column = zeros), then W = tile · C."""
+    through col_map (trash column = zeros), in C's dtype, then W = tile · C."""
     nbf = C.shape[0]
-    tile = Bc.index_select(1, col_map).reshape(-1, nbf, nbf)
+    tile = Bc.index_select(1, col_map).reshape(-1, nbf, nbf).to(C.dtype)
     return torch.einsum("qmn,mi->qin", tile, C)
 
 
 def df_gather_w(Bc, col_map, C) -> torch.Tensor:
     """Kernel K2: W[q, i, n] = sum_m Bc[q, col_map[m*nbf + n]] C[m, i].
 
-    Bc: [Qc, npq+1] rows of packed B (f64 or f32; trash column npq);
-    col_map: [nbf*nbf] int32; C: [nbf, k] of Bc's dtype.  Returns
-    [Qc, k, nbf].  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    Bc: [Qc, npq+1] rows of packed B (trash column npq); col_map:
+    [nbf*nbf] int32; C: [nbf, k].  Bc and C both f64, both f32, or an f32
+    Bc with an f64 C (counted as ``df_gather_w_f32b``: the f64 iterations
+    on an f32 B).  Returns [Qc, k, nbf] in C's dtype.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     nbf, k = C.shape
     qc, ldb = Bc.shape
+    pair = (Bc.dtype, C.dtype)
     if col_map.dtype != torch.int32 or col_map.shape != (nbf * nbf,) \
-            or C.dtype != Bc.dtype:
-        raise ValueError("df_gather_w: col_map must be int32 [nbf*nbf] and "
-                         "C share Bc's dtype")
+            or pair not in _K2_SYMBOLS:
+        raise ValueError("df_gather_w: col_map must be int32 [nbf*nbf]; Bc "
+                         "and C f64/f64, f32/f32 or f32/f64")
     if not Bc.is_cuda:
         return df_gather_w_plain(Bc, col_map, C)
-    if Bc.dtype not in (torch.float64, torch.float32) or qc > 65535:
-        raise ValueError("df_gather_w: f64/f32 blocks of at most 65535 rows")
+    if qc > 65535:
+        raise ValueError("df_gather_w: blocks of at most 65535 rows")
     for t in (Bc, col_map, C):
         if t.device != Bc.device or not t.is_contiguous():
             raise ValueError("df_gather_w: contiguous tensors on one device")
-    W = torch.empty((qc, k, nbf), dtype=Bc.dtype, device=Bc.device)
-    sym = ("jc_df_gather_w_f64" if Bc.dtype == torch.float64
-           else "jc_df_gather_w_f32")
-    kernels.launch(sym, Bc.data_ptr(), ldb, ldb - 1, col_map.data_ptr(),
-                   C.data_ptr(), nbf, k, qc, W.data_ptr())
+    W = torch.empty((qc, k, nbf), dtype=C.dtype, device=Bc.device)
+    kernels.launch(_K2_SYMBOLS[pair], Bc.data_ptr(), ldb, ldb - 1,
+                   col_map.data_ptr(), C.data_ptr(), nbf, k, qc, W.data_ptr())
     return W
+
+
+_K2_SYMBOLS = {(torch.float64, torch.float64): "jc_df_gather_w_f64",
+               (torch.float32, torch.float32): "jc_df_gather_w_f32",
+               (torch.float32, torch.float64): "jc_df_gather_w_f32b"}
 
 
 # ---------------------------------------------------------------- builder
@@ -154,38 +324,54 @@ class ScreenedDFFockBuilder(FockBuilder):
     # fixed figures
     B_FRACTION = 0.6
     W_FRACTION = 0.05
+    # f64 bytes of one upcast row slice of an f32 B (V = B d, J = V B)
+    UPCAST_BYTES = 2.5e8
+
+    @classmethod
+    def budgets(cls, device) -> tuple[float, float]:
+        """(bytes for B, bytes for one Q-block's W) on ``device``."""
+        if device.type == "cuda":
+            total = torch.cuda.get_device_properties(device).total_memory
+            return cls.B_FRACTION * total, cls.W_FRACTION * total
+        return 6.0e9, 1.5e9
+
+    @classmethod
+    def check_budget(cls, rows: int, width: int, dtype, mixed: bool,
+                     device) -> None:
+        """Raise MemoryError when B [rows, width] of ``dtype`` (with the f32
+        copy an f64 B keeps for the mixed-precision phase) exceeds the
+        device budget."""
+        size = torch.finfo(dtype).bits // 8
+        need = rows * width * (size + (4 if mixed and size == 8 else 0))
+        budget = cls.budgets(device)[0]
+        if need > budget:
+            what = "with its f32 copy " if mixed and size == 8 else ""
+            raise MemoryError(
+                f"packed B [{rows}, {width}] {str(dtype)[6:]} needs "
+                f"{need / 1e9:.1f} GB {what}over the {budget / 1e9:.1f} GB "
+                "device budget; the host-streamed mode is not ported "
+                "(ROADMAP.md A4)")
 
     def __init__(self, B: torch.Tensor, screen: PackedScreen, opts,
                  nocc: int):
         device = B.device
         self.nbf = nbf = screen.nbf
-        if device.type == "cuda":
-            total = torch.cuda.get_device_properties(device).total_memory
-            b_budget, w_budget = self.B_FRACTION * total, self.W_FRACTION * total
-        else:
-            b_budget, w_budget = 6.0e9, 1.5e9
+        w_budget = self.budgets(device)[1]
         self.mixed = bool(opts.mixed_precision)
-        need = B.numel() * (12 if self.mixed else 8)
-        if need > b_budget:
-            raise MemoryError(
-                f"packed B needs {need / 1e9:.1f} GB with its f32 copy, over "
-                f"the {b_budget / 1e9:.1f} GB device budget; the host-streamed "
-                "mode is not ported (ROADMAP.md A4)")
+        self.check_budget(*B.shape, B.dtype, self.mixed, device)
         self.screen = screen
         self.A = A = B.shape[0]
         self.B = B
-        self.B32 = B.float() if self.mixed else None
+        # an f32 B is its own f32 copy
+        self.B32 = (B if B.dtype == torch.float32
+                    else B.float() if self.mixed else None)
         self.supports_f32_phase = self.mixed
+        self.upcast_rows = max(1, int(self.UPCAST_BYTES / (8 * B.shape[1])))
 
         n_blocks = int(opts.df_exchange_n_blocks or 0)
-        if n_blocks > 0:
-            self.q_chunk = -(-A // n_blocks)
-        else:
-            # the largest Q-block whose W [Qc, nocc, nbf] fits the budget
-            # (the CPU's plain K2 also expands the [Qc, nbf, nbf] tile)
-            per_q = nbf * (max(nocc, 1) if device.type == "cuda" else nbf)
-            self.q_chunk = max(64, int(w_budget / (8 * per_q)))
-        self.q_chunk = min(self.q_chunk, A, 65535)
+        self._w_budget = w_budget
+        self._fixed_chunk = -(-A // n_blocks) if n_blocks > 0 else None
+        self.q_chunk = self.chunk_for(nocc)
         # upper block triangle of K = W^T W pays once that gemm dominates
         # (ScreenedDF.jl:459-641's K_block_width analog)
         self.k_blocks = 4 if nbf >= 1024 else 1
@@ -197,50 +383,87 @@ class ScreenedDFFockBuilder(FockBuilder):
     @classmethod
     def build(cls, primary, auxiliary, opts, device,
               timings: Timings | None = None) -> "ScreenedDFFockBuilder":
-        B, screen = build_B_packed(primary, auxiliary, opts, device, timings)
-        return cls(B, screen, opts, primary.nels // 2)
+        timings = timings or Timings()
+        B, screen = build_B_packed(
+            primary, auxiliary, opts, device, timings,
+            check_budget=lambda rows, width, dtype: cls.check_budget(
+                rows, width, dtype, bool(opts.mixed_precision), device))
+        builder = cls(B, screen, opts, primary.nels // 2)
+        nt = timings.non_timing_data
+        nt["B_shape"] = str(list(B.shape))
+        nt["B_bytes"] = str(B.numel() * B.element_size())
+        return builder
 
-    def q_blocks(self, src) -> list[torch.Tensor]:
-        """The Q-blocks of packed B (f64 or its f32 copy), as views."""
-        return [src[q:q + self.q_chunk] for q in range(0, self.A, self.q_chunk)]
+    def chunk_for(self, k: int) -> int:
+        """Rows of a Q-block: ``df_exchange_n_blocks`` when set, else the
+        most whose W [Qc, k, nbf] for a factor of k columns fits the W
+        budget (the CPU's plain K2 also expands the [Qc, nbf, nbf] tile);
+        the SAD iteration's signed factor has up to nbf columns, not nocc."""
+        if self._fixed_chunk is not None:
+            q = self._fixed_chunk
+        else:
+            per_q = self.nbf * (max(k, 1) if self.B.is_cuda else self.nbf)
+            q = max(64, int(self._w_budget / (8 * per_q)))
+        return min(q, self.A, 65535)
+
+    def q_blocks(self, src, k: int | None = None) -> list[torch.Tensor]:
+        """The Q-blocks of packed B (f64 or its f32 copy), as views, sized
+        for a factor of k columns (default: the occupied count)."""
+        qc = self.q_chunk if k is None else self.chunk_for(k)
+        return [src[q:q + qc] for q in range(0, self.A, qc)]
+
+    def coulomb_vectors(self, blocks, d) -> list[torch.Tensor]:
+        """V_Q = B_Q d per Q-block, in d's dtype (row slices of an f32 block
+        upcast one at a time for an f64 d)."""
+        return [torch.cat([sub @ d for sub in self._rows_as(blk, d.dtype)])
+                for blk in blocks]
+
+    def _rows_as(self, blk, dtype):
+        """The block itself in its own dtype, else its row slices converted
+        one at a time (the f64 iterations on an f32 B)."""
+        if blk.dtype == dtype:
+            yield blk
+            return
+        for r in range(0, blk.shape[0], self.upcast_rows):
+            yield blk[r:r + self.upcast_rows].to(dtype)
 
     def sweep(self, blocks, Vs, Cs, s):
         """One pass over the Q-blocks: K = sum_Q (W s)^T W of the density
         factored by (Cs, s) (W from K2; s None for orbitals; the upper
         block triangle, mirrored, when k_blocks > 1), and, when Vs (each
         block's V_Q = B_Q d) is given, the packed Coulomb vector
-        Jp = sum_Q V_Q B_Q.  Returns (K [nbf, nbf], Jp or None) in the
-        blocks' dtype."""
-        nbf, fdt, dev = self.nbf, blocks[0].dtype, blocks[0].device
+        Jp = sum_Q V_Q B_Q.  Cs sets the compute dtype (an f32 B's blocks
+        are read through f64 products in the f64 iterations).  Returns
+        (K [nbf, nbf], Jp or None) in Cs's dtype."""
+        nbf, fdt, dev = self.nbf, Cs.dtype, Cs.device
         nb = self.k_blocks
         kb = -(-nbf // nb)
+        cuts = [slice(i * kb, min((i + 1) * kb, nbf)) for i in range(nb)]
         Jp = None if Vs is None else torch.zeros(self.screen.npq + 1,
                                                  dtype=fdt, device=dev)
-        K = torch.zeros((nb * kb, nb * kb), dtype=fdt, device=dev)
+        K = torch.zeros((nbf, nbf), dtype=fdt, device=dev)
         for n, blk in enumerate(blocks):
             if Jp is not None:
-                Jp += Vs[n] @ blk
+                r = 0
+                for sub in self._rows_as(blk, fdt):
+                    Jp += Vs[n][r:r + sub.shape[0]] @ sub
+                    r += sub.shape[0]
             if Cs.shape[1] == 0:   # an empty spin channel
                 continue
             W = df_gather_w(blk, self._col_map, Cs)          # [qc, k, nbf]
             Wm = W.reshape(-1, nbf)
             Ws = Wm if s is None else (W * s[None, :, None]).reshape(-1, nbf)
-            if nb == 1:
-                K += Ws.T @ Wm
-                continue
-            pad = nb * kb - nbf
-            W2 = torch.nn.functional.pad(Wm, (0, pad)).reshape(-1, nb, kb)
-            Ws2 = torch.nn.functional.pad(Ws, (0, pad)).reshape(-1, nb, kb)
+            # the upper block triangle of column blocks (all of K when nb
+            # is 1), on strided column views of W: no padded copies
             for I in range(nb):
                 for J in range(I, nb):
-                    K[I * kb:(I + 1) * kb, J * kb:(J + 1) * kb] += \
-                        Ws2[:, I, :].T @ W2[:, J, :]
+                    K[cuts[I], cuts[J]] += Ws[:, cuts[I]].T @ Wm[:, cuts[J]]
         if nb > 1:
             # mirror the upper block triangle (diagonal blocks once)
-            idx = torch.arange(nb * kb, device=dev) // kb
+            idx = torch.arange(nbf, device=dev) // kb
             bd = idx[:, None] == idx[None, :]
             K = K + K.T - torch.where(bd, K, 0.0)
-        return K[:nbf, :nbf], Jp
+        return K, Jp
 
     def scatter_j(self, Jp) -> torch.Tensor:
         """The dense f64 J [nbf, nbf] of the packed Coulomb vector."""
@@ -261,9 +484,9 @@ class ScreenedDFFockBuilder(FockBuilder):
             Cs, s = Cs.to(fdt).contiguous(), s.to(fdt)
         else:
             Cs, s = C_occ.to(fdt).contiguous(), None
-        blocks = self.q_blocks(self.B32 if use_f32 else self.B)
+        blocks = self.q_blocks(self.B32 if use_f32 else self.B, Cs.shape[1])
         with timings.timed(JCTC.V_time, iteration):
-            Vs = [blk @ d for blk in blocks]
+            Vs = self.coulomb_vectors(blocks, d)
             _sync(dev)
         with timings.timed(JCTC.K_time, iteration):
             K, Jp = self.sweep(blocks, Vs, Cs, s)

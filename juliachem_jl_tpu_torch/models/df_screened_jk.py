@@ -25,11 +25,12 @@ class ScreenedDFJKBuilder(ScreenedDFFockBuilder):
     """ScreenedDFFockBuilder plus the spin-resolved two_electron_jk."""
 
     def _k_pass(self, d, Cs, s):
-        """One sweep over the packed f64 B blocks: (K of the density
+        """One f64 sweep over the packed B blocks (f64 products on an f32
+        B, as in the closed-shell f64 iterations): (K of the density
         factored by (Cs, s), the packed Coulomb vector of d, or None when d
         is None)."""
-        blocks = self.q_blocks(self.B)
-        Vs = None if d is None else [blk @ d for blk in blocks]
+        blocks = self.q_blocks(self.B, Cs.shape[1])
+        Vs = None if d is None else self.coulomb_vectors(blocks, d)
         return self.sweep(blocks, Vs, Cs, s)
 
     @staticmethod

@@ -4,14 +4,16 @@ Port of ``juliachem_jl_tpu/models/rhf.py``: density-fitted and conventional
 (direct-SCF) RHF, and the DF guess (DF iterations, then conventional).  Returns
 the same result dictionary shape as the JAX package (Fock, Density, W, MO
 Coeff, MO Energies, Overlap as tensors on the calculation's device; Energy,
-Converged?, Iterations, Timings).  The route taken is recorded in
-``Timings.non_timing_data["fock_builder"]``.
+Converged?, Stagnated, Deadline Hit, Iterations, Timings).  The route taken
+is recorded in ``Timings.non_timing_data["fock_builder"]``.
 """
 
 from __future__ import annotations
 
 import os
 import time
+
+import torch
 
 from .. import config
 from ..utils import constants as C
@@ -21,19 +23,15 @@ from . import scf as scf_mod
 
 # keywords of the JAX package this port does not run yet -> ROADMAP.md item
 _NOT_PORTED = {
-    "restart": "A4 (SCF checkpoints)",
-    "checkpoint": "A4 (SCF checkpoints)",
-    "df_b_cache": "A4 (B caches)",
-    "oei_cache": "A4 (one-electron caches)",
-    "fdiff": "A4 (incremental Fock)",
-    "fdiff_f32": "A4 (incremental Fock)",
-    "debug": "A4 (debug dumps)",
-    "wall_deadline": "A5 (bench deadline)",
-    "bench_fock_reps": "A5 (bench timing reps)",
+    "debug": "A4 (debug dumps: h5py)",
 }
+# keywords only the RHF loop runs (the JAX package's UHF/ROHF loops ignore
+# them; the port's raise instead)
+_RHF_ONLY = ("restart", "checkpoint", "oei_cache", "fdiff", "fdiff_f32",
+             "wall_deadline", "bench_fock_reps")
 
 
-def _check_ported(scf_flags: dict, opts) -> None:
+def _check_ported(scf_flags: dict, opts, open_shell: bool = False) -> None:
     for key, item in _NOT_PORTED.items():
         if scf_flags.get(key):
             raise NotImplementedError(
@@ -41,9 +39,10 @@ def _check_ported(scf_flags: dict, opts) -> None:
     if opts.num_devices > 1:
         raise NotImplementedError(
             "num_devices > 1 is not ported yet (ROADMAP.md A11)")
-    if str(opts.df_b_dtype) != "f64":
-        raise NotImplementedError(
-            "df_b_dtype 'f32' is not ported yet (ROADMAP.md B16)")
+    for key in _RHF_ONLY if open_shell else ():
+        if scf_flags.get(key):
+            raise NotImplementedError(
+                f"scf keyword {key!r} runs with RHF only")
 
 
 def _conventional_builder(basis, opts, device):
@@ -131,7 +130,14 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         print_scf_options(opts)
 
     e_nuc = mol.nuclear_repulsion()
-    state = scf_mod.initial_state(mol, primary, opts, timings, device, output)
+    fingerprint = scf_mod.system_fingerprint(mol, primary)
+    restart_path = scf_flags.get("restart")
+    if restart_path:
+        state = scf_mod.load_checkpoint(restart_path, device, fingerprint,
+                                        e_nuc)
+    else:
+        state = scf_mod.initial_state(mol, primary, opts, timings, device,
+                                      output)
     use_df = opts.scf_type == C.SCFType.density_fitting
     df_guess = opts.guess == C.Guess.density_fitting
     fock_builder = _make_fock_builder(basis_sets, opts, device,
@@ -155,8 +161,26 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         timings.non_timing_data["incore"] = str(fock_builder.incore)
     timings.non_timing_data["device"] = str(device)
 
-    converged = scf_mod.scf_loop(state, fock_builder, opts, timings, e_nuc,
-                                 output)
+    converged = scf_mod.scf_loop(
+        state, fock_builder, opts, timings, e_nuc, output,
+        checkpoint_path=scf_flags.get("checkpoint"),
+        checkpoint_every=int(scf_flags.get("checkpoint_every", 5)),
+        fingerprint=fingerprint)
+    # timing reps: full Fock builds at the final density after the SCF,
+    # results discarded, each marked "fock_rep" (the JAX package's
+    # bench_fock_reps, models/rhf.py:170-186)
+    reps = int(scf_flags.get("bench_fock_reps", 0))
+    if reps > 0 and state.C is not None:
+        C_occ = state.C[:, : state.nocc]
+        for r in range(reps):
+            if 0.0 < opts.wall_deadline < time.time():
+                break
+            it = state.iteration + 1 + r
+            with timings.timed(JCTC.fock_time, it):
+                fock_builder.two_electron_fock(state.D, it, timings, C_occ)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            timings.record("fock_rep", 1.0, it)
     fock_builder.finalize()
 
     E_total = state.energy_elec + e_nuc
@@ -195,6 +219,7 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         "E Nuc": e_nuc,
         "Converged?": converged,
         "Stagnated": state.stagnated,
+        "Deadline Hit": state.deadline_hit,
         "Iterations": state.iteration,
         "Timings": timings,
     }

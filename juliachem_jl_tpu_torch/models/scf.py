@@ -5,16 +5,23 @@ scf_cycles_kernel, src/rhf/energy/SCF.jl:69-592) with a pluggable Fock
 builder.  D, F and C stay on the calculation's device; Python scalars are
 taken only where the loop tests convergence or gates DIIS.  Same semantics
 as the JAX package: the mixed-precision f32 phase, DIIS gating, dynamic
-damping, the optional level shift and the energy-stagnation exit.
+damping, the optional level shift, the energy-stagnation exit, the
+incremental Fock (``fdiff``, with f32 increments under ``fdiff_f32``), the
+wall deadline and restartable checkpoints (``save_checkpoint`` /
+``load_checkpoint``, and the one-electron cache of ``initial_state``; the
+port writes its own files).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import sys
 import time
 from collections import deque
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops.oei import overlap_kinetic_nuclear
@@ -40,6 +47,7 @@ class SCFState:
     energy_elec: float = 0.0
     iteration: int = 0
     stagnated: bool = False  # converged via the energy-stagnation exit
+    deadline_hit: bool = False  # stopped early at opts.wall_deadline
 
 
 class FockBuilder:
@@ -77,11 +85,15 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
              timings: Timings, e_nuc: float, output: int = 0,
              max_iterations: int | None = None,
              energy_convergence: float | None = None,
-             density_convergence: float | None = None) -> bool:
+             density_convergence: float | None = None,
+             checkpoint_path: str | None = None,
+             checkpoint_every: int = 5, fingerprint: str = "") -> bool:
     """Iterate to convergence; returns True if converged.
 
     Convergence test: |dE| <= dele and rms(dD) <= rmsd (SCF.jl:549); the
     keyword arguments override the options' limits (the DF-guess warm-up).
+    With ``checkpoint_path`` the state is saved every ``checkpoint_every``
+    iterations and at the end.
     """
     dele = (opts.energy_convergence if energy_convergence is None
             else energy_convergence)
@@ -94,8 +106,18 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
     D_old = state.D.clone() if state.D is not None else None
     F_old = None
     last_dE = 1.0e9
+    G_cumul = None
+    D_fock_ref = None
     supports_f32 = fock_builder.supports_f32_phase
-    fp32_phase = bool(opts.mixed_precision and supports_f32)
+    fp32_phase = bool(opts.mixed_precision and supports_f32 and not opts.fdiff)
+    # f32 incremental Fock (opts.fdiff_f32): the increments F(dD) build in
+    # f32 (their error scales with ||F(dD)||, which vanishes with dD), with
+    # a full f64 resync every opts.fdiff_resync increments and a forced one
+    # before any convergence is declared
+    fdiff32 = bool(opts.fdiff_f32 and opts.fdiff and opts.mixed_precision
+                   and supports_f32)
+    inc_since_sync = 0
+    force_resync = False
     last_drms = 1.0e9
     converged = False
     # Energy-stagnation exit (juliachem_jl_tpu/models/scf.py:157-176): when
@@ -114,7 +136,18 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
     if output >= 2:
         print(f"{'iter':>4s} {'E total':>20s} {'dE':>12s} {'D rms':>12s} {'t (s)':>8s}")
 
+    t_last_iter = 0.0
     for it in range(1, niter + 1):
+        # a budgeted run stops BEFORE an iteration that, by the last one's
+        # wall, cannot finish by the deadline (absolute epoch seconds)
+        if (opts.wall_deadline > 0.0 and it > 1
+                and time.time() + 1.3 * t_last_iter > opts.wall_deadline):
+            state.deadline_hit = True
+            print(f"# scf: stopping before iter {it} — wall deadline "
+                  f"({opts.wall_deadline - time.time():.0f}s left < "
+                  f"1.3x last iter {t_last_iter:.1f}s)", file=sys.stderr,
+                  flush=True)
+            break
         t_it = time.perf_counter()
         state.iteration = it
 
@@ -130,9 +163,27 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
             # marker so consumers can split per-iteration Fock times by
             # precision phase instead of reporting a blended mean
             timings.record("fock_f32", 1.0, it)
+        resync = fdiff32 and (force_resync
+                              or inc_since_sync >= max(opts.fdiff_resync, 1))
         with timings.timed(JCTC.fock_time, it):
-            G = fock_builder.two_electron_fock(state.D, it, timings, C_occ,
-                                               precision=precision)
+            if opts.fdiff and G_cumul is not None and not resync:
+                # incremental Fock: build with dD, accumulate (SCF.jl:421-431)
+                if fdiff32:
+                    timings.record("fock_f32", 1.0, it)
+                    inc_since_sync += 1
+                G_cumul = G_cumul + fock_builder.two_electron_fock(
+                    state.D - D_fock_ref, it, timings, None,
+                    precision="f32" if fdiff32 else "f64")
+                D_fock_ref = state.D.clone()
+                G = G_cumul
+            else:
+                G = fock_builder.two_electron_fock(state.D, it, timings,
+                                                   C_occ, precision=precision)
+                if opts.fdiff:
+                    G_cumul = G
+                    D_fock_ref = state.D.clone()
+                inc_since_sync = 0
+                force_resync = False
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         F = state.H + G
@@ -181,6 +232,7 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
         E_old, D_old = E_elec, D
 
         t_el = time.perf_counter() - t_it
+        t_last_iter = t_el
         timings.record(JCTC.iteration_time, t_el, it)
         # memory telemetry each iteration (DensityFitting.jl:226-228 analog)
         state_b = sum(int(a.numel() * a.element_size())
@@ -194,16 +246,23 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
             print(f"{it:4d} {E_elec + e_nuc:20.10f} {dE:12.3e} {d_rms:12.3e} "
                   f"{t_el:8.2f}")
 
+        if checkpoint_path and it % checkpoint_every == 0:
+            save_checkpoint(state, checkpoint_path, e_nuc, fingerprint)
+
         if abs(dE) <= dele and d_rms <= rmsd:
             if fp32_phase:
                 # never declare convergence off an f32 Fock: drop to f64 and
                 # keep iterating
                 fp32_phase = False
+            elif fdiff32 and inc_since_sync > 0:
+                # this Fock holds f32 increments: rebuild it in full f64
+                # next iteration and accept the test only on that one
+                force_resync = True
             else:
                 converged = True
                 break
 
-        if fp32_phase:
+        if fp32_phase or (fdiff32 and inc_since_sync > 0):
             e_window.clear()
             stall_count = 0
         else:
@@ -224,7 +283,60 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
             else:
                 stall_count = 0
         best_drms = min(best_drms, d_rms)
+    if checkpoint_path:
+        save_checkpoint(state, checkpoint_path, e_nuc, fingerprint)
     return converged
+
+
+def system_fingerprint(mol, basis) -> str:
+    """Hash of geometry and basis identity for checkpoint and one-electron
+    cache consistency checks (the JAX package's, models/scf.py:372-381)."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(mol.coords, dtype=np.float64).tobytes())
+    h.update(np.ascontiguousarray(mol.z, dtype=np.int64).tobytes())
+    h.update(f"{basis.name}|{basis.nbf}|{basis.nels}".encode())
+    return h.hexdigest()
+
+
+_STATE_TENSORS = ("H", "S", "X", "F", "D", "C", "eps")
+
+
+def save_checkpoint(state: SCFState, path: str, e_nuc: float,
+                    fingerprint: str = "") -> None:
+    """Persist restartable SCF state (numpy .npz; a capability the
+    reference lacks — its 'Restart data is being output' banner writes
+    nothing, SCF.jl:205-207)."""
+    arrays = {k: getattr(state, k).cpu().numpy() for k in _STATE_TENSORS
+              if getattr(state, k) is not None}
+    np.savez_compressed(path, **arrays, nocc=state.nocc,
+                        energy_elec=state.energy_elec,
+                        iteration=state.iteration, e_nuc=e_nuc,
+                        fingerprint=np.bytes_(fingerprint.encode()))
+
+
+def load_checkpoint(path: str, device, expect_fingerprint: str | None = None,
+                    expect_e_nuc: float | None = None) -> SCFState:
+    """The state ``save_checkpoint`` wrote, on ``device``; refuses (ValueError)
+    a checkpoint of another molecule or basis, or of another geometry."""
+    z = np.load(path)
+    if expect_fingerprint is not None and "fingerprint" in z:
+        stored = bytes(z["fingerprint"]).decode()
+        if stored and stored != expect_fingerprint:
+            raise ValueError(
+                f"checkpoint {path!r} was written for a different "
+                f"molecule/basis (fingerprint mismatch); refusing to restart"
+            )
+    if expect_e_nuc is not None:
+        if abs(float(z["e_nuc"]) - expect_e_nuc) > 1e-8:
+            raise ValueError(
+                f"checkpoint {path!r} nuclear repulsion "
+                f"{float(z['e_nuc'])!r} != current {expect_e_nuc!r}; "
+                f"geometry changed — refusing to restart"
+            )
+    t = {k: torch.as_tensor(z[k], device=device) if k in z else None
+         for k in _STATE_TENSORS}
+    return SCFState(nocc=int(z["nocc"]), energy_elec=float(z["energy_elec"]),
+                    iteration=int(z["iteration"]), **t)
 
 
 def energy_weighted_density(state: SCFState) -> torch.Tensor:
@@ -235,9 +347,32 @@ def energy_weighted_density(state: SCFState) -> torch.Tensor:
 
 def initial_state(mol, basis, opts: SCFOptions, timings: Timings, device,
                   output: int = 0) -> SCFState:
-    """Hamiltonian core pieces + orthogonalizer + guess density."""
+    """Hamiltonian core pieces + orthogonalizer + guess density.  With
+    ``opts.oei_cache`` (a path prefix) S, T and V are loaded from, or saved
+    to, ``<prefix>_torch_oei.npz``, guarded by ``system_fingerprint``."""
     with timings.timed(JCTC.H_time):
-        S, T, V = overlap_kinetic_nuclear(basis, mol, device)
+        S = None
+        path = opts.oei_cache + "_torch_oei.npz" if opts.oei_cache else ""
+        fp = system_fingerprint(mol, basis) if path else ""
+        if path:
+            try:
+                z = np.load(path)
+                if str(z["fingerprint"]) == fp \
+                        and z["S"].shape == (basis.nbf, basis.nbf):
+                    S, T, V = (torch.as_tensor(z[k], device=device)
+                               for k in ("S", "T", "V"))
+                    print(f"# initial_state: loaded cached S/T/V from {path}",
+                          file=sys.stderr, flush=True)
+            except (OSError, KeyError, ValueError):
+                S = None
+        if S is None:
+            S, T, V = overlap_kinetic_nuclear(basis, mol, device)
+            if path:
+                try:
+                    np.savez(path, S=S.cpu().numpy(), T=T.cpu().numpy(),
+                             V=V.cpu().numpy(), fingerprint=fp)
+                except OSError:
+                    pass
     H = T + V
     X = linalg.orthogonalizer(S)
     nocc = basis.nels // 2

@@ -70,7 +70,7 @@ def setup(mol, basis_sets, scf_flags, device):
         "multiplicity", getattr(mol, "multiplicity", 1)))
     guess_mix = float(scf_flags.pop("guess_mix", 0.0))
     opts = create_scf_options(scf_flags)
-    _check_ported(scf_flags, opts)
+    _check_ported(scf_flags, opts, open_shell=True)
     if getattr(basis_sets, "spherical", False):
         raise NotImplementedError(
             "the spherical-harmonic AO basis is not ported yet (ROADMAP.md A4)")

@@ -11,7 +11,9 @@ output it launches the kernel, which writes straight into the device-resident
 B; on a CPU output it runs ``eri3c_class_plain``, the torch form of the JAX
 package's host path (``_three_center_host``).  Every (aux row, column) target
 is written by exactly one (pair, aux function), so both plain stores (kernel)
-and accumulation into a zeroed B (plain) are exact.
+and accumulation into a zeroed B (plain) are exact.  An f32 ``out`` (the
+``df_b_dtype: "f32"`` build) gets each f64 value rounded once at the store,
+as the JAX package casts each f64 block (``ops/eri3c.py:185-186,269``).
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ def eri3c_class_plain(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
         M = R[..., comb] * sign[None, None, None, None, :]
         T1 = torch.einsum("pkqrhg,qrcg->pkhqc", M, Ecd)
         blk = torch.einsum("pkah,pkhqc->paqc", Eab[s:e], T1)   # [Pc,nab,Nq,ncq]
+        blk = blk.to(out.dtype)
         r4 = rows[None, None, :, :].expand(blk.shape)
         out.index_put_((r4, cols[s:e, :, None, None].expand(blk.shape)),
                        blk, accumulate=True)
@@ -102,7 +105,8 @@ def eri3c_class(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
     """Kernel K1: (Q | ab) for one (la, lb | lq) class, written into
     ``out[qrow[q] + c, cols[p, ab]]`` (and ``cols_t`` where ``mirror[p]``).
 
-    out: [A, width] f64; pair: [n, 2Ka+2Kb+6] (``pack_pairs``); aux:
+    out: [A, width] f64, or f32 (computed in f64, rounded at the store;
+    counted as ``eri3c_f32``); pair: [n, 2Ka+2Kb+6] (``pack_pairs``); aux:
     [nq, 2Kq+3] (``pack_aux``); qrow: [nq] int64; cols/cols_t: [n, nab]
     int64; mirror: [n] uint8.  All on one device, contiguous."""
     n, nq = pair.shape[0], aux.shape[0]
@@ -122,7 +126,9 @@ def eri3c_class(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
     if (la, lb, lq) not in KERNEL_CLASSES:
         raise NotImplementedError(
             f"K1 is not instantiated for class ({la},{lb}|{lq})")
-    for t, dt in ((out, torch.float64), (pair, torch.float64),
+    if out.dtype not in (torch.float64, torch.float32):
+        raise ValueError("eri3c_class: out must be f64 or f32")
+    for t, dt in ((out, out.dtype), (pair, torch.float64),
                   (aux, torch.float64), (qrow, torch.int64),
                   (cols, torch.int64), (cols_t, torch.int64),
                   (mirror, torch.uint8)):
@@ -130,7 +136,8 @@ def eri3c_class(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
             raise ValueError("eri3c_class: expected contiguous "
                              f"{dt} on {out.device}, got {t.dtype} on "
                              f"{t.device}")
-    kernels.launch("jc_eri3c", la, lb, lq, pair.data_ptr(), n, Ka, Kb,
+    kernels.launch("jc_eri3c" if out.dtype == torch.float64
+                   else "jc_eri3c_f32", la, lb, lq, pair.data_ptr(), n, Ka, Kb,
                    aux.data_ptr(), qrow.data_ptr(), nq, (aux.shape[1] - 3) // 2,
                    cols.data_ptr(), cols_t.data_ptr(), mirror.data_ptr(),
                    out.data_ptr(), out.stride(0))
@@ -211,8 +218,11 @@ def three_center_tensor(
     pair_blocks: list[PairBlock] | None = None,
     col_map: np.ndarray | None = None,
     packed_width: int | None = None,
+    out_dtype: torch.dtype = torch.float64,
 ) -> torch.Tensor:
-    """(Q | mu nu) integrals, accumulated on ``device``.
+    """(Q | mu nu) integrals, accumulated on ``device`` in ``out_dtype``
+    (f64, or f32: computed in f64 and rounded at the store, so an f32 B is
+    never allocated in f64).
 
     pair_blocks may be pre-screened unique pair blocks; default is all
     unique pairs.  Both (mu,nu) and (nu,mu) entries are filled.
@@ -231,7 +241,7 @@ def three_center_tensor(
         width = packed_width if packed_width is not None else int(col_map.max()) + 1
     else:
         width = nbf * nbf
-    out = torch.zeros((A, width), dtype=torch.float64, device=device)
+    out = torch.zeros((A, width), dtype=out_dtype, device=device)
 
     def col_of(ia, ib):
         flat = ia * nbf + ib

@@ -40,6 +40,12 @@ _FUNCS = {
                                            _I, _P]),
     "jc_df_gather_w_f32": ("df_gather_w", [_P, _LL, _LL, _P, _P, _I, _I,
                                            _I, _P]),
+    "jc_df_gather_w_f32b": ("df_gather_w_f32b", [_P, _LL, _LL, _P, _P, _I,
+                                                 _I, _I, _P]),
+    "jc_eri3c_f32": ("eri3c_f32", [_I, _I, _I, _P, _LL, _I, _I, _P, _P, _I,
+                                   _I, _P, _P, _P, _P, _LL]),
+    "jc_split_fold": ("split_fold", [_P, _P, _LL, _P, _LL, _P, _LL, _I, _I,
+                                     _I, _I]),
     "jc_boys_probe": ("boys_probe", [_P, _LL, _I, _P]),
     "jc_eri4c": ("eri4c", [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P,
                            _P, _P, _LL, _P]),
@@ -52,9 +58,10 @@ _FUNCS = {
                               _LL, _P]),
 }
 
-launches = {"eri3c": 0, "df_gather_w": 0, "boys_probe": 0, "eri4c": 0,
+launches = {"eri3c": 0, "eri3c_f32": 0, "df_gather_w": 0,
+            "df_gather_w_f32b": 0, "boys_probe": 0, "eri4c": 0,
             "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0,
-            "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0}
+            "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0, "split_fold": 0}
 
 _lock = threading.Lock()
 _lib = None

@@ -45,10 +45,9 @@ class SCFOptions:
     # unshifted fixed point.  Extension beyond the reference (which has no
     # level shifting and simply fails such cases).
     level_shift: float = 0.0
-    # keywords of the JAX package's large-system and relay tooling; the
-    # port parses them so inputs stay portable, and models/rhf.py raises
-    # NotImplementedError (with the ROADMAP.md item) when one is set:
-    # df_b_cache / oei_cache (disk caches), df_b_dtype "f32" (f32 B)
+    # the large-system chain: disk-cache path prefixes for the folded B (and
+    # its raw 3-center checkpoint) and for S/T/V; "f32" stores the packed B
+    # in f32 (models/df_screened.py)
     df_b_cache: str = ""
     oei_cache: str = ""
     df_b_dtype: str = "f64"
@@ -72,8 +71,8 @@ class SCFOptions:
     # record per-phase (J/K) fock timings on the sharded DF path
     # (JCTiming per-iteration J/K keys analog; costs a second pass over B)
     profile_fock: bool = False
-    # absolute epoch deadline of the JAX package's SCF loop (bench.py); the
-    # port raises NotImplementedError when it is set (ROADMAP.md A5)
+    # absolute epoch deadline: the SCF loop stops before an iteration that
+    # would end past it (models/scf.py); 0 for none
     wall_deadline: float = 0.0
 
     def to_dict(self):

@@ -11,9 +11,12 @@ Bounds: K1 and K4 1e-12 x the output's max-abs, K2 1e-12 relative in f64
 and 1e-5 in f32, K3 1e-14 relative; K5 (list and staircase modes) and K6:
 J and K within 1e-11 x max(|J|, |K|) of the plain versions (f64 atomics sum
 in no fixed order); K7 (the MP2 pair energy, modes rmp2, ss, os) within
-1e-12 x max(1, |E|) of its plain version; the DF-RHF, conventional RHF and
-UHF/ROHF energies on the card within 1e-9 Eh of the same runs on the CPU,
-RI-UMP2 on the card's orbitals within 1e-10 Eh.
+1e-12 x max(1, |E|) of its plain version; K8 (the split fold) within
+4 sqrt(K) 2^-24 (|Mh| + |Ml|) |X| of its plain version and of the f64
+product; K1's f32 store and K2's f32-B instance bit for bit equal to the f64
+output rounded and to the f64 instance on the upcast block; the DF-RHF,
+conventional RHF and UHF/ROHF energies on the card within 1e-9 Eh of the
+same runs on the CPU, RI-UMP2 on the card's orbitals within 1e-10 Eh.
 """
 
 import numpy as np
@@ -339,3 +342,62 @@ def test_open_shell_on_card_matches_cpu(cuda_device, method, scf_type, kernel):
            for k, v in e_card.items()}
     m_cpu = mp2.ri_ump2_energy(cpu, out["Basis"])
     assert abs(m_card["E2"] - m_cpu["E2"]) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K,C", [(200, 200, 300), (333, 333, 1000),
+                                   (64, 64, 64)])
+def test_k8_split_fold_matches_plain(cuda_device, R, K, C):
+    """K8 within 4 sqrt(K) 2^-24 (|Mh| + |Ml|) |X| of its plain version and
+    of the f64 product, elementwise; X a strided column chunk of B."""
+    from juliachem_jl_tpu_torch.models import linalg
+
+    rng = np.random.default_rng(R + C)
+    M = np.tril(rng.standard_normal((R, K))) * np.logspace(0, 3, K)[None, :]
+    Bfull = rng.standard_normal((K, C + 17)).astype(np.float32)
+    Mh = torch.tensor(M, device=cuda_device).float()
+    Ml = (torch.tensor(M, device=cuda_device) - Mh.double()).float()
+    X = torch.tensor(Bfull, device=cuda_device)[:, 5:5 + C]
+    n0 = kernels.launches["split_fold"]
+    got = linalg.split_fold(Mh, Ml, X)
+    assert kernels.launches["split_fold"] == n0 + 1
+    ref = linalg.split_fold_plain(Mh, Ml, X)
+    bound = 4 * K**0.5 * 2.0**-24 * ((Mh.abs() + Ml.abs()).double()
+                                     @ X.abs().double())
+    assert bool(((got - ref).double().abs() <= bound).all())
+    exact = (Mh.double() + Ml.double()) @ X.double()
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    # a lower-triangular M: the slabs K8 skips add only zeros
+    got_lower = linalg.split_fold(Mh, Ml, X, lower=True)
+    assert kernels.launches["split_fold"] == n0 + 2
+    assert torch.equal(got_lower, got)
+
+
+@pytest.mark.cuda
+def test_k1_f32_store_is_the_f64_output_rounded(cuda_device):
+    """K1's f32 instances round the f64 result once: bit for bit."""
+    prim, aux = _water()
+    n0 = kernels.launches["eri3c_f32"]
+    got = eri3c.three_center_tensor(prim, aux, cuda_device,
+                                    out_dtype=torch.float32)
+    assert kernels.launches["eri3c_f32"] > n0
+    ref = eri3c.three_center_tensor(prim, aux, cuda_device)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.float())
+
+
+@pytest.mark.cuda
+def test_k2_f32b_equals_f64_on_the_upcast_block(cuda_device):
+    rng = np.random.default_rng(9)
+    nbf, npq, qc, k = 137, 4000, 300, 21
+    col_map = torch.tensor(rng.integers(0, npq + 1, nbf * nbf).astype(np.int32),
+                           device=cuda_device)
+    Bc = torch.tensor(rng.normal(size=(qc, npq + 1)),
+                      device=cuda_device).float()
+    Bc[:, -1] = 0.0
+    C = torch.tensor(rng.normal(size=(nbf, k)), device=cuda_device)
+    n0 = kernels.launches["df_gather_w_f32b"]
+    got = df_screened.df_gather_w(Bc, col_map, C)
+    assert kernels.launches["df_gather_w_f32b"] == n0 + 1
+    assert got.dtype == torch.float64
+    assert torch.equal(got, df_screened.df_gather_w(Bc.double(), col_map, C))

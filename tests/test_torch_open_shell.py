@@ -10,8 +10,8 @@ CPU) vs the JAX package.
   flags on both sides: within 1e-8 Eh, S^2 within 1e-8;
 - ``guess_mix`` (broken-symmetry stretched H2), the H atom (an empty beta
   channel), the impossible multiplicity, the run_spec route with the Mulliken
-  spin populations, and what stays out of the slice (num_devices > 1,
-  ``df_b_dtype: f32``, a spherical AO basis).
+  spin populations, and what stays out of the slice (num_devices > 1, the
+  RHF-only keywords, a spherical AO basis); DF-UHF on an f32 B runs.
 """
 
 import warnings
@@ -255,12 +255,26 @@ def test_mo_energies_of_a_uhf_result_as_jax():
 OUT_OF_SLICE = {
     "uhf-multi-device": ("UHF", {"scf_type": "df", "num_devices": 2}),
     "rohf-multi-device": ("ROHF", {"scf_type": "rhf", "num_devices": 2}),
-    "uhf-f32-B": ("UHF", {"scf_type": "df", "df_b_dtype": "f32"}),
+    # keywords the JAX package's open-shell loops ignore: the port raises
+    "uhf-fdiff": ("UHF", {"scf_type": "df", "fdiff": True}),
+    "rohf-checkpoint": ("ROHF", {"scf_type": "rhf",
+                                 "checkpoint": "ckpt.npz"}),
 }
 
 
-@pytest.mark.parametrize("case", list(OUT_OF_SLICE))
+@pytest.mark.parametrize("case", list(OUT_OF_SLICE) + ["uhf-f32-B"])
 def test_open_shell_out_of_slice_raises(case):
+    """What the open-shell port does not run raises; DF-UHF on an f32 B
+    (out of slice before the large-system chain) runs now, on the packed
+    builder (held to the JAX package in tests/test_torch_f32b.py)."""
+    if case == "uhf-f32-B":
+        out = tc.run_spec(tc.io.parse_input(_spec("UHF", {
+            "scf_type": "df", "df_b_dtype": "f32",
+            "contraction_mode": "screened"})), device=CPU)["Energy"]
+        assert out["Converged?"]
+        assert out["Timings"].non_timing_data["fock_builder"] == \
+            "ScreenedDFJKBuilder"
+        return
     method, scf = OUT_OF_SLICE[case]
     with pytest.raises(NotImplementedError):
         tc.run_spec(tc.io.parse_input(_spec(method, scf)), device=CPU)

@@ -55,7 +55,21 @@ card's name and power limit):
    and the checkpoint (no 3-center build, the same B, at most 2
    iterations, within 1e-9 Eh), in a temporary directory removed after;
    the split fold (K8) on the f32 B, recorded beside the f64 fold, not
-   gated: at this size it lies outside the DF gate.
+   gated: at this size it lies outside the DF gate;
+9. the sharded programs (``num_devices``), as process groups of ranks
+   that share the card through gloo (``parallel.launch.spawn``), at 2 and
+   4 ranks: (a) ``benzene_2_water`` DF-RHF, (b) its cation DF-UHF, (c)
+   RI-MP2 on (a)'s orbitals, (d) ``ammonia_trimer`` conventional through
+   the quartet-sharded direct builder, (e) one sharded staircase build of
+   ``benzene_2_water`` at its converged D, (g) the packed builds at that D
+   timed (f64, f32 phase, per-phase form, spin-resolved JK), (h) the dense
+   q x k step of ``ammonia_trimer``, and at 2 ranks (f) w32 on an f64 B
+   (each rank's B at most 0.55 of the whole); every energy, G and E2 held
+   to the single-device run of this card, the launches per rank printed;
+   then NCCL at world 1 (the sharded DF and staircase builders built
+   directly, held to one device's G) and NCCL across cards where more
+   than one is visible.  K5's start offset t0 and K7's occupied range are
+   held to their whole-range launches and plain versions in phase 3.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Energies are held to the JAX package's recorded DF, f32-B and MP2
@@ -92,6 +106,13 @@ E_GAMESS_TOL = 1.5e-3  # DF vs conventional GAMESS
 E_GAMESS_REL = 1.49e-8  # conventional vs GAMESS (tests/test_s22x3.py:61)
 E2_PLAIN_TOL = 1e-9    # K7 vs its plain version on the card (Eh)
 E_DF_UHF_TOL = 1.5e-3  # DF-UHF vs conventional UHF (tests/test_uhf.py:95)
+# the cation's DF-UHF held to one device (phase 9): its energy drifts along
+# a flat direction by ~1e-8 Eh an iteration near dele 1e-9 (ROADMAP.md C9:
+# 121-133 iterations), so two runs that round differently stop up to
+# 1.4e-7 Eh apart at the smoke's convergence (4 gloo ranks against one
+# device, on an H100); converged to dele 1e-11 the drift left is ~1e-10 Eh
+CATION_TIGHT = {**SCF, "mixed_precision": False, "niter": 300,
+                "dele": 1e-11, "rmsd": 1e-9}
 HARTREE_EV = 27.211386245988
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -779,6 +800,41 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
                 JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)),
             sum(table_bytes(x) + 8.0 * x["cum"].numel() for x in cases)
             + jk_bytes, ops_eri + ops_dig)
+    # K5 staircase over two t0 ranges of each class pair (what each rank of
+    # the sharded staircase build launches), against the plain version over
+    # the same ranges and the whole-range reference
+    from juliachem_jl_tpu_torch.ops.fock_sharded import share
+
+    def stair_t0(fn):
+        def run(JK):
+            for x in cases:
+                for k in range(2):
+                    s = share(x["m"], 2, k)
+                    if s.stop > s.start:
+                        fn(JK, x["bra"], x["ket"], x["cum"], s.stop - s.start,
+                           x["same"], D, t0=s.start)
+        return run
+
+    n0 = kernels.launches["eri4c_jk_stair"]
+    JK = zeros()
+    stair_t0(fock_stream.eri4c_jk_staircase)(JK)
+    n_ranges = sum(1 for x in cases for k in range(2)
+                   if share(x["m"], 2, k).stop > share(x["m"], 2, k).start)
+    check(kernels.launches["eri4c_jk_stair"] - n0 == n_ranges,
+          "K5 t0 split did not launch the kernel for every range")
+    JK_plain = zeros()
+    stair_t0(fock_stream.eri4c_jk_staircase_plain)(JK_plain)
+    err = max(float((JK - JK_ref).abs().max()),
+              float((JK - JK_plain).abs().max()))
+    check(err <= 1e-11 * scale, f"K5 t0 split {name}: max abs err {err:.3e} "
+          f"> 1e-11 x {scale:.3e}")
+    out["eri4c_jk_stair_t0"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: stair_t0(
+            fock_stream.eri4c_jk_staircase)(zeros()), reps=2),
+        plain_ms=cuda_ms(lambda: stair_t0(
+            fock_stream.eri4c_jk_staircase_plain)(zeros()), reps=2),
+        **bound_of(sum(table_bytes(x) + 8.0 * x["cum"].numel() for x in cases)
+                   + jk_bytes, ops_eri + ops_dig))
     for label, v in out.items():
         print(f"{tag} {label} {name}: {len(cases)} class pairs, {nq} quartets, "
               f"{n_prim:.4e} primitive quartets ({n_series:.4e} on the Boys "
@@ -895,6 +951,41 @@ def check_k7(tag: str, dev, bsets, rhf) -> dict:
               f"{E2_PLAIN_TOL}); kernel {ms:.3f} ms, plain torch {plain_ms:.3f} "
               f"ms, library (ia|jb) product alone {library_ms:.3f} ms, bound "
               f"{b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
+        if mode == "rmp2":
+            # K7 over the two occupied ranges the ranks of a 2-rank sharded
+            # RI-MP2 sum (make_sharded_e2's i-blocks), held to the
+            # whole-range launch and to the plain version over the ranges
+            ranges = mp2.occupied_ranges(nox, 2)
+            n0 = kernels.launches[name]
+            split = np.sum([kern(Bx, x[1], x[2], r) for r in ranges], axis=0)
+            check(kernels.launches[name] == n0 + len(ranges),
+                  "K7 range split did not launch the kernel per range")
+            split_plain = np.sum([plain(Bx, x[1], x[2], r) for r in ranges],
+                                 axis=0)
+            err_r = float(max(np.abs(split - np.array((got, got_os))).max(),
+                              np.abs(split - split_plain).max()))
+            check(float(np.abs(split - np.array((got, got_os))).max()) <= 1e-14,
+                  "K7 range split: the ranges do not sum to the whole launch")
+            check(float(np.abs(split - split_plain).max()) <= E2_PLAIN_TOL,
+                  "K7 range split: off the plain version")
+            out["e2_rmp2_range"] = {
+                "name": "e2_rmp2_range", "route": "cuda",
+                "source": "juliachem_jl_tpu_torch/csrc/mp2_e2.cu",
+                "replaces": "juliachem_jl_tpu/models/mp2.py:66",
+                "shapes": [A, nox, nvx, noy, nvy], "ranges": ranges,
+                "max_abs_err": err_r,
+                "ms": cuda_ms(lambda: [kern(Bx, x[1], x[2], r)
+                                       for r in ranges]),
+                "plain_ms": cuda_ms(lambda: [plain(Bx, x[1], x[2], r)
+                                             for r in ranges]),
+                "library_ms": library_ms,
+                "library": "torch.matmul of the [no*nv, A] x [A, no*nv] "
+                           "views: the (ia|jb) product alone", **b}
+            print(f"{tag} K7 e2_rmp2 over the occupied ranges {ranges}: sum "
+                  f"- whole launch {split - np.array((got, got_os))}, - plain "
+                  f"{split - split_plain}; kernel "
+                  f"{out['e2_rmp2_range']['ms']:.3f} ms, plain torch "
+                  f"{out['e2_rmp2_range']['plain_ms']:.3f} ms", flush=True)
         out[name] = {"name": name, "route": "cuda",
                      "source": "juliachem_jl_tpu_torch/csrc/mp2_e2.cu",
                      "replaces": rep, "shapes": [A, nox, nvx, noy, nvy],
@@ -1340,6 +1431,433 @@ def builds_at(tag: str, dev, prim, D, Da, Db) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 9
+
+def packed_build_times(fb, D) -> dict:
+    """Wall ms of one packed DF build at D on fb's device, each the mean of
+    3 after a warm-up, synchronised: G = J - K/2 in f64 and in the f32
+    phase, the per-phase (profile_fock) form where fb has it, and the
+    spin-resolved (J, Ka, Kb) at Da = Db = D/2, whose J - Ka must be G;
+    and G itself."""
+    import torch
+
+    from juliachem_jl_tpu_torch.utils.timings import Timings
+
+    cuda = D.is_cuda
+
+    def timed(fn, reps: int = 3) -> float:
+        fn()
+        if cuda:
+            torch.cuda.synchronize(D.device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        if cuda:
+            torch.cuda.synchronize(D.device)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    G = fb.two_electron_fock(D, 1, Timings())
+    out = {"f64_ms": timed(lambda: fb.two_electron_fock(D, 1, Timings()))}
+    if fb.supports_f32_phase:
+        out["f32_ms"] = timed(lambda: fb.two_electron_fock(
+            D, 1, Timings(), precision="f32"))
+    if hasattr(fb, "profile"):
+        fb.profile = True
+        out["phases_ms"] = timed(lambda: fb.two_electron_fock(D, 1, Timings()))
+        out["phases_err"] = float((fb.two_electron_fock(D, 1, Timings())
+                                   - G).abs().max())
+        fb.profile = False
+    Dh = (0.5 * D).contiguous()
+    out["jk_ms"] = timed(lambda: fb.two_electron_jk(Dh, Dh, 1, Timings()))
+    J, Ka, _ = fb.two_electron_jk(Dh, Dh, 1, Timings())
+    out["jk_err"] = float((J - Ka - G).abs().max())
+    out["G"] = G.cpu().numpy()
+    return out
+
+
+def sharded_rank(payload: dict) -> dict:
+    """One rank of a sharded group on the card (``parallel.launch.spawn``
+    imports this module by name): each phase of ``payload`` with the launch
+    counts set to 0 just before it and read just after, its wall time and
+    this rank's peak device memory.  (a) benzene_2_water DF-RHF, (b) its
+    cation DF-UHF, (c) RI-MP2 on (a)'s orbitals, (d) ammonia_trimer
+    conventional (quartet-sharded direct), (e) one sharded staircase build
+    of benzene_2_water at the given converged D, (f) w32 on an f64 B;
+    every run with num_devices = the group's size."""
+    import torch
+    import torch.distributed as dist
+
+    import juliachem_jl_tpu_torch as jc
+    from juliachem_jl_tpu_torch.models import df, mp2
+    from juliachem_jl_tpu_torch.models.df_sharded_jk import ShardedDFJKBuilder
+    from juliachem_jl_tpu_torch.ops import kernels
+    from juliachem_jl_tpu_torch.ops.fock_stream import ShardedStreamingFock
+    from juliachem_jl_tpu_torch.parallel import mesh as mesh_mod
+    from juliachem_jl_tpu_torch.parallel import shard
+    from juliachem_jl_tpu_torch.utils.options import create_scf_options
+    from juliachem_jl_tpu_torch.utils.timings import JCTC
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    dev = jc.config.resolve_device()   # the launcher set this rank's device
+    cuda = dev.type == "cuda"
+    out = {"rank": rank, "world": n, "device": str(dev)}
+    keep = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def phase(label, fn):
+        kernels.reset_launches()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        res.update(wall_s=time.perf_counter() - t0,
+                   launches={k: v for k, v in kernels.launches.items() if v},
+                   peak_device_bytes=(torch.cuda.max_memory_allocated(dev)
+                                      if cuda else 0))
+        out[label] = res
+
+    def scf(inp, label):
+        r = jc.run_spec(jc.io.parse_input(inp))
+        e = r["Energy"]
+        keep[label] = r
+        tm = e["Timings"]
+        nt = tm.non_timing_data
+        return {"energy": float(e["Energy"]),
+                "converged": bool(e["Converged?"]),
+                "iterations": int(e["Iterations"]),
+                "route": nt["fock_builder"], "num_devices": nt.get("num_devices"),
+                "B_bytes_rank": int(nt.get(f"device_B_bytes-DEVICE-{rank}", 0)),
+                "B_shape": nt.get("B_shape"),
+                "fock_s_per_iter": steady_mean([
+                    tm.timings[f"{JCTC.fock_time}-{i}"]
+                    for i in range(2, int(e["Iterations"]) + 1)]),
+                "setup_s": {k: tm.timings.get(key) for k, key in (
+                    ("three_center", JCTC.three_center_time),
+                    ("B", JCTC.B_time))}}
+
+    for label, inp in payload["scf"].items():
+        phase(label, lambda: scf(inp, label))
+    if "mp2" in payload:
+        r = keep[payload["mp2"]]
+
+        def run_mp2_sharded():
+            m = mp2.ri_mp2_energy(r["Energy"], r["Basis"],
+                                  opts=create_scf_options({"num_devices": n}))
+            return {"E2": m["E2"], "keys": sorted(m)}
+
+        phase("c RI-MP2", run_mp2_sharded)
+    if "stream_D" in payload:
+        spec = jc.io.parse_input(payload["stream_system"])
+        prim = jc.basis.run(jc.molecule.run(spec), spec.model).primary
+
+        def stream():
+            sf = ShardedStreamingFock(prim, n_devices=n)
+            D = torch.as_tensor(payload["stream_D"], device=dev)
+            sync()
+            t0 = time.perf_counter()
+            G = sf.two_electron_fock(D, 1, None)
+            sync()
+            return {"G": G.cpu().numpy(), "build_s": time.perf_counter() - t0,
+                    "quartets": sf.n_quartets}
+
+        phase("e streaming build", stream)
+    if "packed_system" in payload:
+        spec = jc.io.parse_input(payload["packed_system"])
+        bs = jc.basis.run(jc.molecule.run(spec), spec.model)
+
+        def packed():
+            fb = ShardedDFJKBuilder(bs.primary, bs.auxiliary, create_scf_options(
+                {"scf_type": "df", "num_devices": n}))
+            res = packed_build_times(
+                fb, torch.as_tensor(payload["packed_D"], device=dev))
+            fb.finalize()
+            return res
+
+        phase("g packed builds at D", packed)
+    if "dense_system" in payload:
+        spec = jc.io.parse_input(payload["dense_system"])
+        bs = jc.basis.run(jc.molecule.run(spec), spec.model)
+
+        def dense():
+            opts = create_scf_options({"scf_type": "df"})
+            B = df.build_B(bs.primary, bs.auxiliary, opts, dev)
+            nbf, nocc = bs.primary.nbf, bs.primary.nels // 2
+            m = mesh_mod.make_mesh(n, 2)
+            Bp = torch.nn.functional.pad(B, (0, (-nbf) % 2, 0, 0,
+                                             0, (-B.shape[0]) % m.nq))
+            D = torch.as_tensor(payload["dense_D"], device=dev)
+            w, V = torch.linalg.eigh(D)
+            # D = 2 C C^T
+            C = (V[:, -nocc:] * torch.sqrt(0.5 * w[-nocc:].clamp(min=0))
+                 ).contiguous()
+            G1 = df.df_fock(B, D, C)
+            blk = shard.shard_B(m, Bp)
+            del Bp
+            Dp = torch.nn.functional.pad(D, (0, blk.shape[2] * m.nk - nbf))
+            G = shard.df_fock_step(m, blk, Dp, C, nbf)
+            H = torch.eye(nbf, dtype=D.dtype, device=dev)
+
+            def ms(fn):
+                fn()
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                sync()
+                return (time.perf_counter() - t0) / 3 * 1e3
+
+            return {"grid": [m.nq, m.nk], "err": float((G - G1).abs().max()),
+                    "scale": float(G1.abs().max()),
+                    "ms": ms(lambda: shard.df_fock_step(m, blk, Dp, C, nbf)),
+                    "scf_step_ms": ms(lambda: shard.scf_step(
+                        m, blk, H, H, D, C, blk.shape[2] * m.nk)),
+                    "one_device_ms": ms(lambda: df.df_fock(B, D, C))}
+
+        phase("h dense q x k step", dense)
+    return out
+
+
+def nccl_one_rank(payload: dict) -> dict:
+    """A group of one rank on NCCL: ShardedDFFockBuilder and
+    ShardedStreamingFock built directly at world 1, one build each at the
+    given D, through the same collectives as n ranks."""
+    import torch
+
+    import juliachem_jl_tpu_torch as jc
+    from juliachem_jl_tpu_torch.models.df_sharded import ShardedDFFockBuilder
+    from juliachem_jl_tpu_torch.ops import kernels
+    from juliachem_jl_tpu_torch.ops.fock_stream import ShardedStreamingFock
+    from juliachem_jl_tpu_torch.utils.options import create_scf_options
+    from juliachem_jl_tpu_torch.utils.timings import Timings
+
+    spec = jc.io.parse_input(payload["system"])
+    bsets = jc.basis.run(jc.molecule.run(spec), spec.model)
+    kernels.reset_launches()
+    df = ShardedDFFockBuilder(bsets.primary, bsets.auxiliary,
+                              create_scf_options({"scf_type": "df",
+                                                  "num_devices": 1}))
+    D = torch.as_tensor(payload["D"], device=df.mesh.device)
+    G_df = df.two_electron_fock(D, 1, Timings())
+    df.finalize()
+    G_st = ShardedStreamingFock(bsets.primary, n_devices=1).two_electron_fock(
+        D, 1, None)
+    return {"backend": df.mesh.backend, "world": df.mesh.world,
+            "device": str(df.mesh.device), "G_df": G_df.cpu().numpy(),
+            "G_stream": G_st.cpu().numpy(),
+            "launches": {k: v for k, v in kernels.launches.items() if v}}
+
+
+def run_sharded(tag: str, jc, goldens: dict, refs: dict, single: dict) -> dict:
+    """Phase 9: the sharded programs over gloo groups of 2 and 4 ranks
+    sharing card 0 (JCHEM_DIST_BACKEND=gloo), each rank on the real kernels;
+    NCCL at world 1; NCCL across cards where more than one is visible.
+    ``single``: the single-device references of the same runs on this card.
+    Returns the per-group results and the checks' numbers."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as this   # the ranks import the rank functions by name
+    from juliachem_jl_tpu_torch.parallel.launch import spawn
+
+    g_b, g_a = goldens["benzene_2_water"], goldens["ammonia_trimer"]
+    out = {}
+    for n in (2, 4):
+        scf = {
+            "a benzene_2_water DF-RHF": system_input(
+                "benzene_2_water", g_b, {"mixed_precision": False,
+                                         "num_devices": n}),
+            "b benzene_2_water cation DF-UHF": system_input(
+                "benzene_2_water", g_b, scf=dict(CATION_TIGHT, num_devices=n),
+                method="UHF", charge=1, multiplicity=2),
+            "d ammonia_trimer conventional sharded direct": system_input(
+                "ammonia_trimer", g_a, {"guess": "sad", "num_devices": n},
+                CONV_SCF, aux=False),
+        }
+        if n == 2:
+            scf["f w32 f64 B"] = cluster_input("w32", {"num_devices": 2})
+        payload = {"scf": scf, "mp2": "a benzene_2_water DF-RHF",
+                   "stream_system": system_input("benzene_2_water", g_b,
+                                                 aux=False),
+                   "stream_D": single["benzene_D"],
+                   "packed_system": system_input("benzene_2_water", g_b),
+                   "packed_D": single["benzene_D"],
+                   "dense_system": system_input("ammonia_trimer", g_a),
+                   "dense_D": single["ammonia_D"]}
+        os.environ["JCHEM_CONV_STREAM"] = "0"   # (d): the direct route
+        t0 = time.perf_counter()
+        try:
+            res = spawn(this.sharded_rank, n, args=(payload,), backend="gloo",
+                        device="cuda:0", timeout=420.0)
+        finally:
+            del os.environ["JCHEM_CONV_STREAM"]
+        wall = time.perf_counter() - t0
+        checks = {}
+        for label in res[0]:
+            if not isinstance(res[0][label], dict):
+                continue
+            per_rank = [r[label] for r in res]
+            launches = [r["launches"] for r in per_rank]
+            extra = ""
+            if "fock_s_per_iter" in per_rank[0]:
+                extra = (f"{per_rank[0]['iterations']} iterations, Fock "
+                         f"{per_rank[0]['fock_s_per_iter'] * 1e3:.2f} ms/iter, "
+                         "3-center / fold s " + ", ".join(
+                             f"{r['setup_s']['three_center']:.3f} / "
+                             f"{r['setup_s']['B']:.3f}"
+                             if r['setup_s']['B'] is not None else "-"
+                             for r in per_rank) + "; ")
+            print(f"{tag} gloo {n} ranks on cuda:0, {label}: {extra}wall "
+                  f"{max(r['wall_s'] for r in per_rank):.2f} s, peak device "
+                  f"memory per rank "
+                  + ", ".join(f"{r['peak_device_bytes'] / 1e9:.3f}"
+                              for r in per_rank)
+                  + f" GB; launches per rank {launches}", flush=True)
+        e = {k: res[0][k]["energy"] for k in scf}
+        for k in scf:
+            vals = {r[k]["energy"] for r in res}
+            check(len(vals) == 1, f"gloo {n}: {k}: ranks disagree {vals}")
+            check(all(r[k]["converged"] for r in res),
+                  f"gloo {n}: {k}: did not converge")
+            check(res[0][k]["num_devices"] == str(n),
+                  f"gloo {n}: {k}: num_devices {res[0][k]['num_devices']}")
+        a, b = "a benzene_2_water DF-RHF", "b benzene_2_water cation DF-UHF"
+        d = "d ammonia_trimer conventional sharded direct"
+        checks["rhf_minus_single"] = e[a] - single["benzene"]
+        checks["rhf_minus_jax"] = e[a] - refs["benzene_2_water"]["energy"]
+        checks["uhf_minus_single"] = e[b] - single["cation"]
+        checks["conv_minus_single"] = e[d] - single["ammonia_conv"]
+        checks["conv_rel_gamess"] = (e[d] - g_a["energy"]) / abs(g_a["energy"])
+        e2 = {r["c RI-MP2"]["E2"] for r in res}
+        check(len(e2) == 1, f"gloo {n}: RI-MP2 ranks disagree {e2}")
+        checks["e2_minus_single"] = e2.pop() - single["e2"]
+        G = res[0]["e streaming build"]["G"]
+        checks["stream_G_err"] = float(np.abs(G - single["stream_G"]).max())
+        checks["stream_G_scale"] = float(np.abs(single["stream_G"]).max())
+        for r in res[1:]:
+            check(np.array_equal(r["e streaming build"]["G"], G),
+                  f"gloo {n}: streaming G differs between ranks")
+        pk = res[0]["g packed builds at D"]
+        sc = float(np.abs(single["df_G"]).max())
+        checks["packed_G_err"] = float(np.abs(pk["G"] - single["df_G"]).max())
+        checks["packed_phases_err"] = pk["phases_err"]
+        checks["packed_jk_err"] = pk["jk_err"]
+        dq = res[0]["h dense q x k step"]
+        checks["dense_qk_err"] = dq["err"]
+        print(f"{tag} gloo {n} ranks: packed G at D - one device "
+              f"{checks['packed_G_err']:.3e}, per-phase form "
+              f"{pk['phases_err']:.3e}, J - Ka of the JK step {pk['jk_err']:.3e}"
+              f" (bound 1e-11 x {sc:.3e}); ms per build f64 "
+              f"{pk['f64_ms']:.2f}, f32 {pk['f32_ms']:.2f}, per-phase "
+              f"{pk['phases_ms']:.2f}, JK {pk['jk_ms']:.2f} (one device: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in
+                          single["packed_ms"].items())
+              + f"); dense q x k step on a {dq['grid']} grid "
+              f"{dq['ms']:.2f} ms (with the Roothaan step "
+              f"{dq['scf_step_ms']:.2f} ms; one device's dense build "
+              f"{dq['one_device_ms']:.2f} ms), G - one device "
+              f"{dq['err']:.3e} (bound 1e-11 x {dq['scale']:.3e})",
+              flush=True)
+        check(max(checks["packed_G_err"], pk["phases_err"], pk["jk_err"])
+              <= 1e-11 * sc, f"gloo {n}: packed builds off one device's")
+        check(dq["err"] <= 1e-11 * dq["scale"], f"gloo {n}: dense q x k G")
+        print(f"{tag} gloo {n} ranks: E(DF-RHF) - one device "
+              f"{checks['rhf_minus_single']:.3e} (bound 1e-9), - JAX "
+              f"{checks['rhf_minus_jax']:.3e} (bound {E_REF_TOL}); cation "
+              f"DF-UHF - one device {checks['uhf_minus_single']:.3e} (bound "
+              f"1e-8; both to dele 1e-11, {res[0][b]['iterations']} "
+              f"iterations here, {single['cation_iterations']} on one device)"
+              f"; RI-MP2 E2 - one device {checks['e2_minus_single']:.3e} "
+              f"(bound 1e-10); ammonia_trimer sharded direct - one device "
+              f"{checks['conv_minus_single']:.3e} (bound 1e-10), vs GAMESS "
+              f"{checks['conv_rel_gamess']:.3e} relative (bound "
+              f"{E_GAMESS_REL}); streaming G max |diff| "
+              f"{checks['stream_G_err']:.3e} (bound 1e-10 x "
+              f"{checks['stream_G_scale']:.3e}); group wall {wall:.1f} s",
+              flush=True)
+        check(abs(checks["rhf_minus_single"]) <= 1e-9, f"gloo {n}: DF-RHF")
+        check(abs(checks["rhf_minus_jax"]) <= E_REF_TOL, f"gloo {n}: vs JAX")
+        check(abs(checks["uhf_minus_single"]) <= 1e-8, f"gloo {n}: DF-UHF")
+        check(abs(checks["e2_minus_single"]) <= 1e-10, f"gloo {n}: RI-MP2")
+        check(abs(checks["conv_minus_single"]) <= 1e-10,
+              f"gloo {n}: sharded direct vs one device")
+        check(abs(checks["conv_rel_gamess"]) <= E_GAMESS_REL,
+              f"gloo {n}: sharded direct vs GAMESS")
+        check(checks["stream_G_err"] <= 1e-10 * checks["stream_G_scale"],
+              f"gloo {n}: sharded streaming G")
+        for label, kernel in ((a, "eri3c"), (a, "df_gather_w"),
+                              (b, "df_gather_w"), ("c RI-MP2", "e2_rmp2"),
+                              (d, "eri4c_jk_list"),
+                              ("e streaming build", "eri4c_jk_stair")):
+            check(all(r[label]["launches"].get(kernel, 0) > 0 for r in res),
+                  f"gloo {n}: {kernel} not launched on every rank in {label}")
+        if n == 2:
+            f = "f w32 f64 B"
+            checks["w32_minus_single"] = e[f] - single["w32"]
+            ratio = max(r[f]["B_bytes_rank"] for r in res) / single["w32_B_bytes"]
+            checks["w32_B_rank_ratio"] = ratio
+            print(f"{tag} gloo 2 ranks: w32 f64 B: E - one device "
+                  f"{checks['w32_minus_single']:.3e} (bound 1e-9); B bytes "
+                  f"per rank " + ", ".join(str(r[f]["B_bytes_rank"])
+                                           for r in res)
+                  + f" of {single['w32_B_bytes']} ({ratio:.4f}, bound 0.55); "
+                  f"B {res[0][f]['B_shape']} (padded rows x width); peak "
+                  f"device memory per rank " + ", ".join(
+                      f"{r[f]['peak_device_bytes'] / 1e9:.3f}" for r in res)
+                  + " GB", flush=True)
+            check(abs(checks["w32_minus_single"]) <= 1e-9, "w32 2 ranks: E")
+            check(ratio <= 0.55, f"w32 2 ranks: B per rank {ratio:.4f}")
+        out[f"gloo {n}"] = {"ranks": [{k: ({kk: vv for kk, vv in v.items()
+                                            if kk not in ("G", "D")}
+                                           if isinstance(v, dict) else v)
+                                       for k, v in r.items()} for r in res],
+                            "checks": checks, "wall_s": wall}
+    # (g) NCCL at world 1, the sharded builders built directly
+    t0 = time.perf_counter()
+    r1, = spawn(this.nccl_one_rank, 1, args=({
+        "system": system_input("benzene_2_water", g_b,
+                               {"mixed_precision": False}),
+        "D": single["benzene_D"]},), backend="nccl", device="cuda",
+        timeout=300.0)
+    err_df = float(np.abs(r1["G_df"] - single["df_G"]).max())
+    err_st = float(np.abs(r1["G_stream"] - single["stream_G"]).max())
+    sc_df = float(np.abs(single["df_G"]).max())
+    sc_st = float(np.abs(single["stream_G"]).max())
+    print(f"{tag} NCCL world 1 ({r1['backend']}, {r1['device']}): "
+          f"ShardedDFFockBuilder G - one device {err_df:.3e} (bound 1e-12 x "
+          f"{sc_df:.3e}), ShardedStreamingFock G - one device {err_st:.3e} "
+          f"(bound 1e-12 x {sc_st:.3e}: f64 atomics sum in no fixed order); "
+          f"launches {r1['launches']}; wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(r1["backend"] == "nccl" and r1["world"] == 1, "NCCL world 1")
+    check(err_df <= 1e-12 * sc_df and err_st <= 1e-12 * sc_st,
+          "NCCL world 1: G off one device's")
+    out["nccl 1"] = {"df_G_err": err_df, "stream_G_err": err_st,
+                     "launches": r1["launches"]}
+    # (h) NCCL across cards
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = min(count, 4)
+        res = spawn(this.sharded_rank, n, args=({"scf": {
+            "a benzene_2_water DF-RHF": system_input(
+                "benzene_2_water", g_b, {"mixed_precision": False,
+                                         "num_devices": n})}},),
+            backend="nccl", device="cuda", timeout=300.0)
+        e = res[0]["a benzene_2_water DF-RHF"]["energy"]
+        print(f"{tag} NCCL {n} ranks on {n} cards: benzene_2_water DF-RHF E "
+              f"- one device {e - single['benzene']:.3e}", flush=True)
+        check(abs(e - single["benzene"]) <= 1e-9, f"NCCL {n} ranks")
+        out[f"nccl {n}"] = {"energy": e}
+    else:
+        print(f"{tag} NCCL across cards: not run, {count} GPU visible",
+              flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the detailed results as JSON here")
@@ -1719,6 +2237,54 @@ def main() -> int:
     check(w32c["iterations"] <= 2,
           f"w32 from the caches took {w32c['iterations']} iterations")
     check(abs(d_bc) <= E_RESTART_TOL, f"w32 restart: |dE| = {abs(d_bc):.3e}")
+    # 9. the sharded programs: gloo groups of 2 and 4 ranks sharing this
+    #    card, NCCL at world 1, NCCL across cards where there are several;
+    #    the single-device references of the same builds first
+    from juliachem_jl_tpu_torch.models.df_screened_jk import ScreenedDFJKBuilder
+    from juliachem_jl_tpu_torch.ops.fock_stream import StreamingDirectFock
+
+    D_bz, bsets_bz = benzene["density"], benzene["basis"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G_stream = StreamingDirectFock(bsets_bz.primary, device=dev
+                                   ).two_electron_fock(D_bz, 1, None)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    fb = ScreenedDFJKBuilder.build(bsets_bz.primary, bsets_bz.auxiliary,
+                                   create_scf_options({"scf_type": "df"}), dev)
+    packed_ms = packed_build_times(fb, D_bz)
+    G_df = torch.as_tensor(packed_ms.pop("G"), device=dev)
+    fb.finalize()
+    del fb
+    print(f"{tag} benzene_2_water one device at the converged D: staircase "
+          f"build {stream_s:.3f} s", flush=True)
+    cation_tight = run_open(tag, jc, "benzene_2_water", goldens["benzene_2_water"],
+                            "UHF", 1, 2, "ScreenedDFJKBuilder", CATION_TIGHT)
+    cation_tight.pop("result"), cation_tight.pop("basis")
+    single = {"benzene": benzene["energy"], "cation": cation_tight["energy"],
+              "cation_iterations": cation_tight["iterations"],
+              "e2": neutral_mp2["E2"], "ammonia_conv": ammonia_conv["energy"],
+              "w32": w32a["energy"], "w32_B_bytes": w32a["B_bytes"],
+              "benzene_D": D_bz.cpu().numpy(),
+              "stream_G": G_stream.cpu().numpy(), "df_G": G_df.cpu().numpy(),
+              "stream_s": stream_s, "ammonia_D": ammonia["density"].cpu().numpy(),
+              "packed_ms": {k: v for k, v in packed_ms.items()
+                            if k.endswith("_ms")}}
+    del G_stream, G_df
+    torch.cuda.empty_cache()   # the ranks share this card's memory
+    t0 = time.perf_counter()
+    sharded = run_sharded(tag, jc, goldens, refs, single)
+    sharded_s = time.perf_counter() - t0
+    sharded["single_stream_build_s"] = stream_s
+    print(f"{tag} phase 9 (sharded) took {sharded_s:.1f} s", flush=True)
+    for n in (2, 4):
+        for r in sharded[f"gloo {n}"]["ranks"]:
+            for label, v in r.items():
+                if isinstance(v, dict) and "launches" in v:
+                    c = counts.setdefault(f"gloo {n} {label} (all ranks)",
+                                          {})
+                    for k, m in v["launches"].items():
+                        c[k] = c.get(k, 0) + m
     jc.finalize()
 
     # each kernel's launches on its path
@@ -1762,8 +2328,27 @@ def main() -> int:
             "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None})
+    # the kernels' ranges, on the sharded paths (launches of all ranks of
+    # the 2-rank group: each launch is one rank's range)
+    main_path.update({"e2_rmp2_range": "gloo 2 c RI-MP2 (all ranks)",
+                      "eri4c_jk_stair_t0":
+                          "gloo 2 e streaming build (all ranks)"})
+    counter = {"e2_rmp2_range": "e2_rmp2", "eri4c_jk_stair_t0": "eri4c_jk_stair"}
+    for name in ("e2_rmp2_range", "eri4c_jk_stair_t0"):
+        check(counts[main_path[name]].get(counter[name], 0) > 0,
+              f"kernel {name} never launched on {main_path[name]}")
+    v = fourc["benzene_2_water"]["kernels"]["eri4c_jk_stair_t0"]
+    new_kernels.append({
+        "name": "eri4c_jk_stair_t0", "route": "cuda",
+        "source": "juliachem_jl_tpu_torch/csrc/eri4c.cuh",
+        "replaces": "juliachem_jl_tpu/ops/fock_stream.py:170",
+        "launches": counts[main_path["eri4c_jk_stair_t0"]]["eri4c_jk_stair"],
+        "path": main_path["eri4c_jk_stair_t0"], "shapes": "benzene_2_water",
+        "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+        "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+        "bound_by": v["bound_by"], "library_ms": None})
     for name, v in k7.items():
-        v["launches"] = counts[main_path[name]][name]
+        v["launches"] = counts[main_path[name]][counter.get(name, name)]
         v["path"] = main_path[name]
     kern_line = ([k1, k2] + new_kernels + list(k7.values())
                  + [k8, k1_f32, k2_f32b])
@@ -1791,7 +2376,8 @@ def main() -> int:
                             for k, v in fourc.items()},
             "builds_at_ammonia_convergence": builds,
             "launches_per_path": counts, "systems": systems,
-            "correlated": correlated}, indent=1))
+            "correlated": correlated, "sharded": sharded}, indent=1,
+            default=str))
     print(f"{tag} chip_smoke: all phases passed in {total_s:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kern_line, "probes": [k3]}))

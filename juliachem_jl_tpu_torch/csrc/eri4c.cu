@@ -35,8 +35,8 @@ extern "C" int jc_eri4c(int la, int lb, int lc, int ld, JC_ERI4C_ARGS) {
 
 extern "C" int jc_eri4c_jk(int la, int lb, int lc, int ld, JC_ERI4C_JK_ARGS) {
   JC_ERI4C_SWITCH(jc_eri4c_jk, pb, Ka, Kb, mb, pk, Kc, Kd, mk, sel_bra,
-                  sel_ket, weight, cum, n_bra, same_block, n, D, nbf, JK,
-                  stream)
+                  sel_ket, weight, cum, n_bra, same_block, n, t0, D, nbf,
+                  JK, stream)
 }
 
 extern "C" int jc_digest_jk(int la, int lb, int lc, int ld,

@@ -351,14 +351,16 @@ __device__ void eri4c_body(double* sm, const double* pb, int Ka, int Kb,
     out[q * (C::NAB * C::NCD) + e] = w[lay.I + e];
 }
 
-// K5: quartet t's block, digested into JK at once (list or staircase mode).
+// K5: quartet t0 + t's block, digested into JK at once (list or staircase
+// mode); a launch covers the n quartets t0 .. t0 + n - 1, so a split of one
+// class pair's quartets over ranks is a set of launches with disjoint ranges.
 template <int LA, int LB, int LC, int LD>
 __device__ void eri4c_jk_body(double* sm, const double* pb, int Ka, int Kb,
                               const int* mb, const double* pk, int Kc, int Kd,
                               const int* mk, const int64_t* sel_bra,
                               const int64_t* sel_ket, const double* weight,
                               const int64_t* cum, int64_t n_bra,
-                              int same_block, int64_t n, int RS,
+                              int same_block, int64_t n, int64_t t0, int RS,
                               const double* D, int64_t nbf, double* JK,
                               int64_t t, int warp, int lane) {
   if (t >= n) return;  // past the last quartet: weight 0, nothing to add
@@ -366,8 +368,8 @@ __device__ void eri4c_jk_body(double* sm, const double* pb, int Ka, int Kb,
   double* w = sm + (int64_t)warp * lay.total;
   int64_t r, c;
   double wt;
-  decode_quartet(t, sel_bra, sel_ket, weight, cum, n_bra, same_block, mb, mk,
-                 r, c, wt);
+  decode_quartet(t0 + t, sel_bra, sel_ket, weight, cum, n_bra, same_block,
+                 mb, mk, r, c, wt);
   eri4c_block<LA, LB, LC, LD>(pb + r * (2 * Ka + 2 * Kb + 6), Ka, Kb,
                               mb + r * kMeta, pk + c * (2 * Kc + 2 * Kd + 6),
                               Kc, Kd, mk + c * kMeta, RS, w, lay, lane);
@@ -418,14 +420,14 @@ eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
                 const int64_t* __restrict__ sel_ket,
                 const double* __restrict__ weight,
                 const int64_t* __restrict__ cum, int64_t n_bra,
-                int same_block, int64_t n, int RS,
+                int same_block, int64_t n, int64_t t0, int RS,
                 const double* __restrict__ D, int64_t nbf, double* JK) {
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t t = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   eri4c_jk_body<LA, LB, LC, LD>(sm, pb, Ka, Kb, mb, pk, Kc, Kd, mk, sel_bra,
                                 sel_ket, weight, cum, n_bra, same_block, n,
-                                RS, D, nbf, JK, t, warp, lane);
+                                t0, RS, D, nbf, JK, t, warp, lane);
 }
 
 template <int LA, int LB, int LC, int LD>

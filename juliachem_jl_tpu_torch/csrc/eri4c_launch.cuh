@@ -57,7 +57,7 @@ int eri4c_jk_launch(const double* pb, int Ka, int Kb, const int* mb,
                     const long long* sel_bra, const long long* sel_ket,
                     const double* weight, const long long* cum,
                     long long n_bra, int same_block, long long n,
-                    const double* D, long long nbf, double* JK,
+                    long long t0, const double* D, long long nbf, double* JK,
                     cudaStream_t stream) {
   if (n <= 0) return 0;
   const int RS = eri4c_round(Ka * Kb, Kc * Kd);
@@ -72,8 +72,8 @@ int eri4c_jk_launch(const double* pb, int Ka, int Kb, const int* mb,
       pb, Ka, Kb, mb, pk, Kc, Kd, mk,
       reinterpret_cast<const int64_t*>(sel_bra),
       reinterpret_cast<const int64_t*>(sel_ket), weight,
-      reinterpret_cast<const int64_t*>(cum), n_bra, same_block, n, RS, D, nbf,
-      JK);
+      reinterpret_cast<const int64_t*>(cum), n_bra, same_block, n, t0, RS, D,
+      nbf, JK);
   return (int)cudaGetLastError();
 }
 
@@ -105,8 +105,8 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
   const double *pb, int Ka, int Kb, const int *mb, const double *pk, int Kc, \
       int Kd, const int *mk, const long long *sel_bra,                       \
       const long long *sel_ket, const double *weight, const long long *cum,  \
-      long long n_bra, int same_block, long long n, const double *D,         \
-      long long nbf, double *JK, void *stream
+      long long n_bra, int same_block, long long n, long long t0,            \
+      const double *D, long long nbf, double *JK, void *stream
 #define JC_DIGEST_JK_ARGS                                                    \
   const int *mb, const int *mk, const long long *sel_bra,                    \
       const long long *sel_ket, const double *weight, long long n,           \
@@ -121,7 +121,7 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
           (cudaStream_t)stream);                                             \
     return jc::eri4c_jk_launch<LA, LB, LC, LD>(                              \
         pb, Ka, Kb, mb, pk, Kc, Kd, mk, sel_bra, sel_ket, weight, cum,       \
-        n_bra, same_block, n, D, nbf, JK, (cudaStream_t)stream);             \
+        n_bra, same_block, n, t0, D, nbf, JK, (cudaStream_t)stream);         \
   }
 #define JC_DIGEST_KET(LA, LB, LC, LD)                                        \
   if (lc == LC && ld == LD)                                                  \
@@ -138,20 +138,20 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
       const int* mb, const double* pk, int Kc, int Kd, const int* mk,        \
       const long long* sel_bra, const long long* sel_ket,                    \
       const double* weight, const long long* cum, long long n_bra,           \
-      int same_block, long long n, const double* D, long long nbf,           \
-      double* JK, double* out, void* stream) {                               \
+      int same_block, long long n, long long t0, const double* D,            \
+      long long nbf, double* JK, double* out, void* stream) {                \
     KETS(JC_ERI4C_KET, LA, LB)                                               \
     return (int)cudaErrorInvalidValue;                                       \
   }                                                                          \
   extern "C" int jc_eri4c_b##LA##LB(int lc, int ld, JC_ERI4C_ARGS) {         \
     return jc_eri4c_any_b##LA##LB(0, lc, ld, pb, Ka, Kb, mb, pk, Kc, Kd, mk, \
                                   sel_bra, sel_ket, nullptr, nullptr, 0, 0,  \
-                                  n, nullptr, 0, nullptr, out, stream);      \
+                                  n, 0, nullptr, 0, nullptr, out, stream);   \
   }                                                                          \
   extern "C" int jc_eri4c_jk_b##LA##LB(int lc, int ld, JC_ERI4C_JK_ARGS) {   \
     return jc_eri4c_any_b##LA##LB(1, lc, ld, pb, Ka, Kb, mb, pk, Kc, Kd, mk, \
                                   sel_bra, sel_ket, weight, cum, n_bra,      \
-                                  same_block, n, D, nbf, JK, nullptr,        \
+                                  same_block, n, t0, D, nbf, JK, nullptr,    \
                                   stream);                                   \
   }                                                                          \
   extern "C" int jc_digest_jk_b##LA##LB(int lc, int ld, JC_DIGEST_JK_ARGS) { \

@@ -13,7 +13,10 @@
 // Replaces the lax.scans of juliachem_jl_tpu/models/mp2.py: _e2_kernel (:41),
 // _e2_ss_kernel (:158) and _e2_os_kernel (:175).  Each scan step there wrote
 // the [no, nv, nv] block of (ia|jb) to device memory and read it back for the
-// epilogue; here the integrals live only in registers.
+// epilogue; here the integrals live only in registers.  A launch sums the
+// terms of an occupied range [i0, i1) of i, so that the ranks of a sharded
+// RI-MP2 each sum a disjoint part (the per-device i-blocks of
+// make_sharded_e2, juliachem_jl_tpu/models/mp2.py:66).
 //
 // What bounds it on the card: operations.  The work the energy needs is the
 // (ia|jb) product: 2 A nox noy nvx nvy flops for os; for rmp2 and ss, where
@@ -37,7 +40,7 @@
 //   (16-byte loads of 4 consecutive a do not help: a 16-byte load is served
 //   in four 8-lane phases, so it takes more wavefronts, measured slower).
 // - Symmetry (rmp2, ss): the energy of pair (j, i) equals that of (i, j),
-//   and D is symmetric in (a, b), so only i <= j (weight 2 off the
+//   and D is symmetric in (a, b), so only j <= i (weight 2 off the
 //   diagonal) and a-tile <= b-tile are launched; an off-diagonal tile pair
 //   accounts for both tiles: X (2X - X') + X' (2X' - X) = 2 (X^2 + X'^2 - X X'),
 //   X^2 + X'^2 for the opposite-spin part, and (X - X')^2 twice.  Work:
@@ -77,7 +80,7 @@ mp2_e2_kernel(const double* __restrict__ Bx, const double* __restrict__ By,
               int A, int nox, int nvx, int noy, int nvy,
               const double* __restrict__ eox, const double* __restrict__ evx,
               const double* __restrict__ eoy, const double* __restrict__ evy,
-              int nty, double* __restrict__ partial) {
+              int nty, long long p0, double* __restrict__ partial) {
   constexpr bool kSwap = MODE != kOS;
   constexpr int kQS = kSwap ? kQC : 1;
   __shared__ double sXa[kQC][kT];  // Bx[q, i, aT]
@@ -87,13 +90,14 @@ mp2_e2_kernel(const double* __restrict__ Bx, const double* __restrict__ By,
   __shared__ double sEa[kT], sEb[kT];
   __shared__ double sRed[2][kThreads / 32];
 
+  // the launch's pairs start at p0 (the occupied range [i0, i1), below)
   int i, j, ta, tb;
   if constexpr (kSwap) {
-    tri_decode(blockIdx.x, i, j);
+    tri_decode(p0 + blockIdx.x, j, i);
     tri_decode(blockIdx.y, ta, tb);
   } else {
-    i = blockIdx.x / noy;
-    j = blockIdx.x % noy;
+    i = (int)((p0 + blockIdx.x) / noy);
+    j = (int)((p0 + blockIdx.x) % noy);
     ta = blockIdx.y / nty;
     tb = blockIdx.y % nty;
   }
@@ -207,18 +211,25 @@ mp2_e2_kernel(const double* __restrict__ Bx, const double* __restrict__ By,
   }
 }
 
-// The launch grid of one mode: for rmp2 and ss, x = no (no + 1) / 2 occupied
-// pairs i <= j and y = nt (nt + 1) / 2 virtual tile pairs (nt = ceil(nv /
-// 64)); for os, x = nox noy and y = ntx nty.  false for shapes K7 does not
-// take (rmp2/ss with x != y, an empty channel, a grid over CUDA's limits).
-bool e2_grid(int mode, int nox, int nvx, int noy, int nvy, long long& gx,
-             long long& gy) {
+// The launch grid of one mode over the occupied range [i0, i1) of i: for
+// rmp2 and ss, x = the occupied pairs j <= i with i in the range (p0 =
+// i0 (i0 + 1) / 2 the first; i0 = 0, i1 = no gives all no (no + 1) / 2) and
+// y = nt (nt + 1) / 2 virtual tile pairs (nt = ceil(nv / 64)); for os,
+// x = (i1 - i0) noy (p0 = i0 noy) and y = ntx nty.  Disjoint ranges that
+// cover [0, no) sum to the whole-range energy.  false for shapes K7 does not
+// take (rmp2/ss with x != y, an empty range or channel, a grid over CUDA's
+// limits).
+bool e2_grid(int mode, int nox, int nvx, int noy, int nvy, int i0, int i1,
+             long long& gx, long long& gy, long long& p0) {
   const long long ntx = (nvx + kT - 1) / kT, nty = (nvy + kT - 1) / kT;
+  if (i0 < 0 || i1 > nox || i0 >= i1) return false;
   if (mode == kOS) {
-    gx = (long long)nox * noy;
+    p0 = (long long)i0 * noy;
+    gx = (long long)(i1 - i0) * noy;
     gy = ntx * nty;
   } else if ((mode == kRMP2 || mode == kSS) && nox == noy && nvx == nvy) {
-    gx = (long long)nox * (nox + 1) / 2;
+    p0 = (long long)i0 * (i0 + 1) / 2;
+    gx = (long long)i1 * (i1 + 1) / 2 - p0;
     gy = ntx * (ntx + 1) / 2;
   } else {
     return false;
@@ -228,38 +239,39 @@ bool e2_grid(int mode, int nox, int nvx, int noy, int nvy, long long& gx,
 
 }  // namespace
 
-// The length of the partial buffer jc_mp2_e2 writes for this mode and these
-// shapes (one energy per block; two for rmp2: E2, then its opposite-spin
-// part), or -1 if K7 does not take them.
+// The length of the partial buffer jc_mp2_e2 writes for this mode, these
+// shapes and the occupied range [i0, i1) (one energy per block; two for
+// rmp2: E2, then its opposite-spin part), or -1 if K7 does not take them.
 extern "C" long long jc_mp2_e2_partials(int mode, int nox, int nvx, int noy,
-                                        int nvy) {
-  long long gx, gy;
-  if (!e2_grid(mode, nox, nvx, noy, nvy, gx, gy)) return -1;
+                                        int nvy, int i0, int i1) {
+  long long gx, gy, p0;
+  if (!e2_grid(mode, nox, nvx, noy, nvy, i0, i1, gx, gy, p0)) return -1;
   return (mode == kRMP2 ? 2 : 1) * gx * gy;
 }
 
-// mode 0 rmp2, 1 ss (Bx = By, eox = eoy, evx = evy), 2 os; partial holds
-// n_partial = jc_mp2_e2_partials(...) doubles.
+// mode 0 rmp2, 1 ss (Bx = By, eox = eoy, evx = evy), 2 os; the terms of the
+// occupied range [i0, i1) of i; partial holds n_partial =
+// jc_mp2_e2_partials(...) doubles.
 extern "C" int jc_mp2_e2(int mode, const double* Bx, const double* By, int A,
-                         int nox, int nvx, int noy, int nvy,
+                         int nox, int nvx, int noy, int nvy, int i0, int i1,
                          const double* eox, const double* evx,
                          const double* eoy, const double* evy,
                          long long n_partial, double* partial, void* stream) {
-  long long gx, gy;
-  if (A <= 0 || !e2_grid(mode, nox, nvx, noy, nvy, gx, gy) ||
-      n_partial != jc_mp2_e2_partials(mode, nox, nvx, noy, nvy))
+  long long gx, gy, p0;
+  if (A <= 0 || !e2_grid(mode, nox, nvx, noy, nvy, i0, i1, gx, gy, p0) ||
+      n_partial != jc_mp2_e2_partials(mode, nox, nvx, noy, nvy, i0, i1))
     return (int)cudaErrorInvalidValue;
   const long long nty = (nvy + kT - 1) / kT;
   const dim3 grid((unsigned)gx, (unsigned)gy);
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == kRMP2)
     mp2_e2_kernel<kRMP2><<<grid, kThreads, 0, s>>>(
-        Bx, By, A, nox, nvx, noy, nvy, eox, evx, eoy, evy, (int)nty, partial);
+        Bx, By, A, nox, nvx, noy, nvy, eox, evx, eoy, evy, (int)nty, p0, partial);
   else if (mode == kSS)
     mp2_e2_kernel<kSS><<<grid, kThreads, 0, s>>>(
-        Bx, By, A, nox, nvx, noy, nvy, eox, evx, eoy, evy, (int)nty, partial);
+        Bx, By, A, nox, nvx, noy, nvy, eox, evx, eoy, evy, (int)nty, p0, partial);
   else
     mp2_e2_kernel<kOS><<<grid, kThreads, 0, s>>>(
-        Bx, By, A, nox, nvx, noy, nvy, eox, evx, eoy, evy, (int)nty, partial);
+        Bx, By, A, nox, nvx, noy, nvy, eox, evx, eoy, evy, (int)nty, p0, partial);
   return (int)cudaGetLastError();
 }

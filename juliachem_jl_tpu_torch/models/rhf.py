@@ -1,7 +1,10 @@
 """RHF energy driver (API parity with JCRHF.Energy.run, src/rhf/energy/Energy.jl).
 
 Port of ``juliachem_jl_tpu/models/rhf.py``: density-fitted and conventional
-(direct-SCF) RHF, and the DF guess (DF iterations, then conventional).  Returns
+(direct-SCF) RHF, and the DF guess (DF iterations, then conventional), on one
+device or, with ``num_devices: n``, over the n ranks of a process group (the
+sharded builders of models/df_sharded.py, ops/fock_sharded.py and
+ops/fock_stream.py; every rank returns the same result).  Returns
 the same result dictionary shape as the JAX package (Fock, Density, W, MO
 Coeff, MO Energies, Overlap as tensors on the calculation's device; Energy,
 Converged?, Stagnated, Deadline Hit, Iterations, Timings).  The route taken
@@ -16,6 +19,7 @@ import time
 import torch
 
 from .. import config
+from ..parallel.mesh import check_world
 from ..utils import constants as C
 from ..utils.options import create_scf_options, print_scf_options
 from ..utils.timings import JCTC, Timings
@@ -29,6 +33,14 @@ _NOT_PORTED = {
 # them; the port's raise instead)
 _RHF_ONLY = ("restart", "checkpoint", "oei_cache", "fdiff", "fdiff_f32",
              "wall_deadline", "bench_fock_reps")
+# keywords the sharded builders do not run (the JAX package's router and
+# sharded build ignore them under num_devices > 1; the port raises)
+_SHARDED_REFUSES = {
+    "df_b_dtype": lambda v: str(v) != "f64",
+    "df_b_cache": bool,
+    "df_force_dense": bool,
+    "contraction_mode": lambda v: str(v).lower() == C.ContractionMode.dense,
+}
 
 
 def _check_ported(scf_flags: dict, opts, open_shell: bool = False) -> None:
@@ -37,8 +49,12 @@ def _check_ported(scf_flags: dict, opts, open_shell: bool = False) -> None:
             raise NotImplementedError(
                 f"scf keyword {key!r} is not ported yet (ROADMAP.md {item})")
     if opts.num_devices > 1:
-        raise NotImplementedError(
-            "num_devices > 1 is not ported yet (ROADMAP.md A11)")
+        for key, refused in _SHARDED_REFUSES.items():
+            if key in scf_flags and refused(scf_flags[key]):
+                raise NotImplementedError(
+                    f"scf keyword {key}={scf_flags[key]!r} with num_devices > "
+                    "1: the sharded builders do not run it")
+    check_world(opts.num_devices)
     for key in _RHF_ONLY if open_shell else ():
         if scf_flags.get(key):
             raise NotImplementedError(
@@ -71,14 +87,41 @@ def _conventional_builder(basis, opts, device):
     return ScreenedDirectFock(basis, device=device, schwarz=schwarz)
 
 
+def sharded_conventional_builder(basis, opts, device, timings=None):
+    """The JAX package's conventional branch under num_devices > 1
+    (models/rhf.py:57-78), reading the same environment: the sharded
+    staircase builder past JCHEM_CONV_STREAM_THRESHOLD (3e7) screened
+    quartets or with JCHEM_CONV_STREAM=1 (0 never), else the quartet-sharded
+    direct builder."""
+    from ..ops.fock import DEFAULT_CUTOFF, schwarz_blocks
+    from ..ops.fock_sharded import ShardedDirectFock
+    from ..ops.fock_stream import ShardedStreamingFock, count_screened_quartets
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(opts.num_devices, device=device)
+    schwarz = schwarz_blocks(basis, DEFAULT_CUTOFF, 1.0e-4, mesh.device)
+    force = os.environ.get("JCHEM_CONV_STREAM")
+    thresh = float(os.environ.get("JCHEM_CONV_STREAM_THRESHOLD", 3e7))
+    if force == "1" or (force != "0" and count_screened_quartets(
+            basis, device=mesh.device, schwarz=schwarz) > thresh):
+        return ShardedStreamingFock(basis, mesh=mesh, timings=timings,
+                                    schwarz=schwarz)
+    return ShardedDirectFock(basis, mesh=mesh, timings=timings,
+                             schwarz=schwarz)
+
+
 def _make_fock_builder(basis_sets, opts, device, prefer_df: bool,
                        timings=None):
-    """The JAX package's router (models/rhf.py:21-96): for DF, dense B while
-    it stays under 2 GB, else the packed screened builder; conventional
-    builders otherwise."""
+    """The JAX package's router (models/rhf.py:21-96): under num_devices > 1
+    the sharded builders; for DF, dense B while it stays under 2 GB, else
+    the packed screened builder; conventional builders otherwise."""
     from .df import DFFockBuilder
     from .df_screened import ScreenedDFFockBuilder
 
+    if opts.num_devices > 1 and not prefer_df:
+        with (timings or Timings()).timed("conventional_setup_time"):
+            return sharded_conventional_builder(basis_sets.primary, opts,
+                                                device, timings)
     if not prefer_df:
         # Schwarz diagonal + quartet enumeration
         with (timings or Timings()).timed("conventional_setup_time"):
@@ -88,6 +131,11 @@ def _make_fock_builder(basis_sets, opts, device, prefer_df: bool,
             "density-fitted SCF requires an auxiliary basis "
             "(model['auxiliary_basis'])"
         )
+    if opts.num_devices > 1:
+        from .df_sharded import ShardedDFFockBuilder
+
+        return ShardedDFFockBuilder(basis_sets.primary, basis_sets.auxiliary,
+                                    opts, timings=timings, device=device)
     nbf, A = basis_sets.primary.nbf, basis_sets.auxiliary.nbf
     dense_bytes = A * nbf * nbf * 8
     mode = opts.contraction_mode

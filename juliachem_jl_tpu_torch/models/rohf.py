@@ -11,7 +11,9 @@ Guest-Saunders effective Fock
 
 assembled in the current MO basis; DIIS runs on its AO-frame form with the
 total-density commutator.  The start is the core Hamiltonian.  <S^2> is
-exactly s(s+1) by construction.
+exactly s(s+1) by construction.  With ``num_devices: n`` the spin-resolved
+builder is a sharded one (uhf.make_jk_builder) and rank 0's state is
+broadcast as in models/uhf.py.
 """
 
 from __future__ import annotations
@@ -49,6 +51,9 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
     with timings.timed(JCTC.guess_time):
         eps, Cmo = _diag_in_x(H, X)
 
+    mesh = getattr(builder, "mesh", None)
+    if mesh is not None:   # start every rank from rank 0's state
+        mesh.broadcast_(H, S, X, eps, Cmo)
     diis = linalg.DIIS(max_vec=opts.ndiis)
     E_old = 0.0
     D_old = None
@@ -74,6 +79,8 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
                 torch.cuda.synchronize(dev)
         Fa = H + J - Ka
         Fb = H + J - Kb
+        if mesh is not None:
+            mesh.broadcast_(Fa, Fb)
 
         # Guest-Saunders effective Fock in the current (S-orthonormal) MO
         # basis
@@ -104,6 +111,8 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
 
         with timings.timed(JCTC.eigensolve_time, it):
             eps, Cmo = _diag_in_x(R_x, X)
+            if mesh is not None:
+                mesh.broadcast_(eps, Cmo)
 
         E_elec = 0.5 * float(
             torch.sum(Dt * H) + torch.sum(Da * Fa) + torch.sum(Db * Fb))

@@ -9,7 +9,18 @@ damping, the optional level shift, the energy-stagnation exit, the
 incremental Fock (``fdiff``, with f32 increments under ``fdiff_f32``), the
 wall deadline and restartable checkpoints (``save_checkpoint`` /
 ``load_checkpoint``, and the one-electron cache of ``initial_state``; the
-port writes its own files).
+port writes its own files, one per rank in a process group:
+``parallel.mesh.rank_path``).
+
+Under a sharded builder (one with a ``mesh``) every rank runs this loop on
+the same replicated matrices, as the JAX package's one SPMD program does.
+The ranks' own arithmetic may differ in the last bit (the one-electron
+integrals and the 4-center digestion sum with atomics in no fixed order),
+and a one-ulp difference could send the ranks' convergence tests, and so
+their numbers of collectives, apart.  So the loop broadcasts rank 0's state
+at the start, its F after each build and its (eps, C, D) after each Roothaan
+step (three nbf^2 matrices an iteration), and takes the wall-deadline
+decision from rank 0: every rank holds bit-identical state.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.oei import overlap_kinetic_nuclear
+from ..parallel.mesh import rank_path
 from ..utils import constants as C
 from ..utils.options import SCFOptions
 from ..utils.timings import JCTC, Timings
@@ -101,6 +113,10 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
             else density_convergence)
     niter = opts.max_iterations if max_iterations is None else max_iterations
 
+    mesh = getattr(fock_builder, "mesh", None)
+    if mesh is not None:   # start every rank from rank 0's state
+        mesh.broadcast_(*(getattr(state, k) for k in _STATE_TENSORS))
+        state.energy_elec = mesh.agree_value(state.energy_elec)
     diis = linalg.DIIS(max_vec=opts.ndiis)
     E_old = state.energy_elec
     D_old = state.D.clone() if state.D is not None else None
@@ -140,8 +156,11 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
     for it in range(1, niter + 1):
         # a budgeted run stops BEFORE an iteration that, by the last one's
         # wall, cannot finish by the deadline (absolute epoch seconds)
-        if (opts.wall_deadline > 0.0 and it > 1
-                and time.time() + 1.3 * t_last_iter > opts.wall_deadline):
+        late = (opts.wall_deadline > 0.0 and it > 1
+                and time.time() + 1.3 * t_last_iter > opts.wall_deadline)
+        if mesh is not None and opts.wall_deadline > 0.0:
+            late = mesh.agree(late)
+        if late:
             state.deadline_hit = True
             print(f"# scf: stopping before iter {it} — wall deadline "
                   f"({opts.wall_deadline - time.time():.0f}s left < "
@@ -187,6 +206,8 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         F = state.H + G
+        if mesh is not None:
+            mesh.broadcast_(F)
 
         # DIIS on e = F D S - S D F; wild early Fock matrices are kept out of
         # the subspace until the commutator is moderate (the JAX package's
@@ -213,6 +234,8 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
 
         with timings.timed(JCTC.eigensolve_time, it):
             eps, Cmo, D = linalg.roothaan_step(F_diis, state.X, state.nocc)
+            if mesh is not None:
+                mesh.broadcast_(eps, Cmo, D)
 
         E_elec = electronic_energy(D, state.H, F)
         if not math.isfinite(E_elec) or abs(E_elec) > 1.0e8:
@@ -303,12 +326,12 @@ _STATE_TENSORS = ("H", "S", "X", "F", "D", "C", "eps")
 
 def save_checkpoint(state: SCFState, path: str, e_nuc: float,
                     fingerprint: str = "") -> None:
-    """Persist restartable SCF state (numpy .npz; a capability the
-    reference lacks — its 'Restart data is being output' banner writes
-    nothing, SCF.jl:205-207)."""
+    """Persist restartable SCF state (numpy .npz, this rank's file; a
+    capability the reference lacks — its 'Restart data is being output'
+    banner writes nothing, SCF.jl:205-207)."""
     arrays = {k: getattr(state, k).cpu().numpy() for k in _STATE_TENSORS
               if getattr(state, k) is not None}
-    np.savez_compressed(path, **arrays, nocc=state.nocc,
+    np.savez_compressed(rank_path(path), **arrays, nocc=state.nocc,
                         energy_elec=state.energy_elec,
                         iteration=state.iteration, e_nuc=e_nuc,
                         fingerprint=np.bytes_(fingerprint.encode()))
@@ -316,8 +339,10 @@ def save_checkpoint(state: SCFState, path: str, e_nuc: float,
 
 def load_checkpoint(path: str, device, expect_fingerprint: str | None = None,
                     expect_e_nuc: float | None = None) -> SCFState:
-    """The state ``save_checkpoint`` wrote, on ``device``; refuses (ValueError)
-    a checkpoint of another molecule or basis, or of another geometry."""
+    """The state ``save_checkpoint`` wrote (this rank's file), on
+    ``device``; refuses (ValueError) a checkpoint of another molecule or
+    basis, or of another geometry."""
+    path = rank_path(path)
     z = np.load(path)
     if expect_fingerprint is not None and "fingerprint" in z:
         stored = bytes(z["fingerprint"]).decode()
@@ -352,7 +377,8 @@ def initial_state(mol, basis, opts: SCFOptions, timings: Timings, device,
     to, ``<prefix>_torch_oei.npz``, guarded by ``system_fingerprint``."""
     with timings.timed(JCTC.H_time):
         S = None
-        path = opts.oei_cache + "_torch_oei.npz" if opts.oei_cache else ""
+        path = rank_path(opts.oei_cache + "_torch_oei.npz"
+                         if opts.oei_cache else "")
         fp = system_fingerprint(mol, basis) if path else ""
         if path:
             try:

@@ -10,8 +10,11 @@ with factor-1 spin densities D_s = C_s,occ C_s,occ^T, from the builders'
 ``two_electron_jk`` (two digestion passes on the conventional builders, one
 V_Q and one W per spin on the DF builders).  D, F and C stay on the
 calculation's device.  The result dict has the JAX package's keys (S^2,
-multiplicity, spin density).  The spherical-harmonic AO basis and the
-sharded builders are not ported (ROADMAP.md A4, A11).
+multiplicity, spin density).  With ``num_devices: n`` the builders are the
+sharded ones over the n ranks of a process group (ShardedDFJKBuilder, or
+ShardedDirectFock for conventional), and the loop keeps every rank's state
+bit-identical by broadcasting rank 0's (as models/scf.py does).  The
+spherical-harmonic AO basis is not ported (ROADMAP.md A4).
 """
 
 from __future__ import annotations
@@ -162,6 +165,10 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
             Da = Ca[:, :na] @ Ca[:, :na].T
             Db = Cb[:, :nb] @ Cb[:, :nb].T
 
+    mesh = getattr(builder, "mesh", None)
+    if mesh is not None:   # start every rank from rank 0's state
+        Da, Db = Da.contiguous(), Db.contiguous()
+        mesh.broadcast_(H, S, X, Da, Db, Ca, Cb)
     diis = linalg.DIIS(max_vec=opts.ndiis)
     E_old = 0.0
     Da_old, Db_old = Da.clone(), Db.clone()
@@ -187,6 +194,8 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
                 torch.cuda.synchronize(dev)
         Fa = H + J - Ka
         Fb = H + J - Kb
+        if mesh is not None:
+            mesh.broadcast_(Fa, Fb)
 
         with timings.timed(JCTC.diis_time, it):
             ea = Fa @ Da @ S - S @ Da @ Fa
@@ -209,6 +218,8 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         with timings.timed(JCTC.eigensolve_time, it):
             eps_a, Ca, Da = _spin_step(Fa_x, X, na)
             eps_b, Cb, Db = _spin_step(Fb_x, X, nb)
+            if mesh is not None:
+                mesh.broadcast_(eps_a, Ca, Da, eps_b, Cb, Db)
 
         E_elec = 0.5 * float(
             torch.sum((Da + Db) * H) + torch.sum(Da * Fa) + torch.sum(Db * Fb))
@@ -272,12 +283,29 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
 
 def make_jk_builder(basis_sets, opts, use_df: bool, timings, device):
     """Builders exposing two_electron_jk, routed as the JAX package's UHF
-    router (models/uhf.py:270-308): for DF, the dense fitted B while it stays
-    under 2 GB, else the packed ScreenedDFJKBuilder; conventional: DenseFock
-    for ``contraction_mode: dense`` up to 160 functions, else
+    router (models/uhf.py:270-308): for DF, the sharded ShardedDFJKBuilder
+    under num_devices > 1 (:282-287), else the dense fitted B while it
+    stays under 2 GB, else the packed ScreenedDFJKBuilder; conventional:
+    DenseFock for ``contraction_mode: dense`` up to 160 functions, else
     ScreenedDirectFock (in-core while its ERIs fit; never the streaming
-    builder)."""
+    builder).  Conventional under num_devices > 1, which the JAX package
+    runs on one device, runs the quartet-sharded ShardedDirectFock."""
     primary = basis_sets.primary
+    if opts.num_devices > 1:
+        if not use_df:
+            from ..ops.fock_sharded import ShardedDirectFock
+
+            with timings.timed("conventional_setup_time"):
+                return ShardedDirectFock(primary, n_devices=opts.num_devices,
+                                         timings=timings, device=device)
+        if basis_sets.auxiliary is None:
+            raise ValueError(
+                "density-fitted UHF requires an auxiliary basis "
+                "(model['auxiliary_basis'])")
+        from .df_sharded_jk import ShardedDFJKBuilder
+
+        return ShardedDFJKBuilder(primary, basis_sets.auxiliary, opts,
+                                  timings=timings, device=device)
     if use_df:
         from .df import DFFockBuilder
         from .df_screened_jk import ScreenedDFJKBuilder

@@ -235,9 +235,10 @@ def digest_jk(JK, I, bra: PairTable, ket: PairTable, sel_bra, sel_ket,
 
 def launch_eri4c_jk(JK, D, bra: PairTable, ket: PairTable, n: int, *,
                     sel_bra=None, sel_ket=None, weight=None, cum=None,
-                    same_block: bool = False) -> None:
-    """Launch K5 on the card, in list mode (sel_bra, sel_ket, weight) or in
-    staircase mode (cum); counted per mode."""
+                    same_block: bool = False, t0: int = 0) -> None:
+    """Launch K5 on the card over the quartets t0 .. t0 + n - 1, in list
+    mode (sel_bra, sel_ket, weight) or in staircase mode (cum); counted per
+    mode."""
     nbf = _check_jk("eri4c_jk", JK, D, bra)
     ints = ((cum, torch.int64),) if cum is not None else (
         (sel_bra, torch.int64), (sel_ket, torch.int64),
@@ -254,7 +255,7 @@ def launch_eri4c_jk(JK, D, bra: PairTable, ket: PairTable, n: int, *,
                    ket.pair.data_ptr(), ket.Ka, ket.Kb, ket.meta.data_ptr(),
                    ptr(sel_bra), ptr(sel_ket), ptr(weight), ptr(cum),
                    0 if cum is None else cum.shape[0], int(same_block), n,
-                   D.data_ptr(), nbf, JK.data_ptr(),
+                   t0, D.data_ptr(), nbf, JK.data_ptr(),
                    count_as="eri4c_jk_stair" if cum is not None
                    else "eri4c_jk_list")
 

@@ -21,11 +21,13 @@ import torch
 
 from .. import config
 from ..basis.structs import Basis
-from ..utils.timings import Timings
+from ..parallel.mesh import Mesh, make_mesh
+from ..utils.timings import JCTC, Timings
 from . import kernels
 from .eri import PairTable, eri4c_plain, pair_table, plain_chunk
 from .fock import (DEFAULT_CUTOFF, JKFock, digest_plain, launch_eri4c_jk,
                    schwarz_blocks)
+from .fock_sharded import share
 from .schwarz import staircase_limits
 
 
@@ -74,25 +76,31 @@ def decode_staircase(cum: torch.Tensor, t: torch.Tensor,
 
 def eri4c_jk_staircase_plain(JK, bra: PairTable, ket: PairTable,
                              cum: torch.Tensor, n: int, same_block: bool,
-                             D) -> None:
+                             D, t0: int = 0) -> None:
     """Plain torch version of K5 in staircase mode (same arguments)."""
     csize = plain_chunk(bra, ket)
-    for t0 in range(0, n, csize):
-        t = torch.arange(t0, min(t0 + csize, n), dtype=torch.int64,
+    for s in range(t0, t0 + n, csize):
+        t = torch.arange(s, min(s + csize, t0 + n), dtype=torch.int64,
                          device=cum.device)
         r, c, w = decode_staircase(cum, t, bra, ket, same_block)
         digest_plain(JK, eri4c_plain(bra, ket, r, c), w, D, bra, ket, r, c)
 
 
 def eri4c_jk_staircase(JK, bra: PairTable, ket: PairTable, cum: torch.Tensor,
-                       n: int, same_block: bool, D) -> None:
-    """Kernel K5, staircase mode: the first n quartets described by cum
-    (int64 [n_bra], cumulative counts), decoded, computed and digested into
-    JK [2, nbf, nbf] (J, K) against D."""
+                       n: int, same_block: bool, D, t0: int = 0) -> None:
+    """Kernel K5, staircase mode: the n quartets t0 .. t0 + n - 1 of the
+    staircase described by cum (int64 [n_bra], cumulative counts), decoded,
+    computed and digested into JK [2, nbf, nbf] (J, K) against D.  Disjoint
+    ranges that cover a class pair's quartets add up to its whole-range
+    launch (the sharded streaming build gives each rank one range)."""
+    if t0 < 0 or n < 0 or (n and t0 + n > int(cum[-1])):
+        raise ValueError(f"eri4c_jk_staircase: quartets [{t0}, {t0 + n}) "
+                         f"outside the staircase's {int(cum[-1])}")
     if bra.pair.is_cuda:
-        launch_eri4c_jk(JK, D, bra, ket, n, cum=cum, same_block=same_block)
+        launch_eri4c_jk(JK, D, bra, ket, n, cum=cum, same_block=same_block,
+                        t0=t0)
     else:
-        eri4c_jk_staircase_plain(JK, bra, ket, cum, n, same_block, D)
+        eri4c_jk_staircase_plain(JK, bra, ket, cum, n, same_block, D, t0)
 
 
 @dataclass
@@ -154,3 +162,42 @@ class StreamingDirectFock(JKFock):
     def finalize(self):
         self.blocks = []
         self.pairs = []
+
+
+class ShardedStreamingFock(StreamingDirectFock):
+    """Staircase direct Fock over the ranks of a process group: the flat
+    quartet space of every class pair is split into world-size contiguous
+    ranges, each rank runs K5 in staircase mode on its range (the launch's
+    start offset t0), and the ranks' J/K workspaces are summed by one
+    all_reduce per build (the reference's rank-strided composite-index walk
+    + MPI.Allreduce, SCF.jl:683-744 + 623, at O(pairs) memory per rank;
+    the JAX package's ``ShardedStreamingFock``, ops/fock_stream.py:326)."""
+
+    def __init__(self, basis: Basis, mesh: Mesh | None = None,
+                 n_devices: int | None = None,
+                 cutoff: float = DEFAULT_CUTOFF,
+                 pair_cutoff_scale: float = 1.0e-4,
+                 timings: Timings | None = None, device=None, schwarz=None):
+        self.mesh = mesh if mesh is not None else make_mesh(n_devices,
+                                                            device=device)
+        super().__init__(basis, cutoff, pair_cutoff_scale,
+                         device=self.mesh.device, schwarz=schwarz)
+        if timings is not None:
+            timings.non_timing_data[JCTC.gpu_num_devices] = str(
+                self.mesh.world)
+
+    def jk_halves(self, D, iteration=None, timings: Timings | None = None):
+        m = self.mesh
+        D = D.to(device=self.device, dtype=torch.float64).contiguous()
+        JK = torch.zeros((2, self.nbf, self.nbf), dtype=torch.float64,
+                         device=self.device)
+        for cp in self.pairs:
+            part = share(cp.N, m.world, m.rank)
+            if part.stop > part.start:
+                eri4c_jk_staircase(JK, self.blocks[cp.bi].table,
+                                   self.blocks[cp.ki].table, cp.cum,
+                                   part.stop - part.start, cp.same, D,
+                                   t0=part.start)
+        # one reduction per build (MPI.Allreduce analog)
+        JK, = m.all_reduce_cat(JK)
+        return JK[0] + JK[0].T, JK[1] + JK[1].T

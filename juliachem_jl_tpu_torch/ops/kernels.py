@@ -51,11 +51,11 @@ _FUNCS = {
                            _P, _P, _LL, _P]),
     "jc_eri4c_jk": ("eri4c_jk_list", [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
                                       _I, _P, _P, _P, _P, _P, _LL, _I, _LL,
-                                      _P, _LL, _P]),
+                                      _LL, _P, _LL, _P]),
     "jc_digest_jk": ("digest_jk", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _LL,
                                    _P, _P, _LL, _P]),
-    "jc_mp2_e2": ("e2_rmp2", [_I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                              _LL, _P]),
+    "jc_mp2_e2": ("e2_rmp2", [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P, _P, _LL, _P]),
 }
 
 launches = {"eri3c": 0, "eri3c_f32": 0, "df_gather_w": 0,
@@ -154,7 +154,7 @@ def library() -> ctypes.CDLL:
                 fn.restype = _I
             lib.jc_error_string.argtypes = [_I]
             lib.jc_error_string.restype = ctypes.c_char_p
-            lib.jc_mp2_e2_partials.argtypes = [_I] * 5
+            lib.jc_mp2_e2_partials.argtypes = [_I] * 7
             lib.jc_mp2_e2_partials.restype = _LL
             _lib = lib
         return _lib

@@ -11,13 +11,17 @@ Bounds: K1 and K4 1e-12 x the output's max-abs, K2 1e-12 relative in f64
 and 1e-5 in f32, K3 1e-14 relative; K5 (list and staircase modes) and K6:
 J and K within 1e-11 x max(|J|, |K|) of the plain versions (f64 atomics sum
 in no fixed order); K7 (the MP2 pair energy, modes rmp2, ss, os) within
-1e-12 x max(1, |E|) of its plain version; K8 (the split fold) within
+1e-12 x max(1, |E|) of its plain version, and its occupied-range split
+(like K5's t0 split) summing to the whole-range launch; K8 (the split fold) within
 4 sqrt(K) 2^-24 (|Mh| + |Ml|) |X| of its plain version and of the f64
 product; K1's f32 store and K2's f32-B instance bit for bit equal to the f64
 output rounded and to the f64 instance on the upcast block; the DF-RHF,
 conventional RHF and UHF/ROHF energies on the card within 1e-9 Eh of the
-same runs on the CPU, RI-UMP2 on the card's orbitals within 1e-10 Eh.
+same runs on the CPU, RI-UMP2 on the card's orbitals within 1e-10 Eh; two
+gloo ranks sharing the card give the sharded packed G of one device.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -268,10 +272,15 @@ def test_k7_e2_matches_plain(cuda_device, mode, shape):
 
 @pytest.mark.cuda
 def test_k7_partial_buffer_follows_the_launch_grid(cuda_device):
-    """jc_mp2_e2_partials, the only copy of K7's grid: the i <= j pairs and
+    """jc_mp2_e2_partials, the only copy of K7's grid: the j <= i pairs and
     tile pairs of modes rmp2 (two energies per block) and ss, all of them
-    for os; -1 for shapes K7 does not take."""
-    n = kernels.library().jc_mp2_e2_partials
+    for os, over an occupied range of i; -1 for shapes K7 does not take."""
+    lib = kernels.library()
+
+    def n(mode, nox, nvx, noy, nvy, i0=0, i1=None):
+        return lib.jc_mp2_e2_partials(mode, nox, nvx, noy, nvy, i0,
+                                      nox if i1 is None else i1)
+
     assert n(0, 31, 486, 31, 486) == 2 * 496 * 36
     assert n(1, 30, 487, 30, 487) == 465 * 36
     assert n(2, 31, 486, 30, 487) == 930 * 64
@@ -279,6 +288,12 @@ def test_k7_partial_buffer_follows_the_launch_grid(cuda_device):
     assert n(1, 30, 487, 29, 487) == -1      # ss needs one spin's factor
     assert n(2, 1, 64 * 65536, 1, 64) == -1  # over the grid's y limit
     assert n(2, 0, 64, 1, 64) == -1          # empty channel: no launch
+    # an occupied range [i0, i1): the j <= i pairs of its i (rmp2, ss),
+    # its rows of (i, j) (os); an empty or outside range: no launch
+    assert n(0, 31, 486, 31, 486, 10, 20) == 2 * (210 - 55) * 36
+    assert n(2, 31, 486, 30, 487, 5, 7) == 2 * 30 * 64
+    assert n(2, 31, 486, 30, 487, 5, 5) == -1
+    assert n(1, 30, 487, 30, 487, 0, 31) == -1
 
 
 @pytest.mark.cuda
@@ -401,3 +416,110 @@ def test_k2_f32b_equals_f64_on_the_upcast_block(cuda_device):
     assert kernels.launches["df_gather_w_f32b"] == n0 + 1
     assert got.dtype == torch.float64
     assert torch.equal(got, df_screened.df_gather_w(Bc.double(), col_map, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [2, 3])
+def test_k5_t0_split_matches_whole_and_plain(cuda_device, parts):
+    """K5 in staircase mode over ``parts`` contiguous t0 ranges of every
+    class pair: the sum of the ranges within 1e-13 x max |JK| of the
+    whole-range launch (f64 atomics sum in no fixed order), and within
+    1e-11 x max |JK| of the plain version over the same ranges."""
+    from juliachem_jl_tpu_torch.ops.fock_sharded import share
+
+    prim, _ = _water()
+    sdf = fock_stream.StreamingDirectFock(prim, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
+                    device=cuda_device, generator=g)
+    D = (X + X.T).contiguous()
+    whole, split, plain = (torch.zeros((2, prim.nbf, prim.nbf),
+                                       dtype=torch.float64,
+                                       device=cuda_device) for _ in range(3))
+    n0 = kernels.launches["eri4c_jk_stair"]
+    launched = 0
+    for cp in sdf.pairs:
+        bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+        fock_stream.eri4c_jk_staircase(whole, bra, ket, cp.cum, cp.N,
+                                       cp.same, D)
+        launched += 1
+        for k in range(parts):
+            s = share(cp.N, parts, k)
+            if s.stop == s.start:
+                continue
+            fock_stream.eri4c_jk_staircase(split, bra, ket, cp.cum,
+                                           s.stop - s.start, cp.same, D,
+                                           t0=s.start)
+            fock_stream.eri4c_jk_staircase_plain(plain, bra, ket, cp.cum,
+                                                 s.stop - s.start, cp.same,
+                                                 D, t0=s.start)
+            launched += 1
+    assert kernels.launches["eri4c_jk_stair"] == n0 + launched
+    scale = float(whole.abs().max())
+    assert float((split - whole).abs().max()) <= 1e-13 * scale
+    assert float((split - plain).abs().max()) <= 1e-11 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rmp2", "ss", "os"])
+def test_k7_range_split_matches_whole_and_plain(cuda_device, mode):
+    """K7 over the occupied ranges of ``occupied_ranges(no, 3)``: their sum
+    within 1e-14 Eh of the whole-range launch, and each range within
+    1e-12 x max(1, |E|) of the plain version over it."""
+    from juliachem_jl_tpu_torch.models import mp2
+
+    args = _e2_inputs(E2_SHAPES["ragged"], 23, cuda_device)
+    Bx, By, eox, evx, eoy, evy = args
+    if mode != "os":
+        By, eoy, evy = Bx, eox, evx
+    kern = {"rmp2": lambda r: mp2.e2_rmp2(Bx, eox, evx, r),
+            "ss": lambda r: mp2.e2_ss(Bx, eox, evx, r),
+            "os": lambda r: mp2.e2_os(Bx, By, eox, evx, eoy, evy, r)}[mode]
+    cpu = [a.cpu() for a in (Bx, By, eox, evx, eoy, evy)]
+    plain = {"rmp2": lambda r: mp2.e2_rmp2_plain(cpu[0], cpu[2], cpu[3], r),
+             "ss": lambda r: mp2.e2_ss_plain(cpu[0], cpu[2], cpu[3], r),
+             "os": lambda r: mp2.e2_os_plain(*cpu, r)}[mode]
+    whole = np.atleast_1d(kern(None))
+    total = 0.0
+    for r in mp2.occupied_ranges(Bx.shape[1], 3):
+        got = np.atleast_1d(kern(r))
+        ref = np.atleast_1d(plain(r))
+        assert np.all(np.abs(got - ref) <= 1e-12 * np.maximum(1.0,
+                                                               np.abs(ref)))
+        total = total + got
+    assert np.all(np.abs(total - whole) <= 1e-14)
+
+
+@pytest.mark.cuda
+def test_sharded_packed_G_gloo_on_card(cuda_device, monkeypatch):
+    """Two gloo ranks sharing card 0 (JCHEM_DIST_BACKEND=gloo): the
+    sharded packed G at a fixed D within 1e-11 of one device on the card,
+    each rank's B rows within 1e-12 x max |B| of the single-device B's, and
+    K1 and K2 launched on every rank."""
+    from juliachem_jl_tpu_torch.parallel.launch import spawn
+    from juliachem_jl_tpu_torch.utils.options import create_scf_options
+    from juliachem_jl_tpu_torch.utils.timings import Timings
+
+    # the ranks import it by name: from this directory, which spawn puts
+    # on their path (another installed package may own the name "tests")
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).resolve().parent))
+    import _torch_sharded_ranks as ranks
+
+    prim, aux = _water()
+    C = 0.3 * np.random.default_rng(5).standard_normal((prim.nbf, 5))
+    D = 2.0 * C @ C.T
+    opts = create_scf_options({"scf_type": "df"})
+    B1, screen = df_screened.build_B_packed(prim, aux, opts, cuda_device)
+    one = df_screened.ScreenedDFFockBuilder(B1, screen, opts, 5)
+    G1 = one.two_electron_fock(
+        torch.as_tensor(D, device=cuda_device), 1, Timings(),
+        C_occ=torch.as_tensor(C, device=cuda_device)).cpu().numpy()
+    B1 = B1.cpu().numpy()
+    res = spawn(ranks.card_packed_G, 2, args=(prim, aux, D, C),
+                backend="gloo", device="cuda:0", timeout=300.0)
+    for r in res:
+        r0, r1 = r["rows"]
+        assert np.abs(r["G"] - G1).max() <= 1e-11
+        assert np.abs(r["B"] - B1[r0:r1]).max() <= 1e-12 * np.abs(B1).max()
+        assert r["launches"].get("eri3c", 0) > 0
+        assert r["launches"].get("df_gather_w", 0) > 0

@@ -11,7 +11,8 @@ CPU) vs the JAX package.
   ``interop.scf_result``: within 1e-11 Eh (each side builds its own B; the
   sums run in another order);
 - the closed-shell identity RI-UMP2 = RI-MP2 on one DF-UHF reference, and
-  num_devices > 1 raising (the sharded E2, ROADMAP.md A11).
+  num_devices > 1 raising without a process group (the sharded E2 runs in
+  tests/test_torch_sharded.py).
 """
 
 import warnings
@@ -191,8 +192,10 @@ def test_ri_mp2_reuses_a_given_B(water):
 
 
 def test_sharded_ri_mp2_raises(water):
+    """num_devices > 1 runs the sharded RI-MP2 over a process group of that
+    many ranks (tests/test_torch_sharded.py); without one it raises."""
     _, bsets, r = water
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         tc_mp2.ri_mp2_energy(interop.scf_result(r, CPU),
                              interop.basis_sets(bsets),
                              opts=tc_options({"num_devices": 2}))

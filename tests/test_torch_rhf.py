@@ -84,8 +84,9 @@ NOW_RUN = {
 
 @pytest.mark.parametrize("case", list(OUT_OF_SLICE) + list(NOW_RUN))
 def test_out_of_slice_raises(case, tmp_path):
-    """What the port does not run raises NotImplementedError; the keywords
-    of NOW_RUN converge (``restart`` from a checkpoint written first)."""
+    """What the port does not run raises NotImplementedError (num_devices
+    > 1 with no process group: RuntimeError); the keywords of NOW_RUN
+    converge (``restart`` from a checkpoint written first)."""
     if case in NOW_RUN:
         scf = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
                for k, v in NOW_RUN[case].items()}
@@ -101,7 +102,11 @@ def test_out_of_slice_raises(case, tmp_path):
     inp = _input("6-31G", "cc-pVDZ-JKFIT", spec.get("scf", {}),
                  driver=spec.get("driver", "energy"),
                  method=spec.get("method", "RHF"))
-    with pytest.raises(NotImplementedError):
+    # num_devices > 1 runs over a process group of that many ranks
+    # (tests/test_torch_sharded.py); without one it raises, saying so
+    err, match = ((RuntimeError, "process group") if "multi-device" in case
+                  else (NotImplementedError, None))
+    with pytest.raises(err, match=match):
         tc.run_spec(tc.io.parse_input(inp), device="cpu")
 
 

@@ -22,7 +22,10 @@ card's name and power limit):
    rounded), K2's f32-B instance (bit for bit K2 f64 on the upcast block),
    and K8 (the split fold) at the fold shapes of the first 8 waters of the
    w32 cluster and of w32 itself against its plain version, two cuBLAS
-   SGEMMs and the f64 fold;
+   SGEMMs and the f64 fold; then the f classes at benzene_2_water's shapes
+   in 6-311++G(3df,3pd) / cc-pVTZ-JKFIT: K1 (f64 and the f32 store) on
+   every (bra | aux) class and K4, K6, K5 list and staircase on the first
+   quartets of every class pair, with (ff|g) and (ff|ff) also timed alone;
 4. ammonia_trimer DF-RHF through run_spec (dense-B route);
 5. benzene_2_water DF-RHF through run_spec (packed route); the same on an
    f32 B (``df_b_dtype: f32``), held to the JAX package's f32-B energy, and
@@ -69,10 +72,19 @@ card's name and power limit):
    then NCCL at world 1 (the sharded DF and staircase builders built
    directly, held to one device's G) and NCCL across cards where more
    than one is visible.  K5's start offset t0 and K7's occupied range are
-   held to their whole-range launches and plain versions in phase 3.
+   held to their whole-range launches and plain versions in phase 3;
+10. the f bases (pair classes to (ff|ff), aux shells to g): benzene_2_water
+   DF-RHF (packed B) in 6-311++G(3df,3pd) (nbf 851) and in 6-31G(2df,p)
+   (nbf 515); ammonia_trimer in 6-31G(2df,p) conventional (in-core), then
+   at its density one direct (K5 list) and one streaming (K5 staircase)
+   build held to the in-core one; the first 2 waters of w32 in
+   6-31G(2df,p) conventional; the SCF energies held to the JAX package's,
+   and each of K1, K4, K5 (both modes) and K6 shown to have launched an f
+   class on its path (K4's (ff|ff) on the SAD atoms).
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  Energies are held to the JAX package's recorded DF, f32-B and MP2
+after (each launch is also counted per angular-momentum class).  Energies
+are held to the JAX package's recorded DF, f32-B, MP2 and f-basis
 energies (juliachem_jl_tpu_torch/data/smoke_reference.json, 1e-6 Eh) and to GAMESS
 (tests/data/s22x3_gamess_goldens.json: DF within 1.5e-3 Eh, conventional
 within 1.49e-8 relative).  The second-to-last line is ``{"kernels": [...]}``;
@@ -137,6 +149,10 @@ W8_SCF = {"niter": 60, "dele": 1e-9, "rmsd": 1e-7,
 E_RESTART_TOL = 1e-9   # restart from the caches vs the run that wrote them
 E_FDIFF_TOL = 1e-8     # incremental Fock vs the full build each iteration
 SUBSET = 4096  # quartets per class pair in the 4-center kernel checks
+# phase 10, the f bases: the repo's production f basis
+# (tools/make_basis_library.py:233) and the smallest f basis of the library
+F_BASIS = "6-311++G(3df,3pd)"
+F_BASIS_SMALL = "6-31G(2df,p)"
 BOYS_TCRIT = 35.0  # csrc/boys.cuh: the series up to this T, asymptotic above
 T_BUDGET = 1 << 25  # Boys arguments per chunk when counting them
 
@@ -181,6 +197,17 @@ def bound_of(nbytes: float, ops: float, peak: float = PEAK_F64_OPS_S) -> dict:
     return {"bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "bytes": nbytes, "operations": ops}
+
+
+def str_keys(x):
+    """x with every dict key that JSON cannot take (a class tuple) as a
+    string."""
+    if isinstance(x, dict):
+        return {k if isinstance(k, (str, int, float)) else str(k): str_keys(v)
+                for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [str_keys(v) for v in x]
+    return x
 
 
 def nherm(L: int) -> int:
@@ -410,8 +437,27 @@ def run_k1(fn, calls, A, dtype):
     return outs
 
 
-def check_k1(tag: str, dev, bsets, calls) -> dict:
-    """K1 against its plain version on every class of ``calls``."""
+def k1_largest(tag: str, calls, A: int, dtype, largest) -> dict:
+    """K1 and its plain version timed on the calls of one class alone,
+    beside that class's bound."""
+    from juliachem_jl_tpu_torch.ops import eri3c
+
+    sub = [c for c in calls if tuple(c[:3]) == tuple(largest)]
+    check(bool(sub), f"K1: no call of class {largest}")
+    ms = cuda_ms(lambda: run_k1(eri3c.eri3c_class, sub, A, dtype), reps=2)
+    plain = cuda_ms(lambda: run_k1(eri3c.eri3c_class_plain, sub, A, dtype),
+                    reps=2)
+    b = k1_bound(sub, 8 if dtype.itemsize == 8 else 4)
+    print(f"{tag} K1 {dtype} class {tuple(largest)} alone: kernel {ms:.3f} ms,"
+          f" plain torch {plain:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})", flush=True)
+    return {"class": list(largest), "ms": ms, "plain_ms": plain, **b}
+
+
+def check_k1(tag: str, dev, bsets, calls, name: str = "eri3c",
+             largest=None) -> dict:
+    """K1 against its plain version on every class of ``calls``; with
+    ``largest``, that class timed alone too."""
     import torch
 
     from juliachem_jl_tpu_torch.ops import eri3c, kernels
@@ -444,14 +490,18 @@ def check_k1(tag: str, dev, bsets, calls) -> dict:
     b = k1_bound(calls, 8)
     print(f"{tag} K1 eri3c bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
           f"{b['bytes']:.3e} B, {b['operations']:.3e} operations)", flush=True)
-    return {"name": "eri3c", "route": "cuda",
-            "source": "juliachem_jl_tpu_torch/csrc/eri3c.cuh",
-            "replaces": "juliachem_jl_tpu/ops/eri3c.py:126",
-            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
-            "ms": ms, "plain_ms": plain, "library_ms": None, **b}
+    out = {"name": name, "route": "cuda",
+           "source": "juliachem_jl_tpu_torch/csrc/eri3c.cuh",
+           "replaces": "juliachem_jl_tpu/ops/eri3c.py:126",
+           "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+           "ms": ms, "plain_ms": plain, "library_ms": None, **b}
+    if largest is not None:
+        out["largest_class"] = k1_largest(tag, calls, A, torch.float64,
+                                          largest)
+    return out
 
 
-def check_k1_f32(tag: str, dev, bsets, calls) -> dict:
+def check_k1_f32(tag: str, dev, bsets, calls, largest=None) -> dict:
     """K1's f32 store on the same classes: its output is the f64 output
     rounded to f32, bit for bit (K1 has no atomics)."""
     import torch
@@ -480,11 +530,15 @@ def check_k1_f32(tag: str, dev, bsets, calls) -> dict:
           f"f32 version {err:.3e}; kernel {ms:.3f} ms, plain torch "
           f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})",
           flush=True)
-    return {"name": "eri3c_f32", "route": "cuda",
-            "source": "juliachem_jl_tpu_torch/csrc/eri3c.cuh",
-            "replaces": "juliachem_jl_tpu/ops/eri3c.py:126",
-            "max_abs_err": err, "elements_off_f64_rounded": differ,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+    out = {"name": "eri3c_f32", "route": "cuda",
+           "source": "juliachem_jl_tpu_torch/csrc/eri3c.cuh",
+           "replaces": "juliachem_jl_tpu/ops/eri3c.py:126",
+           "max_abs_err": err, "elements_off_f64_rounded": differ,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None, **b}
+    if largest is not None:
+        out["largest_class"] = k1_largest(tag, calls, A, torch.float32,
+                                          largest)
+    return out
 
 
 def check_k8(tag: str, dev, A: int, label: str) -> dict:
@@ -670,11 +724,81 @@ def k1_primitive_counts(tag: str, dev, bsets, opts) -> dict:
     return {"padded": padded, "real": real}
 
 
-def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
+def fourc_bounds(cases, nbf: int) -> dict:
+    """(bytes, operations) of K4, K6, K5 list and K5 staircase over the
+    4-center cases of ``check_4c``: tables, selections and blocks read or
+    written once, D read and J, K written once; operations of the
+    integrals (``eri_ops``) and of the six-image digestion (12 per block
+    element)."""
+    def table_bytes(x):
+        return 8.0 * (x["bra"].pair.numel() + x["ket"].pair.numel()) + 4.0 * (
+            x["bra"].meta.numel() + x["ket"].meta.numel())
+
+    def blk(x):
+        return (ncart(x["bra"].la) * ncart(x["bra"].lb)
+                * ncart(x["ket"].la) * ncart(x["ket"].lb))
+
+    ops_eri = sum(eri_ops(x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb,
+                          x["n_prim"], x["n_series"], x["kb"], x["kk"])
+                  for x in cases)
+    ops_dig = sum(12.0 * x["m"] * blk(x) for x in cases)
+    jk_bytes = 8.0 * 3 * nbf * nbf   # D read, J and K written
+    io_blocks = sum(8.0 * x["m"] * blk(x) for x in cases)
+    stair = (sum(table_bytes(x) + 8.0 * x["cum"].numel() for x in cases)
+             + jk_bytes, ops_eri + ops_dig)
+    return {
+        "eri4c": (sum(table_bytes(x) + 16.0 * x["m"] for x in cases)
+                  + io_blocks, ops_eri),
+        "digest_jk": (io_blocks + sum(24.0 * x["m"] + 4.0 * (
+            x["bra"].meta.numel() + x["ket"].meta.numel()) for x in cases)
+            + jk_bytes, ops_dig),
+        "eri4c_jk_list": (sum(table_bytes(x) + 24.0 * x["m"] for x in cases)
+                          + jk_bytes, ops_eri + ops_dig),
+        "eri4c_jk_stair": stair, "eri4c_jk_stair_t0": stair}
+
+
+def fourc_runners(cases, I_ref, D) -> dict:
+    """Kernel and plain runs of K4, K6, K5 list and K5 staircase over the
+    cases (JK accumulated into the argument of the J/K ones)."""
+    from juliachem_jl_tpu_torch.ops import eri, fock, fock_stream
+
+    def k4(fn):
+        return lambda _: [fn(x["bra"], x["ket"], x["r"], x["c"]) for x in cases]
+
+    def each(fn):
+        def run(JK):
+            for i, x in enumerate(cases):
+                fn(JK, i, x)
+        return run
+
+    return {
+        "eri4c": (k4(eri.eri4c_class), k4(eri.eri4c_plain)),
+        "digest_jk": (
+            each(lambda JK, i, x: fock.digest_jk(JK, I_ref[i], x["bra"],
+                                                 x["ket"], x["r"], x["c"],
+                                                 x["w"], D)),
+            each(lambda JK, i, x: fock.digest_plain(JK, I_ref[i], x["w"], D,
+                                                    x["bra"], x["ket"],
+                                                    x["r"], x["c"]))),
+        "eri4c_jk_list": (
+            each(lambda JK, i, x: fock.eri4c_jk(JK, x["bra"], x["ket"],
+                                                x["r"], x["c"], x["w"], D)),
+            each(lambda JK, i, x: fock.eri4c_jk_plain(
+                JK, x["bra"], x["ket"], x["r"], x["c"], x["w"], D))),
+        "eri4c_jk_stair": (
+            each(lambda JK, i, x: fock_stream.eri4c_jk_staircase(
+                JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)),
+            each(lambda JK, i, x: fock_stream.eri4c_jk_staircase_plain(
+                JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)))}
+
+
+def check_4c(tag: str, dev, name: str, bsets, seed: int,
+             largest=None) -> dict:
     """K4, K6 and K5 (list and staircase mode) against their plain versions
     on the first SUBSET quartets of every class pair of the system's Schwarz
     staircase, with one random symmetric D; per kernel: errors, CUDA-event
-    times of all class pairs, the bound and the primitive-quartet counts."""
+    times of all class pairs, the bound and the primitive-quartet counts;
+    with ``largest`` (la, lb, lc, ld), that class pair timed alone too."""
     import numpy as np
     import torch
 
@@ -718,20 +842,8 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
     padded = sum(x["padded"] for x in cases)
     nq = sum(x["m"] for x in cases)
 
-    def table_bytes(x):
-        return 8.0 * (x["bra"].pair.numel() + x["ket"].pair.numel()) + 4.0 * (
-            x["bra"].meta.numel() + x["ket"].meta.numel())
-
-    def blk(x):
-        return (ncart(x["bra"].la) * ncart(x["bra"].lb)
-                * ncart(x["ket"].la) * ncart(x["ket"].lb))
-
-    ops_eri = sum(eri_ops(x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb,
-                          x["n_prim"], x["n_series"], x["kb"], x["kk"])
-                  for x in cases)
-    ops_dig = sum(12.0 * x["m"] * blk(x) for x in cases)
-    jk_bytes = 8.0 * 3 * nbf * nbf   # D read, J and K written
-    io_blocks = sum(8.0 * x["m"] * blk(x) for x in cases)
+    bounds = fourc_bounds(cases, nbf)
+    runs = fourc_runners(cases, I_ref, D)
 
     # K4, within 1e-12 x the largest integral of the subset
     n0 = kernels.launches["eri4c"]
@@ -746,18 +858,14 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
         worst = max(worst, err)
     check(kernels.launches["eri4c"] - n0 == len(cases),
           "K4 comparison did not launch the kernel for every class")
-
-    def k4(fn):
-        return lambda: [fn(x["bra"], x["ket"], x["r"], x["c"]) for x in cases]
-
     out["eri4c"] = dict(
-        max_abs_err=worst, ms=cuda_ms(k4(eri.eri4c_class), reps=2),
-        plain_ms=cuda_ms(k4(eri.eri4c_plain), reps=2),
-        **bound_of(sum(table_bytes(x) + 16.0 * x["m"] for x in cases) + io_blocks,
-                ops_eri))
+        max_abs_err=worst, ms=cuda_ms(lambda: runs["eri4c"][0](None), reps=2),
+        plain_ms=cuda_ms(lambda: runs["eri4c"][1](None), reps=2),
+        **bound_of(*bounds["eri4c"]))
 
     # K6, K5 list, K5 staircase: JK against the plain digestion
-    def jk_case(label, run_kernel, run_plain, nbytes, ops):
+    for label in ("digest_jk", "eri4c_jk_list", "eri4c_jk_stair"):
+        run_kernel, run_plain = runs[label]
         n0 = kernels.launches[label]
         JK = zeros()
         run_kernel(JK)
@@ -769,37 +877,7 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
         out[label] = dict(max_abs_err=err,
                           ms=cuda_ms(lambda: run_kernel(zeros()), reps=2),
                           plain_ms=cuda_ms(lambda: run_plain(zeros()), reps=2),
-                          **bound_of(nbytes, ops))
-
-    def each(fn):
-        def run(JK):
-            for i, x in enumerate(cases):
-                fn(JK, i, x)
-        return run
-
-    jk_case("digest_jk",
-            each(lambda JK, i, x: fock.digest_jk(JK, I_ref[i], x["bra"], x["ket"],
-                                                 x["r"], x["c"], x["w"], D)),
-            each(lambda JK, i, x: fock.digest_plain(JK, I_ref[i], x["w"], D,
-                                                    x["bra"], x["ket"], x["r"],
-                                                    x["c"])),
-            io_blocks + sum(24.0 * x["m"] + 4.0 * (x["bra"].meta.numel()
-                                                   + x["ket"].meta.numel())
-                            for x in cases) + jk_bytes, ops_dig)
-    jk_case("eri4c_jk_list",
-            each(lambda JK, i, x: fock.eri4c_jk(JK, x["bra"], x["ket"], x["r"],
-                                                x["c"], x["w"], D)),
-            each(lambda JK, i, x: fock.eri4c_jk_plain(JK, x["bra"], x["ket"],
-                                                      x["r"], x["c"], x["w"], D)),
-            sum(table_bytes(x) + 24.0 * x["m"] for x in cases) + jk_bytes,
-            ops_eri + ops_dig)
-    jk_case("eri4c_jk_stair",
-            each(lambda JK, i, x: fock_stream.eri4c_jk_staircase(
-                JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)),
-            each(lambda JK, i, x: fock_stream.eri4c_jk_staircase_plain(
-                JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)),
-            sum(table_bytes(x) + 8.0 * x["cum"].numel() for x in cases)
-            + jk_bytes, ops_eri + ops_dig)
+                          **bound_of(*bounds[label]))
     # K5 staircase over two t0 ranges of each class pair (what each rank of
     # the sharded staircase build launches), against the plain version over
     # the same ranges and the whole-range reference
@@ -833,8 +911,7 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
             fock_stream.eri4c_jk_staircase)(zeros()), reps=2),
         plain_ms=cuda_ms(lambda: stair_t0(
             fock_stream.eri4c_jk_staircase_plain)(zeros()), reps=2),
-        **bound_of(sum(table_bytes(x) + 8.0 * x["cum"].numel() for x in cases)
-                   + jk_bytes, ops_eri + ops_dig))
+        **bound_of(*bounds["eri4c_jk_stair_t0"]))
     for label, v in out.items():
         print(f"{tag} {label} {name}: {len(cases)} class pairs, {nq} quartets, "
               f"{n_prim:.4e} primitive quartets ({n_series:.4e} on the Boys "
@@ -842,9 +919,29 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int) -> dict:
               f"err {v['max_abs_err']:.3e}; kernel {v['ms']:.3f} ms, plain "
               f"torch {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
               f"({v['bound_by']})", flush=True)
+    if largest is not None:   # one class pair alone, checked above
+        sel = [i for i, x in enumerate(cases)
+               if (x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb)
+               == tuple(largest)]
+        check(bool(sel), f"{name}: no class pair {tuple(largest)}")
+        sub = [cases[i] for i in sel]
+        b_sub = fourc_bounds(sub, nbf)
+        r_sub = fourc_runners(sub, [I_ref[i] for i in sel], D)
+        for label in ("eri4c", "digest_jk", "eri4c_jk_list",
+                      "eri4c_jk_stair"):
+            run_kernel, run_plain = r_sub[label]
+            v = dict(cls=list(largest), quartets=sum(x["m"] for x in sub),
+                     ms=cuda_ms(lambda: run_kernel(zeros()), reps=2),
+                     plain_ms=cuda_ms(lambda: run_plain(zeros()), reps=2),
+                     **bound_of(*b_sub[label]))
+            out[label]["largest_class"] = v
+            print(f"{tag} {label} {name} class {tuple(largest)} alone: "
+                  f"{v['quartets']} quartets, kernel {v['ms']:.3f} ms, plain "
+                  f"torch {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.5f} "
+                  f"ms ({v['bound_by']})", flush=True)
     # the bound of one full build (every screened quartet) through K5
     ops_full = 0.0
-    bytes_full = jk_bytes
+    bytes_full = 8.0 * 3 * nbf * nbf   # D read, J and K written
     stair = staircase_prims(sdf)
     for x in stair:
         la, lb, lc, ld = x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb
@@ -1197,11 +1294,15 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     return summary
 
 
-def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
-               route: str, extra: dict | None = None,
-               conventional: bool = False, aux: bool = True) -> dict:
-    """One run_spec to convergence, held to the JAX package's DF energy
-    (ref) or, for conventional RHF, to GAMESS at 1.49e-8 relative."""
+def run_system(tag: str, jc, name: str, golden: dict | None,
+               ref: dict | None, route: str, extra: dict | None = None,
+               conventional: bool = False, aux: bool = True,
+               inp: dict | None = None) -> dict:
+    """One run_spec to convergence, held to the JAX package's energy (ref)
+    and to GAMESS (golden: DF within 1.5e-3 Eh, conventional RHF at
+    1.49e-8 relative).  ``inp``: the run_spec input, in place of the one
+    ``system_input`` makes from the golden (whose GAMESS energy is then
+    for another basis: pass golden None)."""
     import torch
 
     from juliachem_jl_tpu_torch.utils.timings import JCTC
@@ -1209,14 +1310,16 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = jc.run_spec(jc.io.parse_input(system_input(
-        name, golden, extra, CONV_SCF if conventional else SCF, aux)))
+    if inp is None:
+        inp = system_input(name, golden, extra,
+                           CONV_SCF if conventional else SCF, aux)
+    out = jc.run_spec(jc.io.parse_input(inp))
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     res = out["Energy"]
     tm = res["Timings"]
     E = float(res["Energy"])
-    d_gms = E - golden["energy"]
+    d_gms = E - golden["energy"] if golden else None
     d_ref = E - ref["energy"] if ref else None
     nt = tm.non_timing_data
     builder = nt["fock_builder"]
@@ -1229,6 +1332,7 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
     peak = torch.cuda.max_memory_allocated(dev)
     summary = {
         "system": name, "route": builder, "incore": nt.get("incore"),
+        "nbf": out["Basis"].primary.nbf,
         "df_guess_builder": nt.get("df_guess_builder"),
         "df_guess_iterations": nt.get("df_guess_iterations"),
         "converged": bool(res["Converged?"]),
@@ -1239,14 +1343,15 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
         "on_cuda": all(t.is_cuda for t in (res["Density"], res["Fock"],
                                            res["MO Coeff"], res["Overlap"])),
     }
-    ref_txt = f"E - JAX = {d_ref:.3e}, " if ref else ""
+    ref_txt = f", E - JAX = {d_ref:.3e}" if ref else ""
+    gms_txt = f", E - GAMESS = {d_gms:.3e}" if golden else ""
     guess_txt = (f" after {summary['df_guess_iterations']} DF-guess iterations"
                  f" on {summary['df_guess_builder']}"
                  if summary["df_guess_builder"] else "")
     print(f"{tag} {name}: route {builder} (incore {summary['incore']}), "
           f"converged {summary['converged']} in {summary['iterations']} "
-          f"iterations{guess_txt}, E = {E:.10f} Eh, {ref_txt}E - GAMESS = "
-          f"{d_gms:.3e}, wall {wall:.2f} s", flush=True)
+          f"iterations{guess_txt}, E = {E:.10f} Eh{ref_txt}{gms_txt}, nbf "
+          f"{summary['nbf']}, wall {wall:.2f} s", flush=True)
     print(f"{tag} {name}: setup s " + ", ".join(
         f"{k} {v:.3f}" for k, v in setup.items()), flush=True)
     f32_txt = (f"; f32 phase {summary['fock_s_per_iter_f32_phase']:.5f} s/iter "
@@ -1265,10 +1370,11 @@ def run_system(tag: str, jc, name: str, golden: dict, ref: dict | None,
     if ref:
         check(abs(d_ref) <= E_REF_TOL,
               f"{name}: |E - JAX| = {abs(d_ref):.3e} > {E_REF_TOL}")
-    gms_tol = (E_GAMESS_REL * abs(golden["energy"]) if conventional
-               else E_GAMESS_TOL)
-    check(abs(d_gms) <= gms_tol,
-          f"{name}: |E - GAMESS| = {abs(d_gms):.3e} > {gms_tol:.3e}")
+    if golden:
+        gms_tol = (E_GAMESS_REL * abs(golden["energy"]) if conventional
+                   else E_GAMESS_TOL)
+        check(abs(d_gms) <= gms_tol,
+              f"{name}: |E - GAMESS| = {abs(d_gms):.3e} > {gms_tol:.3e}")
     check(summary["on_cuda"], f"{name}: SCF tensors are not on the card")
     summary.update(density=res["Density"], result=res, basis=out["Basis"])
     return summary
@@ -1361,7 +1467,8 @@ def run_mp2(tag: str, label: str, scf: dict, ump2: bool) -> dict:
     return m
 
 
-def builds_at(tag: str, dev, prim, D, Da, Db) -> dict:
+def builds_at(tag: str, dev, prim, D, Da, Db,
+              name: str = "ammonia_trimer") -> dict:
     """At a converged RHF density D and a converged UHF pair (Da, Db): one
     in-core build (reference G and J, K(Da), K(Db)), one direct build (K5
     list mode) and one streaming build (K5 staircase mode), each with the
@@ -1398,6 +1505,7 @@ def builds_at(tag: str, dev, prim, D, Da, Db) -> dict:
         torch.cuda.synchronize(dev)
         t4 = time.perf_counter()
         counts = {k: v for k, v in kernels.launches.items() if v}
+        cls_counts = {k: dict(v) for k, v in kernels.class_launches.items()}
         if G_ref is None:
             G_ref, jk_ref = G, jk
         err = float((G - G_ref).abs().max())
@@ -1409,13 +1517,14 @@ def builds_at(tag: str, dev, prim, D, Da, Db) -> dict:
                       "uhf_jk_s": t4 - t3,
                       "max_abs_err_vs_incore": err,
                       "uhf_jk_max_abs_err_vs_incore": err_jk,
-                      "launches": counts, "quartets": fb.n_quartets}
-        print(f"{tag} ammonia_trimer {label} build at the converged D: setup "
+                      "launches": counts, "class_launches": cls_counts,
+                      "quartets": fb.n_quartets}
+        print(f"{tag} {name} {label} build at the converged D: setup "
               f"{t1 - t0:.3f} s, build {t2 - t1:.4f} s"
               + (f" (cached blocks: {t3 - t2:.4f} s)" if label == "incore"
                  else "")
               + f", |G - G_incore| {err:.3e} (bound 1e-11 x {scale:.3e}); "
-              f"UHF J, K(Da), K(Db) at the cation's (Da, Db) {t4 - t3:.4f} s, "
+              f"UHF J, K(Da), K(Db) at (Da, Db) {t4 - t3:.4f} s, "
               f"max |. - incore| {err_jk:.3e} (bound 1e-11 x {scale_jk:.3e}); "
               f"launches {counts}", flush=True)
         check(err <= 1e-11 * scale,
@@ -1898,9 +2007,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     spills = [ln.strip() for ln in kernels.build_info.get("log", "").splitlines()
               if "spill" in ln and " 0 bytes spill stores" not in ln]
+    per_source = kernels.build_info.get("per_source", {})
     print(f"{tag} build: {len(kernels._sources())} CUDA sources -> "
           f"{Path(kernels.build_info['so']).name} in {build_s:.1f} s "
-          f"({len(spills)} kernel instances spill registers)", flush=True)
+          f"({len(spills)} kernel instances spill registers); slowest "
+          "sources (s from the start): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(
+                  per_source.items(), key=lambda kv: -kv[1])[:6]),
+          flush=True)
 
     goldens = json.loads((ROOT / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
@@ -1942,6 +2056,22 @@ def main() -> int:
     bsets_a = jc.basis.run(jc.molecule.run(spec_a), spec_a.model)
     fourc = {"ammonia_trimer": check_4c(tag, dev, "ammonia_trimer", bsets_a, 1),
              "benzene_2_water": check_4c(tag, dev, "benzene_2_water", bsets, 2)}
+    # 3f. the f classes (ROADMAP.md B17) at benzene_2_water's shapes in
+    #     6-311++G(3df,3pd) / cc-pVTZ-JKFIT: K1 (f64 and the f32 store) on
+    #     every (bra | aux) class, (ff|g) alone too; K4, K6, K5 list and K5
+    #     staircase on the first SUBSET quartets of every class pair,
+    #     (ff|ff) alone too
+    bz_f = f"benzene_2_water {F_BASIS}"
+    spec_f = jc.io.parse_input(system_input(
+        "benzene_2_water", {**goldens["benzene_2_water"], "basis": F_BASIS}))
+    bsets_f = jc.basis.run(jc.molecule.run(spec_f), spec_f.model)
+    calls = k1_calls(dev, bsets_f)
+    k1_f = check_k1(tag, dev, bsets_f, calls, name="eri3c_f",
+                    largest=(3, 3, 4))
+    k1_f32["f_classes"] = check_k1_f32(tag, dev, bsets_f, calls,
+                                       largest=(3, 3, 4))
+    del calls
+    fourc[bz_f] = check_4c(tag, dev, bz_f, bsets_f, 3, largest=(3, 3, 3, 3))
     for name, v in fourc.items():
         f = v["full"]
         print(f"{tag} {name}: {f['quartets']} screened quartets, "
@@ -1951,11 +2081,14 @@ def main() -> int:
               f"padding", flush=True)
 
     counts = {}
+    class_counts = {}
 
     def path(label, fn):
         kernels.reset_launches()
         res = fn()
         counts[label] = dict(kernels.launches)
+        class_counts[label] = {k: dict(v)
+                               for k, v in kernels.class_launches.items()}
         print(f"{tag} launches during {label}: "
               f"{ {k: v for k, v in counts[label].items() if v} }", flush=True)
         return res
@@ -2285,6 +2418,77 @@ def main() -> int:
                                           {})
                     for k, m in v["launches"].items():
                         c[k] = c.get(k, 0) + m
+    # 10. the f bases end to end (ROADMAP.md B17): (a) benzene_2_water
+    #     DF-RHF in 6-311++G(3df,3pd) (nbf 851, packed B) and (b) in
+    #     6-31G(2df,p) (nbf 515, packed B); (c) ammonia_trimer conventional
+    #     in 6-31G(2df,p) (in-core: K4 fills, K6 digests), then at its
+    #     density one direct (K5 list) and one streaming (K5 staircase)
+    #     build held to the in-core one; (d) the first 2 waters of w32 in
+    #     6-31G(2df,p), conventional from SAD.  (a), (b) and (d) are held
+    #     to the JAX package's energies, (a) also to lie below (b)
+    t_f = time.perf_counter()
+    refs_fs = smoke_ref["f_shell"]["systems"]
+    g_bz, g_am = goldens["benzene_2_water"], goldens["ammonia_trimer"]
+    df_nomp = {"mixed_precision": False}
+    label_fa, label_fb = f"{bz_f} DF", f"benzene_2_water {F_BASIS_SMALL} DF"
+    label_fc = f"ammonia_trimer {F_BASIS_SMALL} conventional"
+    label_fd = f"w2 {F_BASIS_SMALL} conventional"
+    f_a = path(label_fa, lambda: run_system(
+        tag, jc, bz_f, None, refs_fs[f"{bz_f} DF"], "ScreenedDFFockBuilder",
+        inp=system_input("benzene_2_water", {**g_bz, "basis": F_BASIS},
+                         df_nomp)))
+    f_b = path(label_fb, lambda: run_system(
+        tag, jc, f"benzene_2_water {F_BASIS_SMALL}", None,
+        refs_fs[f"benzene_2_water {F_BASIS_SMALL} DF"],
+        "ScreenedDFFockBuilder",
+        inp=system_input("benzene_2_water", {**g_bz, "basis": F_BASIS_SMALL},
+                         df_nomp)))
+    check(f_a["energy"] < f_b["energy"],
+          f"{bz_f}: E = {f_a['energy']:.8f} is not below the smaller "
+          f"basis's {f_b['energy']:.8f}")
+    f_c = path(label_fc, lambda: run_system(
+        tag, jc, f"ammonia_trimer {F_BASIS_SMALL}", None, None,
+        "ScreenedDirectFock", conventional=True,
+        inp=system_input("ammonia_trimer", {**g_am, "basis": F_BASIS_SMALL},
+                         {"guess": "sad"}, CONV_SCF, aux=False)))
+    check(f_c["incore"] == "True", f"{label_fc} did not run in-core")
+    D_c = f_c["density"]
+    builds_f = builds_at(tag, dev, f_c["basis"].primary, D_c, 0.5 * D_c,
+                         0.5 * D_c, name=f"ammonia_trimer {F_BASIS_SMALL}")
+    for k in ("direct", "streaming"):
+        counts[f"{label_fc} {k} build"] = builds_f[k]["launches"]
+        class_counts[f"{label_fc} {k} build"] = builds_f[k]["class_launches"]
+    w32 = json.loads((ROOT / "juliachem_jl_tpu_torch" / "data" /
+                      "water_clusters.json").read_text())["w32"]
+    f_d = path(label_fd, lambda: run_system(
+        tag, jc, f"w2 {F_BASIS_SMALL}", None,
+        refs_fs[f"w2 {F_BASIS_SMALL} RHF"], "ScreenedDirectFock",
+        inp={"molecule": {"symbols": w32["symbols"][:6],
+                          "geometry": w32["geometry"][:18],
+                          "molecular_charge": 0},
+             "driver": "energy",
+             "model": {"method": "RHF", "basis": F_BASIS_SMALL},
+             "keywords": {"scf": {**CONV_SCF, "guess": "sad"},
+                          "prop": PROPS}}))
+
+    def f_launches(label, name):   # launches of a kernel's f classes
+        return sum(n for c, n in class_counts[label].get(name, {}).items()
+                   if 3 in c)
+
+    ff = class_counts[label_fa].get("eri4c", {}).get((3, 3, 3, 3), 0)
+    check(ff > 0, f"K4 never launched (ff|ff) on {label_fa} (SAD atoms, "
+          "Schwarz diagonal)")
+    f_main = {"eri3c": label_fa, "eri4c": label_fc, "digest_jk": label_fc,
+              "eri4c_jk_list": f"{label_fc} direct build",
+              "eri4c_jk_stair": f"{label_fc} streaming build"}
+    for name, label in f_main.items():
+        check(f_launches(label, name) > 0,
+              f"kernel {name} never launched an f class on {label}")
+    f_s = time.perf_counter() - t_f
+    print(f"{tag} phase 10 (f bases) took {f_s:.1f} s; (ff|ff) launches of "
+          f"K4 on {label_fa}: {ff}; f-class launches per kernel: " + ", ".join(
+              f"{n} {f_launches(lb, n)} ({lb})" for n, lb in f_main.items()),
+          flush=True)
     jc.finalize()
 
     # each kernel's launches on its path
@@ -2350,13 +2554,27 @@ def main() -> int:
     for name, v in k7.items():
         v["launches"] = counts[main_path[name]][counter.get(name, name)]
         v["path"] = main_path[name]
+    # the f classes (phase 3f at benzene_2_water's 6-311++G(3df,3pd)
+    # shapes), launches of their f classes on phase 10's paths
+    f_kernels = [{**k1_f, "launches": f_launches(label_fa, "eri3c"),
+                  "path": label_fa, "shapes": bz_f}]
+    for name, (src, rep) in meta.items():
+        v = fourc[bz_f]["kernels"][name]
+        f_kernels.append({
+            "name": f"{name}_f", "route": "cuda", "source": src,
+            "replaces": rep, "launches": f_launches(f_main[name], name),
+            "path": f_main[name], "shapes": bz_f,
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": None,
+            "largest_class": v["largest_class"]})
     kern_line = ([k1, k2] + new_kernels + list(k7.values())
-                 + [k8, k1_f32, k2_f32b])
+                 + [k8, k1_f32, k2_f32b] + f_kernels)
 
     systems = [ammonia, benzene, bz_f32, bz_split, *w8.values(),
                ammonia_conv, benzene_conv,
                cation, amm_uhf, amm_rohf, amm_df, amm_singlet, amm_fdiff,
-               amm_df_fdiff, w32a, w32b, w32c, w32s]
+               amm_df_fdiff, w32a, w32b, w32c, w32s, f_a, f_b, f_c, f_d]
     for x in systems:
         for key in ("density", "result", "basis"):
             x.pop(key, None)
@@ -2368,15 +2586,21 @@ def main() -> int:
                                            "MP2": ie_mp2 * HARTREE_EV}}
     total_s = time.perf_counter() - t_start
     if args.out:
-        Path(args.out).write_text(json.dumps({
+        Path(args.out).write_text(json.dumps(str_keys({
             "device": kind, "nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
+            "build_per_source_s": per_source,
+            "build_log": kernels.build_info.get("log", ""),
             "spills": spills, "kernels": kern_line, "probes": [k3],
             "four_center": {k: {kk: vv for kk, vv in v.items()}
                             for k, v in fourc.items()},
             "builds_at_ammonia_convergence": builds,
-            "launches_per_path": counts, "systems": systems,
-            "correlated": correlated, "sharded": sharded}, indent=1,
+            "launches_per_path": counts,
+            "class_launches_per_path": class_counts,
+            "systems": systems,
+            "f_shell": {"builds_at_ammonia_convergence": builds_f,
+                        "seconds": f_s},
+            "correlated": correlated, "sharded": sharded}), indent=1,
             default=str))
     print(f"{tag} chip_smoke: all phases passed in {total_s:.1f} s", flush=True)
     print(smi)

@@ -10,9 +10,9 @@
 //   T1[k,h,c]  = sum_{r,g} (-1)^|g| R[k,r](h+g) Ecd[r,c,g].
 //
 // What bounds it on the card: the recurrences are serial per primitive pair
-// and the working set of a class reaches nherm(8) = 165 R values, 36 x 35 E
-// values and 35 x 15 T1 values ((dd|g)), far past what one thread can keep
-// in registers.  Design: one thread block per (bra pair, tile of aux
+// and the working set of a class reaches nherm(10) = 286 R values, 100 x 84
+// E values and 84 x 15 T1 values ((ff|g)), far past what one thread can
+// keep in registers.  Design: one thread block per (bra pair, tile of aux
 // shells).  The bra expansion Eab is built once per block in shared memory
 // and reused over the aux tile; for each aux shell the R tensors of all
 // primitive pairs (one thread each) and then T1 and the output (threads over
@@ -251,6 +251,9 @@ int eri3c_launch(const double* pair, long long n, int Ka, int Kb,
     JC_ERI3C_CASE(1, 2, LQ)                                                  \
     JC_ERI3C_CASE(2, 2, LQ)                                                  \
     JC_ERI3C_CASE(0, 3, LQ)                                                  \
+    JC_ERI3C_CASE(1, 3, LQ)                                                  \
+    JC_ERI3C_CASE(2, 3, LQ)                                                  \
+    JC_ERI3C_CASE(3, 3, LQ)                                                  \
     JC_ERI3C_CASE(0, 4, LQ)                                                  \
     return (int)cudaErrorInvalidValue;                                       \
   }

@@ -13,18 +13,26 @@
 JC_ERI4C_DECL(0, 0)
 JC_ERI4C_DECL(0, 1)
 JC_ERI4C_DECL(0, 2)
+JC_ERI4C_DECL(0, 3)
 JC_ERI4C_DECL(1, 1)
 JC_ERI4C_DECL(1, 2)
+JC_ERI4C_DECL(1, 3)
 JC_ERI4C_DECL(2, 2)
+JC_ERI4C_DECL(2, 3)
+JC_ERI4C_DECL(3, 3)
 
 #define JC_ERI4C_SWITCH(FN, ...)                                             \
   switch (la * 10 + lb) {                                                    \
     case 0: return FN##_b00(lc, ld, __VA_ARGS__);                            \
     case 1: return FN##_b01(lc, ld, __VA_ARGS__);                            \
     case 2: return FN##_b02(lc, ld, __VA_ARGS__);                            \
+    case 3: return FN##_b03(lc, ld, __VA_ARGS__);                            \
     case 11: return FN##_b11(lc, ld, __VA_ARGS__);                           \
     case 12: return FN##_b12(lc, ld, __VA_ARGS__);                           \
+    case 13: return FN##_b13(lc, ld, __VA_ARGS__);                           \
     case 22: return FN##_b22(lc, ld, __VA_ARGS__);                           \
+    case 23: return FN##_b23(lc, ld, __VA_ARGS__);                           \
+    case 33: return FN##_b33(lc, ld, __VA_ARGS__);                           \
   }                                                                          \
   return (int)cudaErrorInvalidValue;
 

@@ -68,23 +68,29 @@ struct Eri4cClass {
 };
 
 // Shared memory of one warp, in doubles.  Kab, Kcd: padded primitive-pair
-// counts of the class (sizes); RS: primitive quartets per R round.
+// counts of the class (sizes); RS: primitive quartets per R round.  Regions
+// whose lifetimes do not meet share space, so that (ff|ff) fits in one
+// block's 227 KB: the E tables (steps 1-2) lie where the R round (step 3)
+// goes, and the quartet block I (step 4 on) and the D blocks of the
+// digestion lie over Ecd and the R round, which step 4 no longer reads.
 template <int LA, int LB, int LC, int LD>
 struct Eri4cSmem {
   using C = Eri4cClass<LA, LB, LC, LD>;
-  int Eb, Ek, Pb, Pk, Eab, Ecd, R, T1, I, Dg, total;
+  int Pb, Pk, Eab, T1, Ecd, Eb, Ek, R, I, Dg, total;
   __host__ __device__ Eri4cSmem(int Kab, int Kcd, int RS) {
-    Eb = 0;                              // [Kab][3][NEB] bra E tables
-    Ek = Eb + Kab * 3 * C::NEB;          // [Kcd][3][NEK] ket E tables
-    Pb = Ek + Kcd * 3 * C::NEK;          // [Kab][4]: p, Px, Py, Pz
+    Pb = 0;                              // [Kab][4]: p, Px, Py, Pz
     Pk = Pb + 4 * Kab;                   // [Kcd][4]: q, Qx, Qy, Qz
     Eab = Pk + 4 * Kcd;                  // [Kab][NAB][NHB]
-    Ecd = Eab + Kab * C::NAB * C::NHB;   // [Kcd][NCD][NHK]
-    R = Ecd + Kcd * C::NCD * C::NHK;     // [RS][NH]
-    T1 = R + RS * C::NH;                 // [Kab][NHB][NCD]
-    I = T1 + Kab * C::NHB * C::NCD;      // [NAB][NCD] the quartet's block
-    Dg = I + C::NAB * C::NCD;            // [NDG]
-    total = Dg + C::NDG;
+    T1 = Eab + Kab * C::NAB * C::NHB;    // [Kab][NHB][NCD]
+    Ecd = T1 + Kab * C::NHB * C::NCD;    // [Kcd][NCD][NHK]    steps 2-3
+    Eb = Ecd + Kcd * C::NCD * C::NHK;    // [Kab][3][NEB]      steps 1-2
+    Ek = Eb + Kab * 3 * C::NEB;          // [Kcd][3][NEK]      steps 1-2
+    R = Eb;                              // [RS][NH]           step 3
+    I = Ecd;                             // [NAB][NCD]         step 4 on
+    Dg = I + C::NAB * C::NCD;            // [NDG]              digestion
+    const int e = Ek + Kcd * 3 * C::NEK, r = R + RS * C::NH;
+    total = e > r ? e : r;
+    if (Dg + C::NDG > total) total = Dg + C::NDG;
   }
 };
 

@@ -1,9 +1,9 @@
 // Launches of kernels K4, K5 and K6 (device code and design in eri4c.cuh),
 // and the C entry points of one bra class: eri4c_b<la><lb>.cu instantiates
 // them for every ket class (lc, ld) that the i <= j walk over the pair
-// classes (0,0) (0,1) (0,2) (1,1) (1,2) (2,2) reaches from its bra class,
-// so nvcc builds the bra classes in parallel.  Each function returns the
-// CUDA error of its launch (0 on success).
+// classes (0,0) (0,1) (0,2) (0,3) (1,1) (1,2) (1,3) (2,2) (2,3) (3,3)
+// reaches from its bra class, so nvcc builds the bra classes in parallel.
+// Each function returns the CUDA error of its launch (0 on success).
 #pragma once
 
 #include "eri4c.cuh"
@@ -11,7 +11,8 @@
 namespace jc {
 
 // Warps per block: up to kEri4cMaxWarps while a block stays under ~100 KB of
-// shared memory; one warp per quartet.
+// shared memory, at least one (a class of up to 227 KB a warp: (ff|ff)
+// needs 214 KiB in K4/K5, 83 KiB in K6); one warp per quartet.
 inline int eri4c_warps(size_t warp_bytes) {
   int w = (int)((100 * 1024) / (warp_bytes > 0 ? warp_bytes : 1));
   return w < 1 ? 1 : (w > kEri4cMaxWarps ? kEri4cMaxWarps : w);
@@ -84,7 +85,7 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
                      long long nbf, double* JK, cudaStream_t stream) {
   if (n <= 0) return 0;
   const size_t wb = sizeof(double) * DigestSmem<LA, LB, LC, LD>().total;
-  const int W = kEri4cMaxWarps;
+  const int W = eri4c_warps(wb);
   auto kern = digest_jk_kernel<LA, LB, LC, LD>;
   cudaError_t err = eri4c_prepare(kern, W * wb);
   if (err != cudaSuccess) return (int)err;
@@ -162,7 +163,11 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
 // ket classes at or after each bra class in the pair-class order
 #define JC_KETS_FROM_00(M, LA, LB) M(LA, LB, 0, 0) JC_KETS_FROM_01(M, LA, LB)
 #define JC_KETS_FROM_01(M, LA, LB) M(LA, LB, 0, 1) JC_KETS_FROM_02(M, LA, LB)
-#define JC_KETS_FROM_02(M, LA, LB) M(LA, LB, 0, 2) JC_KETS_FROM_11(M, LA, LB)
+#define JC_KETS_FROM_02(M, LA, LB) M(LA, LB, 0, 2) JC_KETS_FROM_03(M, LA, LB)
+#define JC_KETS_FROM_03(M, LA, LB) M(LA, LB, 0, 3) JC_KETS_FROM_11(M, LA, LB)
 #define JC_KETS_FROM_11(M, LA, LB) M(LA, LB, 1, 1) JC_KETS_FROM_12(M, LA, LB)
-#define JC_KETS_FROM_12(M, LA, LB) M(LA, LB, 1, 2) JC_KETS_FROM_22(M, LA, LB)
-#define JC_KETS_FROM_22(M, LA, LB) M(LA, LB, 2, 2)
+#define JC_KETS_FROM_12(M, LA, LB) M(LA, LB, 1, 2) JC_KETS_FROM_13(M, LA, LB)
+#define JC_KETS_FROM_13(M, LA, LB) M(LA, LB, 1, 3) JC_KETS_FROM_22(M, LA, LB)
+#define JC_KETS_FROM_22(M, LA, LB) M(LA, LB, 2, 2) JC_KETS_FROM_23(M, LA, LB)
+#define JC_KETS_FROM_23(M, LA, LB) M(LA, LB, 2, 3) JC_KETS_FROM_33(M, LA, LB)
+#define JC_KETS_FROM_33(M, LA, LB) M(LA, LB, 3, 3)

@@ -34,7 +34,8 @@ TWO_PI_POW_2_5 = 2.0 * math.pi**2.5
 # pair classes of K4/K5/K6 in the order of unique_pair_blocks; a class
 # (bra | ket) is instantiated when the ket's pair class is the bra's or a
 # later one (the i <= j walk over the pair blocks)
-PAIR_CLASSES = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+PAIR_CLASSES = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3),
+                (2, 2), (2, 3), (3, 3))
 # plain version: elements of the largest per-quartet intermediate per chunk
 _PLAIN_BUDGET = 2.0e7
 
@@ -51,7 +52,7 @@ def check_kernel_class(name: str, la, lb, lc, ld) -> None:
             or PAIR_CLASSES.index(ket) < PAIR_CLASSES.index(bra)):
         raise NotImplementedError(
             f"{name} is not instantiated for class ({la}{lb}|{lc}{ld}): "
-            "4-center kernels for shells above d are ROADMAP.md B17")
+            "4-center kernels for shells above f are ROADMAP.md B17(b)")
 
 
 def bra_hermite(la, lb, aexp, bexp, acoef, bcoef, A, B):
@@ -60,6 +61,13 @@ def bra_hermite(la, lb, aexp, bexp, acoef, bcoef, A, B):
     prim = pair_primitive_data(aexp, bexp, acoef, bcoef, A, B)
     Eab = hermite_expansion(la, lb, prim)
     return Eab, prim["p"], prim["P"]
+
+
+def live_pairs(acoef, bcoef) -> torch.Tensor:
+    """[N, Ka*Kb] bool: primitive pairs whose coefficients are both
+    nonzero (in pair_primitive_data's order)."""
+    return ((acoef != 0)[:, :, None] & (bcoef != 0)[:, None, :]).reshape(
+        acoef.shape[0], -1)
 
 
 def eri_class(la, lb, lc, ld, aexp, bexp, acoef, bcoef, A, B,
@@ -78,8 +86,14 @@ def eri_class(la, lb, lc, ld, aexp, bexp, acoef, bcoef, A, B,
     alpha = p[:, :, None] * q[:, None, :] / psum
     Targ = alpha * torch.sum(PQ**2, dim=-1)
     pref = TWO_PI_POW_2_5 / (p[:, :, None] * q[:, None, :] * torch.sqrt(psum))
-    F = boys(Targ, L) * pref[..., None]
-    R = r_tensor(L, alpha, PQ, F)                     # [N,K2b,K2k,nherm(L)]
+    # Boys and R only where both primitive pairs have nonzero
+    # coefficients, as the kernels loop: the terms of the padding of a
+    # class to its largest contraction are exactly zero either way
+    live = (live_pairs(acoef, bcoef)[:, :, None]
+            & live_pairs(ccoef, dcoef)[:, None, :])
+    F = boys(Targ[live], L) * pref[live][:, None]
+    R = Targ.new_zeros(Targ.shape + (nherm(L),))      # [N,K2b,K2k,nherm(L)]
+    R[live] = r_tensor(L, alpha[live], PQ[live], F)
 
     dev = R.device
     M = R[..., torch.as_tensor(comb, dtype=torch.long, device=dev)] \
@@ -194,7 +208,8 @@ def eri4c_class(bra: PairTable, ket: PairTable, sel_bra: torch.Tensor,
                        bra.pair.data_ptr(), bra.Ka, bra.Kb,
                        bra.meta.data_ptr(), ket.pair.data_ptr(), ket.Ka,
                        ket.Kb, ket.meta.data_ptr(), sel_bra.data_ptr(),
-                       sel_ket.data_ptr(), n, out.data_ptr())
+                       sel_ket.data_ptr(), n, out.data_ptr(),
+                       cls=(bra.la, bra.lb, ket.la, ket.lb))
     return out
 
 

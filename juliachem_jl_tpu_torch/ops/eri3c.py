@@ -29,11 +29,13 @@ from .eri import TWO_PI_POW_2_5, as_f64, bra_hermite
 from .mcmurchie import r_tensor
 from .pairs import PairBlock, unique_pair_blocks
 
-# (la, lb, lq) classes compiled into K1: la <= lb <= 2 primary pairs against
-# aux shells up to g, plus the (0, lP) unit bra of the 2-center metric
+# (la, lb, lq) classes compiled into K1 (JC_ERI3C_ENTRY in csrc/eri3c.cuh):
+# la <= lb <= 3 primary pairs against aux shells up to g, plus the (0, 4)
+# unit bra of the 2-center metric ((0, lP) with lP <= 3 is a primary class)
 KERNEL_CLASSES = frozenset(
     (la, lb, lq)
-    for la, lb in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2), (0, 3), (0, 4))
+    for la, lb in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2), (0, 3),
+                   (1, 3), (2, 3), (3, 3), (0, 4))
     for lq in range(5))
 
 # plain version: elements of the largest [Pc, K2, Nq, Kq, ...] intermediate
@@ -125,7 +127,8 @@ def eri3c_class(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
         return
     if (la, lb, lq) not in KERNEL_CLASSES:
         raise NotImplementedError(
-            f"K1 is not instantiated for class ({la},{lb}|{lq})")
+            f"K1 is not instantiated for class ({la},{lb}|{lq}): primary "
+            "shells above f are ROADMAP.md B17(b)")
     if out.dtype not in (torch.float64, torch.float32):
         raise ValueError("eri3c_class: out must be f64 or f32")
     for t, dt in ((out, out.dtype), (pair, torch.float64),
@@ -140,7 +143,7 @@ def eri3c_class(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
                    else "jc_eri3c_f32", la, lb, lq, pair.data_ptr(), n, Ka, Kb,
                    aux.data_ptr(), qrow.data_ptr(), nq, (aux.shape[1] - 3) // 2,
                    cols.data_ptr(), cols_t.data_ptr(), mirror.data_ptr(),
-                   out.data_ptr(), out.stride(0))
+                   out.data_ptr(), out.stride(0), cls=(la, lb, lq))
 
 
 def aux_unit_blocks(aux: Basis) -> list[PairBlock]:

@@ -230,7 +230,7 @@ def digest_jk(JK, I, bra: PairTable, ket: PairTable, sel_bra, sel_ket,
                        bra.meta.data_ptr(), ket.meta.data_ptr(),
                        sel_bra.data_ptr(), sel_ket.data_ptr(),
                        weight.data_ptr(), n, I.data_ptr(), D.data_ptr(), nbf,
-                       JK.data_ptr())
+                       JK.data_ptr(), cls=(bra.la, bra.lb, ket.la, ket.lb))
 
 
 def launch_eri4c_jk(JK, D, bra: PairTable, ket: PairTable, n: int, *,
@@ -257,7 +257,7 @@ def launch_eri4c_jk(JK, D, bra: PairTable, ket: PairTable, n: int, *,
                    0 if cum is None else cum.shape[0], int(same_block), n,
                    t0, D.data_ptr(), nbf, JK.data_ptr(),
                    count_as="eri4c_jk_stair" if cum is not None
-                   else "eri4c_jk_list")
+                   else "eri4c_jk_list", cls=(bra.la, bra.lb, ket.la, ket.lb))
 
 
 def eri4c_jk_plain(JK, bra: PairTable, ket: PairTable, sel_bra, sel_ket,

@@ -63,14 +63,19 @@ launches = {"eri3c": 0, "eri3c_f32": 0, "df_gather_w": 0,
             "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0,
             "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0, "split_fold": 0}
 
+# integral kernels: kernel name -> {angular-momentum class: launches}, kept
+# beside ``launches`` by the same calls
+class_launches: dict = {}
+
 _lock = threading.Lock()
 _lib = None
-build_info: dict = {}   # so path, seconds, compiler output of the last build
+build_info: dict = {}   # so path, seconds (each source's too), compiler output
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    class_launches.clear()
 
 
 def _nvcc() -> str:
@@ -114,14 +119,25 @@ def build() -> Path:
             obj = tmp / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
                    "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            # compiler output to a file: a pipe could fill while the build
+            # polls the processes
+            log = open(tmp / (src.stem + ".log"), "w+")
+            procs.append((src, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        # each source's wall from the start of the build (the slowest one
+        # bounds the build)
+        per_source = {}
+        while len(per_source) < len(procs):
+            for src, _, _, proc in procs:
+                if src.name not in per_source and proc.poll() is not None:
+                    per_source[src.name] = time.perf_counter() - t0
+            time.sleep(0.05)
         logs = []
         failed = []
-        for src, _, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(f"== {src.name}\n{out}")
+        for src, _, log, proc in procs:
+            log.seek(0)
+            logs.append(f"== {src.name}\n{log.read()}")
+            log.close()
             if proc.returncode != 0:
                 failed.append(src.name)
         if failed:
@@ -130,7 +146,7 @@ def build() -> Path:
         tmp_so = tmp / so.name
         link = subprocess.run(
             [nvcc, ARCH, "-shared", "-o", str(tmp_so),
-             *[str(o) for _, o, _ in procs]],
+             *[str(o) for _, o, _, _ in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed\n" + link.stdout[-20000:])
@@ -138,7 +154,7 @@ def build() -> Path:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     build_info.update(so=str(so), seconds=time.perf_counter() - t0,
-                      log="\n".join(logs))
+                      per_source=per_source, log="\n".join(logs))
     return so
 
 
@@ -160,10 +176,11 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(symbol: str, *args, count_as: str | None = None) -> None:
+def launch(symbol: str, *args, count_as: str | None = None,
+           cls: tuple | None = None) -> None:
     """Call one C entry point on PyTorch's current stream; raise on a CUDA
     error, else count the launch (under ``count_as`` when one entry point
-    serves two modes)."""
+    serves two modes; per angular-momentum class ``cls`` too, where given)."""
     import torch
 
     lib = library()
@@ -171,4 +188,8 @@ def launch(symbol: str, *args, count_as: str | None = None) -> None:
     if rc != 0:
         raise RuntimeError(f"{symbol} failed: CUDA error {rc} "
                            f"({lib.jc_error_string(rc).decode()})")
-    launches[count_as or _FUNCS[symbol][0]] += 1
+    name = count_as or _FUNCS[symbol][0]
+    launches[name] += 1
+    if cls is not None:
+        per = class_launches.setdefault(name, {})
+        per[cls] = per.get(cls, 0) + 1

@@ -18,7 +18,10 @@ product; K1's f32 store and K2's f32-B instance bit for bit equal to the f64
 output rounded and to the f64 instance on the upcast block; the DF-RHF,
 conventional RHF and UHF/ROHF energies on the card within 1e-9 Eh of the
 same runs on the CPU, RI-UMP2 on the card's orbitals within 1e-10 Eh; two
-gloo ranks sharing the card give the sharded packed G of one device.
+gloo ranks sharing the card give the sharded packed G of one device.  The
+f classes (pair classes to (ff), 34 class pairs with an f shell) are held
+the same way on two waters in 6-31G(2df,p), and (ff|ff) on one C atom in
+6-311++G(3df,3pd); a g primary class raises.
 """
 
 import pathlib
@@ -85,13 +88,14 @@ def test_k1_eri3c(cuda_device, what, aux_name):
 
 @pytest.mark.cuda
 def test_k1_raises_for_a_class_it_lacks(cuda_device):
-    """(ff|s) is not instantiated: the wrapper raises instead of launching."""
+    """(gg|s) is not instantiated (g primary shells are ROADMAP.md B17(b)):
+    the wrapper raises instead of launching."""
     def zeros(*shape, dtype=torch.float64):
         return torch.zeros(shape, dtype=dtype, device=cuda_device)
 
-    n, nab = 1, 100
+    n, nab = 1, 225
     with pytest.raises(NotImplementedError):
-        eri3c.eri3c_class(zeros(4, 4), 3, 3, 0, 1, 1, zeros(n, 10),
+        eri3c.eri3c_class(zeros(4, 4), 4, 4, 0, 1, 1, zeros(n, 10),
                           zeros(1, 5), zeros(1, dtype=torch.int64),
                           zeros(n, nab, dtype=torch.int64),
                           zeros(n, nab, dtype=torch.int64),
@@ -171,7 +175,8 @@ def test_k4_eri4c_every_class(cuda_device):
 
 @pytest.mark.cuda
 def test_k4_raises_for_a_class_it_lacks(cuda_device):
-    """(ff|ss) is not instantiated: the wrapper raises instead of launching."""
+    """(ss|gg) is not instantiated (g primary shells are ROADMAP.md
+    B17(b)): the wrapper raises instead of launching."""
     def table(l, n=1):
         return eri.PairTable(
             la=l, lb=l, Ka=1, Kb=1,
@@ -180,7 +185,7 @@ def test_k4_raises_for_a_class_it_lacks(cuda_device):
 
     sel = torch.zeros(1, dtype=torch.int64, device=cuda_device)
     with pytest.raises(NotImplementedError):
-        eri.eri4c_class(table(0), table(3), sel, sel)
+        eri.eri4c_class(table(0), table(4), sel, sel)
 
 
 @pytest.mark.cuda
@@ -523,3 +528,144 @@ def test_sharded_packed_G_gloo_on_card(cuda_device, monkeypatch):
         assert np.abs(r["B"] - B1[r0:r1]).max() <= 1e-12 * np.abs(B1).max()
         assert r["launches"].get("eri3c", 0) > 0
         assert r["launches"].get("df_gather_w", 0) > 0
+
+
+# --- the f classes (ROADMAP.md B17): the first 2 waters of the generated
+# w32 cluster in 6-31G(2df,p), f shells on two centres
+
+F_BASIS = "6-31G(2df,p)"
+
+
+def _two_waters_f(aux="cc-pVTZ-JKFIT"):
+    import json
+
+    c = json.loads((pathlib.Path(jc.__file__).resolve().parent / "data" /
+                    "water_clusters.json").read_text())["w32"]
+    mol = jc.molecule.from_input_dict({"symbols": c["symbols"][:6],
+                                       "geometry": c["geometry"][:18]})
+    return (jc.basis.build(mol, F_BASIS),
+            jc.basis.build_auxiliary(mol, aux, F_BASIS))
+
+
+@pytest.mark.cuda
+def test_k4_eri4c_f_classes(cuda_device):
+    """Every class pair with an f shell (34), all its quartets, within
+    1e-12 x the largest integral, and each class launched."""
+    prim, _ = _two_waters_f()
+    blocks = unique_pair_blocks(prim)
+    kernels.reset_launches()
+    pairs = []
+    for i, bra in enumerate(blocks):
+        for ket in blocks[i:]:
+            if 3 not in (bra.la, bra.lb, ket.la, ket.lb):
+                continue
+            sb, sk = np.meshgrid(np.arange(bra.n), np.arange(ket.n),
+                                 indexing="ij")
+            got = eri.eri_block(bra, ket, sb.ravel(), sk.ravel(),
+                                cuda_device).cpu()
+            ref = eri.eri_block(bra, ket, sb.ravel(), sk.ravel(), CPU)
+            pairs.append(((bra.la, bra.lb, ket.la, ket.lb), got, ref))
+    assert len(pairs) == 34
+    assert set(kernels.class_launches["eri4c"]) == {c for c, _, _ in pairs}
+    scale = max(float(ref.abs().max()) for _, _, ref in pairs)
+    for cls, got, ref in pairs:
+        assert float((got - ref).abs().max()) <= 1e-12 * scale, cls
+
+
+@pytest.mark.cuda
+def test_k4_ff_ff_of_a_carbon_atom(cuda_device):
+    """The SAD case: the full ERI tensor of one C atom in 6-311++G(3df,3pd)
+    ((ff|ff) and every other class of one centre, 214 KiB of shared memory
+    a warp at (ff|ff)) within 1e-12 x its max-abs of the CPU's."""
+    mol = jc.molecule.from_input_dict({"symbols": ["C"],
+                                       "geometry": [0.0, 0.0, 0.0]})
+    prim = jc.basis.build(mol, "6-311++G(3df,3pd)")
+    kernels.reset_launches()
+    got = eri.full_eri_tensor(prim, cuda_device).cpu()
+    assert kernels.class_launches["eri4c"].get((3, 3, 3, 3), 0) == 1
+    ref = eri.full_eri_tensor(prim, CPU)
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_eri3c_f_classes(cuda_device, dtype):
+    """The 3-center tensor of the f basis (primary pairs to (ff), aux to g)
+    against the CPU's: f64 within 1e-12 x its max-abs; the f32 store bit
+    for bit the f64 output rounded."""
+    prim, aux = _two_waters_f()
+    kernels.reset_launches()
+    got = eri3c.three_center_tensor(prim, aux, cuda_device,
+                                    out_dtype=dtype).cpu()
+    launched = set(kernels.class_launches["eri3c" if dtype == torch.float64
+                                          else "eri3c_f32"])
+    assert {(1, 3, 4), (2, 3, 4), (3, 3, 4), (3, 3, 0)} <= launched
+    if dtype == torch.float64:
+        ref = eri3c.three_center_tensor(prim, aux, CPU)
+        assert float((got - ref).abs().max()) <= \
+            1e-12 * float(ref.abs().max())
+    else:
+        ref = eri3c.three_center_tensor(prim, aux, cuda_device).cpu()
+        assert torch.equal(got, ref.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder,kernel", [
+    ("incore", "digest_jk"), ("direct", "eri4c_jk_list"),
+    ("streaming", "eri4c_jk_stair")])
+def test_k5_k6_jk_match_plain_f_classes(cuda_device, builder, kernel):
+    """J, K at a fixed symmetric D through K6, K5 list and K5 staircase on
+    the f basis, every f class launched, within 1e-11 x max(|J|, |K|) of
+    the plain versions."""
+    prim, _ = _two_waters_f()
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(prim.nbf, prim.nbf))
+    D = torch.as_tensor(X + X.T)
+
+    def make(dev):
+        if builder == "streaming":
+            return fock_stream.StreamingDirectFock(prim, device=dev)
+        return fock.ScreenedDirectFock(prim, incore=builder == "incore",
+                                       device=dev)
+
+    fb = make(cuda_device)
+    if builder == "streaming":
+        tabs = [(fb.blocks[cp.bi].table, fb.blocks[cp.ki].table)
+                for cp in fb.pairs]
+    else:
+        tabs = [(g.bra, g.ket) for g in fb.groups]
+    want = {(b.la, b.lb, k.la, k.lb) for b, k in tabs}
+    want = {c for c in want if 3 in c}
+    assert (3, 3, 3, 3) in want
+    kernels.reset_launches()
+    Jg, Kg = (x.cpu() for x in fb.jk_halves(D.to(cuda_device)))
+    assert {c for c in kernels.class_launches[kernel] if 3 in c} == want
+    Jr, Kr = make(CPU).jk_halves(D)
+    scale = max(float(Jr.abs().max()), float(Kr.abs().max()))
+    assert float((Jg - Jr).abs().max()) <= 1e-11 * scale
+    assert float((Kg - Kr).abs().max()) <= 1e-11 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scf_type", ["df", "rhf"])
+def test_f_basis_rhf_on_card_matches_cpu(cuda_device, scf_type):
+    """DF-RHF and conventional RHF of the 2-water system in the f basis
+    (SAD: K4 on the O atom's (ff|ff)) within 1e-9 Eh of the CPU's."""
+    import json
+
+    c = json.loads((pathlib.Path(jc.__file__).resolve().parent / "data" /
+                    "water_clusters.json").read_text())["w32"]
+    spec = jc.io.parse_input({
+        "molecule": {"symbols": c["symbols"][:6],
+                     "geometry": c["geometry"][:18]},
+        "model": {"method": "RHF", "basis": F_BASIS,
+                  "auxiliary_basis": "cc-pVTZ-JKFIT"},
+        "keywords": {"scf": {"scf_type": scf_type, "niter": 60,
+                             "dele": 1e-10, "rmsd": 1e-8, "guess": "sad",
+                             "mixed_precision": False}}})
+    kernels.reset_launches()
+    e_card = jc.run_spec(spec, device=cuda_device)["Energy"]
+    assert kernels.class_launches["eri4c"].get((3, 3, 3, 3), 0) > 0
+    e_cpu = jc.run_spec(spec, device=CPU)["Energy"]
+    assert e_card["Converged?"] and e_cpu["Converged?"]
+    assert abs(e_card["Energy"] - e_cpu["Energy"]) <= 1e-9

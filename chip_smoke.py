@@ -9,11 +9,14 @@ card's name and power limit):
 1. device: card name, ``nvidia-smi`` name and power limit, torch's CUDA
    version, ``nvcc --version``;
 2. build the CUDA kernels of juliachem_jl_tpu_torch/csrc with nvcc (one
-   process per source, in parallel);
+   process per source, in parallel); 2a. ``cuobjdump -sass`` of the built
+   library: every f64 tensor-core instance of K2 and K7 holds DMMA
+   instructions;
 3. each kernel against its plain torch version on the card, times from CUDA
    events beside the least time the card could take (``bound_ms``):
    K1 (3-center integrals, every class of benzene_2_water / cc-pVTZ-JKFIT,
-   a subset of bra pairs), K2 (packed-B exchange factor, f64 and f32), the
+   a subset of bra pairs), K2 (packed-B exchange factor, f64 and f32;
+   also at w32's Q-block, whose col_map has whole dead tiles), the
    probe K3 (device Boys function), and at the class shapes of
    ammonia_trimer and benzene_2_water (6-311++G(2d,2p)), the first quartets
    of every class pair of the Schwarz staircase: K4 (4-center integrals),
@@ -81,6 +84,10 @@ card's name and power limit):
    6-31G(2df,p) conventional; the SCF energies held to the JAX package's,
    and each of K1, K4, K5 (both modes) and K6 shown to have launched an f
    class on its path (K4's (ff|ff) on the SAD atoms).
+
+The packed K pass of the w-cluster runs and of one ``benzene_2_water``
+build at its converged D is split by phase with CUDA events (K2, W^T W,
+V B, the f32 -> f64 row upcasts; ``KPassSplit``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after (each launch is also counted per angular-momentum class).  Energies
@@ -611,81 +618,110 @@ def check_k8(tag: str, dev, A: int, label: str) -> dict:
             "f64_fold_ms": f64_ms, **b}
 
 
-def check_k2(tag: str, dev, bsets, opts) -> tuple[dict, dict]:
-    """K2 at the system's packed shapes: the real screen (Schwarz-screened
-    col_map), one Q-block of all fitted aux rows, the occupied count; f64,
-    f32, and the f32-B instance (f32 B, f64 C and W).  Returns the kernel
-    line entries of K2 and of its f32-B instance."""
+def check_k2(tag: str, dev, bsets, opts, label: str = "benzene_2_water",
+             k: int | None = None, qc: int | None = None,
+             f32: bool = True) -> tuple[dict, dict]:
+    """K2 at a system's packed shapes: its real screen (Schwarz-screened
+    col_map, whose dead 16 x 64 tiles K2 skips: live slabs printed), one
+    Q-block of ``qc`` fitted aux rows (default all of them), a factor of
+    ``k`` columns (default the occupied count); f64, f32 (FMA body) where
+    ``f32``, and the f32-B instance (f32 B, f64 C and W), held bit for bit
+    to the f64 instance on the upcast block.  Every kernel is held to the
+    plain version on all ``qc`` rows.  Returns the kernel line entries of
+    K2 and of its f32-B instance."""
     import torch
 
     from juliachem_jl_tpu_torch.models.df import screened_pair_blocks
     from juliachem_jl_tpu_torch.models.df_screened import (
-        build_packed_screen, df_gather_w, df_gather_w_plain)
-    from juliachem_jl_tpu_torch.basis.spherical import cart_to_sph_basis
+        build_packed_screen, df_gather_w, df_gather_w_plain, fitted_rows,
+        k2_slabs)
     from juliachem_jl_tpu_torch.ops import eri3c, kernels
 
     prim, aux = bsets.primary, bsets.auxiliary
     metric_max = float(torch.diagonal(eri3c.two_center_metric(aux, dev)).max())
     screen = build_packed_screen(prim, screened_pair_blocks(
         prim, opts.df_screening_sigma, metric_max, dev))
-    qc = cart_to_sph_basis(aux).shape[1]
-    nbf, k = prim.nbf, prim.nels // 2
+    qc = qc or fitted_rows(aux, opts)
+    nbf, k = prim.nbf, k or prim.nels // 2
     gen = torch.Generator(device=dev).manual_seed(0)
     Bc = torch.randn((qc, screen.npq + 1), dtype=torch.float64, device=dev,
                      generator=gen)
     Bc[:, -1] = 0.0
     C = torch.randn((nbf, k), dtype=torch.float64, device=dev, generator=gen)
     col_map = torch.as_tensor(screen.col_map, device=dev).to(torch.int32)
+    ptr, idx = k2_slabs(screen.col_map, nbf, screen.npq)
+    slabs = (torch.as_tensor(ptr, device=dev), torch.as_tensor(idx, device=dev))
+    n_slabs = -(-nbf // 16) * (len(ptr) - 1)
+    live = int((col_map != screen.npq).sum())
+    what = (f"{label} Qc={qc} npq={screen.npq} nbf={nbf} k={k}, live slabs "
+            f"{len(idx)} of {n_slabs}")
     res = {}
     for dt, bound in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        if dt == torch.float32 and not f32:
+            continue
         B_, C_ = Bc.to(dt), C.to(dt)
         n0 = kernels.launches["df_gather_w"]
-        got = df_gather_w(B_, col_map, C_)
+        got = df_gather_w(B_, col_map, C_, slabs)
         check(kernels.launches["df_gather_w"] == n0 + 1,
               "K2 comparison did not launch the kernel")
         ref = df_gather_w_plain(B_, col_map, C_)
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
-        check(rel <= bound, f"K2 {dt}: relative error {rel:.3e} > {bound}")
-        ms = cuda_ms(lambda: df_gather_w(B_, col_map, C_))
+        del got, ref
+        check(rel <= bound, f"K2 {dt} at {label}: relative error {rel:.3e} "
+              f"> {bound}")
+        ms = cuda_ms(lambda: df_gather_w(B_, col_map, C_, slabs))
         plain = cuda_ms(lambda: df_gather_w_plain(B_, col_map, C_))
         res[dt] = (err, rel, ms, plain)
-        print(f"{tag} K2 df_gather_w {str(dt)[6:]} Qc={qc} npq={screen.npq} "
-              f"nbf={nbf} k={k}: max abs err {err:.3e}, rel {rel:.3e} "
-              f"(bound {bound}); kernel {ms:.3f} ms, plain torch (tile + "
-              f"einsum) {plain:.3f} ms", flush=True)
+        print(f"{tag} K2 df_gather_w {str(dt)[6:]}"
+              f"{' (FMA body)' if dt == torch.float32 else ''} {what}: max "
+              f"abs err {err:.3e}, rel {rel:.3e} (bound {bound}); kernel "
+              f"{ms:.3f} ms, plain torch (tile + einsum) {plain:.3f} ms",
+              flush=True)
+        del B_, C_
     err, rel, ms, plain = res[torch.float64]
     # bound (f64): B, col_map and C read once, W written once; one FMA per
     # (q, i, surviving (m, n)) entry
-    live = int((col_map != screen.npq).sum())
     b = bound_of(8.0 * Bc.numel() + 4.0 * col_map.numel() + 8.0 * C.numel()
-              + 8.0 * qc * k * nbf, 2.0 * qc * live * k)
-    print(f"{tag} K2 df_gather_w f64 bound {b['bound_ms']:.3f} ms "
+                 + 8.0 * qc * k * nbf, 2.0 * qc * live * k)
+    print(f"{tag} K2 df_gather_w f64 {label} bound {b['bound_ms']:.3f} ms "
           f"({b['bound_by']})", flush=True)
     k2 = {"name": "df_gather_w", "route": "cuda",
           "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
           "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
+          "at": label, "shapes": [qc, screen.npq, nbf, k],
+          "live_slabs": len(idx), "slabs": n_slabs,
           "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-          "plain_ms": plain, "library_ms": None, **b,
-          "f32_ms": res[torch.float32][2],
-          "f32_plain_ms": res[torch.float32][3]}
+          "plain_ms": plain, "library_ms": None, **b}
+    if f32:
+        # the f32 instance's bound: f32 words of B, C and W, FP32 operations
+        b_f32 = bound_of(4.0 * Bc.numel() + 4.0 * col_map.numel()
+                         + 4.0 * C.numel() + 4.0 * qc * k * nbf,
+                         2.0 * qc * live * k, PEAK_F32_OPS_S)
+        print(f"{tag} K2 df_gather_w f32 {label} bound "
+              f"{b_f32['bound_ms']:.3f} ms ({b_f32['bound_by']})", flush=True)
+        k2.update(f32_ms=res[torch.float32][2],
+                  f32_plain_ms=res[torch.float32][3],
+                  f32_bound_ms=b_f32["bound_ms"],
+                  f32_bound_by=b_f32["bound_by"])
     # the f32-B instance (f64 iterations on an f32 B): bit for bit the f64
     # instance on the upcast block
     B32 = Bc.float()
+    del Bc
     n0 = kernels.launches["df_gather_w_f32b"]
-    got = df_gather_w(B32, col_map, C)
+    got = df_gather_w(B32, col_map, C, slabs)
     check(kernels.launches["df_gather_w_f32b"] == n0 + 1,
           "K2 f32-B comparison did not launch the kernel")
-    differ = int((got != df_gather_w(B32.double(), col_map, C)).sum())
-    check(differ == 0, f"K2 f32-B: {differ} elements differ from the f64 "
-          "instance on Bc.double()")
+    differ = int((got != df_gather_w(B32.double(), col_map, C, slabs)).sum())
+    check(differ == 0, f"K2 f32-B at {label}: {differ} elements differ from "
+          "the f64 instance on Bc.double()")
     err32 = float((got - df_gather_w_plain(B32, col_map, C)).abs().max())
     del got
-    ms32 = cuda_ms(lambda: df_gather_w(B32, col_map, C))
+    ms32 = cuda_ms(lambda: df_gather_w(B32, col_map, C, slabs))
     plain32 = cuda_ms(lambda: df_gather_w_plain(B32, col_map, C))
     b32 = bound_of(4.0 * B32.numel() + 4.0 * col_map.numel()
                    + 8.0 * C.numel() + 8.0 * qc * k * nbf, 2.0 * qc * live * k)
-    print(f"{tag} K2 df_gather_w_f32b (f32 B, f64 C and W) Qc={qc}: 0 "
+    print(f"{tag} K2 df_gather_w_f32b (f32 B, f64 C and W) {what}: 0 "
           f"elements off the f64 instance on Bc.double() (bit for bit); max "
           f"abs err vs plain {err32:.3e}; kernel {ms32:.3f} ms, plain torch "
           f"{plain32:.3f} ms, bound {b32['bound_ms']:.3f} ms "
@@ -693,9 +729,63 @@ def check_k2(tag: str, dev, bsets, opts) -> tuple[dict, dict]:
     k2b = {"name": "df_gather_w_f32b", "route": "cuda",
            "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
            "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
+           "at": label, "shapes": [qc, screen.npq, nbf, k],
+           "live_slabs": len(idx), "slabs": n_slabs,
            "max_abs_err": err32, "elements_off_f64": differ, "ms": ms32,
            "plain_ms": plain32, "library_ms": None, **b32}
     return k2, k2b
+
+
+# K2's and K7's DMMA instances (mangled-name fragments of csrc/'s
+# templates) and the kernel each serves
+DMMA_INSTANCES = {
+    "df_gather_w": "df_gather_w_dmmaIdE",
+    "df_gather_w_f32b": "df_gather_w_dmmaIfE",
+    "e2_rmp2": "mp2_e2_pair_kernelILi0EE",
+    "e2_ss": "mp2_e2_pair_kernelILi1EE",
+    "e2_os": "mp2_e2_os_kernel",
+}
+
+
+def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
+    """DMMA instructions in the SASS of each K2/K7 tensor-core instance of
+    the built library (``cuobjdump -sass``; fails if an instance is missing
+    or has none), and each instance's registers a thread as ptxas reported
+    them in the build."""
+    from juliachem_jl_tpu_torch.ops import kernels
+
+    out = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-2000:]}")
+    per_fn, fn = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            per_fn[fn] = 0
+        elif fn is not None and "DMMA" in ln:
+            per_fn[fn] += 1
+    counts = {}
+    for inst, frag in DMMA_INSTANCES.items():
+        fns = [f for f in per_fn if frag in f]
+        check(len(fns) == 1, f"SASS: {len(fns)} functions match {inst}")
+        counts[inst] = per_fn[fns[0]]
+    print(f"{tag} SASS DMMA instructions per instance: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()), flush=True)
+    check(all(v > 0 for v in counts.values()),
+          "SASS: a K2/K7 tensor-core instance has no DMMA instruction")
+    # registers a thread, from ptxas -v in this process's build log
+    regs, fn = {}, None
+    for ln in kernels.build_info.get("log", "").splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn is not None and "Used" in ln and "registers" in ln:
+            regs[fn] = int(ln.split("Used", 1)[1].split()[0])
+    used = {inst: next((r for f, r in regs.items() if frag in f), None)
+            for inst, frag in DMMA_INSTANCES.items()}
+    print(f"{tag} registers a thread (ptxas): " + ", ".join(
+        f"{k} {'not in this build log' if v is None else v}"
+        for k, v in used.items()), flush=True)
+    return {"dmma": counts, "registers": used}
 
 
 def k1_primitive_counts(tag: str, dev, bsets, opts) -> dict:
@@ -1126,11 +1216,11 @@ def fock_stats(tm, iterations: int) -> dict:
     steady = iters[1:] if len(iters) > 2 else iters
     f64 = [tm.timings[f"{pref}{i}"] for i in steady if i not in f32]
     f32v = [tm.timings[f"{pref}{i}"] for i in steady if i in f32]
-    # packed route: per-iteration split of the f64 build (V = B d; the J/K
-    # pass of K2 + W^T W + V B; scatter of J and G = J - K/2)
+    # packed route: per-iteration split of the f64 build (the J/K pass of
+    # V = B d, V B, K2 and W^T W; scatter of J and G = J - K/2)
     split = {k: steady_mean([tm.timings[f"{key}-{i}"] for i in steady
                              if i not in f32 and f"{key}-{i}" in tm.timings])
-             for k, key in (("V", JCTC.V_time), ("JK_pass", JCTC.K_time),
+             for k, key in (("JK_pass", JCTC.K_time),
                             ("finalize", JCTC.J_time))}
     return {"fock_s_per_iter_f64_steady": steady_mean(f64),
             "f64_steady_iters": len(f64),
@@ -1197,6 +1287,30 @@ def b_checksum(B) -> tuple[float, float]:
     return s, sq
 
 
+def k_pass_split(sweeps: list[dict]) -> dict:
+    """Per compute dtype, the mean ms of each phase of the packed K pass
+    (``KPassSplit.ms()``: K2, W^T W, V B, upcast) over the sweeps after the
+    first (the first SCF iteration's factor is SAD's signed one)."""
+    out = {}
+    for sw in sweeps[1:] or sweeps:
+        acc = out.setdefault(sw["dtype"], {"sweeps": 0})
+        acc["sweeps"] += 1
+        for k, v in sw.items():
+            if k != "dtype":
+                acc[k] = acc.get(k, 0.0) + v
+    for acc in out.values():
+        for k in acc:
+            if k != "sweeps":
+                acc[k] /= acc["sweeps"]
+    return out
+
+
+def fmt_split(split: dict) -> str:
+    return "; ".join(f"{dt} ({v['sweeps']} builds) " + ", ".join(
+        f"{k} {x:.3f}" for k, x in v.items() if k != "sweeps")
+        for dt, v in split.items())
+
+
 def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
                 waters: int | None = None, measure_build: bool = False,
                 gated: bool = True) -> dict:
@@ -1205,16 +1319,19 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     packed builder's build alone (``build_peak``).  Returns the energy,
     iterations, B's bytes and checksum, the build's and the run's peak
     device memory, the setup phases, the Fock s/iter and which caches were
-    read (from the port's notes on stderr, which are passed through).  B's
-    checksum is taken from the builder ``ScreenedDFFockBuilder.build``
-    returns, wrapped for this run only.  A run that is not ``gated`` is
-    recorded whether it converges or not."""
+    read (from the port's notes on stderr, which are passed through), and
+    the K pass of every build split by phase with CUDA events (K2, W^T W,
+    V B, the f32 -> f64 row upcasts; ``KPassSplit``).  B's checksum is
+    taken from the builder ``ScreenedDFFockBuilder.build`` returns, wrapped
+    for this run only.  A run that is not ``gated`` is recorded whether it
+    converges or not."""
     import contextlib
     import io
 
     import torch
 
-    from juliachem_jl_tpu_torch.models.df_screened import ScreenedDFFockBuilder
+    from juliachem_jl_tpu_torch.models.df_screened import (
+        KPassSplit, ScreenedDFFockBuilder)
     from juliachem_jl_tpu_torch.utils.timings import JCTC
 
     dev = torch.device("cuda")
@@ -1239,6 +1356,7 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
         return fb
 
     ScreenedDFFockBuilder.build = classmethod(build_and_sum)
+    ScreenedDFFockBuilder.split = KPassSplit()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stderr(notes):
@@ -1246,6 +1364,8 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
                                                               waters)))
     finally:
         ScreenedDFFockBuilder.build = build
+        sweeps = ScreenedDFFockBuilder.split.ms()
+        ScreenedDFFockBuilder.split = None
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     sys.stderr.write(notes.getvalue())
@@ -1268,7 +1388,7 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
         "build_peak_device_bytes": peak_build,
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "setup_s": setup, **fock_stats(tm, int(res["Iterations"])),
-        "wall_s": wall,
+        "k_pass_split_ms": k_pass_split(sweeps), "wall_s": wall,
         "loaded_B_cache": "loaded cached B" in notes.getvalue(),
         "loaded_S_T_V": "loaded cached S/T/V" in notes.getvalue(),
     }
@@ -1288,6 +1408,8 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
         f"{summary['fock_reps']}; f64 split s/iter " + ", ".join(
             f"{k} {v:.4f}" for k, v in summary["fock_split_s"].items()),
         flush=True)
+    print(f"{tag} {label}: K pass split, ms per build (CUDA events): "
+          + fmt_split(summary["k_pass_split_ms"]), flush=True)
     check(summary["route"] == "ScreenedDFFockBuilder",
           f"{label}: route {summary['route']}")
     check(summary["converged"] or not gated, f"{label}: SCF did not converge")
@@ -1576,6 +1698,16 @@ def packed_build_times(fb, D) -> dict:
         out["phases_err"] = float((fb.two_electron_fock(D, 1, Timings())
                                    - G).abs().max())
         fb.profile = False
+    if cuda:
+        # one f64 (and one f32-phase) build split by phase with CUDA events
+        from juliachem_jl_tpu_torch.models.df_screened import KPassSplit
+
+        fb.split = KPassSplit()
+        fb.two_electron_fock(D, 1, Timings())
+        if fb.supports_f32_phase:
+            fb.two_electron_fock(D, 1, Timings(), precision="f32")
+        out["k_pass_split"] = {sw.pop("dtype"): sw for sw in fb.split.ms()}
+        fb.split = None
     Dh = (0.5 * D).contiguous()
     out["jk_ms"] = timed(lambda: fb.two_electron_jk(Dh, Dh, 1, Timings()))
     J, Ka, _ = fb.two_electron_jk(Dh, Dh, 1, Timings())
@@ -2015,6 +2147,9 @@ def main() -> int:
               f"{k} {v:.1f}" for k, v in sorted(
                   per_source.items(), key=lambda kv: -kv[1])[:6]),
           flush=True)
+    # 2a. the SASS of K2's and K7's tensor-core instances holds DMMA
+    sass = check_sass(tag, kernels.build_info["so"],
+                      str(Path(kernels._nvcc()).parent / "cuobjdump"))
 
     goldens = json.loads((ROOT / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
@@ -2042,10 +2177,21 @@ def main() -> int:
     k8_at = {}
     for label, waters in (("w8", 8), ("w32", None)):
         spec_w = jc.io.parse_input(cluster_input("w32", waters=waters))
-        rows = fitted_rows(jc.basis.run(jc.molecule.run(spec_w),
-                                        spec_w.model).auxiliary,
+        bsets_w = jc.basis.run(jc.molecule.run(spec_w), spec_w.model)
+        rows = fitted_rows(bsets_w.auxiliary,
                            create_scf_options(spec_w.scf_keywords))
         k8_at[label] = check_k8(tag, dev, rows, label)
+    # K2 at w32's Q-block: the packed builder's block rows for its
+    # occupied count on the card
+    from juliachem_jl_tpu_torch.models.df_screened import ScreenedDFFockBuilder
+    k_w = bsets_w.primary.nels // 2
+    qc_w = ScreenedDFFockBuilder.block_rows(bsets_w.primary.nbf, k_w, rows,
+                                            dev)
+    k2_w, k2b_w = check_k2(tag, dev, bsets_w,
+                           create_scf_options(spec_w.scf_keywords),
+                           "w32 Q-block", k_w, qc_w, f32=False)
+    del bsets_w
+    torch.cuda.empty_cache()
     k8 = {**k8_at["w32"], "at_w8_fold": {
         k: v for k, v in k8_at["w8"].items()
         if k not in ("name", "route", "source", "replaces", "library")}}
@@ -2390,7 +2536,12 @@ def main() -> int:
     fb.finalize()
     del fb
     print(f"{tag} benzene_2_water one device at the converged D: staircase "
-          f"build {stream_s:.3f} s", flush=True)
+          f"build {stream_s:.3f} s; packed build ms " + ", ".join(
+              f"{k} {v:.3f}" for k, v in packed_ms.items()
+              if k.endswith("_ms")) + "; its K pass split, ms (CUDA events): "
+          + "; ".join(f"{dt} " + ", ".join(f"{k} {x:.3f}" for k, x in v.items())
+                      for dt, v in packed_ms["k_pass_split"].items()),
+          flush=True)
     cation_tight = run_open(tag, jc, "benzene_2_water", goldens["benzene_2_water"],
                             "UHF", 1, 2, "ScreenedDFJKBuilder", CATION_TIGHT)
     cation_tight.pop("result"), cation_tight.pop("basis")
@@ -2507,6 +2658,12 @@ def main() -> int:
     for k in (k1, k1_f32, k2, k2_f32b, k8):
         k["launches"] = counts[main_path[k["name"]]][k["name"]]
         k["path"] = main_path[k["name"]]
+    # K2 at w32's Q-block, on the w32 paths (f64 B, f32 B)
+    for k, label in ((k2_w, "w32 f64 B"), (k2b_w, "w32 f32 B")):
+        k["launches"] = counts[label][k["name"]]
+        k["path"] = label
+        k["name"] += "_w32"
+    check(k2_w["launches"] > 0, "kernel df_gather_w never launched on w32 f64 B")
     k8["at_w8_fold"]["launches"] = counts["w8 split fold"]["split_fold"]
     k8["at_w8_fold"]["path"] = "w8 split fold"
     k3["launches"] = counts["benzene_2_water DF"]["boys_probe"]
@@ -2569,7 +2726,7 @@ def main() -> int:
             "bound_by": v["bound_by"], "library_ms": None,
             "largest_class": v["largest_class"]})
     kern_line = ([k1, k2] + new_kernels + list(k7.values())
-                 + [k8, k1_f32, k2_f32b] + f_kernels)
+                 + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels)
 
     systems = [ammonia, benzene, bz_f32, bz_split, *w8.values(),
                ammonia_conv, benzene_conv,
@@ -2591,7 +2748,8 @@ def main() -> int:
             "cuda": torch.version.cuda, "build_s": build_s, "total_s": total_s,
             "build_per_source_s": per_source,
             "build_log": kernels.build_info.get("log", ""),
-            "spills": spills, "kernels": kern_line, "probes": [k3],
+            "spills": spills, "sass": sass, "kernels": kern_line,
+            "probes": [k3],
             "four_center": {k: {kk: vv for kk, vv in v.items()}
                             for k, v in fourc.items()},
             "builds_at_ammonia_convergence": builds,

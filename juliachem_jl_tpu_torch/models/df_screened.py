@@ -34,6 +34,7 @@ import hashlib
 import os
 import sys
 import warnings
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -265,6 +266,25 @@ def _drop_raw_cache(prefix: str) -> None:
 # ---------------------------------------------------------------- kernel K2
 
 
+def k2_slabs(col_map, nbf: int, trash: int) -> tuple[np.ndarray, np.ndarray]:
+    """The live m-slabs of K2's n-tiles as a CSR pair (slab_ptr
+    [ceil(nbf / TN) + 1], slab_idx), int32, on K2's tile of SM rows of m by
+    TN columns of n (``kernels.K2_SLAB_M``, ``kernels.K2_TILE_N``, which
+    the kernel is built with): slab s (rows SM s .. SM (s + 1) - 1) is
+    listed under n-tile t (columns TN t .. TN (t + 1) - 1), in ascending s,
+    when some col_map entry of that tile is not ``trash``.  K2 walks only
+    these slabs."""
+    sm, tn = kernels.K2_SLAB_M, kernels.K2_TILE_N
+    cm = np.asarray(col_map).reshape(nbf, nbf) != trash
+    ms, nt = -(-nbf // sm), -(-nbf // tn)
+    live = np.zeros((ms * sm, nt * tn), dtype=bool)
+    live[:nbf, :nbf] = cm
+    tiles = live.reshape(ms, sm, nt, tn).any(axis=(1, 3))
+    slab_ptr = np.zeros(nt + 1, dtype=np.int32)
+    slab_ptr[1:] = np.cumsum(tiles.sum(axis=0))
+    return slab_ptr, np.nonzero(tiles.T)[1].astype(np.int32)
+
+
 def df_gather_w_plain(Bc, col_map, C) -> torch.Tensor:
     """Plain version of K2: expand the block to a dense [Qc, nbf, nbf] tile
     through col_map (trash column = zeros), in C's dtype, then W = tile · C."""
@@ -273,14 +293,17 @@ def df_gather_w_plain(Bc, col_map, C) -> torch.Tensor:
     return torch.einsum("qmn,mi->qin", tile, C)
 
 
-def df_gather_w(Bc, col_map, C) -> torch.Tensor:
+def df_gather_w(Bc, col_map, C, slabs) -> torch.Tensor:
     """Kernel K2: W[q, i, n] = sum_m Bc[q, col_map[m*nbf + n]] C[m, i].
 
-    Bc: [Qc, npq+1] rows of packed B (trash column npq); col_map:
+    Bc: [Qc, npq+1] rows of packed B (trash column npq, zero); col_map:
     [nbf*nbf] int32; C: [nbf, k].  Bc and C both f64, both f32, or an f32
     Bc with an f64 C (counted as ``df_gather_w_f32b``: the f64 iterations
-    on an f32 B).  Returns [Qc, k, nbf] in C's dtype.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    on an f32 B).  ``slabs``: ``k2_slabs`` of col_map as int32 tensors on
+    Bc's device, the slabs the f64 and f32-B instances walk (the f32
+    instance and the plain version read all of col_map).  Returns [Qc, k,
+    nbf] in C's dtype.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     nbf, k = C.shape
     qc, ldb = Bc.shape
     pair = (Bc.dtype, C.dtype)
@@ -292,18 +315,67 @@ def df_gather_w(Bc, col_map, C) -> torch.Tensor:
         return df_gather_w_plain(Bc, col_map, C)
     if qc > 65535:
         raise ValueError("df_gather_w: blocks of at most 65535 rows")
-    for t in (Bc, col_map, C):
-        if t.device != Bc.device or not t.is_contiguous():
-            raise ValueError("df_gather_w: contiguous tensors on one device")
     W = torch.empty((qc, k, nbf), dtype=C.dtype, device=Bc.device)
-    kernels.launch(_K2_SYMBOLS[pair], Bc.data_ptr(), ldb, ldb - 1,
-                   col_map.data_ptr(), C.data_ptr(), nbf, k, qc, W.data_ptr())
+    if pair == (torch.float32, torch.float32):
+        _check_k2(Bc, col_map, C)
+        kernels.launch(_K2_SYMBOLS[pair], Bc.data_ptr(), ldb, ldb - 1,
+                       col_map.data_ptr(), C.data_ptr(), nbf, k, qc,
+                       W.data_ptr())
+        return W
+    slab_ptr, slab_idx = slabs
+    if slab_ptr.shape != (-(-nbf // kernels.K2_TILE_N) + 1,) \
+            or slab_ptr.dtype != torch.int32 or slab_idx.dtype != torch.int32:
+        raise ValueError("df_gather_w: slabs must be k2_slabs(col_map) as "
+                         "int32 tensors")
+    _check_k2(Bc, col_map, C, slab_ptr, slab_idx)
+    kernels.launch(_K2_SYMBOLS[pair], Bc.data_ptr(), ldb, col_map.data_ptr(),
+                   slab_ptr.data_ptr(), slab_idx.data_ptr(), C.data_ptr(),
+                   nbf, k, qc, W.data_ptr())
     return W
+
+
+def _check_k2(*ts) -> None:
+    for t in ts:
+        if t.device != ts[0].device or not t.is_contiguous():
+            raise ValueError("df_gather_w: contiguous tensors on one device")
 
 
 _K2_SYMBOLS = {(torch.float64, torch.float64): "jc_df_gather_w_f64",
                (torch.float32, torch.float32): "jc_df_gather_w_f32",
                (torch.float32, torch.float64): "jc_df_gather_w_f32b"}
+
+
+class KPassSplit:
+    """CUDA-event times of the packed K pass by phase, per sweep: K2's
+    launches (``K2``), the W^T W products with the sign scaling and the
+    mirror (``WtW``), V_Q = B_Q d with its product V_Q B_Q (``VB``) and the
+    f32 -> f64 row upcasts (``upcast``).  Set as a builder's ``split`` to
+    record every sweep on the card; ``ms()`` synchronises and returns, per
+    sweep, its compute dtype and the ms of each phase."""
+
+    def __init__(self):
+        self.sweeps: list[tuple[str, dict]] = []
+
+    def start(self, dtype) -> None:
+        self.sweeps.append((str(dtype).replace("torch.", ""), {}))
+
+    @contextmanager
+    def phase(self, name: str):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        yield
+        b.record()
+        self.sweeps[-1][1].setdefault(name, []).append((a, b))
+
+    def ms(self) -> list[dict]:
+        torch.cuda.synchronize()
+        return [{"dtype": dt, **{k: sum(a.elapsed_time(b) for a, b in v)
+                                 for k, v in ph.items()}}
+                for dt, ph in self.sweeps]
+
+
+def _no_phase(name: str):
+    return nullcontext()
 
 
 # ---------------------------------------------------------------- builder
@@ -326,6 +398,8 @@ class ScreenedDFFockBuilder(FockBuilder):
     W_FRACTION = 0.05
     # f64 bytes of one upcast row slice of an f32 B (V = B d, J = V B)
     UPCAST_BYTES = 2.5e8
+    # a KPassSplit records the phases of every sweep (None: off)
+    split = None
 
     @classmethod
     def budgets(cls, device) -> tuple[float, float]:
@@ -356,7 +430,6 @@ class ScreenedDFFockBuilder(FockBuilder):
                  nocc: int):
         device = B.device
         self.nbf = nbf = screen.nbf
-        w_budget = self.budgets(device)[1]
         self.mixed = bool(opts.mixed_precision)
         self.check_budget(*B.shape, B.dtype, self.mixed, device)
         self.screen = screen
@@ -369,7 +442,6 @@ class ScreenedDFFockBuilder(FockBuilder):
         self.upcast_rows = max(1, int(self.UPCAST_BYTES / (8 * B.shape[1])))
 
         n_blocks = int(opts.df_exchange_n_blocks or 0)
-        self._w_budget = w_budget
         self._fixed_chunk = -(-A // n_blocks) if n_blocks > 0 else None
         self.q_chunk = self.chunk_for(nocc)
         # upper block triangle of K = W^T W pays once that gemm dominates
@@ -378,6 +450,8 @@ class ScreenedDFFockBuilder(FockBuilder):
         if screen.npq >= 2**31:
             raise ValueError("packed width exceeds the int32 col_map")
         self._col_map = torch.as_tensor(screen.col_map, device=device).to(torch.int32)
+        self._slabs = tuple(torch.as_tensor(a, device=device) for a in
+                            k2_slabs(screen.col_map, nbf, screen.npq))
         self._pq_flat = torch.as_tensor(screen.pq_flat, device=device)
 
     @classmethod
@@ -394,17 +468,23 @@ class ScreenedDFFockBuilder(FockBuilder):
         nt["B_bytes"] = str(B.numel() * B.element_size())
         return builder
 
+    @classmethod
+    def block_rows(cls, nbf: int, k: int, rows: int, device) -> int:
+        """Rows of a Q-block of B's ``rows`` on ``device`` when
+        ``df_exchange_n_blocks`` is unset: the most whose W [Qc, k, nbf] for
+        a factor of k columns fits the W budget (the CPU's plain K2 also
+        expands the [Qc, nbf, nbf] tile), at least 64, at most K2's 65535."""
+        per_q = nbf * (max(k, 1) if device.type == "cuda" else nbf)
+        q = max(64, int(cls.budgets(device)[1] / (8 * per_q)))
+        return min(q, rows, 65535)
+
     def chunk_for(self, k: int) -> int:
-        """Rows of a Q-block: ``df_exchange_n_blocks`` when set, else the
-        most whose W [Qc, k, nbf] for a factor of k columns fits the W
-        budget (the CPU's plain K2 also expands the [Qc, nbf, nbf] tile);
-        the SAD iteration's signed factor has up to nbf columns, not nocc."""
+        """Rows of a Q-block: ``df_exchange_n_blocks`` when set, else
+        ``block_rows`` for a factor of k columns; the SAD iteration's signed
+        factor has up to nbf columns, not nocc."""
         if self._fixed_chunk is not None:
-            q = self._fixed_chunk
-        else:
-            per_q = self.nbf * (max(k, 1) if self.B.is_cuda else self.nbf)
-            q = max(64, int(self._w_budget / (8 * per_q)))
-        return min(q, self.A, 65535)
+            return min(self._fixed_chunk, self.A, 65535)
+        return self.block_rows(self.nbf, k, self.A, self.B.device)
 
     def q_blocks(self, src, k: int | None = None) -> list[torch.Tensor]:
         """The Q-blocks of packed B (f64 or its f32 copy), as views, sized
@@ -412,57 +492,61 @@ class ScreenedDFFockBuilder(FockBuilder):
         qc = self.q_chunk if k is None else self.chunk_for(k)
         return [src[q:q + qc] for q in range(0, self.A, qc)]
 
-    def coulomb_vectors(self, blocks, d) -> list[torch.Tensor]:
-        """V_Q = B_Q d per Q-block, in d's dtype (row slices of an f32 block
-        upcast one at a time for an f64 d)."""
-        return [torch.cat([sub @ d for sub in self._rows_as(blk, d.dtype)])
-                for blk in blocks]
-
-    def _rows_as(self, blk, dtype):
+    def _rows_as(self, blk, dtype, phase=_no_phase):
         """The block itself in its own dtype, else its row slices converted
         one at a time (the f64 iterations on an f32 B)."""
         if blk.dtype == dtype:
             yield blk
             return
         for r in range(0, blk.shape[0], self.upcast_rows):
-            yield blk[r:r + self.upcast_rows].to(dtype)
+            with phase("upcast"):
+                sub = blk[r:r + self.upcast_rows].to(dtype)
+            yield sub
 
-    def sweep(self, blocks, Vs, Cs, s):
+    def sweep(self, blocks, d, Cs, s):
         """One pass over the Q-blocks: K = sum_Q (W s)^T W of the density
         factored by (Cs, s) (W from K2; s None for orbitals; the upper
-        block triangle, mirrored, when k_blocks > 1), and, when Vs (each
-        block's V_Q = B_Q d) is given, the packed Coulomb vector
-        Jp = sum_Q V_Q B_Q.  Cs sets the compute dtype (an f32 B's blocks
-        are read through f64 products in the f64 iterations).  Returns
-        (K [nbf, nbf], Jp or None) in Cs's dtype."""
+        block triangle, mirrored, when k_blocks > 1), and, when the packed
+        density d is given, the packed Coulomb vector Jp = sum_Q (B_Q d)
+        B_Q, both products from one read of each row slice (one f64 upcast
+        of each slice of an f32 block, as the JAX package's
+        _jk_chunk_fused).  Cs sets the compute dtype (an f32 B's blocks are
+        read through f64 products in the f64 iterations; d comes in that
+        dtype).  Returns (K [nbf, nbf], Jp or None) in Cs's dtype."""
         nbf, fdt, dev = self.nbf, Cs.dtype, Cs.device
         nb = self.k_blocks
         kb = -(-nbf // nb)
         cuts = [slice(i * kb, min((i + 1) * kb, nbf)) for i in range(nb)]
-        Jp = None if Vs is None else torch.zeros(self.screen.npq + 1,
-                                                 dtype=fdt, device=dev)
+        phase = _no_phase
+        if self.split is not None:
+            self.split.start(fdt)
+            phase = self.split.phase
+        Jp = None if d is None else torch.zeros(self.screen.npq + 1,
+                                                dtype=fdt, device=dev)
         K = torch.zeros((nbf, nbf), dtype=fdt, device=dev)
-        for n, blk in enumerate(blocks):
+        for blk in blocks:
             if Jp is not None:
-                r = 0
-                for sub in self._rows_as(blk, fdt):
-                    Jp += Vs[n][r:r + sub.shape[0]] @ sub
-                    r += sub.shape[0]
+                for sub in self._rows_as(blk, fdt, phase):
+                    with phase("VB"):
+                        Jp += (sub @ d) @ sub
             if Cs.shape[1] == 0:   # an empty spin channel
                 continue
-            W = df_gather_w(blk, self._col_map, Cs)          # [qc, k, nbf]
-            Wm = W.reshape(-1, nbf)
-            Ws = Wm if s is None else (W * s[None, :, None]).reshape(-1, nbf)
-            # the upper block triangle of column blocks (all of K when nb
-            # is 1), on strided column views of W: no padded copies
-            for I in range(nb):
-                for J in range(I, nb):
-                    K[cuts[I], cuts[J]] += Ws[:, cuts[I]].T @ Wm[:, cuts[J]]
+            with phase("K2"):
+                W = df_gather_w(blk, self._col_map, Cs, self._slabs)
+            with phase("WtW"):
+                Wm = W.reshape(-1, nbf)
+                Ws = Wm if s is None else (W * s[None, :, None]).reshape(-1, nbf)
+                # the upper block triangle of column blocks (all of K when
+                # nb is 1), on strided column views of W: no padded copies
+                for I in range(nb):
+                    for J in range(I, nb):
+                        K[cuts[I], cuts[J]] += Ws[:, cuts[I]].T @ Wm[:, cuts[J]]
         if nb > 1:
-            # mirror the upper block triangle (diagonal blocks once)
-            idx = torch.arange(nbf, device=dev) // kb
-            bd = idx[:, None] == idx[None, :]
-            K = K + K.T - torch.where(bd, K, 0.0)
+            with phase("WtW"):
+                # mirror the upper block triangle (diagonal blocks once)
+                idx = torch.arange(nbf, device=dev) // kb
+                bd = idx[:, None] == idx[None, :]
+                K = K + K.T - torch.where(bd, K, 0.0)
         return K, Jp
 
     def scatter_j(self, Jp) -> torch.Tensor:
@@ -485,11 +569,8 @@ class ScreenedDFFockBuilder(FockBuilder):
         else:
             Cs, s = C_occ.to(fdt).contiguous(), None
         blocks = self.q_blocks(self.B32 if use_f32 else self.B, Cs.shape[1])
-        with timings.timed(JCTC.V_time, iteration):
-            Vs = self.coulomb_vectors(blocks, d)
-            _sync(dev)
         with timings.timed(JCTC.K_time, iteration):
-            K, Jp = self.sweep(blocks, Vs, Cs, s)
+            K, Jp = self.sweep(blocks, d, Cs, s)
             _sync(dev)
         with timings.timed(JCTC.J_time, iteration):
             G = self.scatter_j(Jp) - K.double()

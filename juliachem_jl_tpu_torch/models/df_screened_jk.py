@@ -29,9 +29,7 @@ class ScreenedDFJKBuilder(ScreenedDFFockBuilder):
         B, as in the closed-shell f64 iterations): (K of the density
         factored by (Cs, s), the packed Coulomb vector of d, or None when d
         is None)."""
-        blocks = self.q_blocks(self.B, Cs.shape[1])
-        Vs = None if d is None else self.coulomb_vectors(blocks, d)
-        return self.sweep(blocks, Vs, Cs, s)
+        return self.sweep(self.q_blocks(self.B, Cs.shape[1]), d, Cs, s)
 
     @staticmethod
     def _spin_factor(D, C_occ):

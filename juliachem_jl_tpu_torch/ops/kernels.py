@@ -28,20 +28,25 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# K2's tile, rows of m per slab and columns of n per block: the kernel is
+# built with them (csrc/df_gather_w.cu) and models/df_screened.py::k2_slabs
+# lists its live slabs on the same tiles
+K2_SLAB_M, K2_TILE_N = 16, 64
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", f"-DJC_K2_SLAB_M={K2_SLAB_M}",
+              f"-DJC_K2_TILE_N={K2_TILE_N}")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol -> (kernel it launches, argument types before the stream)
 _FUNCS = {
     "jc_eri3c": ("eri3c", [_I, _I, _I, _P, _LL, _I, _I, _P, _P, _I, _I,
                            _P, _P, _P, _P, _LL]),
-    "jc_df_gather_w_f64": ("df_gather_w", [_P, _LL, _LL, _P, _P, _I, _I,
+    "jc_df_gather_w_f64": ("df_gather_w", [_P, _LL, _P, _P, _P, _P, _I, _I,
                                            _I, _P]),
     "jc_df_gather_w_f32": ("df_gather_w", [_P, _LL, _LL, _P, _P, _I, _I,
                                            _I, _P]),
-    "jc_df_gather_w_f32b": ("df_gather_w_f32b", [_P, _LL, _LL, _P, _P, _I,
-                                                 _I, _I, _P]),
+    "jc_df_gather_w_f32b": ("df_gather_w_f32b", [_P, _LL, _P, _P, _P, _P,
+                                                 _I, _I, _I, _P]),
     "jc_eri3c_f32": ("eri3c_f32", [_I, _I, _I, _P, _LL, _I, _I, _P, _P, _I,
                                    _I, _P, _P, _P, _P, _LL]),
     "jc_split_fold": ("split_fold", [_P, _P, _LL, _P, _LL, _P, _LL, _I, _I,

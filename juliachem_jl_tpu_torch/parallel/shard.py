@@ -37,7 +37,7 @@ def packed_fock_step(mesh: Mesh, builder, src: torch.Tensor, d, Cs, s):
     the packed density in the compute dtype, D = 2 sum_k s_k c_k c_k^T
     (s None for orbitals).  Returns the f64 G [nbf, nbf]."""
     blocks = builder.q_blocks(src, Cs.shape[1])
-    K, Jp = builder.sweep(blocks, builder.coulomb_vectors(blocks, d), Cs, s)
+    K, Jp = builder.sweep(blocks, d, Cs, s)
     K, Jp = mesh.all_reduce_cat(K, Jp)
     return builder.scatter_j(Jp) - K.double()
 
@@ -51,8 +51,7 @@ def packed_fock_phases(mesh: Mesh, builder, d, Cs, s, iteration,
     dev = d.device
     with timings.timed(JCTC.J_time, iteration):
         blocks = builder.q_blocks(builder.B, 0)
-        _, Jp = builder.sweep(blocks, builder.coulomb_vectors(blocks, d),
-                              Cs[:, :0], None)
+        _, Jp = builder.sweep(blocks, d, Cs[:, :0], None)
         Jp, = mesh.all_reduce_cat(Jp)
         J = builder.scatter_j(Jp)
         _sync(dev)

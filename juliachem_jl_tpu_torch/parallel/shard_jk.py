@@ -19,10 +19,9 @@ def packed_jk_step(mesh: Mesh, builder, d, Cs_a, s_a, Cs_b, s_b):
     spin densities D_s = sum_k s_k c_k c_k^T (s None for orbitals): Ka, Kb
     are K(Da), K(Db), and J is J(Da + Db) when d packs Da + Db."""
     blocks = builder.q_blocks(builder.B, max(Cs_a.shape[1], Cs_b.shape[1]))
-    Vs = builder.coulomb_vectors(blocks, d)
     Ka = Kb = Jp = None
-    for blk, V in zip(blocks, Vs):
-        ka, jp = builder.sweep([blk], [V], Cs_a, s_a)
+    for blk in blocks:
+        ka, jp = builder.sweep([blk], d, Cs_a, s_a)
         kb, _ = builder.sweep([blk], None, Cs_b, s_b)
         Ka, Kb, Jp = ((ka, kb, jp) if Ka is None
                       else (Ka + ka, Kb + kb, Jp + jp))

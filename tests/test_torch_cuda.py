@@ -8,10 +8,11 @@ a machine that has only torch:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Bounds: K1 and K4 1e-12 x the output's max-abs, K2 1e-12 relative in f64
-and 1e-5 in f32, K3 1e-14 relative; K5 (list and staircase modes) and K6:
+(col_maps with whole dead tiles too) and 1e-5 in f32, K3 1e-14 relative; K5 (list and staircase modes) and K6:
 J and K within 1e-11 x max(|J|, |K|) of the plain versions (f64 atomics sum
 in no fixed order); K7 (the MP2 pair energy, modes rmp2, ss, os) within
-1e-12 x max(1, |E|) of its plain version, and its occupied-range split
+1e-12 x max(1, |E|) of its plain version, the same bits from two
+launches, and its occupied-range split
 (like K5's t0 split) summing to the whole-range launch; K8 (the split fold) within
 4 sqrt(K) 2^-24 (|Mh| + |Ml|) |X| of its plain version and of the f64
 product; K1's f32 store and K2's f32-B instance bit for bit equal to the f64
@@ -102,20 +103,54 @@ def test_k1_raises_for_a_class_it_lacks(cuda_device):
                           zeros(n, dtype=torch.uint8))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
-                                         (torch.float32, 1e-5)])
-def test_k2_df_gather_w(cuda_device, dtype, bound):
-    rng = np.random.default_rng(5)
-    nbf, npq, qc, k = 137, 4000, 300, 21
-    col_map = rng.integers(0, npq + 1, nbf * nbf).astype(np.int32)
+def _k2_inputs(case, seed, dev):
+    """(Bc [qc, npq+1] f64 with a zero trash column, col_map int32, C
+    [nbf, k], K2's slab list of col_map) of a K2 case (nbf, k, kind, qc): a
+    random col_map (few trash entries), or a banded one as an atom-ordered
+    screen leaves it: whole dead 16 x 64 tiles, nbf not a multiple of 16 or
+    64."""
+    nbf, k, kind, qc = case
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        npq = 4000
+        col_map = rng.integers(0, npq + 1, nbf * nbf)
+    else:
+        atom = np.repeat(np.arange(nbf), rng.integers(5, 30, nbf))[:nbf]
+        live = np.abs(atom[:, None] - atom[None, :]) <= 1
+        flat = np.flatnonzero(live)
+        npq = len(flat)
+        col_map = np.full(nbf * nbf, npq)
+        col_map[flat] = np.arange(npq)
     Bc = rng.normal(size=(qc, npq + 1))
     Bc[:, -1] = 0.0
     C = rng.normal(size=(nbf, k))
-    Bc, C = (torch.tensor(a, device=cuda_device).to(dtype) for a in (Bc, C))
-    col_map = torch.tensor(col_map, device=cuda_device)
+    slabs = tuple(torch.tensor(a, device=dev)
+                  for a in df_screened.k2_slabs(col_map, nbf, npq))
+    return (torch.tensor(Bc, device=dev),
+            torch.tensor(col_map.astype(np.int32), device=dev),
+            torch.tensor(C, device=dev), slabs)
+
+
+# (nbf, k, col_map kind, rows of B): k 47 of benzene_2_water, k over one
+# i-tile, an odd row count (the last block of rows holds one)
+K2_CASES = {"random-137": (137, 21, "random", 300),
+            "dead-137": (137, 47, "banded", 300),
+            "dead-517": (517, 47, "banded", 300),
+            "dead-517-k130": (517, 130, "banded", 300),
+            "dead-517-q301": (517, 47, "banded", 301)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2_CASES))
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
+                                         (torch.float32, 1e-5)])
+def test_k2_df_gather_w(cuda_device, dtype, bound, case):
+    """K2 in f64 and f32 against its plain version, relative to the
+    output's max-abs; dead tiles of col_map skipped by the slab list."""
+    Bc, col_map, C, slabs = _k2_inputs(K2_CASES[case], 5, cuda_device)
+    Bc, C = Bc.to(dtype), C.to(dtype)
     n0 = kernels.launches["df_gather_w"]
-    got = df_screened.df_gather_w(Bc, col_map, C)
+    got = df_screened.df_gather_w(Bc, col_map, C, slabs)
     assert kernels.launches["df_gather_w"] == n0 + 1
     ref = df_screened.df_gather_w_plain(Bc, col_map, C)
     assert float((got - ref).abs().max() / ref.abs().max()) <= bound
@@ -143,10 +178,11 @@ def test_k2_wrapper_checks_its_inputs():
     Bc = torch.zeros((2, 5), dtype=torch.float64)
     C = torch.zeros((2, 1), dtype=torch.float32)
     with pytest.raises(ValueError):
-        df_screened.df_gather_w(Bc, torch.zeros(4, dtype=torch.int32), C)
+        df_screened.df_gather_w(Bc, torch.zeros(4, dtype=torch.int32), C,
+                                None)
     with pytest.raises(ValueError):
         df_screened.df_gather_w(Bc, torch.zeros(4, dtype=torch.int64),
-                                C.double())
+                                C.double(), None)
 
 
 @pytest.mark.cuda
@@ -278,8 +314,9 @@ def test_k7_e2_matches_plain(cuda_device, mode, shape):
 @pytest.mark.cuda
 def test_k7_partial_buffer_follows_the_launch_grid(cuda_device):
     """jc_mp2_e2_partials, the only copy of K7's grid: the j <= i pairs and
-    tile pairs of modes rmp2 (two energies per block) and ss, all of them
-    for os, over an occupied range of i; -1 for shapes K7 does not take."""
+    tile pairs of modes rmp2 (two energies per block) and ss; for os, the
+    128 x 64 tiles of its flattened (i a) x (j b) product; over an
+    occupied range of i; -1 for shapes K7 does not take."""
     lib = kernels.library()
 
     def n(mode, nox, nvx, noy, nvy, i0=0, i1=None):
@@ -288,17 +325,30 @@ def test_k7_partial_buffer_follows_the_launch_grid(cuda_device):
 
     assert n(0, 31, 486, 31, 486) == 2 * 496 * 36
     assert n(1, 30, 487, 30, 487) == 465 * 36
-    assert n(2, 31, 486, 30, 487) == 930 * 64
+    # os: 128 x 64 tiles of the flattened (i a) x (j b) product
+    assert n(2, 31, 486, 30, 487) == 118 * 229
     assert n(2, 1, 64, 1, 65) == 2
     assert n(1, 30, 487, 29, 487) == -1      # ss needs one spin's factor
-    assert n(2, 1, 64 * 65536, 1, 64) == -1  # over the grid's y limit
+    assert n(1, 30, 64 * 65536, 30, 64 * 65536) == -1  # over the y limit
+    assert n(2, 1, 2**30, 1, 2**30) == -1    # over the grid's x limit
+    assert n(2, 2, 2**30, 1, 64) == -1       # (i a) over int32
     assert n(2, 0, 64, 1, 64) == -1          # empty channel: no launch
     # an occupied range [i0, i1): the j <= i pairs of its i (rmp2, ss),
-    # its rows of (i, j) (os); an empty or outside range: no launch
+    # its rows of (i a) (os); an empty or outside range: no launch
     assert n(0, 31, 486, 31, 486, 10, 20) == 2 * (210 - 55) * 36
-    assert n(2, 31, 486, 30, 487, 5, 7) == 2 * 30 * 64
+    assert n(2, 31, 486, 30, 487, 5, 7) == 8 * 229
     assert n(2, 31, 486, 30, 487, 5, 5) == -1
     assert n(1, 30, 487, 30, 487, 0, 31) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rmp2", "ss", "os"])
+def test_k7_two_launches_agree_bit_for_bit(cuda_device, mode):
+    """K7 is deterministic: one partial per block, summed by torch.sum, no
+    atomics, so two launches on the same inputs give the same bits."""
+    args = _e2_inputs(E2_SHAPES["ragged"], 29, cuda_device)
+    first = np.atleast_1d(_e2(mode, *args))
+    assert np.array_equal(first, np.atleast_1d(_e2(mode, *args)))
 
 
 @pytest.mark.cuda
@@ -407,20 +457,16 @@ def test_k1_f32_store_is_the_f64_output_rounded(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k2_f32b_equals_f64_on_the_upcast_block(cuda_device):
-    rng = np.random.default_rng(9)
-    nbf, npq, qc, k = 137, 4000, 300, 21
-    col_map = torch.tensor(rng.integers(0, npq + 1, nbf * nbf).astype(np.int32),
-                           device=cuda_device)
-    Bc = torch.tensor(rng.normal(size=(qc, npq + 1)),
-                      device=cuda_device).float()
-    Bc[:, -1] = 0.0
-    C = torch.tensor(rng.normal(size=(nbf, k)), device=cuda_device)
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_f32b_equals_f64_on_the_upcast_block(cuda_device, case):
+    Bc, col_map, C, slabs = _k2_inputs(K2_CASES[case], 9, cuda_device)
+    Bc = Bc.float()
     n0 = kernels.launches["df_gather_w_f32b"]
-    got = df_screened.df_gather_w(Bc, col_map, C)
+    got = df_screened.df_gather_w(Bc, col_map, C, slabs)
     assert kernels.launches["df_gather_w_f32b"] == n0 + 1
     assert got.dtype == torch.float64
-    assert torch.equal(got, df_screened.df_gather_w(Bc.double(), col_map, C))
+    assert torch.equal(got, df_screened.df_gather_w(Bc.double(), col_map, C,
+                                                    slabs))
 
 
 @pytest.mark.cuda

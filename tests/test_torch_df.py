@@ -132,7 +132,41 @@ def test_gather_w_wrapper_plain_on_cpu():
     C = rng.normal(size=(nbf, k))
     tile = Bc[:, col_map].reshape(qc, nbf, nbf)
     ref = np.einsum("qmn,mi->qin", tile, C)
+    slabs = tc_dfs.k2_slabs(col_map, nbf, npq)
     got = tc_dfs.df_gather_w(torch.tensor(Bc), torch.tensor(col_map),
-                             torch.tensor(C))
+                             torch.tensor(C), slabs)
     assert_close(got, ref, 1e-13)
 
+
+@pytest.mark.parametrize("upcast_rows", [7, 10_000])
+def test_sweep_upcasts_each_f32_slice_once(builders, upcast_rows):
+    """The f64 build on an f32 B forms V_Q = B_Q d and its product V_Q B_Q
+    from one upcast of each row slice; G is bit for bit the two-pass form
+    (every V_Q from one upcast, then J from a second upcast of the same
+    slices), over several Q-blocks and slices a block."""
+    jb, pair = builders
+    _, tpacked = pair["packed"]
+    nocc = jb.primary.nels // 2
+    B32 = tpacked.B.float()
+    fb = tc_dfs.ScreenedDFFockBuilder(
+        B32, tpacked.screen,
+        create_scf_options({**FLAGS, "df_b_dtype": "f32",
+                            "df_exchange_n_blocks": 3}), nocc)
+    fb.upcast_rows = upcast_rows
+    rng = np.random.default_rng(4)
+    C = torch.tensor(rng.normal(size=(jb.primary.nbf, nocc)) * 0.3)
+    D = 2.0 * C @ C.T
+    G = fb.two_electron_fock(D, 2, Timings(), C_occ=C)
+    d = torch.cat([D.reshape(-1)[fb._pq_flat], D.new_zeros(1)])
+    blocks = fb.q_blocks(fb.B, nocc)
+    assert len(blocks) == 3
+    Vs = [torch.cat([sub @ d for sub in fb._rows_as(blk, torch.float64)])
+          for blk in blocks]
+    Jp = torch.zeros(fb.screen.npq + 1, dtype=torch.float64)
+    for V, blk in zip(Vs, blocks):
+        r = 0
+        for sub in fb._rows_as(blk, torch.float64):
+            Jp += V[r:r + sub.shape[0]] @ sub
+            r += sub.shape[0]
+    K, _ = fb.sweep(blocks, None, C.contiguous(), None)
+    assert torch.equal(G, fb.scatter_j(Jp) - K.double())

@@ -29,6 +29,11 @@ card's name and power limit):
    in 6-311++G(3df,3pd) / cc-pVTZ-JKFIT: K1 (f64 and the f32 store) on
    every (bra | aux) class and K4, K6, K5 list and staircase on the first
    quartets of every class pair, with (ff|g) and (ff|ff) also timed alone;
+   K4/K5's bound also split by pipe (Boys + R on the scalar FP64 pipe,
+   the products), and K5's launch geometry of every class pair (its lane
+   or warp route as compiled, held to the table of ops/kernels.py; ket
+   tiles; warps an SM: a tiled class pair, (ff|ff) among them, must hold
+   two);
 4. ammonia_trimer DF-RHF through run_spec (dense-B route);
 5. benzene_2_water DF-RHF through run_spec (packed route); the same on an
    f32 B (``df_b_dtype: f32``), held to the JAX package's f32-B energy, and
@@ -53,7 +58,10 @@ card's name and power limit):
    increments, each held to its full-build run within 1e-8 Eh;
 7. benzene_2_water conventional RHF through run_spec with the DF guess (DF
    iterations on the packed builder, then StreamingDirectFock), with
-   ``damp: false`` (ROADMAP.md C8);
+   ``damp: false`` (ROADMAP.md C8); then one build at its converged D
+   class pair by class pair, each launch timed alone with its bound and
+   its route as compiled: every class pair of L <= 3 that the path
+   launched must be on K5's lane route;
 8. the large-system chain on the generated 32-water cluster (6-31+G* /
    cc-pVTZ-JKFIT, nbf 736): f64 B; f32 B with the B, raw-3c and
    one-electron caches and checkpoints (within 3e-4 Eh of f64, half the B
@@ -136,6 +144,7 @@ HARTREE_EV = 27.211386245988
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_F64_OPS_S = 67e12
+PEAK_F64_PIPE_S = 34e12  # FP64 outside the tensor cores
 PEAK_F32_OPS_S = 67e12  # FP32 outside the tensor cores
 # the large-system chain (water clusters, juliachem_jl_tpu_torch/data/
 # water_clusters.json): bench.py's basis pair, converged to dele 1e-10 and
@@ -251,6 +260,121 @@ def eri_ops(la, lb, lc, ld, n_prim, n_series, kb_sum, kk_sum) -> float:
             + kk_sum * 4 * ncd * nhk)
 
 
+def pipe_split(cls, n_prim, n_series, kb_sum, kk_sum, quartets) -> dict:
+    """K4/K5's operations of one class split by pipe, beside ``bound_of``'s
+    single rate: the Boys series and the R recursion on the scalar FP64
+    pipe (34 TFLOP/s), the products and the digestion (12 per block
+    element) at the 67 TFLOP/s of the bound."""
+    la, lb, lc, ld = cls
+    scalar = boys_r_ops(la + lb + lc + ld, n_prim, n_series)
+    products = (eri_ops(la, lb, lc, ld, n_prim, n_series, kb_sum, kk_sum)
+                - scalar + 12.0 * quartets * ncart(la) * ncart(lb)
+                * ncart(lc) * ncart(ld))
+    return {"fp64_pipe_ops": scalar,
+            "fp64_pipe_ms": scalar / PEAK_F64_PIPE_S * 1e3,
+            "product_ops": products,
+            "product_ms": products / PEAK_F64_OPS_S * 1e3}
+
+
+def add_splits(splits) -> dict:
+    out = {k: sum(s[k] for s in splits) for k in ("fp64_pipe_ops",
+                                                   "product_ops")}
+    out["fp64_pipe_ms"] = out["fp64_pipe_ops"] / PEAK_F64_PIPE_S * 1e3
+    out["product_ms"] = out["product_ops"] / PEAK_F64_OPS_S * 1e3
+    return out
+
+
+def fmt_pipes(s: dict) -> str:
+    return (f"FP64 pipe {s['fp64_pipe_ms']:.4f} ms ({s['fp64_pipe_ops']:.4e} "
+            f"Boys + R operations at 34 TFLOP/s), products "
+            f"{s['product_ms']:.4f} ms ({s['product_ops']:.4e} at 67)")
+
+
+def compiled_route(bra, ket) -> str:
+    """The route K4/K5 were built with for the class pair of two CUDA pair
+    tables (``jc_eri4c_geometry``: ``Eri4cClass::kLane`` as nvcc compiled
+    it), held to the table of ``ops/kernels.py``."""
+    from juliachem_jl_tpu_torch.ops import eri, kernels
+
+    cls = (bra.la, bra.lb, ket.la, ket.lb)
+    got, want = eri.eri4c_geometry(bra, ket)["route"], kernels.eri4c_route(*cls)
+    check(got == want, f"{cls}: built on the {got} route, the table of "
+          f"ops/kernels.py says {want}")
+    return got
+
+
+def stair_class_times(tag: str, dev, prim, D, name: str, route,
+                      warm: bool = True) -> dict:
+    """One full StreamingDirectFock build of ``prim`` at D, each class
+    pair's K5 staircase launch timed alone by CUDA events (after one
+    warm-up build unless ``warm`` is False), with its quartets, live and
+    Boys-series primitive quartets (``staircase_prims``), its bound
+    (``eri_ops`` + digestion, as in ``check_4c``), that bound split by
+    pipe, and its route (``route(bra, ket)``: ``compiled_route`` on this
+    tree)."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import fock_stream
+
+    sdf = fock_stream.StreamingDirectFock(prim, device=dev)
+    stair = staircase_prims(sdf)
+    nbf = prim.nbf
+    D = D.to(device=dev, dtype=torch.float64).contiguous()
+    JK = torch.zeros((2, nbf, nbf), dtype=torch.float64, device=dev)
+
+    def launch(cp):
+        fock_stream.eri4c_jk_staircase(JK, sdf.blocks[cp.bi].table,
+                                       sdf.blocks[cp.ki].table, cp.cum, cp.N,
+                                       cp.same, D)
+
+    if warm:
+        for cp in sdf.pairs:
+            launch(cp)
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for cp in sdf.pairs:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        launch(cp)
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = []
+    for x, (a, b) in zip(stair, events):
+        cls = (x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb)
+        blk = ncart(cls[0]) * ncart(cls[1]) * ncart(cls[2]) * ncart(cls[3])
+        nbytes = (8.0 * (x["bra"].pair.numel() + x["ket"].pair.numel()
+                         + x["ncum"]) + 4.0 * (x["bra"].meta.numel()
+                                                + x["ket"].meta.numel()))
+        ops = (eri_ops(*cls, x["n_prim"], x["n_series"], x["kb"], x["kk"])
+               + 12.0 * x["N"] * blk)
+        rows.append({"cls": list(cls), "L": sum(cls),
+                     "route": route(x["bra"], x["ket"]),
+                     "quartets": x["N"], "n_prim": x["n_prim"],
+                     "n_series": x["n_series"], "ms": a.elapsed_time(b),
+                     **bound_of(nbytes, ops),
+                     **pipe_split(cls, x["n_prim"], x["n_series"], x["kb"],
+                                  x["kk"], x["N"])})
+    for v in rows:
+        print(f"{tag} K5 staircase {name} class ({v['cls'][0]}{v['cls'][1]}|"
+              f"{v['cls'][2]}{v['cls'][3]}) L={v['L']} route {v['route']}: "
+              f"{v['quartets']} quartets, {v['n_prim']} live primitive "
+              f"quartets ({v['n_series']} on the Boys series); kernel "
+              f"{v['ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}); {fmt_pipes(v)}", flush=True)
+    total = sum(v["ms"] for v in rows)
+    split = add_splits(rows)
+    print(f"{tag} K5 staircase {name}: one full build, {len(rows)} class "
+          f"pairs, {sdf.n_quartets} quartets: {total:.3f} ms in the launches "
+          f"(CUDA events; {wall:.3f} s host wall), bound "
+          f"{sum(v['bound_ms'] for v in rows):.3f} ms; {fmt_pipes(split)}",
+          flush=True)
+    return {"system": name, "quartets": sdf.n_quartets, "ms": total,
+            "wall_s": wall, "classes": rows, **split}
+
+
 def prim_pairs(pair, Ka: int, Kb: int):
     """Primitive pairs of packed pair rows [n, 2Ka+2Kb+6] (aexp | acoef |
     bexp | bcoef | A | B): exponent sums p [n, Ka*Kb], centres P
@@ -360,11 +484,24 @@ def check_k3(tag: str, dev) -> dict:
     check(kernels.launches["boys_probe"] == n0 + 9,
           "K3 comparison did not launch the kernel")
     check(worst <= 1e-14, f"K3 boys_probe relative error {worst:.3e} > 1e-14")
+    # the second instance: the divide-free form K4/K5 inline
+    worst_r = 0.0
+    n0 = kernels.launches["boys_probe_recip"]
+    for m in range(17):
+        ref = boys.boys(T, m)
+        got = boys.boys_probe(T, m, recip=True)
+        worst_r = max(worst_r, float(((got - ref).abs() / ref.abs()).max()))
+    check(kernels.launches["boys_probe_recip"] == n0 + 17,
+          "K3 comparison did not launch the divide-free instance")
+    check(worst_r <= 1e-14,
+          f"K3 divide-free relative error {worst_r:.3e} > 1e-14")
     ms = cuda_ms(lambda: boys.boys_probe(T, 8))
+    ms_r = cuda_ms(lambda: boys.boys_probe(T, 8, recip=True))
     plain = cuda_ms(lambda: boys.boys(T, 8))
     print(f"{tag} K3 boys_probe T in [0,60] n=1000001 m<=8: max rel err "
           f"{worst:.3e} (bound 1e-14); m=8 kernel {ms:.4f} ms, plain torch "
-          f"{plain:.4f} ms", flush=True)
+          f"{plain:.4f} ms; divide-free instance m<=16: max rel err "
+          f"{worst_r:.3e}, m=8 {ms_r:.4f} ms", flush=True)
     n = T.shape[0]
     n_series = int((T <= BOYS_TCRIT).sum())
     return {"name": "boys_probe", "route": "cuda",
@@ -373,6 +510,7 @@ def check_k3(tag: str, dev) -> dict:
             "max_abs_err": float((boys.boys_probe(T, 8)
                                   - boys.boys(T, 8)).abs().max()),
             "max_rel_err": worst, "ms": ms, "plain_ms": plain,
+            "recip": {"max_rel_err": worst_r, "ms": ms_r},
             "library_ms": None,
             **bound_of(8.0 * n * (1 + 9), n_series * 3 * 128
                        + (n - n_series) * 3 + n * 3 * 8)}
@@ -788,6 +926,48 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     return {"dmma": counts, "registers": used}
 
 
+def eri4c_registers(tag: str) -> dict:
+    """Per K4/K5/K6 instance, as ptxas reported it in this process's build:
+    registers a thread, stack frame and spill bytes, by kernel (the lane
+    and warp routes of K4 and K5, and K6) and class."""
+    import re
+
+    from juliachem_jl_tpu_torch.ops import kernels
+
+    pat = re.compile(r"\d+(eri4c_jk_lane_kernel|eri4c_lane_kernel|"
+                     r"eri4c_jk_kernel|eri4c_kernel|digest_jk_kernel)"
+                     r"ILi(\d)ELi(\d)ELi(\d)ELi(\d)E")
+    per, cur = {}, None
+    for ln in kernels.build_info.get("log", "").splitlines():
+        m = pat.search(ln)
+        if "Compiling entry function" in ln:
+            cur = None
+            if m:
+                cur = per.setdefault(m.group(1), {}).setdefault(
+                    "".join(m.group(2, 3, 4, 5)), {})
+        elif cur is not None and "bytes stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            cur.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(ln.split("Used", 1)[1].split()[0])
+    out = {}
+    for kern, cls in per.items():
+        regs = [v.get("registers", 0) for v in cls.values()]
+        out[kern] = {"instances": len(cls), "registers_min": min(regs),
+                     "registers_max": max(regs),
+                     "stack_max": max(v.get("stack", 0) for v in cls.values()),
+                     "spilling": sorted(k for k, v in cls.items()
+                                        if v.get("spill_stores", 0)),
+                     "classes": cls}
+    print(f"{tag} K4/K5/K6 instances (ptxas): " + "; ".join(
+        f"{k} {v['instances']} instances, {v['registers_min']}-"
+        f"{v['registers_max']} registers, stack frame up to {v['stack_max']} "
+        f"bytes, spilling {v['spilling'] or 'none'}" for k, v in out.items()),
+        flush=True)
+    return out
+
+
 def k1_primitive_counts(tag: str, dev, bsets, opts) -> dict:
     """(pair primitive pair, aux primitive) products of the system's full
     3-center build: as K1 loops over them (each class padded to its largest
@@ -1002,13 +1182,17 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int,
         plain_ms=cuda_ms(lambda: stair_t0(
             fock_stream.eri4c_jk_staircase_plain)(zeros()), reps=2),
         **bound_of(*bounds["eri4c_jk_stair_t0"]))
+    split = add_splits([pipe_split(
+        (x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb), x["n_prim"],
+        x["n_series"], x["kb"], x["kk"], x["m"]) for x in cases])
     for label, v in out.items():
+        v["pipes"] = split
         print(f"{tag} {label} {name}: {len(cases)} class pairs, {nq} quartets, "
               f"{n_prim:.4e} primitive quartets ({n_series:.4e} on the Boys "
               f"series; padded {padded:.4e}): max abs "
               f"err {v['max_abs_err']:.3e}; kernel {v['ms']:.3f} ms, plain "
               f"torch {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
-              f"({v['bound_by']})", flush=True)
+              f"({v['bound_by']}); by pipe: {fmt_pipes(split)}", flush=True)
     if largest is not None:   # one class pair alone, checked above
         sel = [i for i, x in enumerate(cases)
                if (x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb)
@@ -1029,10 +1213,34 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int,
                   f"{v['quartets']} quartets, kernel {v['ms']:.3f} ms, plain "
                   f"torch {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.5f} "
                   f"ms ({v['bound_by']})", flush=True)
+    # K5's launch geometry of every class pair: route (as compiled, held to
+    # the table of ops/kernels.py), ket tile, warps an SM (the occupancy
+    # calculator); a class pair whose warp would pass kEri4cWarpCap runs in
+    # ket tiles, two warps or more an SM
+    geometry = {}
+    for x in cases:
+        cls = (x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb)
+        compiled_route(x["bra"], x["ket"])
+        geometry[cls] = eri.eri4c_geometry(x["bra"], x["ket"])
+    warp = {c: g for c, g in geometry.items() if g["route"] == "warp"}
+    tiled = {c: g for c, g in warp.items()
+             if g["CT"] < ncart(c[2]) * ncart(c[3])}
+    print(f"{tag} K5 geometry {name}: {len(geometry) - len(warp)} class pairs "
+          f"on the lane route, {len(warp)} on the warp route (" + ", ".join(
+              f"{c} CT {g['CT']} {g['warp_bytes'] / 1024:.1f} KiB "
+              f"{g['warps_per_sm']} warps/SM" for c, g in sorted(warp.items()))
+          + f"); in ket tiles: {sorted(tiled) or 'none'}", flush=True)
+    check(all(g["warps_per_sm"] >= 2 for g in tiled.values()),
+          f"{name}: a tiled class pair holds fewer than 2 warps an SM")
+    if largest is not None:
+        check(geometry[tuple(largest)]["warps_per_sm"] >= 2,
+              f"{name}: {tuple(largest)} holds "
+              f"{geometry[tuple(largest)]['warps_per_sm']} warps an SM")
     # the bound of one full build (every screened quartet) through K5
     ops_full = 0.0
     bytes_full = 8.0 * 3 * nbf * nbf   # D read, J and K written
     stair = staircase_prims(sdf)
+    splits = []
     for x in stair:
         la, lb, lc, ld = x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb
         ops_full += eri_ops(la, lb, lc, ld, x["n_prim"], x["n_series"],
@@ -1040,18 +1248,23 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int,
         ops_full += 12.0 * x["N"] * ncart(la) * ncart(lb) * ncart(lc) * ncart(ld)
         bytes_full += 8.0 * (x["bra"].pair.numel() + x["ket"].pair.numel()
                              + x["ncum"])
+        splits.append(pipe_split((la, lb, lc, ld), x["n_prim"], x["n_series"],
+                                 x["kb"], x["kk"], x["N"]))
     full = {"quartets": sdf.n_quartets,
             "padded_primitive_quartets": sum(x["padded"] for x in stair),
             "primitive_quartets": sum(x["n_prim"] for x in stair),
             "series_primitive_quartets": sum(x["n_series"] for x in stair),
-            **bound_of(bytes_full, ops_full)}
+            **bound_of(bytes_full, ops_full), "pipes": add_splits(splits)}
     print(f"{tag} {name}: one full K5 build ({sdf.n_quartets} quartets) is "
           f"bound by {full['bound_ms']:.3f} ms ({full['bound_by']}: "
-          f"{ops_full:.4e} operations)", flush=True)
+          f"{ops_full:.4e} operations); by pipe: "
+          f"{fmt_pipes(full['pipes'])}", flush=True)
     return {"system": name, "class_pairs": len(cases), "quartets": nq,
             "primitive_quartets": n_prim, "series_primitive_quartets": n_series,
             "padded_primitive_quartets": padded,
-            "jk_scale": scale, "kernels": out, "full": full}
+            "jk_scale": scale, "kernels": out, "full": full,
+            "geometry": {"".join(map(str, c)): g
+                         for c, g in geometry.items()}}
 
 
 def check_k7(tag: str, dev, bsets, rhf) -> dict:
@@ -2150,6 +2363,7 @@ def main() -> int:
     # 2a. the SASS of K2's and K7's tensor-core instances holds DMMA
     sass = check_sass(tag, kernels.build_info["so"],
                       str(Path(kernels._nvcc()).parent / "cuobjdump"))
+    sass["eri4c"] = eri4c_registers(tag)
 
     goldens = json.loads((ROOT / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
@@ -2448,6 +2662,25 @@ def main() -> int:
           f"{benzene_conv['fock_s_per_iter_f64_steady']:.4f} s/iter over "
           f"{benzene_conv['f64_steady_iters']} steady conventional iterations",
           flush=True)
+    # 7a. one build at that path's converged D class pair by class pair,
+    #     each launch timed alone, with the route each class pair was
+    #     compiled with; every class pair of L <= 3 that the path launched
+    #     is on the lane route
+    stair_classes = stair_class_times(tag, dev, benzene_conv["basis"].primary,
+                                      benzene_conv["density"],
+                                      "benzene_2_water", compiled_route,
+                                      warm=False)
+    built = {tuple(v["cls"]): v["route"] for v in stair_classes["classes"]}
+    stair_launched = class_counts["benzene_2_water conventional"].get(
+        "eri4c_jk_stair", {})
+    low = [c for c in stair_launched if sum(c) <= 3]
+    check(len(low) == 8 and all(built.get(c) == "lane" for c in low),
+          f"benzene_2_water conventional: L <= 3 class pairs {sorted(low)} "
+          "not all launched on the lane route")
+    print(f"{tag} benzene_2_water conventional: K5 staircase launches by "
+          "route as compiled: " + ", ".join(
+              f"{c} {built.get(c)} {n}"
+              for c, n in sorted(stair_launched.items())), flush=True)
     # 8. the large-system chain at w32 (6-31+G* / cc-pVTZ-JKFIT, nbf 736):
     #    (a) f64 B; (b) f32 B with the B, raw-3c and one-electron caches
     #    and checkpoints; (c) again from (b)'s caches and checkpoint.  (c)
@@ -2753,6 +2986,7 @@ def main() -> int:
             "four_center": {k: {kk: vv for kk, vv in v.items()}
                             for k, v in fourc.items()},
             "builds_at_ammonia_convergence": builds,
+            "stair_classes_benzene_2_water": stair_classes,
             "launches_per_path": counts,
             "class_launches_per_path": class_counts,
             "systems": systems,

@@ -8,27 +8,65 @@
 // Bound on the card: the 128 dependent multiply-divides of the series, one
 // thread per argument.  Kept branchy (the TPU form was branch-free): a warp
 // whose arguments all fall on one side runs only that side.
+//
+// boys<M, true> is the form K4/K5 inline: the series and the downward
+// recursion multiply by the compile-time reciprocals 1/(2M+2k+3) and
+// 1/(2m+1) where boys<M> divides (an f64 divide is a multi-instruction
+// sequence on sm_90, a multiply one instruction).  The reciprocals are
+// rounded once, so the two forms differ in the last bits (within 3.1e-15
+// relative for m <= 16, T in [0, 35]).  K1 and the probe K3 keep the
+// dividing form; K3 has a second instance of this one.
 #pragma once
+
+#include <utility>
 
 namespace jc {
 
 constexpr double kBoysTcrit = 35.0;
 constexpr int kBoysNSeries = 128;
 
-template <int M>
+template <int N>
+struct OddRecip {  // 1 / (2N + 1), rounded at compile time
+  static constexpr double value = 1.0 / (2 * N + 1);
+};
+
+// sum_{k=0..128} of the series terms of F_M at x = 2T
+template <int M, int... K>
+__device__ __forceinline__ double boys_series_recip(
+    double x, std::integer_sequence<int, K...>) {
+  double term = OddRecip<M>::value, sum = term;
+  ((term = term * x * OddRecip<M + K + 1>::value, sum += term), ...);
+  return sum;
+}
+
+// F[m] = (x F[m+1] + e^-T) / (2m+1) for m = M-1 .. 0
+template <int M, int... K>
+__device__ __forceinline__ void boys_down_recip(
+    double x, double expT, double* F, std::integer_sequence<int, K...>) {
+  ((F[M - 1 - K] = (x * F[M - K] + expT) * OddRecip<M - 1 - K>::value), ...);
+}
+
+template <int M, bool kRecip = false>
 __device__ __forceinline__ void boys(double T, double* F) {
   if (T <= kBoysTcrit) {
     const double expT = exp(-T);
-    double term = 1.0 / (2.0 * M + 1.0);
-    double sum = term;
-    for (int k = 0; k < kBoysNSeries; ++k) {
-      term = term * (2.0 * T) / (2.0 * M + 2.0 * k + 3.0);
-      sum += term;
-    }
-    F[M] = expT * sum;
+    if constexpr (kRecip) {
+      const double x = 2.0 * T;
+      F[M] = expT * boys_series_recip<M>(
+                        x, std::make_integer_sequence<int, kBoysNSeries>{});
+      boys_down_recip<M>(x, expT, F, std::make_integer_sequence<int, M>{});
+    } else {
+      double term = 1.0 / (2.0 * M + 1.0);
+      double sum = term;
+      for (int k = 0; k < kBoysNSeries; ++k) {
+        term = term * (2.0 * T) / (2.0 * M + 2.0 * k + 3.0);
+        sum += term;
+      }
+      F[M] = expT * sum;
 #pragma unroll
-    for (int m = M - 1; m >= 0; --m)
-      F[m] = (2.0 * T * F[m + 1] + expT) / (2.0 * m + 1.0);
+      for (int m = M - 1; m >= 0; --m)
+        F[m] = (2.0 * T * F[m + 1] + expT) / (2.0 * m + 1.0);
+    }
   } else {
     F[0] = 0.5 * sqrt(3.141592653589793 / T);
     const double expT = exp(-T);

@@ -22,28 +22,64 @@
 //   K[a,c] += w sum_bd I D[b,d]      K[a,d] += w sum_bc I D[b,c]
 //   K[b,c] += w sum_ad I D[a,d]      K[b,d] += w sum_ac I D[a,c]
 //
-// What bounds it on the card: per primitive quartet a serial Boys series
-// (128 dependent multiply-divides) and R recursion, then two small products
-// per quartet; the work per quartet spans two orders of magnitude across
-// classes, and the J/K targets of many quartets collide.  Design, simple
-// and right first: one warp per quartet, several independent warps per
-// block, each with its own slice of shared memory.  The lanes build the E
-// tables and Hermite expansions, each lane takes one primitive quartet's
-// Boys + R (rounds of up to 32), and the lanes split the element loops of
-// the products and of the digestion.  Only the primitives with nonzero
-// coefficients are visited: the wrapper packs them first in each shell and
-// passes their counts (meta), so the contraction padding of a class (K = 6
-// for a core s shell) costs nothing.  Sums into J/K are f64 atomicAdd
-// (native on sm_90), so J/K change in the last bits from run to run.
-// Batching several quartets per warp in the Boys phase, DMMA for the
-// products and one persistent launch over all classes are later work.
+// What bounds it on the card: per live primitive quartet the Boys series
+// (128 dependent steps on the scalar FP64 pipe) and the R recursion, then
+// small products per quartet; the J/K targets of many quartets collide.
+// Most quartets of a real basis are low classes (L = la+lb+lc+ld <= 3: 82 %
+// of benzene_2_water's in 6-311++G(2d,2p)) whose blocks hold at most 27
+// integrals and which have few live primitive quartets (1 for every
+// diffuse and polarisation shell).  So two routes, chosen per class pair
+// at compile time (Eri4cClass::kLane, from -DJC_ERI4C_LANE_MASK, which
+// ops/kernels.py passes from its route table):
+//
+// * lane route (the class pairs to L = 6 but (pd|pd)): one quartet per
+//   lane, nothing in shared memory.  Each lane decodes its quartet, loops
+//   over its live primitive pairs, keeps the E tables, the Boys values, R
+//   and the block in registers (every index a compile-time constant:
+//   static_for), and digests from registers.  32 quartets are in flight per warp where one
+//   ran before, and no phase waits on __syncwarp.
+// * warp route (the higher classes): one quartet per warp in shared
+//   memory; the lanes build the E tables and Hermite expansions, the Boys
+//   + R rounds run over its live primitive quartets (up to 32 a round), and
+//   the products and the digestion share the lanes.  (Two quartets a warp,
+//   to fill the rounds, made (pd|pd) 1.62x slower on the H100: the larger
+//   slice halves the warps an SM, and T1 and I bind it, not the round.)
+//   Where the quartet's slice would pass kEri4cWarpCap (the f
+//   classes with an (ff) ket: (ff|ff) needed 214 KiB, one warp an SM), T1
+//   and I are built one tile of ket components cd at a time: each tile's
+//   block is written out (K4) or its share of every J/K output summed in
+//   shared memory (K5), so that two warps share an SM.  One round's R
+//   serves every tile; more rounds are recomputed per tile.
+//
+// The Boys series multiplies by compile-time reciprocals (boys<L, true>):
+// no f64 divide in its 128 steps.  j_ab's targets are the same for every
+// quartet of one bra row, and in staircase mode consecutive quartets share
+// their row (the row of t is the r with cum[r-1] <= t < cum[r]); so on the
+// lane route the lanes of a warp that share a row sum their j_ab (a
+// segmented warp scan over shuffles) before one lane adds each element.
+// The other five images keep one atomic per element: their targets differ
+// from quartet to quartet.  Only the primitives with
+// nonzero coefficients are visited: the wrapper packs them first in each
+// shell and passes their counts (meta), so the contraction padding of a
+// class (K = 6 for a core s shell) costs nothing.  Sums into J/K are f64
+// atomicAdd (native on sm_90), so J/K change in the last bits from run to
+// run.  K6 keeps one warp per cached block.  DMMA for the products, one
+// persistent launch over all classes and the warp route's slices sized by
+// the live primitive counts are later work.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 #include "boys.cuh"
 #include "mcmurchie.cuh"
+
+#ifndef JC_ERI4C_LANE_MASK
+#error "build with -DJC_ERI4C_LANE_MASK (ops/kernels.py passes its route table)"
+#endif
 
 namespace jc {
 
@@ -51,6 +87,27 @@ namespace jc {
 // primitives of nonzero coefficient first; meta rows [n][kMeta]:
 constexpr int kMeta = 5;  // off_a, off_b, nonzero prims of a, of b, ish == jsh
 constexpr int kEri4cMaxWarps = 4;
+constexpr int kEri4cLaneBlock = 128;  // threads (= quartets) of a lane-route block
+// bytes one quartet's slice may take before the warp route tiles its kets:
+// two such warps fit an SM's 228 KB (the rehearsal builds with a small cap
+// so that every warp-route class runs in tiles)
+#ifndef JC_ERI4C_WARP_CAP
+#define JC_ERI4C_WARP_CAP (110 * 1024)
+#endif
+constexpr size_t kEri4cWarpCap = JC_ERI4C_WARP_CAP;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Index of class pair (la lb | lc ld), bra pair class i <= ket pair class
+// j, in the order of the pair classes (0,0) (0,1) (0,2) (0,3) (1,1) (1,2)
+// (1,3) (2,2) (2,3) (3,3) (ops/eri.py::PAIR_CLASSES): bit of the route
+// table JC_ERI4C_LANE_MASK.
+__host__ __device__ constexpr int pair_class(int a, int b) {
+  return a * 4 - a * (a - 1) / 2 + (b - a);
+}
+__host__ __device__ constexpr int class_pair(int la, int lb, int lc, int ld) {
+  const int i = pair_class(la, lb), j = pair_class(lc, ld);
+  return i * 10 - i * (i - 1) / 2 + (j - i);
+}
 
 template <int LA, int LB, int LC, int LD>
 struct Eri4cClass {
@@ -65,42 +122,483 @@ struct Eri4cClass {
   static constexpr int NDG = NC * ND + NA * NB + NB * ND + NB * NC + NA * ND + NA * NC;
   // J/K outputs of one quartet: j_ab, j_cd, k_ac, k_ad, k_bc, k_bd
   static constexpr int NOUT = NAB + NCD + NA * NC + NA * ND + NB * NC + NB * ND;
+  // the route: one quartet per lane, or one per warp
+  static constexpr bool kLane =
+      (JC_ERI4C_LANE_MASK >> class_pair(LA, LB, LC, LD)) & 1;
 };
 
-// Shared memory of one warp, in doubles.  Kab, Kcd: padded primitive-pair
-// counts of the class (sizes); RS: primitive quartets per R round.  Regions
-// whose lifetimes do not meet share space, so that (ff|ff) fits in one
-// block's 227 KB: the E tables (steps 1-2) lie where the R round (step 3)
-// goes, and the quartet block I (step 4 on) and the D blocks of the
-// digestion lie over Ecd and the R round, which step 4 no longer reads.
-template <int LA, int LB, int LC, int LD>
-struct Eri4cSmem {
-  using C = Eri4cClass<LA, LB, LC, LD>;
-  int Pb, Pk, Eab, T1, Ecd, Eb, Ek, R, I, Dg, total;
-  __host__ __device__ Eri4cSmem(int Kab, int Kcd, int RS) {
-    Pb = 0;                              // [Kab][4]: p, Px, Py, Pz
-    Pk = Pb + 4 * Kab;                   // [Kcd][4]: q, Qx, Qy, Qz
-    Eab = Pk + 4 * Kcd;                  // [Kab][NAB][NHB]
-    T1 = Eab + Kab * C::NAB * C::NHB;    // [Kab][NHB][NCD]
-    Ecd = T1 + Kab * C::NHB * C::NCD;    // [Kcd][NCD][NHK]    steps 2-3
-    Eb = Ecd + Kcd * C::NCD * C::NHK;    // [Kab][3][NEB]      steps 1-2
-    Ek = Eb + Kab * 3 * C::NEB;          // [Kcd][3][NEK]      steps 1-2
-    R = Eb;                              // [RS][NH]           step 3
-    I = Ecd;                             // [NAB][NCD]         step 4 on
-    Dg = I + C::NAB * C::NCD;            // [NDG]              digestion
-    const int e = Ek + Kcd * 3 * C::NEK, r = R + RS * C::NH;
-    total = e > r ? e : r;
-    if (Dg + C::NDG > total) total = Dg + C::NDG;
+// ---------------------------------------------------------------- helpers
+
+// f(std::integral_constant<int, i>) for i = 0 .. N-1, unrolled
+template <class F, int... I>
+__device__ __forceinline__ void static_for_seq(F&& f,
+                                               std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_seq(f, std::make_integer_sequence<int, N>{});
+}
+
+// compile-time forms of the index arithmetic of mcmurchie.cuh
+__host__ __device__ constexpr int tri_root(int c) {  // d with c in row d
+  int d = 0;
+  while ((d + 1) * (d + 2) / 2 <= c) ++d;
+  return d;
+}
+__host__ __device__ constexpr int cart_x(int l, int c) { return l - tri_root(c); }
+__host__ __device__ constexpr int cart_y(int l, int c) {
+  return tri_root(c) - (c - tri_root(c) * (tri_root(c) + 1) / 2);
+}
+__host__ __device__ constexpr int cart_z(int l, int c) {
+  return l - cart_x(l, c) - cart_y(l, c);
+}
+__host__ __device__ constexpr int herm_order(int h) {
+  int s = 0;
+  while (nherm(s) <= h) ++s;
+  return s;
+}
+__host__ __device__ constexpr int herm_t(int h) {
+  return herm_order(h) - tri_root(h - nherm(herm_order(h) - 1));
+}
+__host__ __device__ constexpr int herm_u(int h) {
+  const int r = h - nherm(herm_order(h) - 1), d = tri_root(r);
+  return d - (r - d * (d + 1) / 2);
+}
+__host__ __device__ constexpr int herm_v(int h) {
+  return herm_order(h) - herm_t(h) - herm_u(h);
+}
+__host__ __device__ constexpr int hidx(int t, int u, int v) {
+  return nherm(t + u + v - 1) + (u + v) * (u + v + 1) / 2 + v;
+}
+__host__ __device__ constexpr double cdfact(int n) {  // (2n-1)!!
+  double out = 1.0;
+  for (int k = 2 * n - 1; k > 0; k -= 2) out *= k;
+  return out;
+}
+__host__ __device__ constexpr double csqrt(double x) {  // x >= 1
+  double r = x;
+  for (int i = 0; i < 64; ++i) r = 0.5 * (r + x / r);
+  return r;
+}
+__host__ __device__ constexpr double caxial(int l, int c) {
+  return csqrt(cdfact(l) / (cdfact(cart_x(l, c)) * cdfact(cart_y(l, c)) *
+                            cdfact(cart_z(l, c))));
+}
+
+// ------------------------------------------------------------- lane route
+
+// Per-dimension E[i][j][t] of one primitive pair in registers (the
+// recurrences of hermite_E, the terms that are zero left out); E00 is
+// E[0][0][0] (the Gaussian prefactor and coefficients on one dimension, 1
+// on the others).
+template <int L1, int L2>
+__device__ __forceinline__ void herm_E_lane(double oo2p, double PA, double PB,
+                                            double E00, double* E) {
+  constexpr int NT = L1 + L2 + 1;
+  E[0] = E00;
+  // E[i][j][t] from E[i'][j'][.] = E[i-1][0] (j == 0) or E[i][j-1]
+  auto step = [&](auto i_, auto j_, auto t_, double X) {
+    constexpr int i = decltype(i_)::value, j = decltype(j_)::value;
+    constexpr int t = decltype(t_)::value;
+    constexpr int ip = j == 0 ? i - 1 : i, jp = j == 0 ? 0 : j - 1;
+    constexpr int src = (ip * (L2 + 1) + jp) * NT, top = ip + jp;
+    double v;
+    if constexpr (t >= 1) {
+      v = oo2p * E[src + t - 1];
+      if constexpr (t <= top) v += X * E[src + t];
+    } else {
+      v = X * E[src + t];
+    }
+    if constexpr (t + 1 <= top) v += (t + 1) * E[src + t + 1];
+    E[(i * (L2 + 1) + j) * NT + t] = v;
+  };
+  static_for<L1>([&](auto i0) {
+    constexpr int i = decltype(i0)::value + 1;
+    static_for<i + 1>([&](auto t) {
+      step(std::integral_constant<int, i>{}, std::integral_constant<int, 0>{},
+           t, PA);
+    });
+  });
+  static_for<L2>([&](auto j0) {
+    constexpr int j = decltype(j0)::value + 1;
+    static_for<L1 + 1>([&](auto i) {
+      static_for<decltype(i)::value + j + 1>([&](auto t) {
+        step(i, std::integral_constant<int, j>{}, t, PB);
+      });
+    });
+  });
+}
+
+// Hermite Coulomb integrals R^0_{tuv}, t+u+v <= L, in registers: the
+// in-place downward recursion of hermite_R with compile-time indices.
+template <int L>
+__device__ __forceinline__ void hermite_R_lane(double alpha, double X,
+                                               double Y, double Z,
+                                               const double* F, double* R) {
+  double pw[L + 1];
+  pw[0] = 1.0;
+  static_for<L>([&](auto n) {
+    pw[decltype(n)::value + 1] = pw[decltype(n)::value] * (-2.0 * alpha);
+  });
+  static_for<L + 1>([&](auto n_) {
+    constexpr int n = L - decltype(n_)::value;
+    static_for<L - n>([&](auto s_) {
+      constexpr int s = L - n - decltype(s_)::value;
+      static_for<s + 1>([&](auto d_) {
+        constexpr int d = decltype(d_)::value, t = s - d;
+        static_for<d + 1>([&](auto u_) {
+          constexpr int u = d - decltype(u_)::value, v = d - u;
+          if constexpr (t > 0) {
+            const double hi = R[hidx(t - 1, u, v)];
+            if constexpr (t >= 2)
+              R[hidx(t, u, v)] = (t - 1) * R[hidx(t - 2, u, v)] + X * hi;
+            else
+              R[hidx(t, u, v)] = X * hi;
+          } else if constexpr (u > 0) {
+            const double hi = R[hidx(t, u - 1, v)];
+            if constexpr (u >= 2)
+              R[hidx(t, u, v)] = (u - 1) * R[hidx(t, u - 2, v)] + Y * hi;
+            else
+              R[hidx(t, u, v)] = Y * hi;
+          } else {
+            const double hi = R[hidx(t, u, v - 1)];
+            if constexpr (v >= 2)
+              R[hidx(t, u, v)] = (v - 1) * R[hidx(t, u, v - 2)] + Z * hi;
+            else
+              R[hidx(t, u, v)] = Z * hi;
+          }
+        });
+      });
+    });
+    R[0] = pw[n] * F[n];
+  });
+}
+
+// One primitive pair of a shell pair row: exponent sum p, centre P, and
+// its three E tables (contraction coefficients on the x table).
+template <int L1, int L2>
+struct LanePair {
+  static constexpr int NT = L1 + L2 + 1, NE = (L1 + 1) * (L2 + 1) * NT;
+  double p, P[3], E[3][NE];
+  __device__ __forceinline__ void build(const double* row, int K1, int K2,
+                                        int i, int j, double AB2) {
+    const double* cA = row + 2 * K1 + 2 * K2;
+    const double* cB = cA + 3;
+    const double a = row[i], b = row[2 * K1 + j];
+    p = a + b;
+    const double rp = 1.0 / p, oo2p = 0.5 * rp;
+    const double pre =
+        exp(-(a * b * rp) * AB2) * row[K1 + i] * row[2 * K1 + K2 + j];
+    static_for<3>([&](auto d_) {
+      constexpr int d = decltype(d_)::value;
+      P[d] = (a * cA[d] + b * cB[d]) * rp;
+      herm_E_lane<L1, L2>(oo2p, P[d] - cA[d], P[d] - cB[d], d == 0 ? pre : 1.0,
+                          E[d]);
+    });
+  }
+  // E[d][i][j][t]
+  __device__ __forceinline__ double e(int d, int i, int j, int t) const {
+    return E[d][(i * (L2 + 1) + j) * NT + t];
   }
 };
 
-// Shared memory of one K6 warp: the cached block and the D blocks.
-template <int LA, int LB, int LC, int LD>
-struct DigestSmem {
+__device__ __forceinline__ double dist2(const double* A, const double* B) {
+  const double x = A[0] - B[0], y = A[1] - B[1], z = A[2] - B[2];
+  return x * x + y * y + z * z;
+}
+
+// I[ab][cd] += sum_h Eab[ab][h] V[h] for one cd of one primitive quartet,
+// V[h] = sum_g (-1)^|g| Ecd[cd][g] R[h+g] over the bra Hermite indices h
+// (a function of its own per cd, force-inlined: as one body, the
+// accumulation of a large class outgrows what the compiler inlines)
+template <int LA, int LB, int LC, int LD, int CD>
+__device__ __forceinline__ void lane_accumulate_cd(const LanePair<LA, LB>& bp,
+                                                   const LanePair<LC, LD>& kp,
+                                                   const double* R,
+                                                   double* I) {
   using C = Eri4cClass<LA, LB, LC, LD>;
-  int I, Dg, total;
-  __host__ __device__ DigestSmem() : I(0), Dg(C::NAB * C::NCD), total(C::NAB * C::NCD + C::NDG) {}
+  constexpr int NB = C::NB, ND = C::ND, NAB = C::NAB, NCD = C::NCD;
+  constexpr int NHB = C::NHB;
+  constexpr int ci = CD / ND, di = CD % ND;
+  constexpr int cx = cart_x(LC, ci), cy = cart_y(LC, ci), cz = cart_z(LC, ci);
+  constexpr int dx = cart_x(LD, di), dy = cart_y(LD, di), dz = cart_z(LD, di);
+  double V[NHB];
+  static_for<NHB>([&](auto h_) {
+    constexpr int h = decltype(h_)::value;
+    constexpr int t = herm_t(h), u = herm_u(h), v = herm_v(h);
+    double acc = -0.0;
+    static_for<cx + dx + 1>([&](auto t2_) {
+      constexpr int t2 = decltype(t2_)::value;
+      static_for<cy + dy + 1>([&](auto u2_) {
+        constexpr int u2 = decltype(u2_)::value;
+        static_for<cz + dz + 1>([&](auto v2_) {
+          constexpr int v2 = decltype(v2_)::value;
+          const double e = kp.e(0, cx, dx, t2) * kp.e(1, cy, dy, u2) *
+                           kp.e(2, cz, dz, v2) *
+                           R[hidx(t + t2, u + u2, v + v2)];
+          if constexpr ((t2 + u2 + v2) & 1) acc -= e;
+          else acc += e;
+        });
+      });
+    });
+    V[h] = acc;
+  });
+  static_for<NAB>([&](auto ab_) {
+    constexpr int ab = decltype(ab_)::value;
+    constexpr int ai = ab / NB, bi = ab % NB;
+    constexpr int ax = cart_x(LA, ai), ay = cart_y(LA, ai);
+    constexpr int az = cart_z(LA, ai), bx = cart_x(LB, bi);
+    constexpr int by = cart_y(LB, bi), bz = cart_z(LB, bi);
+    double acc = -0.0;
+    static_for<ax + bx + 1>([&](auto t_) {
+      constexpr int t = decltype(t_)::value;
+      static_for<ay + by + 1>([&](auto u_) {
+        constexpr int u = decltype(u_)::value;
+        static_for<az + bz + 1>([&](auto v_) {
+          constexpr int v = decltype(v_)::value;
+          acc += bp.e(0, ax, bx, t) * bp.e(1, ay, by, u) *
+                 bp.e(2, az, bz, v) * V[hidx(t, u, v)];
+        });
+      });
+    });
+    I[ab * NCD + CD] += acc;
+  });
+}
+
+template <int LA, int LB, int LC, int LD, int... CD>
+__device__ __forceinline__ void lane_accumulate(
+    const LanePair<LA, LB>& bp, const LanePair<LC, LD>& kp, const double* R,
+    double* I, std::integer_sequence<int, CD...>) {
+  (lane_accumulate_cd<LA, LB, LC, LD, CD>(bp, kp, R, I), ...);
+}
+
+// The (ab|cd) block of one quartet into I[NAB*NCD] (row-major, registers),
+// by one lane: rb, rk its pair rows, mb, mk their meta rows.
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ void lane_block(const double* rb, int Ka, int Kb,
+                                           const int* mb, const double* rk,
+                                           int Kc, int Kd, const int* mk,
+                                           double* I) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NB = C::NB, ND = C::ND, NAB = C::NAB, NCD = C::NCD;
+  constexpr int NH = C::NH, L = C::L;
+  static_for<NAB * NCD>([&](auto e) { I[decltype(e)::value] = 0.0; });
+  const double AB2 = dist2(rb + 2 * Ka + 2 * Kb, rb + 2 * Ka + 2 * Kb + 3);
+  const double CD2 = dist2(rk + 2 * Kc + 2 * Kd, rk + 2 * Kc + 2 * Kd + 3);
+  const int ka = mb[2], kb = mb[3], kc = mk[2], kd = mk[3];
+  for (int i = 0; i < ka; ++i)
+    for (int j = 0; j < kb; ++j) {
+      LanePair<LA, LB> bp;
+      bp.build(rb, Ka, Kb, i, j, AB2);
+      for (int k = 0; k < kc; ++k)
+        for (int l = 0; l < kd; ++l) {
+          LanePair<LC, LD> kp;
+          kp.build(rk, Kc, Kd, k, l, CD2);
+          const double X = bp.P[0] - kp.P[0], Y = bp.P[1] - kp.P[1];
+          const double Z = bp.P[2] - kp.P[2];
+          const double psum = bp.p + kp.p, alpha = bp.p * kp.p / psum;
+          const double T = alpha * (X * X + Y * Y + Z * Z);
+          const double pref = kTwoPiPow2_5 / (bp.p * kp.p * sqrt(psum));
+          double R[NH];
+          {
+            double F[L + 1];
+            boys<L, true>(T, F);
+            static_for<L + 1>([&](auto m) { F[decltype(m)::value] *= pref; });
+            hermite_R_lane<L>(alpha, X, Y, Z, F, R);
+          }
+          lane_accumulate(bp, kp, R, I,
+                          std::make_integer_sequence<int, NCD>{});
+        }
+    }
+  // axial normalisation of the Cartesian components
+  static_for<NAB * NCD>([&](auto e_) {
+    constexpr int e = decltype(e_)::value, ab = e / NCD, cd = e % NCD;
+    constexpr double f = caxial(LA, ab / NB) * caxial(LB, ab % NB) *
+                         caxial(LC, cd / ND) * caxial(LD, cd % ND);
+    if constexpr (f != 1.0) I[e] *= f;
+  });
+}
+
+// One K image of a lane's block: K[p,q] += w sum_{i,j} I(.) D[i, j] with
+// (p, q | i, j) = (a, c | b, d), (a, d | b, c), (b, c | a, d), (b, d | a, c)
+// for IMG = 0 .. 3 (a function of its own per image, force-inlined).
+template <int LA, int LB, int LC, int LD, int IMG>
+__device__ __forceinline__ void lane_image(const double* I, double w,
+                                           int64_t oa, int64_t ob, int64_t oc,
+                                           int64_t od,
+                                           const double* __restrict__ D,
+                                           int64_t nbf, double* K) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  constexpr int NP = IMG < 2 ? NA : NB, NQ = IMG % 2 ? ND : NC;
+  constexpr int NI = IMG < 2 ? NB : NA, NJ = IMG % 2 ? NC : ND;
+  const int64_t op = IMG < 2 ? oa : ob, oq = IMG % 2 ? od : oc;
+  const int64_t oi = IMG < 2 ? ob : oa, oj = IMG % 2 ? oc : od;
+  double Dij[NI * NJ];
+  static_for<NI * NJ>([&](auto x) {
+    constexpr int e = decltype(x)::value;
+    Dij[e] = D[(oi + e / NJ) * nbf + oj + e % NJ];
+  });
+  static_for<NP * NQ>([&](auto x) {
+    constexpr int pq = decltype(x)::value, p = pq / NQ, q = pq % NQ;
+    double s = -0.0;
+    static_for<NI * NJ>([&](auto y) {
+      constexpr int ij = decltype(y)::value, i = ij / NJ, j = ij % NJ;
+      // (a, b, c, d) of this term
+      constexpr int a = IMG < 2 ? p : i, b = IMG < 2 ? i : p;
+      constexpr int c = IMG % 2 ? j : q, d = IMG % 2 ? q : j;
+      s += I[(a * NB + b) * C::NCD + c * ND + d] * Dij[ij];
+    });
+    atomicAdd(K + (op + p) * nbf + oq + q, w * s);
+  });
+}
+
+// Six-image digestion of one lane's block I (weight w) from registers:
+// the five images whose targets differ from lane to lane go to J/K by
+// f64 atomics, j_ab (times 2w) is returned in jab for the run sums.
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ void lane_digest(const double* I, double w,
+                                            const int* mb, const int* mk,
+                                            const double* __restrict__ D,
+                                            int64_t nbf, double* J, double* K,
+                                            double* jab) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NB = C::NB, ND = C::ND, NCD = C::NCD;
+  const int64_t oa = mb[0], ob = mb[1], oc = mk[0], od = mk[1];
+  {  // j_ab = 2w sum_cd I D_cd; j_cd = 2w sum_ab I D_ab
+    double Dcd[C::NCD], Dab[C::NAB];
+    static_for<NCD>([&](auto x) {
+      constexpr int cd = decltype(x)::value;
+      Dcd[cd] = D[(oc + cd / ND) * nbf + od + cd % ND];
+    });
+    static_for<C::NAB>([&](auto x) {
+      constexpr int ab = decltype(x)::value;
+      Dab[ab] = D[(oa + ab / NB) * nbf + ob + ab % NB];
+    });
+    static_for<C::NAB>([&](auto x) {
+      constexpr int ab = decltype(x)::value;
+      double s = -0.0;
+      static_for<NCD>([&](auto y) {
+        s += I[ab * NCD + decltype(y)::value] * Dcd[decltype(y)::value];
+      });
+      jab[ab] = w * (2.0 * s);
+    });
+    static_for<NCD>([&](auto x) {
+      constexpr int cd = decltype(x)::value;
+      double s = -0.0;
+      static_for<C::NAB>([&](auto y) {
+        s += I[decltype(y)::value * NCD + cd] * Dab[decltype(y)::value];
+      });
+      atomicAdd(J + (oc + cd / ND) * nbf + od + cd % ND, w * (2.0 * s));
+    });
+  }
+  lane_image<LA, LB, LC, LD, 0>(I, w, oa, ob, oc, od, D, nbf, K);
+  lane_image<LA, LB, LC, LD, 1>(I, w, oa, ob, oc, od, D, nbf, K);
+  lane_image<LA, LB, LC, LD, 2>(I, w, oa, ob, oc, od, D, nbf, K);
+  lane_image<LA, LB, LC, LD, 3>(I, w, oa, ob, oc, od, D, nbf, K);
+}
+
+// Sums v[0..N) over the runs of equal key in the warp (a segmented
+// inclusive scan over shuffles, the runs being maximal stretches of lanes
+// with one key); returns whether this lane is the last of its run, which
+// then holds the run's sum.  Every lane of the warp calls it.
+template <int N>
+__device__ __forceinline__ bool run_sums(double* v, int64_t key, int lane) {
+  const int64_t prev = __shfl_up_sync(kFullMask, key, 1);
+  const int64_t next = __shfl_down_sync(kFullMask, key, 1);
+  int head = lane == 0 || prev != key;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int head_o = __shfl_up_sync(kFullMask, head, off);
+    static_for<N>([&](auto i) {
+      const double o = __shfl_up_sync(kFullMask, v[decltype(i)::value], off);
+      if (lane >= off && !head) v[decltype(i)::value] += o;
+    });
+    if (lane >= off) head |= head_o;
+  }
+  return lane == 31 || next != key;
+}
+
+// ------------------------------------------------------------- warp route
+
+// Shared memory of one warp of the warp route (one quartet), in doubles,
+// for ket tiles of CT components cd.  Kab, Kcd: padded primitive-pair
+// counts of the class (sizes); RS: primitive quartets per R round.
+// Regions whose lifetimes do not meet share space.  With one tile (CT =
+// NCD): the E tables (steps 1-3a) lie where the R round (step 3b) goes,
+// and the block I (step 4 on), the D blocks and the output sums of the
+// digestion lie over Ecd and the R round.  With several tiles the ket E
+// tables, the D blocks and the output sums live through every tile, and
+// each tile's I lies over its Ecd; the bra E tables lie where the R round
+// goes.
+template <int LA, int LB, int LC, int LD>
+struct Eri4cSmem {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  int CT, Pb, Pk, Eab, T1, Ecd, I, Eb, Ek, R, Dg, Acc, total;
+  __host__ __device__ Eri4cSmem(int Kab, int Kcd, int RS, int CT_) : CT(CT_) {
+    const int eb = Kab * 3 * C::NEB, ek = Kcd * 3 * C::NEK;
+    const int ecd = Kcd * CT * C::NHK, i = C::NAB * CT, r = RS * C::NH;
+    Pb = 0;                              // [Kab][4]: p, Px, Py, Pz
+    Pk = Pb + 4 * Kab;                   // [Kcd][4]: q, Qx, Qy, Qz
+    Eab = Pk + 4 * Kcd;                  // [Kab][NAB][NHB]
+    T1 = Eab + Kab * C::NAB * C::NHB;    // [Kab][NHB][CT]
+    Ecd = T1 + Kab * C::NHB * CT;        // [Kcd][CT][NHK]  step 3
+    I = Ecd;                             // [NAB][CT]       step 4 on
+    if (CT >= C::NCD) {
+      Eb = Ecd + (ecd > i ? ecd : i);    // [Kab][3][NEB]   steps 1-2
+      Ek = Eb + eb;                      // [Kcd][3][NEK]   steps 1-3a
+      R = Eb;                            // [RS][NH]        step 3b
+      Dg = I + i;                        // [NDG]           digestion
+      Acc = Dg + C::NDG;                 // [NOUT]          digestion
+      total = Ek + ek;
+      if (R + r > total) total = R + r;
+      if (Acc + C::NOUT > total) total = Acc + C::NOUT;
+    } else {
+      Ek = Ecd + (ecd > i ? ecd : i);
+      Dg = Ek + ek;
+      Acc = Dg + C::NDG;
+      Eb = Acc + C::NOUT;
+      R = Eb;
+      total = Eb + (eb > r ? eb : r);
+    }
+  }
 };
+
+// Launch geometry of the warp route: ket tile (CT: NCD, or the widest tile
+// that keeps the warp's slice within kEri4cWarpCap, so that two warps
+// share an SM), primitive quartets a round (RS), warps a block (W,
+// eri4c_warps) and bytes of shared memory a warp.
+struct Eri4cGeometry {
+  int CT, RS, W;
+  size_t warp_bytes;
+};
+
+// Warps a block: up to kEri4cMaxWarps while a block stays under ~100 KB of
+// shared memory, at least one (K4/K5's warp route and K6)
+__host__ __device__ inline int eri4c_warps(size_t warp_bytes) {
+  const int w = (int)((100 * 1024) / (warp_bytes > 0 ? warp_bytes : 1));
+  return w < 1 ? 1 : (w > kEri4cMaxWarps ? kEri4cMaxWarps : w);
+}
+
+template <int LA, int LB, int LC, int LD>
+__host__ __device__ Eri4cGeometry eri4c_geometry(int Ka, int Kb, int Kc,
+                                                 int Kd) {
+  constexpr int NCD = Eri4cClass<LA, LB, LC, LD>::NCD;
+  const int Kab = Ka * Kb, Kcd = Kc * Kd, n = Kab * Kcd;
+  Eri4cGeometry g;
+  g.RS = n < 32 ? n : 32;
+  auto bytes = [&](int CT) {
+    return sizeof(double) *
+           (size_t)Eri4cSmem<LA, LB, LC, LD>(Kab, Kcd, g.RS, CT).total;
+  };
+  g.CT = NCD;
+  for (int nt = 2; g.CT > 1 && bytes(g.CT) > kEri4cWarpCap; ++nt)
+    g.CT = (NCD + nt - 1) / nt;
+  g.warp_bytes = bytes(g.CT);
+  g.W = eri4c_warps(g.warp_bytes);
+  return g;
+}
 
 // Product centre and per-dimension E table of primitive pair k = i*kb + j
 // (real primitives i of the first shell, j of the second), dimension d.
@@ -142,176 +640,6 @@ __device__ __forceinline__ double pair_expansion(const double* row, int K1,
   return val * (axial(L1, ax, ay, az) * axial(L2, bx, by, bz)) * cc;
 }
 
-// The (ab|cd) block of one quartet into w[lay.I] (row-major [NAB][NCD]),
-// computed by the 32 lanes of one warp; w is the warp's shared memory.
-template <int LA, int LB, int LC, int LD>
-__device__ void eri4c_block(const double* rb, int Ka, int Kb, const int* mb,
-                            const double* rk, int Kc, int Kd, const int* mk,
-                            int RS, double* w,
-                            const Eri4cSmem<LA, LB, LC, LD>& lay, int lane) {
-  using C = Eri4cClass<LA, LB, LC, LD>;
-  constexpr int NAB = C::NAB, NCD = C::NCD, NHB = C::NHB, NHK = C::NHK;
-  constexpr int NH = C::NH, L = C::L, LKET = C::LKET;
-  double* sEb = w + lay.Eb;
-  double* sEk = w + lay.Ek;
-  double* sPb = w + lay.Pb;
-  double* sPk = w + lay.Pk;
-  double* sEab = w + lay.Eab;
-  double* sEcd = w + lay.Ecd;
-  double* sR = w + lay.R;
-  double* sT1 = w + lay.T1;
-  double* sI = w + lay.I;
-  const int kb = mb[3], kd = mk[3];
-  const int K2b = mb[2] * kb, K2k = mk[2] * kd;
-
-  // 1. product centres and per-dimension E tables of the real primitive
-  //    pairs, bra then ket
-  for (int e = lane; e < 3 * (K2b + K2k); e += 32) {
-    if (e < 3 * K2b)
-      pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sEb, sPb);
-    else
-      pair_prim<LC, LD>(rk, Kc, Kd, kd, (e - 3 * K2b) / 3, (e - 3 * K2b) % 3,
-                        sEk, sPk);
-  }
-  __syncwarp();
-  // 2. Hermite expansions; T1 = 0
-  for (int e = lane; e < K2b * NAB * NHB; e += 32)
-    sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb, e);
-  for (int e = lane; e < K2k * NCD * NHK; e += 32)
-    sEcd[e] = pair_expansion<LC, LD>(rk, Kc, Kd, kd, sEk, e);
-  for (int e = lane; e < K2b * NHB * NCD; e += 32) sT1[e] = 0.0;
-  __syncwarp();
-  // 3. primitive quartets f = k*K2k + l in rounds of RS: Boys + R by one
-  //    lane each, then T1[k][h][cd] += sum_g (-1)^|g| R_kl[h+g] Ecd[l][cd][g]
-  const int nprim = K2b * K2k;
-  for (int f0 = 0; f0 < nprim; f0 += RS) {
-    const int nr = min(RS, nprim - f0);
-    if (lane < nr) {
-      const int k = (f0 + lane) / K2k, l = (f0 + lane) % K2k;
-      const double p = sPb[4 * k], q = sPk[4 * l];
-      const double X = sPb[4 * k + 1] - sPk[4 * l + 1];
-      const double Y = sPb[4 * k + 2] - sPk[4 * l + 2];
-      const double Z = sPb[4 * k + 3] - sPk[4 * l + 3];
-      const double psum = p + q, alpha = p * q / psum;
-      const double T = alpha * (X * X + Y * Y + Z * Z);
-      const double pref = kTwoPiPow2_5 / (p * q * sqrt(psum));
-      double F[L + 1];
-      boys<L>(T, F);
-      for (int m = 0; m <= L; ++m) F[m] *= pref;
-      hermite_R<L>(alpha, X, Y, Z, F, sR + lane * NH);
-    }
-    __syncwarp();
-    for (int s = 0; s < nr; ++s) {
-      const int k = (f0 + s) / K2k, l = (f0 + s) % K2k;
-      const double* Rs = sR + s * NH;
-      const double* El = sEcd + l * NCD * NHK;
-      double* Tk = sT1 + k * NHB * NCD;
-      for (int e = lane; e < NHB * NCD; e += 32) {
-        const int h = e / NCD, cd = e % NCD;
-        int t, u, v;
-        herm_triple(h, t, u, v);
-        const double* Ec = El + cd * NHK;
-        double acc = 0.0;
-        for (int s2 = 0, g = 0; s2 <= LKET; ++s2)
-          for (int d = 0; d <= s2; ++d)
-            for (int u2 = d; u2 >= 0; --u2, ++g) {
-              const int t2 = s2 - d, v2 = d - u2;
-              const double m = Rs[herm_index(t + t2, u + u2, v + v2)];
-              acc += ((s2 & 1) ? -m : m) * Ec[g];
-            }
-        Tk[e] += acc;
-      }
-    }
-    __syncwarp();
-  }
-  // 4. I[ab][cd] = sum_k sum_h Eab[k][ab][h] T1[k][h][cd]
-  for (int e = lane; e < NAB * NCD; e += 32) {
-    const int ab = e / NCD, cd = e % NCD;
-    double acc = 0.0;
-    for (int k = 0; k < K2b; ++k) {
-      const double* Ek = sEab + (k * NAB + ab) * NHB;
-      const double* Tk = sT1 + k * NHB * NCD + cd;
-      for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * NCD];
-    }
-    sI[e] = acc;
-  }
-  __syncwarp();
-}
-
-// Six-image digestion of the block sI (weight w) by the lanes of one warp:
-// D blocks into sDg, then each lane owns whole outputs and adds them to
-// J (= JK) and K (= JK + nbf^2) with f64 atomics.
-template <int LA, int LB, int LC, int LD>
-__device__ void digest_block(const double* sI, double w, const int* mb,
-                             const int* mk, const double* __restrict__ D,
-                             int64_t nbf, double* JK, double* sDg, int lane) {
-  using C = Eri4cClass<LA, LB, LC, LD>;
-  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
-  constexpr int NAB = C::NAB, NCD = C::NCD;
-  const int64_t oa = mb[0], ob = mb[1], oc = mk[0], od = mk[1];
-  double* Dcd = sDg;
-  double* Dab = Dcd + NC * ND;
-  double* Dbd = Dab + NA * NB;
-  double* Dbc = Dbd + NB * ND;
-  double* Dad = Dbc + NB * NC;
-  double* Dac = Dad + NA * ND;
-  for (int e = lane; e < C::NDG; e += 32) {
-    int x = e;
-    int64_t r0, c0;
-    int n2;
-    if (x < NC * ND) { r0 = oc; c0 = od; n2 = ND; }
-    else if ((x -= NC * ND) < NA * NB) { r0 = oa; c0 = ob; n2 = NB; }
-    else if ((x -= NA * NB) < NB * ND) { r0 = ob; c0 = od; n2 = ND; }
-    else if ((x -= NB * ND) < NB * NC) { r0 = ob; c0 = oc; n2 = NC; }
-    else if ((x -= NB * NC) < NA * ND) { r0 = oa; c0 = od; n2 = ND; }
-    else { x -= NA * ND; r0 = oa; c0 = oc; n2 = NC; }
-    sDg[e] = D[(r0 + x / n2) * nbf + c0 + x % n2];
-  }
-  __syncwarp();
-  double* J = JK;
-  double* K = JK + nbf * nbf;
-  for (int e = lane; e < C::NOUT; e += 32) {
-    int x = e;
-    double s = 0.0;
-    double* dst;
-    if (x < NAB) {                                   // j_ab
-      for (int cd = 0; cd < NCD; ++cd) s += sI[x * NCD + cd] * Dcd[cd];
-      dst = J + (oa + x / NB) * nbf + ob + x % NB;
-      s *= 2.0;
-    } else if ((x -= NAB) < NCD) {                   // j_cd
-      for (int ab = 0; ab < NAB; ++ab) s += sI[ab * NCD + x] * Dab[ab];
-      dst = J + (oc + x / ND) * nbf + od + x % ND;
-      s *= 2.0;
-    } else if ((x -= NCD) < NA * NC) {               // k_ac
-      const int a = x / NC, c = x % NC;
-      for (int b = 0; b < NB; ++b)
-        for (int d = 0; d < ND; ++d)
-          s += sI[(a * NB + b) * NCD + c * ND + d] * Dbd[b * ND + d];
-      dst = K + (oa + a) * nbf + oc + c;
-    } else if ((x -= NA * NC) < NA * ND) {           // k_ad
-      const int a = x / ND, d = x % ND;
-      for (int b = 0; b < NB; ++b)
-        for (int c = 0; c < NC; ++c)
-          s += sI[(a * NB + b) * NCD + c * ND + d] * Dbc[b * NC + c];
-      dst = K + (oa + a) * nbf + od + d;
-    } else if ((x -= NA * ND) < NB * NC) {           // k_bc
-      const int b = x / NC, c = x % NC;
-      for (int a = 0; a < NA; ++a)
-        for (int d = 0; d < ND; ++d)
-          s += sI[(a * NB + b) * NCD + c * ND + d] * Dad[a * ND + d];
-      dst = K + (ob + b) * nbf + oc + c;
-    } else {                                         // k_bd
-      x -= NB * NC;
-      const int b = x / ND, d = x % ND;
-      for (int a = 0; a < NA; ++a)
-        for (int c = 0; c < NC; ++c)
-          s += sI[(a * NB + b) * NCD + c * ND + d] * Dac[a * NC + c];
-      dst = K + (ob + b) * nbf + od + d;
-    }
-    atomicAdd(dst, w * s);
-  }
-}
-
 // Quartet t of a class pair: list mode (sel_bra, sel_ket, weight) or, when
 // cum is given, staircase mode: bra r = first index with cum[r] > t, ket
 // c = t - cum[r-1], weight from the ish == jsh flags and r == c within one
@@ -338,50 +666,495 @@ __device__ __forceinline__ void decode_quartet(
   if (same_block && r == c) w *= 0.5;
 }
 
-// K4: out[q][ab*NCD + cd] = (ab|cd) of quartet (sel_bra[q], sel_ket[q]).
-template <int LA, int LB, int LC, int LD>
-__device__ void eri4c_body(double* sm, const double* pb, int Ka, int Kb,
-                           const int* mb, const double* pk, int Kc, int Kd,
-                           const int* mk, const int64_t* sel_bra,
-                           const int64_t* sel_ket, int64_t n, int RS,
-                           double* out, int64_t q, int warp, int lane) {
+// The (ab|cd) block of one quartet, computed by the 32 lanes of one warp
+// one ket tile at a time: rb, rk its pair rows, mb, mk their meta rows.
+// For each tile of components cd0 .. cd0 + ct - 1 the tile's block lies in
+// w[lay.I] ([NAB][ct], row-major) when emit(cd0, ct) is called, which reads
+// it (every lane calls it).  kTiles: lay.CT < NCD; without tiles every
+// index divides by compile-time constants (a division by a runtime ct
+// costs ~12 % of the class's time).
+template <int LA, int LB, int LC, int LD, bool kTiles, class Emit>
+__device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
+                           const double* rk, int Kc, int Kd, const int* mk,
+                           int RS, double* w,
+                           const Eri4cSmem<LA, LB, LC, LD>& lay, int lane,
+                           Emit&& emit) {
   using C = Eri4cClass<LA, LB, LC, LD>;
-  if (q >= n) return;
-  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS);
-  double* w = sm + (int64_t)warp * lay.total;
-  const int64_t r = sel_bra[q], c = sel_ket[q];
-  eri4c_block<LA, LB, LC, LD>(pb + r * (2 * Ka + 2 * Kb + 6), Ka, Kb,
-                              mb + r * kMeta, pk + c * (2 * Kc + 2 * Kd + 6),
-                              Kc, Kd, mk + c * kMeta, RS, w, lay, lane);
-  for (int e = lane; e < C::NAB * C::NCD; e += 32)
-    out[q * (C::NAB * C::NCD) + e] = w[lay.I + e];
+  constexpr int NAB = C::NAB, NCD = C::NCD, NHB = C::NHB, NHK = C::NHK;
+  constexpr int NH = C::NH, L = C::L, LKET = C::LKET;
+  const int CT = kTiles ? lay.CT : NCD;
+  double* sEb = w + lay.Eb;
+  double* sEk = w + lay.Ek;
+  double* sPb = w + lay.Pb;
+  double* sPk = w + lay.Pk;
+  double* sEab = w + lay.Eab;
+  double* sEcd = w + lay.Ecd;
+  double* sR = w + lay.R;
+  double* sT1 = w + lay.T1;
+  double* sI = w + lay.I;
+  const int kb = mb[3], kd = mk[3];
+  const int K2b = mb[2] * kb, K2k = mk[2] * kd;
+
+  // 1. product centres and per-dimension E tables of the real primitive
+  //    pairs, bra then ket
+  for (int e = lane; e < 3 * (K2b + K2k); e += 32) {
+    if (e < 3 * K2b)
+      pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sEb, sPb);
+    else
+      pair_prim<LC, LD>(rk, Kc, Kd, kd, (e - 3 * K2b) / 3, (e - 3 * K2b) % 3,
+                        sEk, sPk);
+  }
+  __syncwarp();
+  // 2. the bra Hermite expansions
+  for (int e = lane; e < K2b * NAB * NHB; e += 32)
+    sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb, e);
+  __syncwarp();
+  // the primitive quartets f = k*K2k + l; in one round their R serves
+  // every tile
+  const int nprim = K2b * K2k;
+  for (int cd0 = 0; cd0 < NCD; cd0 += CT) {
+    const int ct = !kTiles ? NCD : NCD - cd0 < CT ? NCD - cd0 : CT;
+    // 3a. the tile's ket expansions Ecd[l][cdt][g]; T1 = 0
+    for (int e = lane; e < K2k * ct * NHK; e += 32) {
+      const int l = e / (ct * NHK), cdt = (e / NHK) % ct, g = e % NHK;
+      sEcd[e] = pair_expansion<LC, LD>(rk, Kc, Kd, kd, sEk,
+                                       (l * NCD + cd0 + cdt) * NHK + g);
+    }
+    for (int e = lane; e < K2b * NHB * ct; e += 32) sT1[e] = 0.0;
+    __syncwarp();
+    // 3b. in rounds of RS primitive quartets: Boys + R by one lane each,
+    //     then T1[k][h][cdt] += sum_g (-1)^|g| R_kl[h+g] Ecd[l][cdt][g]
+    for (int f0 = 0; f0 < nprim; f0 += RS) {
+      const int nr = min(RS, nprim - f0);
+      if (lane < nr && (cd0 == 0 || nprim > RS)) {
+        const int k = (f0 + lane) / K2k, l = (f0 + lane) % K2k;
+        const double p = sPb[4 * k], q = sPk[4 * l];
+        const double X = sPb[4 * k + 1] - sPk[4 * l + 1];
+        const double Y = sPb[4 * k + 2] - sPk[4 * l + 2];
+        const double Z = sPb[4 * k + 3] - sPk[4 * l + 3];
+        const double psum = p + q, alpha = p * q / psum;
+        const double T = alpha * (X * X + Y * Y + Z * Z);
+        const double pref = kTwoPiPow2_5 / (p * q * sqrt(psum));
+        double F[L + 1];
+        boys<L, true>(T, F);
+        for (int m = 0; m <= L; ++m) F[m] *= pref;
+        hermite_R<L>(alpha, X, Y, Z, F, sR + lane * NH);
+      }
+      __syncwarp();
+      for (int s = 0; s < nr; ++s) {
+        const int k = (f0 + s) / K2k, l = (f0 + s) % K2k;
+        const double* Rs = sR + s * NH;
+        const double* El = sEcd + l * ct * NHK;
+        double* Tk = sT1 + k * NHB * ct;
+        for (int e = lane; e < NHB * ct; e += 32) {
+          const int h = e / ct, cdt = e % ct;
+          int t, u, v;
+          herm_triple(h, t, u, v);
+          const double* Ec = El + cdt * NHK;
+          double acc = 0.0;
+          for (int s2 = 0, g = 0; s2 <= LKET; ++s2)
+            for (int d = 0; d <= s2; ++d)
+              for (int u2 = d; u2 >= 0; --u2, ++g) {
+                const int t2 = s2 - d, v2 = d - u2;
+                const double m = Rs[herm_index(t + t2, u + u2, v + v2)];
+                acc += ((s2 & 1) ? -m : m) * Ec[g];
+              }
+          Tk[e] += acc;
+        }
+      }
+      __syncwarp();
+    }
+    // 4. I[ab][cdt] = sum_k sum_h Eab[k][ab][h] T1[k][h][cdt]
+    for (int e = lane; e < NAB * ct; e += 32) {
+      const int ab = e / ct, cdt = e % ct;
+      double acc = 0.0;
+      for (int k = 0; k < K2b; ++k) {
+        const double* Ek = sEab + (k * NAB + ab) * NHB;
+        const double* Tk = sT1 + k * NHB * ct + cdt;
+        for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * ct];
+      }
+      sI[e] = acc;
+    }
+    __syncwarp();
+    emit(cd0, ct);
+    __syncwarp();
+  }
 }
 
-// K5: quartet t0 + t's block, digested into JK at once (list or staircase
-// mode); a launch covers the n quartets t0 .. t0 + n - 1, so a split of one
-// class pair's quartets over ranks is a set of launches with disjoint ranges.
+// Element e of the six D blocks of one quartet (D_cd, D_ab, D_bd, D_bc,
+// D_ad, D_ac, row-major each).
 template <int LA, int LB, int LC, int LD>
-__device__ void eri4c_jk_body(double* sm, const double* pb, int Ka, int Kb,
-                              const int* mb, const double* pk, int Kc, int Kd,
-                              const int* mk, const int64_t* sel_bra,
-                              const int64_t* sel_ket, const double* weight,
-                              const int64_t* cum, int64_t n_bra,
-                              int same_block, int64_t n, int64_t t0, int RS,
-                              const double* D, int64_t nbf, double* JK,
-                              int64_t t, int warp, int lane) {
-  if (t >= n) return;  // past the last quartet: weight 0, nothing to add
-  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS);
+__device__ __forceinline__ double dg_element(int e, int64_t oa, int64_t ob,
+                                             int64_t oc, int64_t od,
+                                             const double* __restrict__ D,
+                                             int64_t nbf) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  int x = e;
+  int64_t r0, c0;
+  int n2;
+  if (x < NC * ND) { r0 = oc; c0 = od; n2 = ND; }
+  else if ((x -= NC * ND) < NA * NB) { r0 = oa; c0 = ob; n2 = NB; }
+  else if ((x -= NA * NB) < NB * ND) { r0 = ob; c0 = od; n2 = ND; }
+  else if ((x -= NB * ND) < NB * NC) { r0 = ob; c0 = oc; n2 = NC; }
+  else if ((x -= NB * NC) < NA * ND) { r0 = oa; c0 = od; n2 = ND; }
+  else { x -= NA * ND; r0 = oa; c0 = oc; n2 = NC; }
+  return D[(r0 + x / n2) * nbf + c0 + x % n2];
+}
+
+// Output element e of the six images of one quartet's block sI against its
+// D blocks sDg: the sum (times 2 for J) and, in dst, where it goes.
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ double jk_element(const double* sI,
+                                             const double* sDg, int e,
+                                             int64_t oa, int64_t ob,
+                                             int64_t oc, int64_t od,
+                                             int64_t nbf, double* J,
+                                             double* K, double*& dst) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  constexpr int NAB = C::NAB, NCD = C::NCD;
+  const double* Dcd = sDg;
+  const double* Dab = Dcd + NC * ND;
+  const double* Dbd = Dab + NA * NB;
+  const double* Dbc = Dbd + NB * ND;
+  const double* Dad = Dbc + NB * NC;
+  const double* Dac = Dad + NA * ND;
+  int x = e;
+  double s = 0.0;
+  if (x < NAB) {                                   // j_ab
+    for (int cd = 0; cd < NCD; ++cd) s += sI[x * NCD + cd] * Dcd[cd];
+    dst = J + (oa + x / NB) * nbf + ob + x % NB;
+    s *= 2.0;
+  } else if ((x -= NAB) < NCD) {                   // j_cd
+    for (int ab = 0; ab < NAB; ++ab) s += sI[ab * NCD + x] * Dab[ab];
+    dst = J + (oc + x / ND) * nbf + od + x % ND;
+    s *= 2.0;
+  } else if ((x -= NCD) < NA * NC) {               // k_ac
+    const int a = x / NC, c = x % NC;
+    for (int b = 0; b < NB; ++b)
+      for (int d = 0; d < ND; ++d)
+        s += sI[(a * NB + b) * NCD + c * ND + d] * Dbd[b * ND + d];
+    dst = K + (oa + a) * nbf + oc + c;
+  } else if ((x -= NA * NC) < NA * ND) {           // k_ad
+    const int a = x / ND, d = x % ND;
+    for (int b = 0; b < NB; ++b)
+      for (int c = 0; c < NC; ++c)
+        s += sI[(a * NB + b) * NCD + c * ND + d] * Dbc[b * NC + c];
+    dst = K + (oa + a) * nbf + od + d;
+  } else if ((x -= NA * ND) < NB * NC) {           // k_bc
+    const int b = x / NC, c = x % NC;
+    for (int a = 0; a < NA; ++a)
+      for (int d = 0; d < ND; ++d)
+        s += sI[(a * NB + b) * NCD + c * ND + d] * Dad[a * ND + d];
+    dst = K + (ob + b) * nbf + oc + c;
+  } else {                                         // k_bd
+    x -= NB * NC;
+    const int b = x / ND, d = x % ND;
+    for (int a = 0; a < NA; ++a)
+      for (int c = 0; c < NC; ++c)
+        s += sI[(a * NB + b) * NCD + c * ND + d] * Dac[a * NC + c];
+    dst = K + (ob + b) * nbf + od + d;
+  }
+  return s;
+}
+
+// K6's digestion of the block sI (weight w) by the lanes of one warp: D
+// blocks into sDg, then each lane owns whole outputs and adds them to J
+// (= JK) and K (= JK + nbf^2) with f64 atomics.
+template <int LA, int LB, int LC, int LD>
+__device__ void digest_block(const double* sI, double w, const int* mb,
+                             const int* mk, const double* __restrict__ D,
+                             int64_t nbf, double* JK, double* sDg, int lane) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  const int64_t oa = mb[0], ob = mb[1], oc = mk[0], od = mk[1];
+  for (int e = lane; e < C::NDG; e += 32)
+    sDg[e] = dg_element<LA, LB, LC, LD>(e, oa, ob, oc, od, D, nbf);
+  __syncwarp();
+  for (int e = lane; e < C::NOUT; e += 32) {
+    double* dst;
+    const double s = jk_element<LA, LB, LC, LD>(sI, sDg, e, oa, ob, oc, od,
+                                                nbf, JK, JK + nbf * nbf, dst);
+    atomicAdd(dst, w * s);
+  }
+}
+
+// Output x of the six images of one quartet (j_ab, j_cd, k_ac, k_ad, k_bc,
+// k_bd, as jk_element) summed over one ket tile: sI the tile's block
+// [NAB][ct] of components cd0 .. cd0 + ct - 1, sDg the quartet's D blocks.
+// J outputs carry their factor 2.
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ double jk_partial(const double* sI,
+                                             const double* sDg, int x,
+                                             int cd0, int ct) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  constexpr int NAB = C::NAB, NCD = C::NCD;
+  const double* Dcd = sDg;
+  const double* Dab = Dcd + NC * ND;
+  const double* Dbd = Dab + NA * NB;
+  const double* Dbc = Dbd + NB * ND;
+  const double* Dad = Dbc + NB * NC;
+  const double* Dac = Dad + NA * ND;
+  const int cd1 = cd0 + ct;
+  // the tile's cd = c*ND + d of one c: d in [dlo, dhi); of one d: c in
+  // [clo, chi)
+  auto d_run = [&](int c, int& dlo, int& dhi) {
+    dlo = cd0 - c * ND > 0 ? cd0 - c * ND : 0;
+    dhi = cd1 - c * ND < ND ? cd1 - c * ND : ND;
+  };
+  auto c_run = [&](int d, int& clo, int& chi) {
+    clo = cd0 > d ? (cd0 - d + ND - 1) / ND : 0;
+    chi = cd1 > d ? (cd1 - d + ND - 1) / ND : 0;
+    if (chi > NC) chi = NC;
+  };
+  double s = 0.0;
+  if (x < NAB) {                                   // j_ab
+    for (int t = 0; t < ct; ++t) s += sI[x * ct + t] * Dcd[cd0 + t];
+    return 2.0 * s;
+  }
+  if ((x -= NAB) < NCD) {                          // j_cd
+    if (x < cd0 || x >= cd1) return 0.0;
+    for (int ab = 0; ab < NAB; ++ab) s += sI[ab * ct + x - cd0] * Dab[ab];
+    return 2.0 * s;
+  }
+  int lo, hi;
+  if ((x -= NCD) < NA * NC) {                      // k_ac
+    const int a = x / NC, c = x % NC;
+    d_run(c, lo, hi);
+    for (int d = lo; d < hi; ++d)
+      for (int b = 0; b < NB; ++b)
+        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dbd[b * ND + d];
+  } else if ((x -= NA * NC) < NA * ND) {           // k_ad
+    const int a = x / ND, d = x % ND;
+    c_run(d, lo, hi);
+    for (int c = lo; c < hi; ++c)
+      for (int b = 0; b < NB; ++b)
+        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dbc[b * NC + c];
+  } else if ((x -= NA * ND) < NB * NC) {           // k_bc
+    const int b = x / NC, c = x % NC;
+    d_run(c, lo, hi);
+    for (int d = lo; d < hi; ++d)
+      for (int a = 0; a < NA; ++a)
+        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dad[a * ND + d];
+  } else {                                         // k_bd
+    x -= NB * NC;
+    const int b = x / ND, d = x % ND;
+    c_run(d, lo, hi);
+    for (int c = lo; c < hi; ++c)
+      for (int a = 0; a < NA; ++a)
+        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dac[a * NC + c];
+  }
+  return s;
+}
+
+// Where output x of one quartet (the order of jk_partial) goes.
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ double* jk_target(int x, int64_t oa, int64_t ob,
+                                             int64_t oc, int64_t od,
+                                             int64_t nbf, double* J,
+                                             double* K) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  if (x < C::NAB) return J + (oa + x / NB) * nbf + ob + x % NB;
+  if ((x -= C::NAB) < C::NCD) return J + (oc + x / ND) * nbf + od + x % ND;
+  if ((x -= C::NCD) < NA * NC) return K + (oa + x / NC) * nbf + oc + x % NC;
+  if ((x -= NA * NC) < NA * ND) return K + (oa + x / ND) * nbf + od + x % ND;
+  if ((x -= NA * ND) < NB * NC) return K + (ob + x / NC) * nbf + oc + x % NC;
+  x -= NB * NC;
+  return K + (ob + x / ND) * nbf + od + x % ND;
+}
+
+// The warp route's digestion, in three steps.  digest_begin, at the first
+// tile: the quartet's D blocks into w[lay.Dg], the output sums w[lay.Acc]
+// = 0 (every lane calls it, then __syncwarp).  digest_tile: each tile's
+// share of every output, by the lane that owns the output (the same lane
+// every tile).  digest_end: the sums to J/K with the weight, one f64
+// atomic an element.
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ void digest_begin(
+    const Eri4cSmem<LA, LB, LC, LD>& lay, double* w, const int* mb,
+    const int* mk, const double* __restrict__ D, int64_t nbf, int lane) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  for (int e = lane; e < C::NDG; e += 32)
+    w[lay.Dg + e] =
+        dg_element<LA, LB, LC, LD>(e, mb[0], mb[1], mk[0], mk[1], D, nbf);
+  for (int e = lane; e < C::NOUT; e += 32) w[lay.Acc + e] = 0.0;
+}
+
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ void digest_tile(
+    const Eri4cSmem<LA, LB, LC, LD>& lay, double* w, int cd0, int ct,
+    int lane) {
+  for (int e = lane; e < Eri4cClass<LA, LB, LC, LD>::NOUT; e += 32)
+    w[lay.Acc + e] += jk_partial<LA, LB, LC, LD>(w + lay.I, w + lay.Dg, e,
+                                                 cd0, ct);
+}
+
+template <int LA, int LB, int LC, int LD>
+__device__ void digest_end(const Eri4cSmem<LA, LB, LC, LD>& lay,
+                           const double* w, double wt, const int* mb,
+                           const int* mk, int64_t nbf, double* JK, int lane) {
+  for (int e = lane; e < Eri4cClass<LA, LB, LC, LD>::NOUT; e += 32)
+    atomicAdd(jk_target<LA, LB, LC, LD>(e, mb[0], mb[1], mk[0], mk[1], nbf,
+                                        JK, JK + nbf * nbf),
+              wt * w[lay.Acc + e]);
+}
+
+// ---------------------------------------------------------------- kernels
+
+// K4, lane route: out[q][ab*NCD + cd] = (ab|cd) of quartet (sel_bra[q],
+// sel_ket[q]), one quartet per thread.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(kEri4cLaneBlock)
+eri4c_lane_kernel(const double* __restrict__ pb, int Ka, int Kb,
+                  const int* __restrict__ mb, const double* __restrict__ pk,
+                  int Kc, int Kd, const int* __restrict__ mk,
+                  const int64_t* __restrict__ sel_bra,
+                  const int64_t* __restrict__ sel_ket, int64_t n,
+                  double* __restrict__ out) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  const int64_t r = sel_bra[q], c = sel_ket[q];
+  double I[C::NAB * C::NCD];
+  lane_block<LA, LB, LC, LD>(pb + r * (2 * Ka + 2 * Kb + 6), Ka, Kb,
+                             mb + r * kMeta, pk + c * (2 * Kc + 2 * Kd + 6),
+                             Kc, Kd, mk + c * kMeta, I);
+  double* o = out + q * (C::NAB * C::NCD);
+  static_for<C::NAB * C::NCD>([&](auto e) {
+    o[decltype(e)::value] = I[decltype(e)::value];
+  });
+}
+
+// K5, lane route: quartet t0 + t of thread t, digested into JK at once (list
+// or staircase mode); a launch covers the n quartets t0 .. t0 + n - 1, so a
+// split of one class pair's quartets over ranks is a set of launches with
+// disjoint ranges.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(kEri4cLaneBlock)
+eri4c_jk_lane_kernel(const double* __restrict__ pb, int Ka, int Kb,
+                     const int* __restrict__ mb,
+                     const double* __restrict__ pk, int Kc, int Kd,
+                     const int* __restrict__ mk,
+                     const int64_t* __restrict__ sel_bra,
+                     const int64_t* __restrict__ sel_ket,
+                     const double* __restrict__ weight,
+                     const int64_t* __restrict__ cum, int64_t n_bra,
+                     int same_block, int64_t n, int64_t t0,
+                     const double* __restrict__ D, int64_t nbf, double* JK) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NAB = C::NAB;
+  const int lane = threadIdx.x & 31;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  double jab[NAB];
+  int64_t r = -1 - lane;  // a key of its own past the last quartet
+  if (t < n) {
+    int64_t c;
+    double wt;
+    decode_quartet(t0 + t, sel_bra, sel_ket, weight, cum, n_bra, same_block,
+                   mb, mk, r, c, wt);
+    double I[C::NAB * C::NCD];
+    lane_block<LA, LB, LC, LD>(pb + r * (2 * Ka + 2 * Kb + 6), Ka, Kb,
+                               mb + r * kMeta, pk + c * (2 * Kc + 2 * Kd + 6),
+                               Kc, Kd, mk + c * kMeta, I);
+    lane_digest<LA, LB, LC, LD>(I, wt, mb + r * kMeta, mk + c * kMeta, D, nbf,
+                                JK, JK + nbf * nbf, jab);
+  } else {
+    static_for<NAB>([&](auto e) { jab[decltype(e)::value] = 0.0; });
+  }
+  // j_ab: one sum per run of lanes with one bra row, one atomic an element
+  if (run_sums<NAB>(jab, r, lane) && t < n) {
+    const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
+    static_for<NAB>([&](auto e) {
+      constexpr int ab = decltype(e)::value;
+      atomicAdd(JK + (oa + ab / C::NB) * nbf + ob + ab % C::NB, jab[ab]);
+    });
+  }
+}
+
+// K4, warp route: the block of quartet q of a warp, written out tile by
+// tile.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(32 * kEri4cMaxWarps, 4)
+eri4c_kernel(const double* __restrict__ pb, int Ka, int Kb,
+             const int* __restrict__ mb, const double* __restrict__ pk,
+             int Kc, int Kd, const int* __restrict__ mk,
+             const int64_t* __restrict__ sel_bra,
+             const int64_t* __restrict__ sel_ket, int64_t n, int CT, int RS,
+             double* __restrict__ out) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NAB = C::NAB, NCD = C::NCD;
+  extern __shared__ double sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (q >= n) return;  // the whole warp
+  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT);
+  double* w = sm + (int64_t)warp * lay.total;
+  const int64_t r = sel_bra[q], c = sel_ket[q];
+  auto emit = [&](int cd0, int ct) {
+    for (int e = lane; e < NAB * ct; e += 32)
+      out[q * (NAB * NCD) + (e / ct) * NCD + cd0 + e % ct] = w[lay.I + e];
+  };
+  const double* rb = pb + r * (2 * Ka + 2 * Kb + 6);
+  const double* rk = pk + c * (2 * Kc + 2 * Kd + 6);
+  if (CT < NCD)
+    eri4c_warp<LA, LB, LC, LD, true>(rb, Ka, Kb, mb + r * kMeta, rk, Kc, Kd,
+                                     mk + c * kMeta, RS, w, lay, lane, emit);
+  else
+    eri4c_warp<LA, LB, LC, LD, false>(rb, Ka, Kb, mb + r * kMeta, rk, Kc, Kd,
+                                      mk + c * kMeta, RS, w, lay, lane, emit);
+}
+
+// K5, warp route: quartet t0 + q of warp q, digested into JK.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(32 * kEri4cMaxWarps, 4)
+eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
+                const int* __restrict__ mb, const double* __restrict__ pk,
+                int Kc, int Kd, const int* __restrict__ mk,
+                const int64_t* __restrict__ sel_bra,
+                const int64_t* __restrict__ sel_ket,
+                const double* __restrict__ weight,
+                const int64_t* __restrict__ cum, int64_t n_bra,
+                int same_block, int64_t n, int64_t t0, int CT, int RS,
+                const double* __restrict__ D, int64_t nbf, double* JK) {
+  extern __shared__ double sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (q >= n) return;  // the whole warp: nothing to add
+  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT);
   double* w = sm + (int64_t)warp * lay.total;
   int64_t r, c;
   double wt;
-  decode_quartet(t0 + t, sel_bra, sel_ket, weight, cum, n_bra, same_block,
+  decode_quartet(t0 + q, sel_bra, sel_ket, weight, cum, n_bra, same_block,
                  mb, mk, r, c, wt);
-  eri4c_block<LA, LB, LC, LD>(pb + r * (2 * Ka + 2 * Kb + 6), Ka, Kb,
-                              mb + r * kMeta, pk + c * (2 * Kc + 2 * Kd + 6),
-                              Kc, Kd, mk + c * kMeta, RS, w, lay, lane);
-  digest_block<LA, LB, LC, LD>(w + lay.I, wt, mb + r * kMeta, mk + c * kMeta,
-                               D, nbf, JK, w + lay.Dg, lane);
+  const int* mr = mb + r * kMeta;
+  const int* mc = mk + c * kMeta;
+  auto emit = [&](int cd0, int ct) {
+    if (cd0 == 0) {
+      digest_begin(lay, w, mr, mc, D, nbf, lane);
+      __syncwarp();
+    }
+    digest_tile(lay, w, cd0, ct, lane);
+  };
+  const double* rb = pb + r * (2 * Ka + 2 * Kb + 6);
+  const double* rk = pk + c * (2 * Kc + 2 * Kd + 6);
+  if (CT < Eri4cClass<LA, LB, LC, LD>::NCD)
+    eri4c_warp<LA, LB, LC, LD, true>(rb, Ka, Kb, mr, rk, Kc, Kd, mc, RS, w,
+                                     lay, lane, emit);
+  else
+    eri4c_warp<LA, LB, LC, LD, false>(rb, Ka, Kb, mr, rk, Kc, Kd, mc, RS, w,
+                                      lay, lane, emit);
+  digest_end(lay, w, wt, mr, mc, nbf, JK, lane);
 }
+
+// Shared memory of one K6 warp: the cached block and the D blocks.
+template <int LA, int LB, int LC, int LD>
+struct DigestSmem {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  int I, Dg, total;
+  __host__ __device__ DigestSmem() : I(0), Dg(C::NAB * C::NCD), total(C::NAB * C::NCD + C::NDG) {}
+};
 
 // K6: the cached block I[q] of quartet q, digested into JK.
 template <int LA, int LB, int LC, int LD>
@@ -400,40 +1173,6 @@ __device__ void digest_jk_body(double* sm, const int* mb, const int* mk,
   const int64_t r = sel_bra[q], c = sel_ket[q];
   digest_block<LA, LB, LC, LD>(w + lay.I, weight[q], mb + r * kMeta,
                                mk + c * kMeta, D, nbf, JK, w + lay.Dg, lane);
-}
-
-template <int LA, int LB, int LC, int LD>
-__global__ void __launch_bounds__(32 * kEri4cMaxWarps, 4)
-eri4c_kernel(const double* __restrict__ pb, int Ka, int Kb,
-             const int* __restrict__ mb, const double* __restrict__ pk,
-             int Kc, int Kd, const int* __restrict__ mk,
-             const int64_t* __restrict__ sel_bra,
-             const int64_t* __restrict__ sel_ket, int64_t n, int RS,
-             double* __restrict__ out) {
-  extern __shared__ double sm[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  eri4c_body<LA, LB, LC, LD>(sm, pb, Ka, Kb, mb, pk, Kc, Kd, mk, sel_bra,
-                             sel_ket, n, RS, out, q, warp, lane);
-}
-
-template <int LA, int LB, int LC, int LD>
-__global__ void __launch_bounds__(32 * kEri4cMaxWarps, 4)
-eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
-                const int* __restrict__ mb, const double* __restrict__ pk,
-                int Kc, int Kd, const int* __restrict__ mk,
-                const int64_t* __restrict__ sel_bra,
-                const int64_t* __restrict__ sel_ket,
-                const double* __restrict__ weight,
-                const int64_t* __restrict__ cum, int64_t n_bra,
-                int same_block, int64_t n, int64_t t0, int RS,
-                const double* __restrict__ D, int64_t nbf, double* JK) {
-  extern __shared__ double sm[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t t = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  eri4c_jk_body<LA, LB, LC, LD>(sm, pb, Ka, Kb, mb, pk, Kc, Kd, mk, sel_bra,
-                                sel_ket, weight, cum, n_bra, same_block, n,
-                                t0, RS, D, nbf, JK, t, warp, lane);
 }
 
 template <int LA, int LB, int LC, int LD>

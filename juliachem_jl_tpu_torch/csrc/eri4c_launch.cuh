@@ -3,20 +3,14 @@
 // them for every ket class (lc, ld) that the i <= j walk over the pair
 // classes (0,0) (0,1) (0,2) (0,3) (1,1) (1,2) (1,3) (2,2) (2,3) (3,3)
 // reaches from its bra class, so nvcc builds the bra classes in parallel.
-// Each function returns the CUDA error of its launch (0 on success).
+// K4/K5 instantiate only the route of their class pair (lane or warp,
+// JC_ERI4C_LANE_MASK).  Each function returns the CUDA error of its launch
+// (0 on success).
 #pragma once
 
 #include "eri4c.cuh"
 
 namespace jc {
-
-// Warps per block: up to kEri4cMaxWarps while a block stays under ~100 KB of
-// shared memory, at least one (a class of up to 227 KB a warp: (ff|ff)
-// needs 214 KiB in K4/K5, 83 KiB in K6); one warp per quartet.
-inline int eri4c_warps(size_t warp_bytes) {
-  int w = (int)((100 * 1024) / (warp_bytes > 0 ? warp_bytes : 1));
-  return w < 1 ? 1 : (w > kEri4cMaxWarps ? kEri4cMaxWarps : w);
-}
 
 template <typename Kern>
 inline cudaError_t eri4c_prepare(Kern kern, size_t bytes) {
@@ -25,30 +19,51 @@ inline cudaError_t eri4c_prepare(Kern kern, size_t bytes) {
                               (int)bytes);
 }
 
-// primitive quartets per R round: at most one per lane
-inline int eri4c_round(int Kab, int Kcd) {
-  const int n = Kab * Kcd;
-  return n < 32 ? n : 32;
+// K4/K5's warp route: the dynamic shared memory of a block and, for a
+// class pair in ket tiles, the whole of the SM's unified memory as shared
+// memory, so that two warps of the largest slices (kEri4cWarpCap) share an
+// SM; the other class pairs leave the split to the CUDA runtime.
+template <typename Kern>
+inline cudaError_t eri4c_prepare_warp(Kern kern, const Eri4cGeometry& g,
+                                      int ncd) {
+  if (g.CT < ncd) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  return eri4c_prepare(kern, g.W * g.warp_bytes);
 }
 
+inline unsigned lane_blocks(long long n) {
+  return (unsigned)((n + kEri4cLaneBlock - 1) / kEri4cLaneBlock);
+}
+
+// K4 and K5 launch the route of their class (Eri4cClass::kLane): the lane
+// route one quartet a thread, 128 a block, no shared memory; the warp route
+// one quartet a warp, W warps a block (eri4c_geometry).
 template <int LA, int LB, int LC, int LD>
 int eri4c_launch(const double* pb, int Ka, int Kb, const int* mb,
                  const double* pk, int Kc, int Kd, const int* mk,
                  const long long* sel_bra, const long long* sel_ket,
                  long long n, double* out, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int RS = eri4c_round(Ka * Kb, Kc * Kd);
-  const size_t wb = sizeof(double) *
-                    Eri4cSmem<LA, LB, LC, LD>(Ka * Kb, Kc * Kd, RS).total;
-  const int W = eri4c_warps(wb);
-  auto kern = eri4c_kernel<LA, LB, LC, LD>;
-  cudaError_t err = eri4c_prepare(kern, W * wb);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n + W - 1) / W;
-  kern<<<(unsigned)blocks, 32 * W, W * wb, stream>>>(
-      pb, Ka, Kb, mb, pk, Kc, Kd, mk,
-      reinterpret_cast<const int64_t*>(sel_bra),
-      reinterpret_cast<const int64_t*>(sel_ket), n, RS, out);
+  const int64_t* sb = reinterpret_cast<const int64_t*>(sel_bra);
+  const int64_t* sk = reinterpret_cast<const int64_t*>(sel_ket);
+  if constexpr (Eri4cClass<LA, LB, LC, LD>::kLane) {
+    eri4c_lane_kernel<LA, LB, LC, LD><<<lane_blocks(n), kEri4cLaneBlock, 0,
+                                        stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd,
+                                                  mk, sb, sk, n, out);
+  } else {
+    const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
+    auto kern = eri4c_kernel<LA, LB, LC, LD>;
+    cudaError_t err =
+        eri4c_prepare_warp(kern, g, Eri4cClass<LA, LB, LC, LD>::NCD);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned)((n + g.W - 1) / g.W), 32 * g.W, g.W * g.warp_bytes,
+           stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n, g.CT, g.RS,
+                     out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -61,21 +76,52 @@ int eri4c_jk_launch(const double* pb, int Ka, int Kb, const int* mb,
                     long long t0, const double* D, long long nbf, double* JK,
                     cudaStream_t stream) {
   if (n <= 0) return 0;
-  const int RS = eri4c_round(Ka * Kb, Kc * Kd);
-  const size_t wb = sizeof(double) *
-                    Eri4cSmem<LA, LB, LC, LD>(Ka * Kb, Kc * Kd, RS).total;
-  const int W = eri4c_warps(wb);
-  auto kern = eri4c_jk_kernel<LA, LB, LC, LD>;
-  cudaError_t err = eri4c_prepare(kern, W * wb);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n + W - 1) / W;
-  kern<<<(unsigned)blocks, 32 * W, W * wb, stream>>>(
-      pb, Ka, Kb, mb, pk, Kc, Kd, mk,
-      reinterpret_cast<const int64_t*>(sel_bra),
-      reinterpret_cast<const int64_t*>(sel_ket), weight,
-      reinterpret_cast<const int64_t*>(cum), n_bra, same_block, n, t0, RS, D,
-      nbf, JK);
+  const int64_t* sb = reinterpret_cast<const int64_t*>(sel_bra);
+  const int64_t* sk = reinterpret_cast<const int64_t*>(sel_ket);
+  const int64_t* cm = reinterpret_cast<const int64_t*>(cum);
+  if constexpr (Eri4cClass<LA, LB, LC, LD>::kLane) {
+    eri4c_jk_lane_kernel<LA, LB, LC, LD><<<lane_blocks(n), kEri4cLaneBlock, 0,
+                                           stream>>>(
+        pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, weight, cm, n_bra, same_block,
+        n, t0, D, nbf, JK);
+  } else {
+    const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
+    auto kern = eri4c_jk_kernel<LA, LB, LC, LD>;
+    cudaError_t err =
+        eri4c_prepare_warp(kern, g, Eri4cClass<LA, LB, LC, LD>::NCD);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned)((n + g.W - 1) / g.W), 32 * g.W, g.W * g.warp_bytes,
+           stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, weight, cm,
+                     n_bra, same_block, n, t0, g.CT, g.RS, D, nbf, JK);
+  }
   return (int)cudaGetLastError();
+}
+
+// K5's launch geometry for one class pair, for the smoke and the tools:
+// out = {lane route (1) or warp route (0), CT, RS, warps a block, bytes of
+// shared memory a warp, blocks an SM holds}; nothing is launched.
+template <int LA, int LB, int LC, int LD>
+int eri4c_geometry_query(int Ka, int Kb, int Kc, int Kd, long long* out) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  int blocks = 0;
+  cudaError_t err;
+  if constexpr (C::kLane) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, eri4c_jk_lane_kernel<LA, LB, LC, LD>, kEri4cLaneBlock, 0);
+    const long long v[6] = {1, C::NCD, 0, kEri4cLaneBlock / 32, 0, blocks};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+  } else {
+    const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
+    auto kern = eri4c_jk_kernel<LA, LB, LC, LD>;
+    err = eri4c_prepare_warp(kern, g, C::NCD);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, 32 * g.W, g.W * g.warp_bytes);
+    const long long v[6] = {0, g.CT, g.RS, g.W, (long long)g.warp_bytes,
+                            blocks};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+  }
+  return (int)err;
 }
 
 template <int LA, int LB, int LC, int LD>
@@ -124,15 +170,19 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
         pb, Ka, Kb, mb, pk, Kc, Kd, mk, sel_bra, sel_ket, weight, cum,       \
         n_bra, same_block, n, t0, D, nbf, JK, (cudaStream_t)stream);         \
   }
+#define JC_GEOMETRY_KET(LA, LB, LC, LD)                                      \
+  if (lc == LC && ld == LD)                                                  \
+    return jc::eri4c_geometry_query<LA, LB, LC, LD>(Ka, Kb, Kc, Kd, out);
 #define JC_DIGEST_KET(LA, LB, LC, LD)                                        \
   if (lc == LC && ld == LD)                                                  \
     return jc::digest_jk_launch<LA, LB, LC, LD>(                             \
         mb, mk, sel_bra, sel_ket, weight, n, I, D, nbf, JK,                  \
         (cudaStream_t)stream);
 
-// jc_eri4c_b<LA><LB> (K4), jc_eri4c_jk_b<LA><LB> (K5) and
-// jc_digest_jk_b<LA><LB> (K6) over the ket classes KETS(X) of one bra class;
-// a ket class it lacks returns cudaErrorInvalidValue.
+// jc_eri4c_b<LA><LB> (K4), jc_eri4c_jk_b<LA><LB> (K5),
+// jc_digest_jk_b<LA><LB> (K6) and jc_eri4c_geometry_b<LA><LB> (K5's
+// geometry) over the ket classes KETS(X) of one bra class; a ket class it
+// lacks returns cudaErrorInvalidValue.
 #define JC_ERI4C_BRA(LA, LB, KETS)                                           \
   static int jc_eri4c_any_b##LA##LB(                                         \
       int which, int lc, int ld, const double* pb, int Ka, int Kb,           \
@@ -157,6 +207,11 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
   }                                                                          \
   extern "C" int jc_digest_jk_b##LA##LB(int lc, int ld, JC_DIGEST_JK_ARGS) { \
     KETS(JC_DIGEST_KET, LA, LB)                                              \
+    return (int)cudaErrorInvalidValue;                                       \
+  }                                                                          \
+  extern "C" int jc_eri4c_geometry_b##LA##LB(int lc, int ld, int Ka, int Kb, \
+                                             int Kc, int Kd, long long* out) { \
+    KETS(JC_GEOMETRY_KET, LA, LB)                                            \
     return (int)cudaErrorInvalidValue;                                       \
   }
 

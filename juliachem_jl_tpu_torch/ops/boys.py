@@ -7,9 +7,10 @@ Port of ``juliachem_jl_tpu/ops/boys.py``: the same branch-free algorithm.
 * T  > TCRIT: asymptotic F_0 = sqrt(pi/4T) (erf(sqrt T) = 1 to machine eps
   for T > 35) and upward recursion, stable since exp(-T) is negligible.
 
-``boys`` is the plain torch version.  The CUDA integral kernel (csrc/boys.cuh)
-evaluates the same recurrences as a device function; ``boys_probe`` runs that
-device function alone, so it can be held against ``boys`` in isolation.
+``boys`` is the plain torch version.  The CUDA integral kernels (csrc/boys.cuh)
+evaluate the same recurrences as a device function, K1 dividing as here, K4/K5
+multiplying by compile-time reciprocals; ``boys_probe`` runs either device
+form alone, so it can be held against ``boys`` in isolation.
 """
 
 from __future__ import annotations
@@ -53,11 +54,13 @@ def boys(T: torch.Tensor, mmax: int) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
-def boys_probe(T: torch.Tensor, mmax: int) -> torch.Tensor:
-    """F_0..F_mmax(T) through the CUDA device Boys function (kernel K3).
+def boys_probe(T: torch.Tensor, mmax: int, recip: bool = False
+               ) -> torch.Tensor:
+    """F_0..F_mmax(T) through the CUDA device Boys function (kernel K3):
+    K1's dividing form, or with ``recip`` the reciprocal form of K4/K5.
 
     T: 1-D float64.  On a CPU tensor this is ``boys``; on a CUDA tensor it
-    launches ``jc_boys_probe`` or raises."""
+    launches ``jc_boys_probe`` (``jc_boys_probe_recip``) or raises."""
     if T.dtype != torch.float64 or T.dim() != 1:
         raise ValueError("boys_probe takes a 1-D float64 tensor")
     if not 0 <= mmax <= BOYS_PROBE_MMAX:
@@ -67,6 +70,6 @@ def boys_probe(T: torch.Tensor, mmax: int) -> torch.Tensor:
     T = T.contiguous()
     out = torch.empty((T.shape[0], mmax + 1), dtype=torch.float64,
                       device=T.device)
-    kernels.launch("jc_boys_probe", T.data_ptr(), T.shape[0], mmax,
-                   out.data_ptr())
+    kernels.launch("jc_boys_probe_recip" if recip else "jc_boys_probe",
+                   T.data_ptr(), T.shape[0], mmax, out.data_ptr())
     return out

@@ -213,6 +213,28 @@ def eri4c_class(bra: PairTable, ket: PairTable, sel_bra: torch.Tensor,
     return out
 
 
+def eri4c_geometry(bra: PairTable, ket: PairTable) -> dict:
+    """K5's launch geometry for the class pair of two CUDA pair tables, as
+    csrc/eri4c_launch.cuh computes it: the route it was built with, ket
+    tile (CT of NCD components), primitive quartets a round (RS), warps a
+    block, shared-memory bytes a warp and the blocks an SM holds (CUDA's
+    occupancy calculator).  Nothing is launched."""
+    import ctypes
+
+    check_kernel_class("eri4c_geometry", bra.la, bra.lb, ket.la, ket.lb)
+    out = (ctypes.c_longlong * 6)()
+    lib = kernels.library()
+    rc = lib.jc_eri4c_geometry(bra.la, bra.lb, ket.la, ket.lb, bra.Ka, bra.Kb,
+                               ket.Ka, ket.Kb, out)
+    if rc != 0:
+        raise RuntimeError(f"jc_eri4c_geometry failed: CUDA error {rc} "
+                           f"({lib.jc_error_string(rc).decode()})")
+    lane, CT, RS, W, nbytes, blocks = list(out)
+    return {"route": "lane" if lane else "warp", "CT": CT, "RS": RS,
+            "warps_per_block": W, "warp_bytes": nbytes,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * W}
+
+
 def eri_block(bra: PairBlock, ket: PairBlock, sel_bra, sel_ket, device,
               ) -> torch.Tensor:
     """ERI blocks for quartets (bra[sel_bra[i]], ket[sel_ket[i]]), through

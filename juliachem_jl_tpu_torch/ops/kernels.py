@@ -32,9 +32,42 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # built with them (csrc/df_gather_w.cu) and models/df_screened.py::k2_slabs
 # lists its live slabs on the same tiles
 K2_SLAB_M, K2_TILE_N = 16, 64
+# K4/K5's route table (csrc/eri4c.cuh): the class pairs (la lb | lc ld)
+# that run one quartet per thread, everything in registers; every other
+# class pair runs quartets per warp in shared memory.  Chosen class by class
+# from the card's timings (PERF.md §6): every class pair up to
+# la+lb+lc+ld = ERI4C_LANE_MAX_L but those of ERI4C_LANE_EXCLUDE ((pd|pd):
+# its K5 lane instance spills to a 28 KB stack at 32 registers, slower than
+# its warp route in 6-311++G(3df,3pd) and reserving ~7.6 GB of local
+# memory).  The kernels are built with it (route_flags).
+ERI4C_LANE_MAX_L = 6
+ERI4C_LANE_EXCLUDE = frozenset({(1, 2, 1, 2)})
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DJC_K2_SLAB_M={K2_SLAB_M}",
               f"-DJC_K2_TILE_N={K2_TILE_N}")
+
+
+def eri4c_route(la: int, lb: int, lc: int, ld: int) -> str:
+    """The route K4/K5 take for a class pair: "lane" or "warp"."""
+    lane = (la + lb + lc + ld <= ERI4C_LANE_MAX_L
+            and (la, lb, lc, ld) not in ERI4C_LANE_EXCLUDE)
+    return "lane" if lane else "warp"
+
+
+def route_flags() -> tuple:
+    """The route table as the sources take it: bit k of JC_ERI4C_LANE_MASK
+    is the k-th class pair (bra i <= ket j in the order of
+    ops/eri.py::PAIR_CLASSES) on the lane route."""
+    from .eri import PAIR_CLASSES
+
+    mask, k = 0, 0
+    for i, bra in enumerate(PAIR_CLASSES):
+        for ket in PAIR_CLASSES[i:]:
+            if eri4c_route(*bra, *ket) == "lane":
+                mask |= 1 << k
+            k += 1
+    return (f"-DJC_ERI4C_LANE_MASK={mask:#x}ULL",)
+
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol -> (kernel it launches, argument types before the stream)
@@ -52,6 +85,7 @@ _FUNCS = {
     "jc_split_fold": ("split_fold", [_P, _P, _LL, _P, _LL, _P, _LL, _I, _I,
                                      _I, _I]),
     "jc_boys_probe": ("boys_probe", [_P, _LL, _I, _P]),
+    "jc_boys_probe_recip": ("boys_probe_recip", [_P, _LL, _I, _P]),
     "jc_eri4c": ("eri4c", [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P,
                            _P, _P, _LL, _P]),
     "jc_eri4c_jk": ("eri4c_jk_list", [_I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
@@ -64,7 +98,8 @@ _FUNCS = {
 }
 
 launches = {"eri3c": 0, "eri3c_f32": 0, "df_gather_w": 0,
-            "df_gather_w_f32b": 0, "boys_probe": 0, "eri4c": 0,
+            "df_gather_w_f32b": 0, "boys_probe": 0, "boys_probe_recip": 0,
+            "eri4c": 0,
             "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0,
             "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0, "split_fold": 0}
 
@@ -99,7 +134,7 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *route_flags())).encode())
     for f in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -122,8 +157,8 @@ def build() -> Path:
         procs = []
         for src in _sources():
             obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
-                   "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, *route_flags(), "-I", str(CSRC_DIR),
+                   "-c", str(src), "-o", str(obj)]
             # compiler output to a file: a pipe could fill while the build
             # polls the processes
             log = open(tmp / (src.stem + ".log"), "w+")
@@ -177,6 +212,8 @@ def library() -> ctypes.CDLL:
             lib.jc_error_string.restype = ctypes.c_char_p
             lib.jc_mp2_e2_partials.argtypes = [_I] * 7
             lib.jc_mp2_e2_partials.restype = _LL
+            lib.jc_eri4c_geometry.argtypes = [_I] * 8 + [_P]
+            lib.jc_eri4c_geometry.restype = _I
             _lib = lib
         return _lib
 

@@ -8,7 +8,9 @@ a machine that has only torch:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Bounds: K1 and K4 1e-12 x the output's max-abs, K2 1e-12 relative in f64
-(col_maps with whole dead tiles too) and 1e-5 in f32, K3 1e-14 relative; K5 (list and staircase modes) and K6:
+(col_maps with whole dead tiles too) and 1e-5 in f32, K3 (both instances)
+1e-14 relative; K4 and K5 on each route (lane, warp) in every mode, at
+quartet counts and t0 that are not multiples of 32; K5 (list and staircase modes) and K6:
 J and K within 1e-11 x max(|J|, |K|) of the plain versions (f64 atomics sum
 in no fixed order); K7 (the MP2 pair energy, modes rmp2, ss, os) within
 1e-12 x max(1, |E|) of its plain version, the same bits from two
@@ -22,7 +24,8 @@ same runs on the CPU, RI-UMP2 on the card's orbitals within 1e-10 Eh; two
 gloo ranks sharing the card give the sharded packed G of one device.  The
 f classes (pair classes to (ff), 34 class pairs with an f shell) are held
 the same way on two waters in 6-31G(2df,p), and (ff|ff) on one C atom in
-6-311++G(3df,3pd); a g primary class raises.
+6-311++G(3df,3pd); the class pairs that run in ket tiles hold two warps an
+SM; a g primary class raises.
 """
 
 import pathlib
@@ -64,6 +67,19 @@ def test_k3_boys_probe(cuda_device):
         got = boys.boys_probe(T, m)
         assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-14
     assert kernels.launches["boys_probe"] == n0 + 9
+
+
+@pytest.mark.cuda
+def test_k3_boys_probe_recip(cuda_device):
+    """K3's second instance, the divide-free form K4/K5 inline, against
+    the plain (dividing) version within 1e-14 relative."""
+    T = torch.linspace(0, 60, 20001, dtype=torch.float64, device=cuda_device)
+    n0 = kernels.launches["boys_probe_recip"]
+    for m in (0, 4, 8, 12, 16):
+        ref = boys.boys(T, m)
+        got = boys.boys_probe(T, m, recip=True)
+        assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-14
+    assert kernels.launches["boys_probe_recip"] == n0 + 5
 
 
 @pytest.mark.cuda
@@ -715,3 +731,140 @@ def test_f_basis_rhf_on_card_matches_cpu(cuda_device, scf_type):
     e_cpu = jc.run_spec(spec, device=CPU)["Energy"]
     assert e_card["Converged?"] and e_cpu["Converged?"]
     assert abs(e_card["Energy"] - e_cpu["Energy"]) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k4", "list", "stair", "stair_t0"])
+def test_k4_k5_each_route_matches_plain(cuda_device, mode):
+    """Water in 6-311++G(2d,2p) (class pairs to (dd|dd): L <= 3 on the lane
+    route, the rest on the warp route, both launched; each class pair's
+    route read from the build, ``eri.eri4c_geometry``, and held to the
+    table of ``ops/kernels.py``): each class pair's
+    first 1, 33, 45 and N - 3 staircase quartets (counts that are not
+    multiples of 32 nor of a warp's quartets).  K4 against ``eri4c_plain``
+    within 1e-12 x max |I|; K5 in list mode (the decoded quartets and
+    weights), staircase mode, and staircase mode from t0 = 5 and 37 (mid
+    window) against the plain versions within 1e-11 x max(|J|, |K|)."""
+    prim, _ = _water("6-311++G(2d,2p)")
+    sdf = fock_stream.StreamingDirectFock(prim, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
+                    device=cuda_device, generator=g)
+    D = (X + X.T).contiguous()
+    got, ref = (torch.zeros((2, prim.nbf, prim.nbf), dtype=torch.float64,
+                            device=cuda_device) for _ in range(2))
+    kernels.reset_launches()
+    routes, err, scale = set(), 0.0, 0.0
+    for cp in sdf.pairs:
+        bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+        cls = (bra.la, bra.lb, ket.la, ket.lb)
+        route = eri.eri4c_geometry(bra, ket)["route"]
+        assert route == kernels.eri4c_route(*cls), cls
+        assert route == "lane" or sum(cls) > 3, cls
+        routes.add(route)
+        for m in sorted({min(cp.N, k) for k in (1, 33, 45, max(1, cp.N - 3))}):
+            if mode == "stair_t0":
+                for t0 in (5, 37):
+                    if t0 + m <= cp.N:
+                        fock_stream.eri4c_jk_staircase(
+                            got, bra, ket, cp.cum, m, cp.same, D, t0=t0)
+                        fock_stream.eri4c_jk_staircase_plain(
+                            ref, bra, ket, cp.cum, m, cp.same, D, t0=t0)
+                continue
+            if mode == "stair":
+                fock_stream.eri4c_jk_staircase(got, bra, ket, cp.cum, m,
+                                               cp.same, D)
+                fock_stream.eri4c_jk_staircase_plain(ref, bra, ket, cp.cum, m,
+                                                     cp.same, D)
+                continue
+            t = torch.arange(m, dtype=torch.int64, device=cuda_device)
+            r, c, w = fock_stream.decode_staircase(cp.cum, t, bra, ket,
+                                                   cp.same)
+            if mode == "k4":
+                I = eri.eri4c_plain(bra, ket, r, c)
+                err = max(err, float((eri.eri4c_class(bra, ket, r, c)
+                                      - I).abs().max()))
+                scale = max(scale, float(I.abs().max()))
+            else:
+                fock.eri4c_jk(got, bra, ket, r, c, w, D)
+                fock.eri4c_jk_plain(ref, bra, ket, r, c, w, D)
+    assert routes == {"lane", "warp"}
+    name = {"k4": "eri4c", "list": "eri4c_jk_list"}.get(mode, "eri4c_jk_stair")
+    launched = kernels.class_launches[name]
+    assert set(launched) == {(sdf.blocks[cp.bi].table.la,
+                              sdf.blocks[cp.bi].table.lb,
+                              sdf.blocks[cp.ki].table.la,
+                              sdf.blocks[cp.ki].table.lb) for cp in sdf.pairs}
+    if mode == "k4":
+        assert err <= 1e-12 * scale
+    else:
+        assert float((got - ref).abs().max()) <= \
+            1e-11 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_compiled_routes_of_all_55_class_pairs_match_the_table(cuda_device):
+    """The route nvcc built for each of the 55 class pairs to (ff|ff)
+    (``jc_eri4c_geometry``: ``Eri4cClass::kLane`` from the build's
+    ``-DJC_ERI4C_LANE_MASK``) is the one ``kernels.eri4c_route`` gives it,
+    on pair tables of two waters in 6-31G(2df,p)."""
+    import itertools
+
+    prim, _ = _two_waters_f()
+    sdf = fock_stream.StreamingDirectFock(prim, device=cuda_device)
+    tables = {}
+    for b in sdf.blocks:
+        tables.setdefault((b.table.la, b.table.lb), b.table)
+    assert set(tables) == set(eri.PAIR_CLASSES)
+    built = {}
+    for i, j in itertools.combinations_with_replacement(
+            range(len(eri.PAIR_CLASSES)), 2):
+        bra = tables[eri.PAIR_CLASSES[i]]
+        ket = tables[eri.PAIR_CLASSES[j]]
+        built[(bra.la, bra.lb, ket.la, ket.lb)] = \
+            eri.eri4c_geometry(bra, ket)["route"]
+    assert len(built) == 55
+    assert built == {c: kernels.eri4c_route(*c) for c in built}
+    assert {"lane", "warp"} == set(built.values())
+
+
+@pytest.mark.cuda
+def test_k5_ket_tiles_of_the_f_classes(cuda_device):
+    """Two waters in 6-31G(2df,p): the class pairs whose warp-route slice
+    would pass 110 KiB ((ff|ff) among them) run in ket tiles of fewer than
+    NCD components at 2 warps or more an SM (CUDA's occupancy calculator,
+    ``eri.eri4c_geometry``); each one's K5 staircase from t0 = 1, and K4 on
+    its quartets, against the plain versions (1e-11 x max(|J|, |K|),
+    1e-12 x max |I|)."""
+    from juliachem_jl_tpu_torch.basis.structs import ncart
+
+    prim, _ = _two_waters_f()
+    sdf = fock_stream.StreamingDirectFock(prim, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
+                    device=cuda_device, generator=g)
+    D = (X + X.T).contiguous()
+    got, ref = (torch.zeros((2, prim.nbf, prim.nbf), dtype=torch.float64,
+                            device=cuda_device) for _ in range(2))
+    tiled, err4, scale4 = [], 0.0, 0.0
+    for cp in sdf.pairs:
+        bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+        geo = eri.eri4c_geometry(bra, ket)
+        if geo["route"] != "warp" or geo["CT"] >= ncart(ket.la) * ncart(ket.lb):
+            continue
+        tiled.append((bra.la, bra.lb, ket.la, ket.lb))
+        assert geo["warps_per_sm"] >= 2 and geo["warp_bytes"] <= 110 * 1024
+        t0 = 1 if cp.N > 1 else 0
+        fock_stream.eri4c_jk_staircase(got, bra, ket, cp.cum, cp.N - t0,
+                                       cp.same, D, t0=t0)
+        fock_stream.eri4c_jk_staircase_plain(ref, bra, ket, cp.cum,
+                                             cp.N - t0, cp.same, D, t0=t0)
+        t = torch.arange(cp.N, dtype=torch.int64, device=cuda_device)
+        r, c, _ = fock_stream.decode_staircase(cp.cum, t, bra, ket, cp.same)
+        I = eri.eri4c_plain(bra, ket, r, c)
+        err4 = max(err4, float((eri.eri4c_class(bra, ket, r, c)
+                                - I).abs().max()))
+        scale4 = max(scale4, float(I.abs().max()))
+    assert (3, 3, 3, 3) in tiled
+    assert err4 <= 1e-12 * scale4
+    assert float((got - ref).abs().max()) <= 1e-11 * float(ref.abs().max())

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Time K5 (staircase mode) class pair by class pair over one full
+conventional build of benzene_2_water on one NVIDIA GPU.
+
+    python3 tools/eri4c_class_times.py [--root DIR] [--out result.json]
+
+Builds the kernels of the package under ``--root`` (default: this
+checkout; another checkout, such as a parent commit unpacked beside it,
+compares two trees in one call), then runs one full StreamingDirectFock
+build of benzene_2_water (the S22x3 geometry, 6-311++G(2d,2p)) at a
+seeded random symmetric density (the kernel's work does not depend on D),
+each class pair's launch timed by CUDA events after a warm-up build:
+``chip_smoke.stair_class_times``, with each class pair's route as the
+package was built (a package without ``eri.eri4c_geometry`` has one warp
+per quartet: "warp").  Every line names the card and its power limit.  Needs CUDA;
+exits 2 without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("eri4c_class_times: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import juliachem_jl_tpu_torch as jc
+    from juliachem_jl_tpu_torch.ops import kernels
+
+    if Path(jc.__file__).resolve().parents[1] != root:
+        raise RuntimeError(f"imported {jc.__file__}, not the package under "
+                           f"{root}")
+    from juliachem_jl_tpu_torch.ops import eri
+
+    route = (smoke.compiled_route if hasattr(eri, "eri4c_geometry")
+             else lambda bra, ket: "warp")
+    smi = smoke.sh("nvidia-smi", "--query-gpu=name,power.limit",
+                   "--format=csv,noheader").splitlines()[0]
+    tag = f"[{smi}] [{root.name}]"
+    dev = jc.initialize("cuda")
+    kernels.library()
+    print(f"{tag} build {kernels.build_info.get('seconds', 0.0):.1f} s",
+          flush=True)
+    regs = smoke.eri4c_registers(tag) if "log" in kernels.build_info else {}
+    goldens = json.loads((HERE / "tests" / "data" /
+                          "s22x3_gamess_goldens.json").read_text())
+    golden = goldens["benzene_2_water"]
+    inp = smoke.system_input("benzene_2_water", golden, aux=False)
+    sp = jc.io.parse_input(inp)
+    bsets = jc.basis.run(jc.molecule.run(sp), sp.model)
+    nbf = bsets.primary.nbf
+    gen = torch.Generator(device=dev).manual_seed(5)
+    X = torch.randn((nbf, nbf), dtype=torch.float64, device=dev,
+                    generator=gen)
+    out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "root": str(root), "ptxas": regs,
+           "full_build": smoke.stair_class_times(
+               tag, dev, bsets.primary, X + X.T,
+               f"benzene_2_water {golden['basis']}", route)}
+    jc.finalize()
+    if args.out:
+        Path(args.out).write_text(json.dumps(smoke.str_keys(out), indent=1,
+                                             default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

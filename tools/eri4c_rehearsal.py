@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Rehearse K4/K5/K6 (csrc/eri4c.cuh) on the CPU before a chip call.
+
+    python3 tools/eri4c_rehearsal.py [--cut 3 6] [--basis 6-311++G(2d,2p)]
+                                     [--warp-cap BYTES]
+
+Compiles the device code with g++ (C++20) against a CPU stand-in for the
+CUDA builtins (tools/eri4c_rehearsal/: one std::thread per CUDA thread,
+barriers for __syncwarp and the shuffles, the launch geometry of
+eri4c_launch.cuh), once per lane-route cut (``kernels.ERI4C_LANE_MAX_L``,
+the route table's exclusions kept), into
+juliachem_jl_tpu_torch/_build/rehearsal/.  Then, on water in the basis, for
+every class pair of the Schwarz staircase: K4 on the staircase's quartets
+against ``eri4c_plain``; K5 in staircase mode over the whole range and
+over three ranges whose starts are not multiples of 32, and in list mode
+over ScreenedDirectFock's batches, against the plain versions; K6 on the
+list batches against ``digest_plain``.  Bounds: K4 1e-12 x max |I|, J/K
+1e-11 x max(|J|, |K|), the card's gates.  Prints each error, exits 1 if
+one is over its bound.  Classes up to (dd|dd), and the f class pairs when
+the basis has f shells (harness.cpp's lists); ``--warp-cap`` builds the
+warp route with a smaller tile cap, so that its ket tiles run on classes
+the basis has.  The numbers say nothing of the card's speed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from juliachem_jl_tpu_torch import basis, molecule  # noqa: E402
+from juliachem_jl_tpu_torch.ops import (eri, fock, fock_stream,  # noqa: E402
+                                        kernels)
+
+HERE = ROOT / "tools" / "eri4c_rehearsal"
+CSRC = ROOT / "juliachem_jl_tpu_torch" / "csrc"
+WATER = {"symbols": ["O", "H", "H"],
+         "geometry": [0.0, 0.0, 0.116321, 0.0, 0.751155, -0.465285,
+                      0.0, -0.751155, -0.465285]}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def build(cut: int, warp_cap: int | None, with_f: bool) -> ctypes.CDLL:
+    """The harness with the route table of ops/kernels.py at this cut (and
+    the warp route's tile cap, the f class pairs, where asked)."""
+    out = ROOT / "juliachem_jl_tpu_torch" / "_build" / "rehearsal"
+    out.mkdir(parents=True, exist_ok=True)
+    tag = f"cut{cut}" + (f"_cap{warp_cap}" if warp_cap else "") + \
+        ("_f" if with_f else "")
+    so = out / f"eri4c_rehearsal_{tag}.so"
+    kernels.ERI4C_LANE_MAX_L = cut
+    extra = ([f"-DJC_ERI4C_WARP_CAP={warp_cap}"] if warp_cap else []) + \
+        (["-DRH_WITH_F"] if with_f else [])
+    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
+                    "-pthread", *kernels.route_flags(), *extra,
+                    "-I", str(HERE / "shim"), "-I", str(CSRC),
+                    str(HERE / "harness.cpp"), "-o", str(so)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.rh_lane_mask.restype = ctypes.c_ulonglong
+    lib.rh_eri4c.argtypes = [_I] * 4 + [_P, _I, _I, _P, _P, _I, _I, _P, _P,
+                                        _P, _LL, _P]
+    lib.rh_eri4c_jk.argtypes = [_I] * 4 + [_P, _I, _I, _P, _P, _I, _I, _P,
+                                           _P, _P, _P, _P, _LL, _I, _LL, _LL,
+                                           _P, _LL, _P]
+    lib.rh_digest_jk.argtypes = [_I] * 4 + [_P, _P, _P, _P, _P, _LL, _P, _P,
+                                            _LL, _P]
+    return lib
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def k4(lib, bra, ket, r, c):
+    nab = eri.ncart(bra.la) * eri.ncart(bra.lb)
+    ncd = eri.ncart(ket.la) * eri.ncart(ket.lb)
+    out = torch.full((len(r), nab, ncd), float("nan"), dtype=torch.float64)
+    rc = lib.rh_eri4c(bra.la, bra.lb, ket.la, ket.lb, ptr(bra.pair), bra.Ka,
+                      bra.Kb, ptr(bra.meta), ptr(ket.pair), ket.Ka, ket.Kb,
+                      ptr(ket.meta), ptr(r), ptr(c), len(r), ptr(out))
+    assert rc == 0, rc
+    return out
+
+
+def k5(lib, JK, D, bra, ket, n, sel_bra=None, sel_ket=None, weight=None,
+       cum=None, same=False, t0=0):
+    rc = lib.rh_eri4c_jk(bra.la, bra.lb, ket.la, ket.lb, ptr(bra.pair),
+                         bra.Ka, bra.Kb, ptr(bra.meta), ptr(ket.pair), ket.Ka,
+                         ket.Kb, ptr(ket.meta), ptr(sel_bra), ptr(sel_ket),
+                         ptr(weight), ptr(cum),
+                         0 if cum is None else cum.shape[0], int(same), n, t0,
+                         ptr(D), D.shape[0], ptr(JK))
+    assert rc == 0, rc
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cut", type=int, nargs="+", default=[3, 6])
+    ap.add_argument("--basis", default="6-311++G(2d,2p)")
+    ap.add_argument("--warp-cap", type=int, default=None,
+                    help="bytes a warp-route quartet may take before its "
+                         "kets are tiled (JC_ERI4C_WARP_CAP; small values "
+                         "tile every warp-route class)")
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    mol = molecule.from_input_dict(WATER)
+    prim = basis.build(mol, args.basis)
+    nbf = prim.nbf
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(nbf, nbf))
+    D = torch.as_tensor(X + X.T).contiguous()
+    sdf = fock_stream.StreamingDirectFock(prim, device="cpu")
+    sdirect = fock.ScreenedDirectFock(prim, incore=False, device="cpu")
+    with_f = any(3 in (b.table.la, b.table.lb) for b in sdf.blocks)
+    bad = 0
+
+    def report(what, err, bound):
+        nonlocal bad
+        ok = err <= bound
+        bad += not ok
+        print(f"  {what}: max abs err {err:.3e} (bound {bound:.3e})"
+              f"{'' if ok else '  <-- OVER'}", flush=True)
+
+    def zeros():
+        return torch.zeros((2, nbf, nbf), dtype=torch.float64)
+
+    for cut in args.cut:
+        lib = build(cut, args.warp_cap, with_f)
+        print(f"lane cut {cut} (route mask {lib.rh_lane_mask():#x}), warp "
+              f"cap {args.warp_cap or 'as built'}, water {args.basis}, nbf "
+              f"{nbf}", flush=True)
+        # K4 on the staircase's quartets, each class pair
+        worst, scale = 0.0, 0.0
+        for cp in sdf.pairs:
+            bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+            t = torch.arange(cp.N, dtype=torch.int64)
+            r, c, _ = fock_stream.decode_staircase(cp.cum, t, bra, ket,
+                                                   cp.same)
+            ref = eri.eri4c_plain(bra, ket, r, c)
+            got = k4(lib, bra, ket, r, c)
+            worst = max(worst, float((got - ref).abs().max()))
+            scale = max(scale, float(ref.abs().max()))
+        report(f"K4, {len(sdf.pairs)} class pairs", worst, 1e-12 * scale)
+        # K5 staircase: whole ranges, then ranges from t0 % 32 != 0
+        ref, got, split, plain_split = zeros(), zeros(), zeros(), zeros()
+        for cp in sdf.pairs:
+            bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+            fock_stream.eri4c_jk_staircase_plain(ref, bra, ket, cp.cum, cp.N,
+                                                 cp.same, D)
+            k5(lib, got, D, bra, ket, cp.N, cum=cp.cum, same=cp.same)
+            cuts = sorted({0, min(cp.N, 5), min(cp.N, 37 + cp.N // 3), cp.N})
+            for a, b in zip(cuts, cuts[1:]):
+                k5(lib, split, D, bra, ket, b - a, cum=cp.cum, same=cp.same,
+                   t0=a)
+                fock_stream.eri4c_jk_staircase_plain(plain_split, bra, ket,
+                                                     cp.cum, b - a, cp.same,
+                                                     D, t0=a)
+        s = float(ref.abs().max())
+        report("K5 staircase", float((got - ref).abs().max()), 1e-11 * s)
+        report("K5 staircase from t0 (ranges split at 5 and 37 + N/3)",
+               max(float((split - ref).abs().max()),
+                   float((split - plain_split).abs().max())), 1e-11 * s)
+        # K5 list mode and K6 over ScreenedDirectFock's batches
+        ref, got, got6 = zeros(), zeros(), zeros()
+        for g in sdirect.groups:
+            n = g.sel_bra.shape[0]
+            I = eri.eri4c_plain(g.bra, g.ket, g.sel_bra, g.sel_ket)
+            fock.digest_plain(ref, I, g.weight, D, g.bra, g.ket, g.sel_bra,
+                              g.sel_ket)
+            k5(lib, got, D, g.bra, g.ket, n, sel_bra=g.sel_bra,
+               sel_ket=g.sel_ket, weight=g.weight)
+            I = I.contiguous()
+            rc = lib.rh_digest_jk(g.bra.la, g.bra.lb, g.ket.la, g.ket.lb,
+                                  ptr(g.bra.meta), ptr(g.ket.meta),
+                                  ptr(g.sel_bra), ptr(g.sel_ket),
+                                  ptr(g.weight), n, ptr(I), ptr(D), nbf,
+                                  ptr(got6))
+            assert rc == 0, rc
+        s = float(ref.abs().max())
+        report(f"K5 list, {len(sdirect.groups)} batches",
+               float((got - ref).abs().max()), 1e-11 * s)
+        report("K6", float((got6 - ref).abs().max()), 1e-11 * s)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,226 @@
+// g++ rehearsal of K4/K5/K6 (csrc/eri4c.cuh) on the CPU: the device code
+// compiled as C++20 against shim/cuda_runtime.h, each launch emulated block
+// by block with one std::thread per CUDA thread and the grid, block size
+// and shared memory of eri4c_launch.cuh (the route of each class pair from
+// -DJC_ERI4C_LANE_MASK, the warp route's geometry from eri4c_geometry).
+// The C entry points take the arguments of jc_eri4c / jc_eri4c_jk /
+// jc_digest_jk without the stream.  Classes up to (dd|dd), and with
+// -DRH_WITH_F the f class pairs, to (ff|ff).  Built and held
+// against the plain torch versions by tools/eri4c_rehearsal.py.
+#include <memory>
+#include <thread>
+#include <vector>
+
+#include "eri4c.cuh"
+
+thread_local dim3 threadIdx, blockIdx, blockDim;
+thread_local WarpCtx* tl_warp;
+
+namespace jc {
+double sm[1 << 17];  // the dynamic shared memory of the block that runs
+}
+
+namespace {
+
+template <class F>
+void run_grid(long long blocks, int threads, F body) {
+  for (long long b = 0; b < blocks; ++b) {
+    const int nw = threads / 32;
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<WarpCtx> warps(nw);
+    for (int w = 0; w < nw; ++w) {
+      bars.emplace_back(new std::barrier<>(32));
+      warps[w].bar = bars.back().get();
+    }
+    std::vector<std::thread> th;
+    for (int t = 0; t < threads; ++t)
+      th.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = (unsigned)b;
+        blockDim.x = threads;
+        tl_warp = &warps[t / 32];
+        body();
+      });
+    for (auto& x : th) x.join();
+  }
+}
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+template <int LA, int LB, int LC, int LD>
+int eri4c(const double* pb, int Ka, int Kb, const int* mb, const double* pk,
+          int Kc, int Kd, const int* mk, const int64_t* sb, const int64_t* sk,
+          long long n, double* out) {
+  using namespace jc;
+  if (n <= 0) return 0;
+  if constexpr (Eri4cClass<LA, LB, LC, LD>::kLane) {
+    run_grid(cdiv(n, kEri4cLaneBlock), kEri4cLaneBlock, [&] {
+      eri4c_lane_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb,
+                                        sk, n, out);
+    });
+  } else {
+    const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
+    if (g.W * g.warp_bytes > sizeof(sm)) return 1;
+    run_grid(cdiv(n, g.W), 32 * g.W, [&] {
+      eri4c_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n,
+                                   g.CT, g.RS, out);
+    });
+  }
+  return 0;
+}
+
+template <int LA, int LB, int LC, int LD>
+int eri4c_jk(const double* pb, int Ka, int Kb, const int* mb,
+             const double* pk, int Kc, int Kd, const int* mk,
+             const int64_t* sb, const int64_t* sk, const double* weight,
+             const int64_t* cum, long long n_bra, int same_block, long long n,
+             long long t0, const double* D, long long nbf, double* JK) {
+  using namespace jc;
+  if (n <= 0) return 0;
+  if constexpr (Eri4cClass<LA, LB, LC, LD>::kLane) {
+    run_grid(cdiv(n, kEri4cLaneBlock), kEri4cLaneBlock, [&] {
+      eri4c_jk_lane_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb,
+                                           sk, weight, cum, n_bra, same_block,
+                                           n, t0, D, nbf, JK);
+    });
+  } else {
+    const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
+    if (g.W * g.warp_bytes > sizeof(sm)) return 1;
+    run_grid(cdiv(n, g.W), 32 * g.W, [&] {
+      eri4c_jk_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk,
+                                      weight, cum, n_bra, same_block, n, t0,
+                                      g.CT, g.RS, D, nbf, JK);
+    });
+  }
+  return 0;
+}
+
+template <int LA, int LB, int LC, int LD>
+int digest_jk(const int* mb, const int* mk, const int64_t* sb,
+              const int64_t* sk, const double* weight, long long n,
+              const double* I, const double* D, long long nbf, double* JK) {
+  using namespace jc;
+  if (n <= 0) return 0;
+  run_grid(cdiv(n, kEri4cMaxWarps), 32 * kEri4cMaxWarps, [&] {
+    digest_jk_kernel<LA, LB, LC, LD>(mb, mk, sb, sk, weight, n, I, D, nbf, JK);
+  });
+  return 0;
+}
+
+}  // namespace
+
+#define RH_CLASSES(M) \
+  M(0, 0, 0, 0) \
+  M(0, 0, 0, 1) \
+  M(0, 0, 0, 2) \
+  M(0, 0, 1, 1) \
+  M(0, 0, 1, 2) \
+  M(0, 0, 2, 2) \
+  M(0, 1, 0, 1) \
+  M(0, 1, 0, 2) \
+  M(0, 1, 1, 1) \
+  M(0, 1, 1, 2) \
+  M(0, 1, 2, 2) \
+  M(0, 2, 0, 2) \
+  M(0, 2, 1, 1) \
+  M(0, 2, 1, 2) \
+  M(0, 2, 2, 2) \
+  M(1, 1, 1, 1) \
+  M(1, 1, 1, 2) \
+  M(1, 1, 2, 2) \
+  M(1, 2, 1, 2) \
+  M(1, 2, 2, 2) \
+  M(2, 2, 2, 2)
+
+// the 34 class pairs with an f shell, built with -DRH_WITH_F
+#ifdef RH_WITH_F
+#define RH_F_CLASSES(M) \
+  M(0, 0, 0, 3) \
+  M(0, 0, 1, 3) \
+  M(0, 0, 2, 3) \
+  M(0, 0, 3, 3) \
+  M(0, 1, 0, 3) \
+  M(0, 1, 1, 3) \
+  M(0, 1, 2, 3) \
+  M(0, 1, 3, 3) \
+  M(0, 2, 0, 3) \
+  M(0, 2, 1, 3) \
+  M(0, 2, 2, 3) \
+  M(0, 2, 3, 3) \
+  M(0, 3, 0, 3) \
+  M(0, 3, 1, 1) \
+  M(0, 3, 1, 2) \
+  M(0, 3, 1, 3) \
+  M(0, 3, 2, 2) \
+  M(0, 3, 2, 3) \
+  M(0, 3, 3, 3) \
+  M(1, 1, 1, 3) \
+  M(1, 1, 2, 3) \
+  M(1, 1, 3, 3) \
+  M(1, 2, 1, 3) \
+  M(1, 2, 2, 3) \
+  M(1, 2, 3, 3) \
+  M(1, 3, 1, 3) \
+  M(1, 3, 2, 2) \
+  M(1, 3, 2, 3) \
+  M(1, 3, 3, 3) \
+  M(2, 2, 2, 3) \
+  M(2, 2, 3, 3) \
+  M(2, 3, 2, 3) \
+  M(2, 3, 3, 3) \
+  M(3, 3, 3, 3)
+#else
+#define RH_F_CLASSES(M)
+#endif
+
+#define RH_K4(LA, LB, LC, LD)                                                 \
+  if (la == LA && lb == LB && lc == LC && ld == LD)                           \
+    return eri4c<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk,              \
+                                 (const int64_t*)sel_bra,                     \
+                                 (const int64_t*)sel_ket, n, out);
+#define RH_K5(LA, LB, LC, LD)                                                 \
+  if (la == LA && lb == LB && lc == LC && ld == LD)                           \
+    return eri4c_jk<LA, LB, LC, LD>(                                          \
+        pb, Ka, Kb, mb, pk, Kc, Kd, mk, (const int64_t*)sel_bra,              \
+        (const int64_t*)sel_ket, weight, (const int64_t*)cum, n_bra,          \
+        same_block, n, t0, D, nbf, JK);
+#define RH_K6(LA, LB, LC, LD)                                                 \
+  if (la == LA && lb == LB && lc == LC && ld == LD)                           \
+    return digest_jk<LA, LB, LC, LD>(mb, mk, (const int64_t*)sel_bra,         \
+                                     (const int64_t*)sel_ket, weight, n, I,   \
+                                     D, nbf, JK);
+
+extern "C" unsigned long long rh_lane_mask() { return JC_ERI4C_LANE_MASK; }
+
+extern "C" int rh_eri4c(int la, int lb, int lc, int ld, const double* pb,
+                        int Ka, int Kb, const int* mb, const double* pk,
+                        int Kc, int Kd, const int* mk,
+                        const long long* sel_bra, const long long* sel_ket,
+                        long long n, double* out) {
+  RH_CLASSES(RH_K4)
+  RH_F_CLASSES(RH_K4)
+  return 2;
+}
+
+extern "C" int rh_eri4c_jk(int la, int lb, int lc, int ld, const double* pb,
+                           int Ka, int Kb, const int* mb, const double* pk,
+                           int Kc, int Kd, const int* mk,
+                           const long long* sel_bra, const long long* sel_ket,
+                           const double* weight, const long long* cum,
+                           long long n_bra, int same_block, long long n,
+                           long long t0, const double* D, long long nbf,
+                           double* JK) {
+  RH_CLASSES(RH_K5)
+  RH_F_CLASSES(RH_K5)
+  return 2;
+}
+
+extern "C" int rh_digest_jk(int la, int lb, int lc, int ld, const int* mb,
+                            const int* mk, const long long* sel_bra,
+                            const long long* sel_ket, const double* weight,
+                            long long n, const double* I, const double* D,
+                            long long nbf, double* JK) {
+  RH_CLASSES(RH_K6)
+  RH_F_CLASSES(RH_K6)
+  return 2;
+}

@@ -11,11 +11,17 @@ card's name and power limit):
 2. build the CUDA kernels of juliachem_jl_tpu_torch/csrc with nvcc (one
    process per source, in parallel); 2a. ``cuobjdump -sass`` of the built
    library: every f64 tensor-core instance of K2 and K7 holds DMMA
-   instructions;
+   instructions; ptxas's registers, stack and spills of every K4/K5/K6
+   and K1 instance, and the build wall of K1's sources;
 3. each kernel against its plain torch version on the card, times from CUDA
    events beside the least time the card could take (``bound_ms``):
    K1 (3-center integrals, every class of benzene_2_water / cc-pVTZ-JKFIT,
-   a subset of bra pairs), K2 (packed-B exchange factor, f64 and f32;
+   and of w32 and of benzene_2_water in 6-31G(2df,p) (the other bases the
+   DF paths run), a subset of bra pairs, each class on the route of the table of
+   ops/kernels.py as compiled, a block-route class within a block's
+   shared memory and two blocks an SM; the primitive products K1 walks
+   in the full 3-center builds of benzene_2_water and w32 equal to those
+   of nonzero coefficients), K2 (packed-B exchange factor, f64 and f32;
    also at w32's Q-block, whose col_map has whole dead tiles), the
    probe K3 (device Boys function), and at the class shapes of
    ammonia_trimer and benzene_2_water (6-311++G(2d,2p)), the first quartets
@@ -95,7 +101,11 @@ card's name and power limit):
 
 The packed K pass of the w-cluster runs and of one ``benzene_2_water``
 build at its converged D is split by phase with CUDA events (K2, W^T W,
-V B, the f32 -> f64 row upcasts; ``KPassSplit``).
+V B, the f32 -> f64 row upcasts; ``KPassSplit``).  K1's launches in the
+metric and 3-center builds of the ``benzene_2_water`` DF run and of the
+w32 f64-B and f32-B runs are timed by class with CUDA events beside
+their bounds, and their sum taken as K1's share of each build's
+synchronised wall (``K1Times``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after (each launch is also counted per angular-momentum class).  Energies
@@ -114,6 +124,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -519,7 +530,9 @@ def check_k3(tag: str, dev) -> dict:
 def k1_calls(dev, bsets, n_pairs: int = 64) -> list:
     """Every (bra class | aux class) of the system, the first n_pairs bra
     pairs of each class against every aux shell, as K1's arguments into a
-    compact [A, 2*n*nab] output (its width last)."""
+    compact [A, 2*n*nab] output: each call a dict of the class, the
+    arguments after ``out`` and the output's width.  Every pair is
+    mirrored, into columns of its own."""
     import numpy as np
     import torch
 
@@ -528,44 +541,68 @@ def k1_calls(dev, bsets, n_pairs: int = 64) -> list:
     from juliachem_jl_tpu_torch.ops.pairs import unique_pair_blocks
 
     prim, aux = bsets.primary, bsets.auxiliary
-    aux_classes = eri3c._aux_classes(aux, dev)
+    auxs = eri3c.aux_tables(aux, dev)
     bra = ([b.select(np.arange(min(n_pairs, b.n))) for b in unique_pair_blocks(prim)]
            + [b.select(np.arange(min(n_pairs, b.n))) for b in eri3c.aux_unit_blocks(aux)])
     calls = []
     for blk in bra:
         nab = ncart(blk.la) * ncart(blk.lb)
-        cols = torch.arange(blk.n * nab, device=dev).reshape(blk.n, nab)
+        kp = eri3c.k1_pairs(blk, lambda ia, ib: np.arange(ia.size).reshape(
+            ia.shape), dev)
         mirror = torch.ones(blk.n, dtype=torch.uint8, device=dev)
-        pair = eri3c.pack_pairs(blk, dev)
-        for lq, aux_t, qrow in aux_classes:
-            calls.append((blk.la, blk.lb, lq, blk.aexp.shape[1],
-                          blk.bexp.shape[1], pair, aux_t, qrow, cols,
-                          cols + blk.n * nab, mirror, 2 * blk.n * nab))
+        for at in auxs:
+            calls.append({"cls": (blk.la, blk.lb, at.lq),
+                          "args": (kp.table, at, kp.cols,
+                                   kp.cols + blk.n * nab, mirror),
+                          "width": 2 * blk.n * nab})
     return calls
 
 
-def k1_bound(calls, out_size: int) -> dict:
-    """K1's bound over the calls: every pair/aux row read once, every (aux
-    row, column) written once (out_size bytes each); operations over the
-    nonzero-coefficient primitives, the Boys series only where T <= 35."""
+def k1_call_shape(args) -> dict:
+    """One K1 launch's inputs, from the arguments after ``out`` of
+    ``eri3c_class(out, bra, aux, cols, cols_t, mirror)``: the class, the
+    pair rows and their contraction widths, the aux rows, the output
+    columns, the mirror flags, and the bytes of the function's inputs (the
+    pair rows, the aux exponents, coefficients and centres, the aux row
+    offsets, the columns and the mirror flags; not the tables the kernel
+    derives from them, such as the primitive counts or the aux expansion)."""
+    bra, aux, cols, cols_t, mirror = args
+    nbytes = 8.0 * (bra.pair.numel() + aux.table.numel() + aux.qrow.numel()
+                    + cols.numel() + cols_t.numel()) + mirror.numel()
+    return {"cls": (bra.la, bra.lb, aux.lq), "Ka": bra.Ka, "Kb": bra.Kb,
+            "pair": bra.pair, "aux": aux.table, "mirror": mirror,
+            "in_bytes": nbytes}
+
+
+def k1_bound(shapes, out_size: int) -> dict:
+    """K1's bound over launches (``k1_call_shape``): every input read once,
+    every (aux row, column) written once (out_size bytes each; twice for a
+    mirrored pair); operations over the primitive products of nonzero
+    coefficients, the Boys series only where T <= 35."""
     nbytes = ops = 0.0
-    for (la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror,
-         width) in calls:
+    for c in shapes:
+        (la, lb, lq), Ka, Kb, pair, aux_t = (c["cls"], c["Ka"], c["Kb"],
+                                             c["pair"], c["aux"])
         Kq = (aux_t.shape[1] - 3) // 2
-        p, P, live_p = prim_pairs(pair, Ka, Kb)
-        live = live_p[:, :, None, None] & (aux_t[None, None, :, Kq:2 * Kq] != 0)
-        n_prim = float(live.sum())
-        n_series = series_count(
-            p[:, :, None, None], P[:, :, None, None],
-            aux_t[None, None, :, :Kq], aux_t[None, None, :, None, 2 * Kq:], live)
+        nq = aux_t.shape[0]
         nab, ncq, nhb = ncart(la) * ncart(lb), ncart(lq), nherm(la + lb)
-        nbytes += 8.0 * (pair.numel() + aux_t.numel() + qrow.numel()
-                         + 2 * cols.numel()) \
-            + out_size * 2.0 * cols.numel() * ncq * aux_t.shape[0]
+        live_q = aux_t[:, Kq:2 * Kq] != 0
+        n_prim = n_series = kb_sum = 0.0
+        step = max(1, T_BUDGET // max(1, Ka * Kb * nq * Kq))
+        for s in range(0, pair.shape[0], step):
+            p, P, live_p = prim_pairs(pair[s:s + step], Ka, Kb)
+            live = live_p[:, :, None, None] & live_q[None, None]
+            n_prim += float(live.sum())
+            kb_sum += float(live_p.sum())
+            n_series += series_count(
+                p[:, :, None, None], P[:, :, None, None],
+                aux_t[None, None, :, :Kq],
+                aux_t[None, None, :, None, 2 * Kq:], live)
+        writes = float(pair.shape[0] + int(c["mirror"].sum())) * nab
+        nbytes += c["in_bytes"] + out_size * writes * ncq * nq
         ops += (boys_r_ops(la + lb + lq, n_prim, n_series)
                 + n_prim * 2 * nhb * ncq * nherm(lq)
-                + float(live_p.sum()) * aux_t.shape[0] * (4 * nab * nhb
-                                                          + 2 * nab * nhb * ncq))
+                + kb_sum * nq * (4 * nab * nhb + 2 * nab * nhb * ncq))
     return bound_of(nbytes, ops)
 
 
@@ -574,10 +611,10 @@ def run_k1(fn, calls, A, dtype):
     import torch
 
     outs = []
-    for (la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror,
-         width) in calls:
-        out = torch.zeros((A, width), dtype=dtype, device=pair.device)
-        fn(out, la, lb, lq, Ka, Kb, pair, aux_t, qrow, cols, cols_t, mirror)
+    for c in calls:
+        out = torch.zeros((A, c["width"]), dtype=dtype,
+                          device=c["args"][0].pair.device)
+        fn(out, *c["args"])
         outs.append(out)
     return outs
 
@@ -587,16 +624,49 @@ def k1_largest(tag: str, calls, A: int, dtype, largest) -> dict:
     beside that class's bound."""
     from juliachem_jl_tpu_torch.ops import eri3c
 
-    sub = [c for c in calls if tuple(c[:3]) == tuple(largest)]
+    sub = [c for c in calls if tuple(c["cls"]) == tuple(largest)]
     check(bool(sub), f"K1: no call of class {largest}")
     ms = cuda_ms(lambda: run_k1(eri3c.eri3c_class, sub, A, dtype), reps=2)
     plain = cuda_ms(lambda: run_k1(eri3c.eri3c_class_plain, sub, A, dtype),
                     reps=2)
-    b = k1_bound(sub, 8 if dtype.itemsize == 8 else 4)
+    b = k1_bound([k1_call_shape(c["args"]) for c in sub],
+                 8 if dtype.itemsize == 8 else 4)
     print(f"{tag} K1 {dtype} class {tuple(largest)} alone: kernel {ms:.3f} ms,"
           f" plain torch {plain:.3f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})", flush=True)
     return {"class": list(largest), "ms": ms, "plain_ms": plain, **b}
+
+
+def k1_routes(tag: str, calls) -> dict:
+    """K1's route and launch geometry of every class of ``calls`` as
+    compiled (``eri3c.eri3c_geometry``), held to the table of
+    ops/kernels.py; a block-route class must fit the card's 227 KB of
+    shared memory a block (it would fail its launch otherwise) and, within
+    ``kEri3cBlockCap``, hold two blocks an SM."""
+    from juliachem_jl_tpu_torch.ops import eri3c, kernels
+
+    out = {}
+    for c in calls:
+        bra, aux = c["args"][0], c["args"][1]
+        g = eri3c.eri3c_geometry(*c["cls"], bra.Ka, bra.Kb, aux.Kq)
+        want = kernels.eri3c_route(*c["cls"])
+        check(g["route"] == want, f"K1 class {c['cls']} compiled on the "
+              f"{g['route']} route, the table says {want}")
+        if g["route"] != "lane":
+            check(g["smem_bytes"] <= 232448, f"K1 class {c['cls']}: "
+                  f"{g['smem_bytes']} bytes of shared memory a block")
+            check(g["blocks_per_sm"] >= 2 or g["QT"] == 1,
+                  f"K1 class {c['cls']}: {g['blocks_per_sm']} blocks an SM")
+        out[str(c["cls"])] = g
+    routes = {}
+    for cls, g in out.items():
+        routes.setdefault(g["route"], []).append(cls)
+    print(f"{tag} K1 routes as compiled: " + "; ".join(
+        f"{r} {len(v)} classes" for r, v in routes.items())
+        + "; block route " + ", ".join(
+            f"{cls} QT {g['QT']} {g['smem_bytes']} B {g['blocks_per_sm']}/SM"
+            for cls, g in out.items() if g["route"] != "lane"), flush=True)
+    return out
 
 
 def check_k1(tag: str, dev, bsets, calls, name: str = "eri3c",
@@ -616,24 +686,24 @@ def check_k1(tag: str, dev, bsets, calls, name: str = "eri3c",
         err = float((g - r).abs().max())
         scale = float(r.abs().max())
         check(err <= 1e-12 * scale,
-              f"K1 class ({c[0]},{c[1]}|{c[2]}): max abs err {err:.3e} > "
-              f"1e-12 x {scale:.3e}")
+              f"K1 class {c['cls']}: max abs err {err:.3e} > 1e-12 x "
+              f"{scale:.3e}")
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / scale if scale else 0.0)
     check(kernels.launches["eri3c"] - n0 == len(calls),
           "K1 comparison did not launch the kernel for every class")
     del got, ref
-    n_pairs = max(c[5].shape[0] for c in calls)
+    n_pairs = max(c["args"][0].n for c in calls)
     ms = cuda_ms(lambda: run_k1(eri3c.eri3c_class, calls, A, torch.float64),
                  reps=2)
     plain = cuda_ms(lambda: run_k1(eri3c.eri3c_class_plain, calls, A,
                                    torch.float64), reps=2)
-    print(f"{tag} K1 eri3c: {len(calls)} classes x {n_pairs} bra pairs x all "
+    print(f"{tag} K1 {name}: {len(calls)} classes x {n_pairs} bra pairs x all "
           f"aux shells: max abs err {worst_abs:.3e}, max err/block max-abs "
           f"{worst_rel:.3e} (bound 1e-12); kernel {ms:.3f} ms, plain torch "
           f"{plain:.3f} ms", flush=True)
-    b = k1_bound(calls, 8)
-    print(f"{tag} K1 eri3c bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
+    b = k1_bound([k1_call_shape(c["args"]) for c in calls], 8)
+    print(f"{tag} K1 {name} bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
           f"{b['bytes']:.3e} B, {b['operations']:.3e} operations)", flush=True)
     out = {"name": name, "route": "cuda",
            "source": "juliachem_jl_tpu_torch/csrc/eri3c.cuh",
@@ -669,7 +739,7 @@ def check_k1_f32(tag: str, dev, bsets, calls, largest=None) -> dict:
                  reps=2)
     plain_ms = cuda_ms(lambda: run_k1(eri3c.eri3c_class_plain, calls, A,
                                       torch.float32), reps=2)
-    b = k1_bound(calls, 4)
+    b = k1_bound([k1_call_shape(c["args"]) for c in calls], 4)
     print(f"{tag} K1 eri3c f32 store: {len(calls)} classes, 0 elements off "
           f"the f64 output rounded (bit for bit); max abs err vs the plain "
           f"f32 version {err:.3e}; kernel {ms:.3f} ms, plain torch "
@@ -684,6 +754,115 @@ def check_k1_f32(tag: str, dev, bsets, calls, largest=None) -> dict:
         out["largest_class"] = k1_largest(tag, calls, A, torch.float32,
                                           largest)
     return out
+
+
+class K1Times:
+    """CUDA-event times of every K1 launch while active, by build phase
+    (``metric``: ``two_center_metric``; ``three_center``:
+    ``three_center_tensor``) and class: ``eri3c.eri3c_class`` and the two
+    builds wrapped, each build synchronised at its start and end so that
+    its host wall holds its kernels.  ``result()`` gives per phase its
+    builds' walls, K1's summed device time and share of the wall, its
+    launches, and per class launches and ms (with ``bound``, each class's
+    and the phase's bound over the launches' inputs)."""
+
+    PHASES = {"two_center_metric": "metric",
+              "three_center_tensor": "three_center"}
+
+    def __init__(self, bound: bool = False):
+        self.bound = bound
+
+    def __enter__(self):
+        import torch
+
+        from juliachem_jl_tpu_torch.ops import eri3c
+
+        self.mod = eri3c
+        self.saved = {k: getattr(eri3c, k)
+                      for k in ("eri3c_class", *self.PHASES)}
+        self.events = {ph: [] for ph in self.PHASES.values()}
+        self.walls = {ph: [] for ph in self.PHASES.values()}
+        phase = [None]
+        k1 = self.saved["eri3c_class"]
+
+        def timed_k1(out, *args):
+            if phase[0] is None or not out.is_cuda:
+                return k1(out, *args)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            k1(out, *args)
+            ev[1].record()
+            shape = k1_call_shape(args)
+            if not self.bound:
+                shape = {"cls": shape["cls"]}
+            self.events[phase[0]].append((shape, out.element_size(), *ev))
+
+        def wrap(fn, ph):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                phase[0] = ph
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    phase[0] = None
+                    torch.cuda.synchronize()
+                    self.walls[ph].append(time.perf_counter() - t0)
+            return run
+
+        eri3c.eri3c_class = timed_k1
+        for name, ph in self.PHASES.items():
+            setattr(eri3c, name, wrap(self.saved[name], ph))
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.mod, k, v)
+        return False
+
+    def result(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for ph, evs in self.events.items():
+            per = {}
+            for shape, size, e0, e1 in evs:
+                c = per.setdefault(shape["cls"], {"launches": 0, "ms": 0.0,
+                                                  "shapes": [], "size": size})
+                c["launches"] += 1
+                c["ms"] += e0.elapsed_time(e1)
+                if self.bound:
+                    c["shapes"].append(shape)
+            total = sum(c["ms"] for c in per.values())
+            wall = sum(self.walls[ph])
+            res = {"builds": len(self.walls[ph]), "wall_s": wall,
+                   "k1_ms": total, "launches": len(evs),
+                   "k1_share": total / (wall * 1e3) if wall else None,
+                   "classes": {}}
+            all_shapes = []
+            for cls, c in sorted(per.items()):
+                row = {"launches": c["launches"], "ms": c["ms"]}
+                if self.bound:
+                    b = k1_bound(c["shapes"], c["size"])
+                    row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+                    all_shapes += [(s, c["size"]) for s in c["shapes"]]
+                res["classes"][cls] = row
+            if self.bound and all_shapes:
+                b = k1_bound([s for s, _ in all_shapes], all_shapes[0][1])
+                res.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            out[ph] = res
+        return out
+
+
+def fmt_k1_times(res: dict) -> str:
+    return "; ".join(
+        f"{ph} {v['builds']} builds, wall {v['wall_s']:.4f} s, K1 "
+        f"{v['k1_ms']:.3f} ms in {v['launches']} launches ("
+        + (f"{100 * v['k1_share']:.1f} %" if v["k1_share"] is not None
+           else "-") + " of the wall"
+        + (f", bound {v['bound_ms']:.4f} ms" if "bound_ms" in v else "")
+        + ")" for ph, v in res.items() if v["builds"])
 
 
 def check_k8(tag: str, dev, A: int, label: str) -> dict:
@@ -926,17 +1105,12 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     return {"dmma": counts, "registers": used}
 
 
-def eri4c_registers(tag: str) -> dict:
-    """Per K4/K5/K6 instance, as ptxas reported it in this process's build:
-    registers a thread, stack frame and spill bytes, by kernel (the lane
-    and warp routes of K4 and K5, and K6) and class."""
-    import re
-
+def ptxas_instances(pat, nidx: int) -> dict:
+    """Per kernel instance whose mangled name matches ``pat`` (groups: the
+    kernel, then nidx class indices), as ptxas reported it in this
+    process's build: registers a thread, stack frame and spill bytes."""
     from juliachem_jl_tpu_torch.ops import kernels
 
-    pat = re.compile(r"\d+(eri4c_jk_lane_kernel|eri4c_lane_kernel|"
-                     r"eri4c_jk_kernel|eri4c_kernel|digest_jk_kernel)"
-                     r"ILi(\d)ELi(\d)ELi(\d)ELi(\d)E")
     per, cur = {}, None
     for ln in kernels.build_info.get("log", "").splitlines():
         m = pat.search(ln)
@@ -944,7 +1118,7 @@ def eri4c_registers(tag: str) -> dict:
             cur = None
             if m:
                 cur = per.setdefault(m.group(1), {}).setdefault(
-                    "".join(m.group(2, 3, 4, 5)), {})
+                    "".join(m.group(*range(2, 2 + nidx))), {})
         elif cur is not None and "bytes stack frame" in ln:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
             cur.update(stack=nums[0], spill_stores=nums[1],
@@ -960,18 +1134,52 @@ def eri4c_registers(tag: str) -> dict:
                      "spilling": sorted(k for k, v in cls.items()
                                         if v.get("spill_stores", 0)),
                      "classes": cls}
-    print(f"{tag} K4/K5/K6 instances (ptxas): " + "; ".join(
-        f"{k} {v['instances']} instances, {v['registers_min']}-"
-        f"{v['registers_max']} registers, stack frame up to {v['stack_max']} "
-        f"bytes, spilling {v['spilling'] or 'none'}" for k, v in out.items()),
-        flush=True)
     return out
 
 
-def k1_primitive_counts(tag: str, dev, bsets, opts) -> dict:
+def fmt_instances(out: dict) -> str:
+    return "; ".join(
+        f"{k} {v['instances']} instances, {v['registers_min']}-"
+        f"{v['registers_max']} registers, stack frame up to {v['stack_max']} "
+        f"bytes, spilling {v['spilling'] or 'none'}" for k, v in out.items())
+
+
+def eri4c_registers(tag: str) -> dict:
+    """Per K4/K5/K6 instance, as ptxas reported it in this process's build:
+    registers a thread, stack frame and spill bytes, by kernel (the lane
+    and warp routes of K4 and K5, and K6) and class."""
+    out = ptxas_instances(re.compile(
+        r"\d+(eri4c_jk_lane_kernel|eri4c_lane_kernel|eri4c_jk_kernel|"
+        r"eri4c_kernel|digest_jk_kernel)ILi(\d)ELi(\d)ELi(\d)ELi(\d)E"), 4)
+    print(f"{tag} K4/K5/K6 instances (ptxas): " + fmt_instances(out),
+          flush=True)
+    return out
+
+
+def eri3c_registers(tag: str) -> dict:
+    """Per K1 instance (lane and block route), as ptxas reported it in
+    this process's build, and the build wall of K1's sources (s from the
+    start of the parallel build)."""
+    from juliachem_jl_tpu_torch.ops import kernels
+
+    out = ptxas_instances(re.compile(
+        r"\d+(eri3c_lane_kernel|eri3c_block_kernel)"
+        r"ILi(\d)ELi(\d)ELi(\d)E"), 3)
+    walls = {k: v for k, v in kernels.build_info.get("per_source", {}).items()
+             if k.startswith("eri3c")}
+    print(f"{tag} K1 instances (ptxas): " + fmt_instances(out)
+          + "; K1 sources built by " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in sorted(walls.items())), flush=True)
+    return {"instances": out, "source_walls_s": walls}
+
+
+def k1_primitive_counts(tag: str, dev, bsets, opts, label: str) -> dict:
     """(pair primitive pair, aux primitive) products of the system's full
-    3-center build: as K1 loops over them (each class padded to its largest
-    contraction) and those of nonzero coefficients."""
+    3-center build: those K1 walks (the live counts of its packing: the
+    pair tables' meta and the aux tables' kq, ``k1_pairs``, ``aux_tables``),
+    those of nonzero coefficients, and those a walk over each class padded
+    to its largest contraction would take (K1 before it walked live
+    primitives only).  K1 must walk the nonzero ones and no more."""
     import numpy as np
     import torch
 
@@ -980,18 +1188,25 @@ def k1_primitive_counts(tag: str, dev, bsets, opts) -> dict:
 
     prim, aux = bsets.primary, bsets.auxiliary
     metric_max = float(torch.diagonal(eri3c.two_center_metric(aux, dev)).max())
-    padded = real = 0
+    auxs = eri3c.aux_tables(aux, dev)
+    walked_q = sum(int(a.kq.sum()) for a in auxs)
+    padded = real = walked = 0
     for b in screened_pair_blocks(prim, opts.df_screening_sigma, metric_max,
                                   dev):
         kp = (np.count_nonzero(b.acoef, axis=1)
               * np.count_nonzero(b.bcoef, axis=1)).sum()
+        meta = eri3c.k1_pairs(b, lambda ia, ib: ia, dev).table.meta
+        walked += int((meta[:, 2].long() * meta[:, 3].long()).sum()) * walked_q
         for cl in aux.classes.values():
             padded += b.n * b.aexp.shape[1] * b.bexp.shape[1] * cl.nshell * cl.kmax
             real += int(kp) * int(np.count_nonzero(cl.coefs))
-    print(f"{tag} K1 on the full 3-center build: {real} primitive products "
-          f"of nonzero coefficients, {padded} looped over with the class "
-          f"padding ({real / padded:.4f})", flush=True)
-    return {"padded": padded, "real": real}
+    print(f"{tag} K1 on the full 3-center build of {label}: {walked} "
+          f"primitive products walked, {real} of nonzero coefficients "
+          f"(walked / real {walked / real:.4f}); {padded} with the class "
+          f"padding (real / padded {real / padded:.4f})", flush=True)
+    check(walked == real, f"K1 walks {walked} primitive products of "
+          f"{label}'s 3-center build, {real} are nonzero")
+    return {"padded": padded, "real": real, "walked": walked}
 
 
 def fourc_bounds(cases, nbf: int) -> dict:
@@ -1526,7 +1741,7 @@ def fmt_split(split: dict) -> str:
 
 def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
                 waters: int | None = None, measure_build: bool = False,
-                gated: bool = True) -> dict:
+                gated: bool = True, k1_times: bool = False) -> dict:
     """One DF-RHF run_spec of a water cluster on the card (peak device memory
     reset just before it); with ``measure_build``, first the peak of the
     packed builder's build alone (``build_peak``).  Returns the energy,
@@ -1537,7 +1752,8 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     V B, the f32 -> f64 row upcasts; ``KPassSplit``).  B's checksum is
     taken from the builder ``ScreenedDFFockBuilder.build`` returns, wrapped
     for this run only.  A run that is not ``gated`` is recorded whether it
-    converges or not."""
+    converges or not.  With ``k1_times``, K1's launches of run_spec's
+    3-center build and metric timed by class (``K1Times``)."""
     import contextlib
     import io
 
@@ -1571,8 +1787,9 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     ScreenedDFFockBuilder.build = classmethod(build_and_sum)
     ScreenedDFFockBuilder.split = KPassSplit()
     t0 = time.perf_counter()
+    timer = K1Times(bound=True) if k1_times else contextlib.nullcontext()
     try:
-        with contextlib.redirect_stderr(notes):
+        with contextlib.redirect_stderr(notes), timer:
             out = jc.run_spec(jc.io.parse_input(cluster_input(name, extra,
                                                               waters)))
     finally:
@@ -1623,6 +1840,10 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
         flush=True)
     print(f"{tag} {label}: K pass split, ms per build (CUDA events): "
           + fmt_split(summary["k_pass_split_ms"]), flush=True)
+    if k1_times:
+        summary["k1_times"] = timer.result()
+        print(f"{tag} {label}: K1 by CUDA events: "
+              + fmt_k1_times(summary["k1_times"]), flush=True)
     check(summary["route"] == "ScreenedDFFockBuilder",
           f"{label}: route {summary['route']}")
     check(summary["converged"] or not gated, f"{label}: SCF did not converge")
@@ -1632,12 +1853,15 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
 def run_system(tag: str, jc, name: str, golden: dict | None,
                ref: dict | None, route: str, extra: dict | None = None,
                conventional: bool = False, aux: bool = True,
-               inp: dict | None = None) -> dict:
+               inp: dict | None = None, k1_times: bool = False) -> dict:
     """One run_spec to convergence, held to the JAX package's energy (ref)
     and to GAMESS (golden: DF within 1.5e-3 Eh, conventional RHF at
     1.49e-8 relative).  ``inp``: the run_spec input, in place of the one
     ``system_input`` makes from the golden (whose GAMESS energy is then
-    for another basis: pass golden None)."""
+    for another basis: pass golden None).  With ``k1_times``, K1's launches
+    of the run's 3-center builds and metric timed by class (``K1Times``)."""
+    import contextlib
+
     import torch
 
     from juliachem_jl_tpu_torch.utils.timings import JCTC
@@ -1648,7 +1872,9 @@ def run_system(tag: str, jc, name: str, golden: dict | None,
     if inp is None:
         inp = system_input(name, golden, extra,
                            CONV_SCF if conventional else SCF, aux)
-    out = jc.run_spec(jc.io.parse_input(inp))
+    timer = K1Times(bound=True) if k1_times else contextlib.nullcontext()
+    with timer:
+        out = jc.run_spec(jc.io.parse_input(inp))
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     res = out["Energy"]
@@ -1700,6 +1926,10 @@ def run_system(tag: str, jc, name: str, golden: dict | None,
         print(f"{tag} {name}: f64 Fock split s/iter " + ", ".join(
             f"{k} {v:.5f}" for k, v in stats["fock_split_s"].items()),
             flush=True)
+    if k1_times:
+        summary["k1_times"] = timer.result()
+        print(f"{tag} {name}: K1 by CUDA events: "
+              + fmt_k1_times(summary["k1_times"]), flush=True)
     check(builder == route, f"{name}: route {builder}, expected {route}")
     check(summary["converged"], f"{name}: SCF did not converge")
     if ref:
@@ -2364,6 +2594,7 @@ def main() -> int:
     sass = check_sass(tag, kernels.build_info["so"],
                       str(Path(kernels._nvcc()).parent / "cuobjdump"))
     sass["eri4c"] = eri4c_registers(tag)
+    sass["eri3c"] = eri3c_registers(tag)
 
     goldens = json.loads((ROOT / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
@@ -2380,6 +2611,7 @@ def main() -> int:
     bsets = jc.basis.run(jc.molecule.run(spec), spec.model)
     calls = k1_calls(dev, bsets)
     k1 = check_k1(tag, dev, bsets, calls)
+    k1_geometry = {"benzene_2_water": k1_routes(tag, calls)}
     k1_f32 = check_k1_f32(tag, dev, bsets, calls)
     del calls
     k2, k2_f32b = check_k2(tag, dev, bsets,
@@ -2404,13 +2636,20 @@ def main() -> int:
     k2_w, k2b_w = check_k2(tag, dev, bsets_w,
                            create_scf_options(spec_w.scf_keywords),
                            "w32 Q-block", k_w, qc_w, f32=False)
+    k1_w32_products = k1_primitive_counts(
+        tag, dev, bsets_w, create_scf_options(spec_w.scf_keywords), "w32")
+    # K1 on every class of w32 (w8's are among them), its own contractions
+    k1_other = {"w32": check_k1(tag, dev, bsets_w, k1_calls(dev, bsets_w),
+                                name="eri3c_w32")}
     del bsets_w
     torch.cuda.empty_cache()
     k8 = {**k8_at["w32"], "at_w8_fold": {
         k: v for k, v in k8_at["w8"].items()
         if k not in ("name", "route", "source", "replaces", "library")}}
-    k1["primitive_products"] = k1_primitive_counts(
-        tag, dev, bsets, create_scf_options(spec.scf_keywords))
+    k1["primitive_products"] = {
+        "benzene_2_water": k1_primitive_counts(
+            tag, dev, bsets, create_scf_options(spec.scf_keywords),
+            "benzene_2_water"), "w32": k1_w32_products}
     spec_a = jc.io.parse_input(system_input(
         "ammonia_trimer", goldens["ammonia_trimer"], aux=False))
     bsets_a = jc.basis.run(jc.molecule.run(spec_a), spec_a.model)
@@ -2428,9 +2667,19 @@ def main() -> int:
     calls = k1_calls(dev, bsets_f)
     k1_f = check_k1(tag, dev, bsets_f, calls, name="eri3c_f",
                     largest=(3, 3, 4))
+    k1_geometry[bz_f] = k1_routes(tag, calls)
     k1_f32["f_classes"] = check_k1_f32(tag, dev, bsets_f, calls,
                                        largest=(3, 3, 4))
     del calls
+    # ... and in the other f basis of phase 10
+    spec_f2 = jc.io.parse_input(system_input(
+        "benzene_2_water", {**goldens["benzene_2_water"],
+                            "basis": F_BASIS_SMALL}))
+    bsets_f2 = jc.basis.run(jc.molecule.run(spec_f2), spec_f2.model)
+    k1_other[F_BASIS_SMALL] = check_k1(tag, dev, bsets_f2,
+                                       k1_calls(dev, bsets_f2),
+                                       name="eri3c_f_small")
+    del bsets_f2
     fourc[bz_f] = check_4c(tag, dev, bz_f, bsets_f, 3, largest=(3, 3, 3, 3))
     for name, v in fourc.items():
         f = v["full"]
@@ -2461,7 +2710,7 @@ def main() -> int:
     benzene = path("benzene_2_water DF", lambda: run_system(
         tag, jc, "benzene_2_water", goldens["benzene_2_water"],
         refs["benzene_2_water"], "ScreenedDFFockBuilder",
-        {"mixed_precision": False}))
+        {"mixed_precision": False}, k1_times=True))
     # 5a. the same on an f32 B (K1's f32 store, K2's f32-B instance in
     #     every f64 iteration), held to the JAX package's f32-B energy; the
     #     split fold there is recorded, not gated: it does not converge in
@@ -2695,12 +2944,12 @@ def main() -> int:
         ckpt = os.path.join(tmp, "w32_ckpt.npz")
         w32a = path("w32 f64 B", lambda: run_cluster(
             tag, jc, "w32", {"bench_fock_reps": 4}, "w32 f64 B",
-            measure_build=True))
+            measure_build=True, k1_times=True))
         w32b = path("w32 f32 B", lambda: run_cluster(
             tag, jc, "w32", {"df_b_dtype": "f32", "df_b_cache": cache,
                              "oei_cache": cache, "checkpoint": ckpt,
                              "bench_fock_reps": 4}, "w32 f32 B",
-            measure_build=True))
+            measure_build=True, k1_times=True))
         w32c = path("w32 f32 B from the caches", lambda: run_cluster(
             tag, jc, "w32", {"df_b_dtype": "f32", "df_b_cache": cache,
                              "oei_cache": cache, "restart": ckpt,
@@ -2982,6 +3231,7 @@ def main() -> int:
             "build_per_source_s": per_source,
             "build_log": kernels.build_info.get("log", ""),
             "spills": spills, "sass": sass, "kernels": kern_line,
+            "k1_geometry": k1_geometry, "k1_other_bases": k1_other,
             "probes": [k3],
             "four_center": {k: {kk: vv for kk, vv in v.items()}
                             for k, v in fourc.items()},

@@ -9,13 +9,13 @@
 // thread per argument.  Kept branchy (the TPU form was branch-free): a warp
 // whose arguments all fall on one side runs only that side.
 //
-// boys<M, true> is the form K4/K5 inline: the series and the downward
+// boys<M, true> is the form K1, K4 and K5 inline: the series and the downward
 // recursion multiply by the compile-time reciprocals 1/(2M+2k+3) and
 // 1/(2m+1) where boys<M> divides (an f64 divide is a multi-instruction
 // sequence on sm_90, a multiply one instruction).  The reciprocals are
 // rounded once, so the two forms differ in the last bits (within 3.1e-15
-// relative for m <= 16, T in [0, 35]).  K1 and the probe K3 keep the
-// dividing form; K3 has a second instance of this one.
+// relative for m <= 16, T in [0, 35]).  The probe K3 keeps the dividing
+// form and has a second instance of this one.
 #pragma once
 
 #include <utility>

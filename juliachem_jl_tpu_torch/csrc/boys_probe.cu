@@ -1,8 +1,9 @@
-// Kernel K3: the device Boys function of K1 (boys.cuh) on a vector of
-// arguments, F[i, m] = F_m(T[i]) for m = 0..mmax; jc_boys_probe_recip runs
-// the form K4/K5 inline (boys<M, true>: reciprocals, no divides).
+// Kernel K3: the device Boys function (boys.cuh) on a vector of arguments,
+// F[i, m] = F_m(T[i]) for m = 0..mmax, in its dividing form;
+// jc_boys_probe_recip runs the form K1, K4 and K5 inline (boys<M, true>:
+// reciprocals, no divides).
 //
-// Replaces nothing on the SCF path: it exposes the device functions that
+// Replaces nothing on the SCF path: it exposes the device function that
 // K1 and K4/K5 inline (in place of juliachem_jl_tpu/ops/boys.py::boys,
 // :61-98) so that each can be held against the plain torch version in
 // isolation.  One thread per argument; bound by the 128-term series.

@@ -4,259 +4,472 @@
 // Replaces juliachem_jl_tpu/ops/eri3c.py::_threecenter_compute_kernel
 // (:125-189) with its inlined Boys function (ops/boys.py:61-98) and Hermite
 // E / R recurrences (ops/mcmurchie.py:58-192), plus the host scatter
-// (_scatter_block_host, :192-208).  Math, per primitive pair k of the bra and
-// primitive r of the aux shell (aux partner: unit shell, exponent 0):
+// (_scatter_block_host, :192-208).  Math, per live primitive pair k of the
+// bra and live primitive r of the aux shell (aux partner: the unit shell,
+// exponent 0, at the aux centre):
 //   out[ab, c] = sum_{k,h} Eab[k,ab,h] T1[k,h,c],
 //   T1[k,h,c]  = sum_{r,g} (-1)^|g| R[k,r](h+g) Ecd[r,c,g].
 //
-// What bounds it on the card: the recurrences are serial per primitive pair
-// and the working set of a class reaches nherm(10) = 286 R values, 100 x 84
-// E values and 84 x 15 T1 values ((ff|g)), far past what one thread can
-// keep in registers.  Design: one thread block per (bra pair, tile of aux
-// shells).  The bra expansion Eab is built once per block in shared memory
-// and reused over the aux tile; for each aux shell the R tensors of all
-// primitive pairs (one thread each) and then T1 and the output (threads over
-// their elements) go through shared memory.  Every (aux row, column) target
-// belongs to exactly one (pair, aux function), so outputs are plain stores:
-// no atomics.  Simple and right first; wgmma/DMMA, TMA and persistent
-// blocks are later work.
+// What bounds it on the card: per live primitive product the Boys series
+// (128 dependent steps on the scalar FP64 pipe) and the R recursion, then
+// per (pair, aux shell) the two contractions; the stores into B (one
+// write per target, ld apart between aux rows).  Most (pair, aux shell)
+// products of a real build are low classes ((ss|.), (sp|.), (sd|.),
+// (pp|.): 95 % of w32's in 6-31+G* / cc-pVTZ-JKFIT) whose blocks hold at
+// most a few dozen integrals, and most bra shells of a class have fewer
+// primitives than its largest contraction.  So:
 //
-// The output type is a template parameter: double, or float for an f32 B
-// (df_b_dtype "f32", juliachem_jl_tpu/ops/eri3c.py:264-270).  The f32
-// instances compute in f64 exactly as the f64 ones and round once at the
-// store, so their output is the f64 output rounded to f32, bit for bit.
+// * only live primitives are visited: the wrapper packs each shell's
+//   primitives of nonzero coefficient first and passes their counts (the
+//   pair table's meta of ops/eri.py::pair_table, the aux table's kq), so
+//   the padding of a class to its largest contraction (K = 6 for a core s
+//   shell) costs nothing;
+// * two routes, chosen per class at compile time (Eri3cClass::kLane, from
+//   -DJC_ERI3C_LANE_MASK, which ops/kernels.py passes from its route
+//   table):
+//   - lane route (the low classes): one (bra pair, aux shell) per thread,
+//     nothing in shared memory.  The lanes of a warp take 32 consecutive
+//     bra pairs against one aux shell; each keeps the E tables, the Boys
+//     values, R and its block in registers (every index a compile-time
+//     constant: static_for) and stores from registers.  The aux expansion
+//     (PA = 0: only every other t is nonzero, known at compile time) is
+//     built in registers once per aux primitive.
+//   - block route (the rest): one block per (bra pair, tile of QT aux
+//     shells of the class).  Eab is built once per block in shared memory
+//     as a K x M matrix (K = live primitive pairs x Hermite indices, M =
+//     the bra's components); the R tensors of every (primitive pair, aux
+//     shell, aux primitive) of the tile, then T1 as a K x N matrix (N = QT
+//     aux shells x their components) from the aux expansion table that the
+//     wrapper built once per build (ops/eri3c.py::aux_table: coefficient,
+//     axial norms and (-1)^|g| folded in), and out = Eab^T T1 on the f64
+//     tensor cores (mma.sync m16n8k4, dmma.cuh).  QT is the largest of 8,
+//     4, 2, 1 whose shared memory stays within kEri3cBlockCap, so that two
+//     blocks share an SM.
+// * the Boys series multiplies by compile-time reciprocals (boys<L, true>,
+//   boys.cuh): no f64 divide in its 128 steps;
+// * stores: the wrapper sorts each class's bra pairs by their first output
+//   column, and neighbouring threads store neighbouring columns of one aux
+//   row (lane route: neighbouring pairs, each lane its block row by row;
+//   block route: eight components ab a row segment of a DMMA fragment).
+//   The stores bind the lane route at w32 (an f32 B builds 1.3x faster),
+//   so the pairs are not sorted by their primitive counts first, though
+//   that would make a warp's lanes loop alike: it scattered the stores and
+//   was 11 % slower.  Every (aux row,
+//   column) target belongs to exactly one (pair, aux function), so
+//   outputs are plain stores: no atomics, deterministic.
+//
+// The output is double, or float for an f32 B (df_b_dtype "f32",
+// juliachem_jl_tpu/ops/eri3c.py:264-270), chosen at run time by the flag
+// f32: one instance computes both in f64 and rounds once at the store, so
+// the f32 output is the f64 output rounded to f32, bit for bit.
+//
+// Device code only (the launches are in eri3c_launch.cuh, so this header
+// compiles with g++ for tools/eri3c_rehearsal.py); static_for, the
+// compile-time index functions, LanePair, hermite_R_lane and pair_prim are
+// K4/K5's, from eri4c.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "boys.cuh"
-#include "mcmurchie.cuh"
+#include "dmma.cuh"
+#include "eri4c.cuh"
+
+#ifndef JC_ERI3C_LANE_MASK
+#error "build with -DJC_ERI3C_LANE_MASK (ops/kernels.py passes its route table)"
+#endif
 
 namespace jc {
 
-// Shared-memory layout of one block, in doubles.
+constexpr int kEri3cThreads = 128;
+// shared memory of one block-route block before its aux tile shrinks: two
+// such blocks fit an SM's 228 KB
+constexpr size_t kEri3cBlockCap = 100 * 1024;
+
+// Index of K1's bra class (la, lb) in the order (0,0) (0,1) (0,2) (1,1)
+// (1,2) (2,2) (0,3) (1,3) (2,3) (3,3) (0,4) (ops/kernels.py::ERI3C_BRAS):
+// the class (la lb | lq) is bit 5 * eri3c_bra(la, lb) + lq of the route
+// masks.
+__host__ __device__ constexpr int eri3c_bra(int la, int lb) {
+  return lb <= 2 ? la * 3 - la * (la - 1) / 2 + (lb - la) : (lb == 3 ? 6 + la : 10);
+}
+
+template <int LA, int LB, int LQ>
+struct Eri3cClass {
+  static constexpr int NB = ncart(LB), NAB = ncart(LA) * NB, NCQ = ncart(LQ);
+  static constexpr int LP = LA + LB, L = LP + LQ;
+  static constexpr int NHB = nherm(LP), NHQ = nherm(LQ), NH = nherm(L);
+  static constexpr int NE = (LA + 1) * (LB + 1) * (LP + 1);
+  static constexpr int FM = (NAB + 15) / 16;  // m16 fragments over ab
+  static constexpr int kBit = 5 * eri3c_bra(LA, LB) + LQ;
+  // the route: one (pair, aux shell) per thread, or a block per (pair,
+  // aux tile) whose product runs on DMMA
+  static constexpr bool kLane = (JC_ERI3C_LANE_MASK >> kBit) & 1;
+};
+
+// one store into B: double, or rounded once to float
+__device__ __forceinline__ void eri3c_store(void* out, int f32, int64_t o,
+                                            double v) {
+  if (f32) static_cast<float*>(out)[o] = (float)v;
+  else static_cast<double*>(out)[o] = v;
+}
+
+// ------------------------------------------------------------- lane route
+
+// 1-D Hermite expansion E[i][t] (i, t <= LQ, row stride LQ + 1) of an aux
+// primitive of exponent q against the unit shell at its own centre: PA =
+// PB = 0, so E[i][t] = E[i-1][t-1] / 2q + (t+1) E[i-1][t+1], zero unless i
+// - t is even (those entries are never read); the same on all three axes.
+template <int LQ>
+__device__ __forceinline__ void aux_E_lane(double oo2q, double* E) {
+  constexpr int S = LQ + 1;
+  E[0] = 1.0;
+  static_for<LQ>([&](auto i0) {
+    constexpr int i = decltype(i0)::value + 1;
+    static_for<i + 1>([&](auto t_) {
+      constexpr int t = decltype(t_)::value;
+      if constexpr (((i - t) & 1) == 0) {
+        double v;
+        if constexpr (t >= 1) {
+          v = oo2q * E[(i - 1) * S + t - 1];
+          if constexpr (t + 1 <= i - 1) v += (t + 1) * E[(i - 1) * S + t + 1];
+        } else {
+          v = (t + 1) * E[(i - 1) * S + t + 1];
+        }
+        E[i * S + t] = v;
+      }
+    });
+  });
+}
+
+// I[ab][C] += sum_h Eab[ab][h] V[h] for aux component C of one primitive
+// product, V[h] = sum_g (-1)^|g| Ecd[C][g] R[h+g] over the nonzero g (t2 =
+// cx, cx - 2, ..., so (-1)^|g| = (-1)^LQ) (a function of its own per C,
+// force-inlined, as lane_accumulate_cd of eri4c.cuh)
+template <int LA, int LB, int LQ, int C>
+__device__ __forceinline__ void eri3c_lane_c(const LanePair<LA, LB>& bp,
+                                             const double* E1, const double* R,
+                                             double* I) {
+  using K = Eri3cClass<LA, LB, LQ>;
+  constexpr int NB = K::NB, NAB = K::NAB, NCQ = K::NCQ, NHB = K::NHB;
+  constexpr int S = LQ + 1;
+  constexpr int cx = cart_x(LQ, C), cy = cart_y(LQ, C), cz = cart_z(LQ, C);
+  double V[NHB];
+  static_for<NHB>([&](auto h_) {
+    constexpr int h = decltype(h_)::value;
+    constexpr int t = herm_t(h), u = herm_u(h), v = herm_v(h);
+    double acc = -0.0;
+    static_for<cx / 2 + 1>([&](auto a_) {
+      constexpr int t2 = cx - 2 * decltype(a_)::value;
+      static_for<cy / 2 + 1>([&](auto b_) {
+        constexpr int u2 = cy - 2 * decltype(b_)::value;
+        static_for<cz / 2 + 1>([&](auto c_) {
+          constexpr int v2 = cz - 2 * decltype(c_)::value;
+          acc += E1[cx * S + t2] * E1[cy * S + u2] * E1[cz * S + v2] *
+                 R[hidx(t + t2, u + u2, v + v2)];
+        });
+      });
+    });
+    V[h] = (LQ & 1) ? -acc : acc;
+  });
+  static_for<NAB>([&](auto ab_) {
+    constexpr int ab = decltype(ab_)::value;
+    constexpr int ai = ab / NB, bi = ab % NB;
+    constexpr int ax = cart_x(LA, ai), ay = cart_y(LA, ai);
+    constexpr int az = cart_z(LA, ai), bx = cart_x(LB, bi);
+    constexpr int by = cart_y(LB, bi), bz = cart_z(LB, bi);
+    double acc = -0.0;
+    static_for<ax + bx + 1>([&](auto t_) {
+      constexpr int t = decltype(t_)::value;
+      static_for<ay + by + 1>([&](auto u_) {
+        constexpr int u = decltype(u_)::value;
+        static_for<az + bz + 1>([&](auto v_) {
+          constexpr int v = decltype(v_)::value;
+          acc += bp.e(0, ax, bx, t) * bp.e(1, ay, by, u) *
+                 bp.e(2, az, bz, v) * V[hidx(t, u, v)];
+        });
+      });
+    });
+    I[ab * NCQ + C] += acc;
+  });
+}
+
+template <int LA, int LB, int LQ, int... C>
+__device__ __forceinline__ void eri3c_lane_accumulate(
+    const LanePair<LA, LB>& bp, const double* E1, const double* R, double* I,
+    std::integer_sequence<int, C...>) {
+  (eri3c_lane_c<LA, LB, LQ, C>(bp, E1, R, I), ...);
+}
+
+// pair: [n][2Ka+2Kb+6] = aexp | acoef | bexp | bcoef | A | B, meta [n][kMeta]
+// (eri4c.cuh); aux: [nq][2Kq+3] = qexp | qcoef | Q, auxk [nq] live
+// primitives (both nonzero-coefficient first); out[(qrow[q] + c) * ld +
+// cols[p*NAB + ab]] (and cols_t when mirror[p]).  Warp w takes the bra
+// pairs 32 (w / nq) .. + 31 (one a lane) against aux shell w % nq.
+template <int LA, int LB, int LQ>
+__global__ void __launch_bounds__(kEri3cThreads)
+eri3c_lane_kernel(const double* __restrict__ pair, int Ka, int Kb,
+                  const int* __restrict__ meta, int64_t n,
+                  const double* __restrict__ aux, const int* __restrict__ auxk,
+                  const int64_t* __restrict__ qrow, int nq, int Kq,
+                  const int64_t* __restrict__ cols,
+                  const int64_t* __restrict__ cols_t,
+                  const uint8_t* __restrict__ mirror, void* __restrict__ out,
+                  int f32, int64_t ld) {
+  using K = Eri3cClass<LA, LB, LQ>;
+  constexpr int NB = K::NB, NAB = K::NAB, NCQ = K::NCQ, NH = K::NH;
+  constexpr int L = K::L, S = LQ + 1;
+  // 32-bit division (eri3c_launch keeps the warps below 2^32)
+  const unsigned w = blockIdx.x * (kEri3cThreads / 32) + threadIdx.x / 32;
+  const int64_t q = w % (unsigned)nq;
+  const int64_t p = (int64_t)(w / (unsigned)nq) * 32 + (threadIdx.x & 31);
+  if (p >= n) return;
+  const double* rb = pair + p * (2 * Ka + 2 * Kb + 6);
+  const int* mb = meta + p * kMeta;
+  const double* qa = aux + q * (2 * Kq + 3);
+  double I[NAB * NCQ];
+  static_for<NAB * NCQ>([&](auto e) { I[decltype(e)::value] = 0.0; });
+  const double AB2 = dist2(rb + 2 * Ka + 2 * Kb, rb + 2 * Ka + 2 * Kb + 3);
+  const double Qx = qa[2 * Kq], Qy = qa[2 * Kq + 1], Qz = qa[2 * Kq + 2];
+  const int ka = mb[2], kb = mb[3], kq = auxk[q];
+  for (int r = 0; r < kq; ++r) {
+    const double qe = qa[r], qc = qa[Kq + r];
+    double E1[S * S];
+    aux_E_lane<LQ>(0.5 / qe, E1);
+    for (int i = 0; i < ka; ++i)
+      for (int j = 0; j < kb; ++j) {
+        LanePair<LA, LB> bp;
+        bp.build(rb, Ka, Kb, i, j, AB2);
+        const double X = bp.P[0] - Qx, Y = bp.P[1] - Qy, Z = bp.P[2] - Qz;
+        const double psum = bp.p + qe, alpha = bp.p * qe / psum;
+        const double T = alpha * (X * X + Y * Y + Z * Z);
+        const double pref = kTwoPiPow2_5 / (bp.p * qe * sqrt(psum)) * qc;
+        double R[NH];
+        {
+          double F[L + 1];
+          boys<L, true>(T, F);
+          static_for<L + 1>([&](auto m) { F[decltype(m)::value] *= pref; });
+          hermite_R_lane<L>(alpha, X, Y, Z, F, R);
+        }
+        eri3c_lane_accumulate<LA, LB, LQ>(
+            bp, E1, R, I, std::make_integer_sequence<int, NCQ>{});
+      }
+  }
+  const int64_t row0 = qrow[q];
+  const bool mir = mirror[p];
+  const int64_t* cp = cols + p * NAB;
+  const int64_t* ct = cols_t + p * NAB;
+  static_for<NAB * NCQ>([&](auto e_) {
+    constexpr int e = decltype(e_)::value, ab = e / NCQ, c = e % NCQ;
+    constexpr double f = caxial(LA, ab / NB) * caxial(LB, ab % NB) *
+                         caxial(LQ, c);
+    if constexpr (f != 1.0) I[e] *= f;
+  });
+  // row by row: the block's columns of one aux row, then their mirror
+  // (8 % faster at w32 than (ab, c) order with each mirror store beside
+  // its direct one)
+  static_for<NCQ>([&](auto c_) {
+    constexpr int c = decltype(c_)::value;
+    const int64_t o = (row0 + c) * ld;
+    static_for<NAB>([&](auto ab) {
+      eri3c_store(out, f32, o + cp[decltype(ab)::value],
+                  I[decltype(ab)::value * NCQ + c]);
+    });
+    if (mir)
+      static_for<NAB>([&](auto ab) {
+        eri3c_store(out, f32, o + ct[decltype(ab)::value],
+                    I[decltype(ab)::value * NCQ + c]);
+      });
+  });
+}
+
+// ------------------------------------------------------------ block route
+
+// Shared memory of one block-route block, in doubles, for K2 = Ka Kb
+// primitive pairs (the class's padded count: a size), Kq aux primitives
+// and a tile of QT aux shells.  A = Eab as [K4][lda] (K4: K2 NHB rounded
+// up to the k-step of 4, rows kk = k NHB + h, columns ab), B = T1 as
+// [K4][ldb] (columns n = qi NCQ + c), the columns padded to whole DMMA
+// fragments (16 a row of A, 8 of B) and each row by 4 more doubles, so
+// that a fragment's loads hit distinct banks (dmma.cuh).
 template <int LA, int LB, int LQ>
 struct Eri3cSmem {
-  static constexpr int LP = LA + LB, L = LP + LQ;
-  static constexpr int NAB = ncart(LA) * ncart(LB), NHB = nherm(LP);
-  static constexpr int NCQ = ncart(LQ), NHQ = nherm(LQ), NH = nherm(L);
-  static constexpr int NE = (LA + 1) * (LB + 1) * (LP + 1);
-  static constexpr int NEQ = (LQ + 1) * (LQ + 1);
-  int E, Eab, P, EQ, Ecd, Qc, R, T1, total;
-  __host__ __device__ Eri3cSmem(int K2, int Kq) {
-    E = 0;                        // [K2][3][NE] bra E tables
-    Eab = E + K2 * 3 * NE;        // [K2][NAB][NHB]
-    P = Eab + K2 * NAB * NHB;     // [K2][4]: p, Px, Py, Pz
-    EQ = P + K2 * 4;              // [Kq][3][NEQ] aux E tables
-    Ecd = EQ + Kq * 3 * NEQ;      // [Kq][NCQ][NHQ]
-    Qc = Ecd + Kq * NCQ * NHQ;    // [Kq][4]: q, Qx, Qy, Qz
-    R = Qc + Kq * 4;              // [K2][NH]
-    T1 = R + K2 * NH;             // [K2][NHB][NCQ]
-    total = T1 + K2 * NHB * NCQ;
+  using K = Eri3cClass<LA, LB, LQ>;
+  int K4, lda, Np, ldb, P, E, A, R, B, total;
+  __host__ __device__ Eri3cSmem(int K2, int Kq, int QT) {
+    K4 = (K2 * K::NHB + 3) / 4 * 4;
+    lda = 16 * K::FM + 4;
+    Np = (QT * K::NCQ + 7) / 8 * 8;
+    ldb = Np + 4;
+    P = 0;                             // [K2][4]: p, Px, Py, Pz
+    E = P + 4 * K2;                    // [K2][3][NE] bra E tables
+    A = E + 3 * K2 * K::NE;            // [K4][lda]
+    R = A + K4 * lda;                  // [K2][QT][Kq][NH]
+    B = R + K2 * QT * Kq * K::NH;      // [K4][ldb]
+    total = B + K4 * ldb;
   }
 };
 
-constexpr int kEri3cThreads = 128;
-constexpr int kEri3cQTile = 8;  // aux shells per block
-
-// pair: [n][2Ka+2Kb+6] = aexp | acoef | bexp | bcoef | A | B
-// aux:  [nq][2Kq+3]    = qexp | qcoef | Q
-// out[(qrow[q] + c) * ld + cols[p*NAB + ab]] (and cols_t when mirror[p])
-template <int LA, int LB, int LQ, typename TOut>
-__global__ void __launch_bounds__(kEri3cThreads)
-eri3c_kernel(const double* __restrict__ pair, int Ka, int Kb,
-             const double* __restrict__ aux, const int64_t* __restrict__ qrow,
-             int nq, int Kq, const int64_t* __restrict__ cols,
-             const int64_t* __restrict__ cols_t,
-             const uint8_t* __restrict__ mirror, TOut* __restrict__ out,
-             int64_t ld) {
-  using S = Eri3cSmem<LA, LB, LQ>;
-  constexpr int NCB = ncart(LB), NAB = S::NAB, NHB = S::NHB, NCQ = S::NCQ;
-  constexpr int NHQ = S::NHQ, NH = S::NH, NE = S::NE, NEQ = S::NEQ;
-  constexpr int LP = S::LP, L = S::L, NT = LP + 1;
-  extern __shared__ double sm[];
-  const int K2 = Ka * Kb;
-  const S lay(K2, Kq);
-  double* sE = sm + lay.E;
-  double* sEab = sm + lay.Eab;
-  double* sP = sm + lay.P;
-  double* sEQ = sm + lay.EQ;
-  double* sEcd = sm + lay.Ecd;
-  double* sQ = sm + lay.Qc;
-  double* sR = sm + lay.R;
-  double* sT1 = sm + lay.T1;
-
-  const int64_t pidx = blockIdx.x;
-  const double* pr = pair + pidx * (2 * Ka + 2 * Kb + 6);
-  const double* cA = pr + 2 * Ka + 2 * Kb;
-  const double* cB = cA + 3;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-
-  // 1. bra primitive pairs: product centres and per-dimension E tables
-  for (int k = tid; k < K2; k += nthr) {
-    const double a = pr[k / Kb], b = pr[2 * Ka + k % Kb];
-    const double p = a + b, mu = a * b / p;
-    sP[4 * k] = p;
-    for (int d = 0; d < 3; ++d) {
-      const double Pd = (a * cA[d] + b * cB[d]) / p;
-      sP[4 * k + 1 + d] = Pd;
-      hermite_E<LA, LB>(p, mu, Pd - cA[d], Pd - cB[d], cA[d] - cB[d],
-                        sE + (k * 3 + d) * NE);
-    }
-  }
-  __syncthreads();
-  // 2. bra Hermite expansion with axial norms and contraction folded in
-  for (int e = tid; e < K2 * NAB * NHB; e += nthr) {
-    const int k = e / (NAB * NHB), ab = (e / NHB) % NAB, h = e % NHB;
-    int ax, ay, az, bx, by, bz, t, u, v;
-    cart_comp(LA, ab / NCB, ax, ay, az);
-    cart_comp(LB, ab % NCB, bx, by, bz);
-    herm_triple(h, t, u, v);
-    const double* Ek = sE + k * 3 * NE;
-    auto at = [](int i, int j, int tt) { return (i * (LB + 1) + j) * NT + tt; };
-    const double val = Ek[at(ax, bx, t)] * Ek[NE + at(ay, by, u)] *
-                       Ek[2 * NE + at(az, bz, v)];
-    const double cc = pr[Ka + k / Kb] * pr[2 * Ka + Kb + k % Kb];
-    sEab[e] = val * (axial(LA, ax, ay, az) * axial(LB, bx, by, bz)) * cc;
-  }
-
-  const int q0 = blockIdx.y * kEri3cQTile;
-  const int q1 = min(q0 + kEri3cQTile, nq);
-  const uint8_t mir = mirror[pidx];
-  for (int q = q0; q < q1; ++q) {
-    const double* qa = aux + (int64_t)q * (2 * Kq + 3);
-    __syncthreads();  // previous shell's output pass is done with sT1
-    // 3. aux expansion: the pair (aux shell, unit shell) of exponent 0
-    for (int r = tid; r < Kq; r += nthr) {
-      const double a = qa[r], p = a + 0.0, mu = a * 0.0 / p;
-      sQ[4 * r] = p;
-      for (int d = 0; d < 3; ++d) {
-        const double Qd = qa[2 * Kq + d];
-        const double Pd = (a * Qd + 0.0 * Qd) / p;
-        sQ[4 * r + 1 + d] = Pd;
-        hermite_E<LQ, 0>(p, mu, Pd - Qd, Pd - Qd, 0.0, sEQ + (r * 3 + d) * NEQ);
-      }
-    }
-    for (int e = tid; e < K2 * NHB * NCQ; e += nthr) sT1[e] = 0.0;
-    __syncthreads();
-    for (int e = tid; e < Kq * NCQ * NHQ; e += nthr) {
-      const int r = e / (NCQ * NHQ), c = (e / NHQ) % NCQ, g = e % NHQ;
-      int cx, cy, cz, t, u, v;
-      cart_comp(LQ, c, cx, cy, cz);
-      herm_triple(g, t, u, v);
-      const double* Er = sEQ + r * 3 * NEQ;
-      const double val = Er[cx * (LQ + 1) + t] * Er[NEQ + cy * (LQ + 1) + u] *
-                         Er[2 * NEQ + cz * (LQ + 1) + v];
-      sEcd[e] = val * (axial(LQ, cx, cy, cz) * 1.0) * (qa[Kq + r] * 1.0);
-    }
-    __syncthreads();
-    for (int r = 0; r < Kq; ++r) {
-      // 4. R tensors, one thread per bra primitive pair
-      for (int k = tid; k < K2; k += nthr) {
-        const double p = sP[4 * k], qe = sQ[4 * r];
-        const double X = sP[4 * k + 1] - sQ[4 * r + 1];
-        const double Y = sP[4 * k + 2] - sQ[4 * r + 2];
-        const double Z = sP[4 * k + 3] - sQ[4 * r + 3];
-        const double psum = p + qe, alpha = p * qe / psum;
-        const double T = alpha * (X * X + Y * Y + Z * Z);
-        const double pref = kTwoPiPow2_5 / (p * qe * sqrt(psum));
-        double F[L + 1];
-        boys<L>(T, F);
-        for (int m = 0; m <= L; ++m) F[m] *= pref;
-        hermite_R<L>(alpha, X, Y, Z, F, sR + k * NH);
-      }
-      __syncthreads();
-      // 5. T1[k][h][c] += sum_g (-1)^|g| R[k](h+g) Ecd[r][c][g]
-      for (int e = tid; e < K2 * NHB * NCQ; e += nthr) {
-        const int k = e / (NHB * NCQ), h = (e / NCQ) % NHB, c = e % NCQ;
-        int t, u, v;
-        herm_triple(h, t, u, v);
-        const double* Rk = sR + k * NH;
-        const double* Ec = sEcd + (r * NCQ + c) * NHQ;
-        double acc = 0.0;
-        for (int s = 0, g = 0; s <= LQ; ++s)
-          for (int d = 0; d <= s; ++d)
-            for (int u2 = d; u2 >= 0; --u2, ++g) {
-              const int t2 = s - d, v2 = d - u2;
-              const double m = Rk[herm_index(t + t2, u + u2, v + v2)];
-              acc += ((s & 1) ? -m : m) * Ec[g];
-            }
-        sT1[e] += acc;
-      }
-      __syncthreads();
-    }
-    // 6. out[ab][c] = sum_{k,h} Eab[k][ab][h] T1[k][h][c], stored into B
-    const int64_t row0 = qrow[q];
-    for (int e = tid; e < NAB * NCQ; e += nthr) {
-      const int ab = e / NCQ, c = e % NCQ;
-      double acc = 0.0;
-      for (int k = 0; k < K2; ++k) {
-        const double* Ek = sEab + (k * NAB + ab) * NHB;
-        const double* Tk = sT1 + k * NHB * NCQ + c;
-        for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * NCQ];
-      }
-      TOut* orow = out + (row0 + c) * ld;
-      const TOut v = static_cast<TOut>(acc);  // round to nearest for float
-      orow[cols[pidx * NAB + ab]] = v;
-      if (mir) orow[cols_t[pidx * NAB + ab]] = v;
-    }
-  }
+// aux shells a block-route block: the largest of 8, 4, 2, 1 whose shared
+// memory stays within kEri3cBlockCap (1 past it)
+template <int LA, int LB, int LQ>
+__host__ __device__ inline int eri3c_tile(int K2, int Kq) {
+  int qt = 8;
+  while (qt > 1 && sizeof(double) * (size_t)Eri3cSmem<LA, LB, LQ>(K2, Kq, qt).total >
+                       kEri3cBlockCap)
+    qt /= 2;
+  return qt;
 }
 
-template <int LA, int LB, int LQ, typename TOut>
-int eri3c_launch(const double* pair, long long n, int Ka, int Kb,
-                 const double* aux, const long long* qrow, int nq, int Kq,
-                 const long long* cols, const long long* cols_t,
-                 const unsigned char* mirror, TOut* out, long long ld,
-                 cudaStream_t stream) {
-  const size_t bytes = sizeof(double) * Eri3cSmem<LA, LB, LQ>(Ka * Kb, Kq).total;
-  auto kern = eri3c_kernel<LA, LB, LQ, TOut>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
+// ecd: [nq][Kq][NCQ][NHQ] aux expansion (ops/eri3c.py::aux_table).  Block
+// b takes bra pair b / nqt against aux shells q0 .. q0 + QT - 1, q0 = (b %
+// nqt) QT.
+template <int LA, int LB, int LQ>
+__global__ void __launch_bounds__(kEri3cThreads)
+eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
+                   const int* __restrict__ meta,
+                   const double* __restrict__ aux, const int* __restrict__ auxk,
+                   const int64_t* __restrict__ qrow,
+                   const double* __restrict__ ecd, int nq, int Kq, int QT,
+                   const int64_t* __restrict__ cols,
+                   const int64_t* __restrict__ cols_t,
+                   const uint8_t* __restrict__ mirror, void* __restrict__ out,
+                   int f32, int64_t ld) {
+  using K = Eri3cClass<LA, LB, LQ>;
+  constexpr int NAB = K::NAB, NCQ = K::NCQ, NHB = K::NHB, NHQ = K::NHQ;
+  constexpr int NH = K::NH, L = K::L, NE = K::NE;
+  extern __shared__ double sm[];
+  const Eri3cSmem<LA, LB, LQ> lay(Ka * Kb, Kq, QT);
+  const int lda = lay.lda, ldb = lay.ldb;
+  double* sP = sm + lay.P;
+  double* sE = sm + lay.E;
+  double* sA = sm + lay.A;
+  double* sR = sm + lay.R;
+  double* sB = sm + lay.B;
+  const int nqt = (nq + QT - 1) / QT;
+  const int64_t p = blockIdx.x / nqt;
+  const int q0 = (int)(blockIdx.x % nqt) * QT;
+  const double* rb = pair + p * (2 * Ka + 2 * Kb + 6);
+  const int* mb = meta + p * kMeta;
+  const int kb = mb[3], k2 = mb[2] * kb;
+  const int KL = k2 * NHB, K4 = (KL + 3) / 4 * 4;
+  const int tid = threadIdx.x;
+  constexpr int NT = kEri3cThreads;
+
+  // 1. product centres and E tables of the live bra primitive pairs
+  for (int e = tid; e < 3 * k2; e += NT)
+    pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sE, sP);
+  __syncthreads();
+  // 2. A[kk][ab] = Eab[k][ab][h] with axial norms and contraction folded
+  //    in, one row kk = k NHB + h a thread (the components ab at
+  //    compile time); zero past the live rows and the components
+  for (int kk = tid; kk < KL; kk += NT) {
+    const int k = kk / NHB;
+    int t, u, v;
+    herm_triple(kk % NHB, t, u, v);
+    const double* Ek = sE + k * 3 * NE;
+    const double cc = rb[Ka + k / kb] * rb[2 * Ka + Kb + k % kb];
+    double* arow = sA + kk * lda;
+    static_for<NAB>([&](auto ab_) {
+      constexpr int ab = decltype(ab_)::value, ai = ab / K::NB, bi = ab % K::NB;
+      constexpr int ax = cart_x(LA, ai), ay = cart_y(LA, ai), az = cart_z(LA, ai);
+      constexpr int bx = cart_x(LB, bi), by = cart_y(LB, bi), bz = cart_z(LB, bi);
+      constexpr int NT1 = LA + LB + 1;
+      constexpr double f = caxial(LA, ai) * caxial(LB, bi);
+      arow[ab] = Ek[(ax * (LB + 1) + bx) * NT1 + t] *
+                 Ek[NE + (ay * (LB + 1) + by) * NT1 + u] *
+                 Ek[2 * NE + (az * (LB + 1) + bz) * NT1 + v] * f * cc;
+    });
+    for (int ab = NAB; ab < lda; ++ab) arow[ab] = 0.0;
   }
-  const dim3 grid((unsigned)n, (unsigned)((nq + kEri3cQTile - 1) / kEri3cQTile));
-  kern<<<grid, kEri3cThreads, bytes, stream>>>(
-      pair, Ka, Kb, aux, reinterpret_cast<const int64_t*>(qrow), nq, Kq,
-      reinterpret_cast<const int64_t*>(cols),
-      reinterpret_cast<const int64_t*>(cols_t),
-      reinterpret_cast<const uint8_t*>(mirror), out, ld);
-  return (int)cudaGetLastError();
+  for (int e = KL * lda + tid; e < K4 * lda; e += NT) sA[e] = 0.0;
+  // 3. R of every (live primitive pair k, aux shell qi of the tile, live
+  //    aux primitive r), one item a thread: item (k QT + qi) Kq + r; the
+  //    recursion at compile-time indices (hermite_R_lane) into shared memory
+  for (int it = tid; it < k2 * QT * Kq; it += NT) {
+    const int r = it % Kq, qi = (it / Kq) % QT, k = it / (Kq * QT);
+    const int q = q0 + qi;
+    if (q >= nq || r >= auxk[q]) continue;
+    const double* qa = aux + (int64_t)q * (2 * Kq + 3);
+    const double qe = qa[r], pe = sP[4 * k];
+    const double X = sP[4 * k + 1] - qa[2 * Kq];
+    const double Y = sP[4 * k + 2] - qa[2 * Kq + 1];
+    const double Z = sP[4 * k + 3] - qa[2 * Kq + 2];
+    const double psum = pe + qe, alpha = pe * qe / psum;
+    const double T = alpha * (X * X + Y * Y + Z * Z);
+    const double pref = kTwoPiPow2_5 / (pe * qe * sqrt(psum));
+    double F[L + 1];
+    boys<L, true>(T, F);
+    static_for<L + 1>([&](auto m) { F[decltype(m)::value] *= pref; });
+    hermite_R_lane<L>(alpha, X, Y, Z, F, sR + it * NH);
+  }
+  __syncthreads();
+  // 4. B[kk][qi, c] = T1[k][h][qi, c] = sum_r sum_g R[k, qi, r](h + g)
+  //    Ecd[q][r][c][g] over the nonzero g (t2 = cx, cx - 2, ...), one
+  //    (k, qi, h) a thread (c and g at compile time); zero past the live
+  //    rows, the tile's aux shells and its columns
+  for (int it = tid; it < k2 * QT * NHB; it += NT) {
+    const int h = it % NHB, qi = (it / NHB) % QT, k = it / (NHB * QT);
+    const int q = q0 + qi;
+    double acc[NCQ];
+    static_for<NCQ>([&](auto c) { acc[decltype(c)::value] = 0.0; });
+    if (q < nq) {
+      int t, u, v;
+      herm_triple(h, t, u, v);
+      const int kq = auxk[q];
+      for (int r = 0; r < kq; ++r) {
+        const double* Rk = sR + ((k * QT + qi) * Kq + r) * NH;
+        const double* Ec = ecd + ((int64_t)q * Kq + r) * NCQ * NHQ;
+        static_for<NCQ>([&](auto c_) {
+          constexpr int c = decltype(c_)::value;
+          constexpr int cx = cart_x(LQ, c), cy = cart_y(LQ, c), cz = cart_z(LQ, c);
+          static_for<cx / 2 + 1>([&](auto a_) {
+            constexpr int t2 = cx - 2 * decltype(a_)::value;
+            static_for<cy / 2 + 1>([&](auto b_) {
+              constexpr int u2 = cy - 2 * decltype(b_)::value;
+              static_for<cz / 2 + 1>([&](auto d_) {
+                constexpr int v2 = cz - 2 * decltype(d_)::value;
+                acc[c] += Rk[hidx(t + t2, u + u2, v + v2)] *
+                          Ec[c * NHQ + hidx(t2, u2, v2)];
+              });
+            });
+          });
+        });
+      }
+    }
+    double* brow = sB + (k * NHB + h) * ldb + qi * NCQ;
+    static_for<NCQ>([&](auto c) { brow[decltype(c)::value] = acc[decltype(c)::value]; });
+  }
+  for (int kk = tid; kk < KL; kk += NT)
+    for (int nn = QT * NCQ; nn < ldb; ++nn) sB[kk * ldb + nn] = 0.0;
+  for (int e = KL * ldb + tid; e < K4 * ldb; e += NT) sB[e] = 0.0;
+  __syncthreads();
+  // 5. out[ab][qi, c] = sum_kk A[kk][ab] B[kk][qi, c] on DMMA, stored
+  //    into B: warp w takes the n8 fragments w, w + 4, ... of every m16 row
+  const uint8_t mir = mirror[p];
+  const int64_t* cp = cols + p * NAB;
+  const int64_t* ct = cols_t + p * NAB;
+  const int nout = QT * NCQ;
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int fv = warp; fv < lay.Np / 8; fv += NT / 32) {
+    DmmaTile<K::FM, 1> acc;
+    acc.zero();
+    for (int k0 = 0; k0 < K4; k0 += 4)
+      acc.step(sA + k0 * lda, lda, sB + k0 * ldb + fv * 8, ldb, lane);
+#pragma unroll
+    for (int fu = 0; fu < K::FM; ++fu)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ab = DmmaTile<K::FM, 1>::row(fu, e, lane);
+        const int nn = fv * 8 + DmmaTile<K::FM, 1>::col(0, e, lane);
+        const int qi = nn / NCQ, q = q0 + qi;
+        if (ab < NAB && nn < nout && q < nq) {
+          const int64_t o = (qrow[q] + nn % NCQ) * ld;
+          eri3c_store(out, f32, o + cp[ab], acc.c[fu][0][e]);
+          if (mir) eri3c_store(out, f32, o + ct[ab], acc.c[fu][0][e]);
+        }
+      }
+  }
 }
 
 }  // namespace jc
-
-// One translation unit per (aux angular momentum LQ, output type), so nvcc
-// builds the classes in parallel: JC_ERI3C_LQ(LQ) defines
-// jc_eri3c_lq<LQ>(la, lb, ...) writing double, JC_ERI3C_F32_LQ(LQ)
-// jc_eri3c_f32_lq<LQ> writing float.
-#define JC_ERI3C_CASE(LA, LB, LQ)                                            \
-  if (la == LA && lb == LB)                                                  \
-    return jc::eri3c_launch<LA, LB, LQ>(pair, n, Ka, Kb, aux, qrow, nq, Kq,  \
-                                        cols, cols_t, mirror, out, ld,       \
-                                        (cudaStream_t)stream);
-
-#define JC_ERI3C_ENTRY(NAME, TOUT, LQ)                                       \
-  extern "C" int NAME(                                                       \
-      int la, int lb, const double* pair, long long n, int Ka, int Kb,      \
-      const double* aux, const long long* qrow, int nq, int Kq,              \
-      const long long* cols, const long long* cols_t,                        \
-      const unsigned char* mirror, TOUT* out, long long ld, void* stream) {  \
-    JC_ERI3C_CASE(0, 0, LQ)                                                  \
-    JC_ERI3C_CASE(0, 1, LQ)                                                  \
-    JC_ERI3C_CASE(0, 2, LQ)                                                  \
-    JC_ERI3C_CASE(1, 1, LQ)                                                  \
-    JC_ERI3C_CASE(1, 2, LQ)                                                  \
-    JC_ERI3C_CASE(2, 2, LQ)                                                  \
-    JC_ERI3C_CASE(0, 3, LQ)                                                  \
-    JC_ERI3C_CASE(1, 3, LQ)                                                  \
-    JC_ERI3C_CASE(2, 3, LQ)                                                  \
-    JC_ERI3C_CASE(3, 3, LQ)                                                  \
-    JC_ERI3C_CASE(0, 4, LQ)                                                  \
-    return (int)cudaErrorInvalidValue;                                       \
-  }
-
-#define JC_ERI3C_LQ(LQ) JC_ERI3C_ENTRY(jc_eri3c_lq##LQ, double, LQ)
-#define JC_ERI3C_F32_LQ(LQ) JC_ERI3C_ENTRY(jc_eri3c_f32_lq##LQ, float, LQ)

@@ -1,4 +1,6 @@
-// Kernel K1 instances for aux shells of angular momentum 4 (see eri3c.cuh).
-#include "eri3c.cuh"
+// Kernel K1 instances for aux shells of angular momentum 4, double and
+// float output (see eri3c.cuh,
+// eri3c_launch.cuh).
+#include "eri3c_launch.cuh"
 
 JC_ERI3C_LQ(4)

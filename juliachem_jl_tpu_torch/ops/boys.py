@@ -8,9 +8,9 @@ Port of ``juliachem_jl_tpu/ops/boys.py``: the same branch-free algorithm.
   for T > 35) and upward recursion, stable since exp(-T) is negligible.
 
 ``boys`` is the plain torch version.  The CUDA integral kernels (csrc/boys.cuh)
-evaluate the same recurrences as a device function, K1 dividing as here, K4/K5
-multiplying by compile-time reciprocals; ``boys_probe`` runs either device
-form alone, so it can be held against ``boys`` in isolation.
+evaluate the same recurrences as a device function, K1, K4 and K5
+multiplying by compile-time reciprocals where this divides; ``boys_probe``
+runs either device form alone, so it can be held against ``boys`` in isolation.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def boys(T: torch.Tensor, mmax: int) -> torch.Tensor:
 def boys_probe(T: torch.Tensor, mmax: int, recip: bool = False
                ) -> torch.Tensor:
     """F_0..F_mmax(T) through the CUDA device Boys function (kernel K3):
-    K1's dividing form, or with ``recip`` the reciprocal form of K4/K5.
+    the dividing form, or with ``recip`` the reciprocal form of K1/K4/K5.
 
     T: 1-D float64.  On a CPU tensor this is ``boys``; on a CUDA tensor it
     launches ``jc_boys_probe`` (``jc_boys_probe_recip``) or raises."""

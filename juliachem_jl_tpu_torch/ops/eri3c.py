@@ -9,14 +9,22 @@ first bra shell, so its bra class is (0, lP).
 ``eri3c_class`` is the wrapper of kernel K1 (csrc/eri3c*.cu): on a CUDA
 output it launches the kernel, which writes straight into the device-resident
 B; on a CPU output it runs ``eri3c_class_plain``, the torch form of the JAX
-package's host path (``_three_center_host``).  Every (aux row, column) target
-is written by exactly one (pair, aux function), so both plain stores (kernel)
-and accumulation into a zeroed B (plain) are exact.  An f32 ``out`` (the
-``df_b_dtype: "f32"`` build) gets each f64 value rounded once at the store,
-as the JAX package casts each f64 block (``ops/eri3c.py:185-186,269``).
+package's host path (``_three_center_host``).  Both read the same packing:
+each pair class as a ``PairTable`` (``ops/eri.py::pair_table``: each shell's
+primitives of nonzero coefficient first, their counts in ``meta``), its
+rows sorted by their first output column (``k1_pairs``), and each aux
+class as an ``AuxTable`` (nonzero primitives first, their counts, and the
+aux Hermite expansion built once per build: ``aux_table``).  Every (aux
+row, column) target is written by exactly one (pair, aux function), so both
+plain stores (kernel) and accumulation into a zeroed B (plain) are exact.
+An f32 ``out`` (the ``df_b_dtype: "f32"`` build) gets each f64 value
+rounded once at the store, as the JAX package casts each f64 block
+(``ops/eri3c.py:185-186,269``).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -25,55 +33,131 @@ from ..basis.structs import Basis, ncart
 from . import kernels
 from .boys import boys
 from .class_tables import combine_tables, nherm
-from .eri import TWO_PI_POW_2_5, as_f64, bra_hermite
+from .eri import (TWO_PI_POW_2_5, PairTable, as_f64, bra_hermite, live_pairs,
+                  pair_table)
 from .mcmurchie import r_tensor
 from .pairs import PairBlock, unique_pair_blocks
 
-# (la, lb, lq) classes compiled into K1 (JC_ERI3C_ENTRY in csrc/eri3c.cuh):
+# (la, lb, lq) classes compiled into K1 (JC_ERI3C_CASES in
+# csrc/eri3c_launch.cuh):
 # la <= lb <= 3 primary pairs against aux shells up to g, plus the (0, 4)
 # unit bra of the 2-center metric ((0, lP) with lP <= 3 is a primary class)
 KERNEL_CLASSES = frozenset(
-    (la, lb, lq)
-    for la, lb in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2), (0, 3),
-                   (1, 3), (2, 3), (3, 3), (0, 4))
-    for lq in range(5))
+    (la, lb, lq) for la, lb in kernels.ERI3C_BRAS for lq in range(5))
 
 # plain version: elements of the largest [Pc, K2, Nq, Kq, ...] intermediate
 # per pair chunk
 _PLAIN_BUDGET = 2.0e7
 
 
-def pack_pairs(blk: PairBlock, device) -> torch.Tensor:
-    """[n, 2Ka+2Kb+6] f64: aexp | acoef | bexp | bcoef | A | B."""
-    return as_f64(np.concatenate([blk.aexp, blk.acoef, blk.bexp, blk.bcoef,
-                                  blk.A, blk.B], axis=1), device)
+@dataclass
+class AuxTable:
+    """One aux class as K1 reads it, on one device.
+
+    table: [nq, 2Kq+3] f64 = qexp | qcoef | Q, each shell's primitives of
+    nonzero coefficient first; kq: [nq] int32, their counts; qrow: [nq]
+    int64, each shell's first row; ecd: [nq, Kq, ncart(lq), nherm(lq)] f64,
+    the Hermite expansion of each primitive against the unit shell with
+    the coefficient, the axial norms and the sign (-1)^|g| folded in (zero
+    for the padding; ``aux_hermite``)."""
+
+    lq: int
+    Kq: int
+    table: torch.Tensor
+    kq: torch.Tensor
+    qrow: torch.Tensor
+    ecd: torch.Tensor
+
+    @property
+    def nq(self) -> int:
+        return self.table.shape[0]
 
 
-def pack_aux(exps, coefs, centers, device) -> torch.Tensor:
-    """[nq, 2Kq+3] f64: qexp | qcoef | Q."""
-    return as_f64(np.concatenate([exps, coefs, centers], axis=1), device)
+def aux_table(lq: int, exps, coefs, centers, offsets, device) -> AuxTable:
+    """Pack one aux class for K1 (and its plain version)."""
+    order = np.argsort(coefs == 0.0, axis=1, kind="stable")
+    exps = np.take_along_axis(exps, order, 1)
+    coefs = np.take_along_axis(coefs, order, 1)
+    table = as_f64(np.ascontiguousarray(
+        np.concatenate([exps, coefs, centers], axis=1)), device)
+    Kq = exps.shape[1]
+    return AuxTable(
+        lq=lq, Kq=Kq, table=table,
+        kq=torch.as_tensor((coefs != 0.0).sum(axis=1).astype(np.int32),
+                           device=device),
+        qrow=torch.as_tensor(np.asarray(offsets, dtype=np.int64),
+                             device=device),
+        ecd=aux_hermite(lq, table))
 
 
-def eri3c_class_plain(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
+def aux_hermite(lq: int, table: torch.Tensor) -> torch.Tensor:
+    """[nq, Kq, ncart(lq), nherm(lq)]: each aux primitive's Hermite
+    expansion against the unit shell (``bra_hermite`` with the unit shell
+    second, as the JAX package's host path expands it), times (-1)^|g|."""
+    Kq = (table.shape[1] - 3) // 2
+    qexp, qcoef, Q = table[:, :Kq], table[:, Kq:2 * Kq], table[:, 2 * Kq:]
+    Ecd, _, _ = bra_hermite(lq, 0, qexp, torch.zeros_like(qexp[:, :1]),
+                            qcoef, torch.ones_like(qcoef[:, :1]), Q, Q)
+    _, sign = combine_tables(0, lq)
+    return (Ecd * as_f64(sign, table.device)).contiguous()
+
+
+@dataclass
+class K1Pairs:
+    """One pair class as K1 reads it: its PairTable with the rows sorted by
+    their first output column (so that neighbouring lanes store into
+    neighbouring columns), and per row its output columns cols, cols_t
+    [n, nab] int64 and whether it is mirrored, mirror [n] uint8."""
+
+    table: PairTable
+    cols: torch.Tensor
+    cols_t: torch.Tensor
+    mirror: torch.Tensor
+
+
+def k1_pairs(block: PairBlock, col_of, device) -> K1Pairs:
+    """Pack a PairBlock for K1; col_of(ia, ib) maps basis-function indices
+    to output columns.  The sort permutes the pairs only: every target is
+    still written by one (pair, aux function)."""
+    ia, ib = _pair_bf_indices_flat(block)
+    cols = np.asarray(col_of(ia, ib), dtype=np.int64).reshape(block.n, -1)
+    cols_t = np.asarray(col_of(ib, ia), dtype=np.int64).reshape(block.n, -1)
+    order = np.argsort(cols[:, 0], kind="stable")
+    blk = block.select(order)
+
+    def dev(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    return K1Pairs(table=pair_table(blk, device),
+                   cols=dev(cols[order], torch.int64),
+                   cols_t=dev(cols_t[order], torch.int64),
+                   mirror=dev(blk.ish != blk.jsh, torch.uint8))
+
+
+def eri3c_class_plain(out, bra: PairTable, aux: AuxTable, cols, cols_t,
                       mirror):
-    """Plain torch version of K1 (same arguments as ``eri3c_class``)."""
-    Kq = (aux.shape[1] - 3) // 2
-    n, nq, ncq = pair.shape[0], aux.shape[0], ncart(lq)
-    o = np.cumsum([0, Ka, Ka, Kb, Kb, 3, 3])
-    aexp, acoef, bexp, bcoef, A, B = (pair[:, o[i]:o[i + 1]] for i in range(6))
-    qexp, qcoef, Q = aux[:, :Kq], aux[:, Kq:2 * Kq], aux[:, 2 * Kq:]
+    """Plain torch version of K1 (same arguments as ``eri3c_class``): the
+    Boys function and R only for the primitive products of nonzero
+    coefficients, as the kernel loops."""
+    la, lb, lq = bra.la, bra.lb, aux.lq
+    n, nq, Kq, ncq = bra.n, aux.nq, aux.Kq, ncart(lq)
+    aexp, bexp, acoef, bcoef, A, B = bra.columns(slice(None))
+    qexp, qcoef = aux.table[:, :Kq], aux.table[:, Kq:2 * Kq]
+    Q = aux.table[:, 2 * Kq:]
+    # the aux primitive's centre as the JAX host path forms it, from its
+    # pair with the unit shell (exponent 0): (q Q + 0 Q) / q
+    q = qexp + 0.0
+    Qcen = (qexp[:, :, None] * Q[:, None, :] + 0.0 * Q[:, None, :]) \
+        / q[:, :, None]
     Lb = la + lb
     L = Lb + lq
-    comb, sign = combine_tables(Lb, lq)
+    comb, _ = combine_tables(Lb, lq)
     comb = torch.as_tensor(comb, dtype=torch.long, device=out.device)
-    sign = as_f64(sign, out.device)
     Eab, p, P = bra_hermite(la, lb, aexp, bexp, acoef, bcoef, A, B)
-    # the unit partner is ONE primitive (exponent 0, coefficient 1); giving
-    # it Kq primitives, as juliachem_jl_tpu/ops/eri3c.py:168,570 does,
-    # counts a contracted aux shell Kq times (ROADMAP.md C7)
-    Ecd, q, Qcen = bra_hermite(lq, 0, qexp, torch.zeros_like(qexp[:, :1]),
-                               qcoef, torch.ones_like(qcoef[:, :1]), Q, Q)
-    rows = qrow[:, None] + torch.arange(ncq, device=out.device)[None, :]
+    live_b = live_pairs(acoef, bcoef)                    # [n, K2]
+    live_q = qcoef != 0                                  # [nq, Kq]
+    rows = aux.qrow[:, None] + torch.arange(ncq, device=out.device)[None, :]
     k2b = p.shape[1]
     work = k2b * nq * Kq * max(nherm(L), nherm(Lb) * nherm(lq))
     csize = max(1, int(_PLAIN_BUDGET / max(work, 1)))
@@ -85,10 +169,11 @@ def eri3c_class_plain(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
         Targ = alpha * torch.sum(PQ**2, dim=-1)
         pref = TWO_PI_POW_2_5 / (
             p[s:e, :, None, None] * q[None, None, :, :] * torch.sqrt(psum))
-        F = boys(Targ, L) * pref[..., None]
-        R = r_tensor(L, alpha, PQ, F)                # [Pc,K2b,Nq,Kq,nherm]
-        M = R[..., comb] * sign[None, None, None, None, :]
-        T1 = torch.einsum("pkqrhg,qrcg->pkhqc", M, Ecd)
+        live = live_b[s:e, :, None, None] & live_q[None, None, :, :]
+        F = boys(Targ[live], L) * pref[live][:, None]
+        R = Targ.new_zeros(Targ.shape + (nherm(L),))    # [Pc,K2b,Nq,Kq,nh]
+        R[live] = r_tensor(L, alpha[live], PQ[live], F)
+        T1 = torch.einsum("pkqrhg,qrcg->pkhqc", R[..., comb], aux.ecd)
         blk = torch.einsum("pkah,pkhqc->paqc", Eab[s:e], T1)   # [Pc,nab,Nq,ncq]
         blk = blk.to(out.dtype)
         r4 = rows[None, None, :, :].expand(blk.shape)
@@ -102,28 +187,31 @@ def eri3c_class_plain(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
                            bm, accumulate=True)
 
 
-def eri3c_class(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
-                mirror):
+def eri3c_class(out, bra: PairTable, aux: AuxTable, cols, cols_t, mirror):
     """Kernel K1: (Q | ab) for one (la, lb | lq) class, written into
-    ``out[qrow[q] + c, cols[p, ab]]`` (and ``cols_t`` where ``mirror[p]``).
+    ``out[aux.qrow[q] + c, cols[p, ab]]`` (and ``cols_t`` where
+    ``mirror[p]``).
 
     out: [A, width] f64, or f32 (computed in f64, rounded at the store;
-    counted as ``eri3c_f32``); pair: [n, 2Ka+2Kb+6] (``pack_pairs``); aux:
-    [nq, 2Kq+3] (``pack_aux``); qrow: [nq] int64; cols/cols_t: [n, nab]
-    int64; mirror: [n] uint8.  All on one device, contiguous."""
-    n, nq = pair.shape[0], aux.shape[0]
+    counted as ``eri3c_f32``); bra: the pair class (``k1_pairs``' table);
+    aux: the aux class (``aux_table``); cols/cols_t: [n, nab] int64;
+    mirror: [n] uint8.  All on one device, contiguous.  Each class runs on
+    the route of ``kernels.eri3c_route``."""
+    la, lb, lq = bra.la, bra.lb, aux.lq
+    n, nq = bra.n, aux.nq
     nab = ncart(la) * ncart(lb)
-    if pair.shape[1] != 2 * Ka + 2 * Kb + 6 or cols.shape != (n, nab) \
-            or cols_t.shape != (n, nab) or mirror.shape != (n,) \
-            or qrow.shape != (nq,) or (aux.shape[1] - 3) % 2:
+    if cols.shape != (n, nab) or cols_t.shape != (n, nab) \
+            or mirror.shape != (n,) or aux.qrow.shape != (nq,) \
+            or aux.kq.shape != (nq,) \
+            or aux.table.shape[1] != 2 * aux.Kq + 3 \
+            or aux.ecd.shape != (nq, aux.Kq, ncart(lq), nherm(lq)):
         raise ValueError("eri3c_class: inconsistent shapes")
     if out.dim() != 2:
         raise ValueError("eri3c_class: out must be [A, width]")
     if n == 0 or nq == 0:
         return
     if not out.is_cuda:
-        eri3c_class_plain(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols,
-                          cols_t, mirror)
+        eri3c_class_plain(out, bra, aux, cols, cols_t, mirror)
         return
     if (la, lb, lq) not in KERNEL_CLASSES:
         raise NotImplementedError(
@@ -131,19 +219,47 @@ def eri3c_class(out, la, lb, lq, Ka, Kb, pair, aux, qrow, cols, cols_t,
             "shells above f are ROADMAP.md B17(b)")
     if out.dtype not in (torch.float64, torch.float32):
         raise ValueError("eri3c_class: out must be f64 or f32")
-    for t, dt in ((out, out.dtype), (pair, torch.float64),
-                  (aux, torch.float64), (qrow, torch.int64),
-                  (cols, torch.int64), (cols_t, torch.int64),
-                  (mirror, torch.uint8)):
+    for t, dt in ((out, out.dtype), (bra.pair, torch.float64),
+                  (bra.meta, torch.int32), (aux.table, torch.float64),
+                  (aux.kq, torch.int32), (aux.qrow, torch.int64),
+                  (aux.ecd, torch.float64), (cols, torch.int64),
+                  (cols_t, torch.int64), (mirror, torch.uint8)):
         if t.dtype != dt or t.device != out.device or not t.is_contiguous():
             raise ValueError("eri3c_class: expected contiguous "
                              f"{dt} on {out.device}, got {t.dtype} on "
                              f"{t.device}")
-    kernels.launch("jc_eri3c" if out.dtype == torch.float64
-                   else "jc_eri3c_f32", la, lb, lq, pair.data_ptr(), n, Ka, Kb,
-                   aux.data_ptr(), qrow.data_ptr(), nq, (aux.shape[1] - 3) // 2,
+    f32 = out.dtype == torch.float32
+    kernels.launch("jc_eri3c", la, lb, lq, bra.pair.data_ptr(),
+                   bra.meta.data_ptr(), n, bra.Ka, bra.Kb,
+                   aux.table.data_ptr(), aux.kq.data_ptr(),
+                   aux.qrow.data_ptr(), aux.ecd.data_ptr(), nq, aux.Kq,
                    cols.data_ptr(), cols_t.data_ptr(), mirror.data_ptr(),
-                   out.data_ptr(), out.stride(0), cls=(la, lb, lq))
+                   out.data_ptr(), int(f32), out.stride(0),
+                   count_as="eri3c_f32" if f32 else "eri3c",
+                   cls=(la, lb, lq))
+
+
+def eri3c_geometry(la: int, lb: int, lq: int, Ka: int, Kb: int,
+                   Kq: int) -> dict:
+    """K1's launch geometry for a class, as csrc/eri3c.cuh computes it: the
+    route it was built with ("lane" or "block"), aux shells a block
+    (QT; 1 on the lane route), threads and shared-memory bytes a block and
+    the blocks an SM holds (CUDA's occupancy calculator).  Nothing is
+    launched."""
+    import ctypes
+
+    if (la, lb, lq) not in KERNEL_CLASSES:
+        raise NotImplementedError(f"K1 has no class ({la},{lb}|{lq})")
+    out = (ctypes.c_longlong * 5)()
+    lib = kernels.library()
+    rc = lib.jc_eri3c_geometry(la, lb, lq, Ka, Kb, Kq, out)
+    if rc != 0:
+        raise RuntimeError(f"jc_eri3c_geometry failed: CUDA error {rc} "
+                           f"({lib.jc_error_string(rc).decode()})")
+    route, QT, threads, nbytes, blocks = list(out)
+    return {"route": ("lane", "block")[route], "QT": QT,
+            "threads": threads, "smem_bytes": nbytes,
+            "blocks_per_sm": blocks}
 
 
 def aux_unit_blocks(aux: Basis) -> list[PairBlock]:
@@ -166,10 +282,10 @@ def aux_unit_blocks(aux: Basis) -> list[PairBlock]:
     return blocks
 
 
-def _aux_classes(aux: Basis, device):
-    """Per aux class: (lq, packed shells, first row of each shell)."""
-    return [(l, pack_aux(cl.exps, cl.coefs, cl.centers, device),
-             torch.as_tensor(cl.offsets, dtype=torch.int64, device=device))
+def aux_tables(aux: Basis, device) -> list[AuxTable]:
+    """Every aux class of the basis as K1 reads it (built once per build,
+    before the class loop)."""
+    return [aux_table(l, cl.exps, cl.coefs, cl.centers, cl.offsets, device)
             for l, cl in sorted(aux.classes.items())]
 
 
@@ -183,24 +299,15 @@ def _pair_bf_indices_flat(block: PairBlock):
     return ia, ib
 
 
-def _fill(out, pair_blocks, aux_classes, col_of) -> None:
+def _fill(out, pair_blocks, auxs, col_of) -> None:
     """Run K1 for every (pair class, aux class); col_of(ia, ib) maps basis
     function indices to output columns."""
-    dev = out.device
     for blk in pair_blocks:
         if blk.n == 0:
             continue
-        ia, ib = _pair_bf_indices_flat(blk)
-        cols, cols_t = (torch.as_tensor(np.array(col_of(i, j)),
-                                        dtype=torch.int64, device=dev)
-                        for i, j in ((ia, ib), (ib, ia)))
-        mirror = torch.as_tensor(blk.ish != blk.jsh, dtype=torch.uint8,
-                                 device=dev)
-        pair = pack_pairs(blk, dev)
-        for lq, aux_t, qrow in aux_classes:
-            eri3c_class(out, blk.la, blk.lb, lq, blk.aexp.shape[1],
-                        blk.bexp.shape[1], pair, aux_t, qrow, cols, cols_t,
-                        mirror)
+        kp = k1_pairs(blk, col_of, out.device)
+        for aux in auxs:
+            eri3c_class(out, kp.table, aux, kp.cols, kp.cols_t, kp.mirror)
 
 
 def two_center_metric(aux: Basis, device) -> torch.Tensor:
@@ -209,7 +316,7 @@ def two_center_metric(aux: Basis, device) -> torch.Tensor:
     A = aux.nbf
     out = torch.zeros((A, A), dtype=torch.float64, device=device)
     # bra (unit, P): the column of (P|Q) is P's function index
-    _fill(out, aux_unit_blocks(aux), _aux_classes(aux, device),
+    _fill(out, aux_unit_blocks(aux), aux_tables(aux, device),
           lambda ia, ib: ib)
     return out
 
@@ -250,7 +357,7 @@ def three_center_tensor(
         flat = ia * nbf + ib
         return col_map[flat] if packed else flat
 
-    _fill(out, pair_blocks, _aux_classes(aux, device), col_of)
+    _fill(out, pair_blocks, aux_tables(aux, device), col_of)
     if packed:
         out[:, -1] = 0.0  # trash column (screened-out scatter target)
         return out

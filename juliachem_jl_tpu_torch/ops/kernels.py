@@ -42,6 +42,29 @@ K2_SLAB_M, K2_TILE_N = 16, 64
 # memory).  The kernels are built with it (route_flags).
 ERI4C_LANE_MAX_L = 6
 ERI4C_LANE_EXCLUDE = frozenset({(1, 2, 1, 2)})
+# K1's bra classes (la, lb), in the order of the bits of its route masks
+# (csrc/eri3c.cuh eri3c_bra: bit 5 * index + lq): the primary pairs to
+# (ff) and the (0, 4) unit bra of the 2-center metric
+ERI3C_BRAS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2), (0, 3), (1, 3),
+              (2, 3), (3, 3), (0, 4))
+# K1's route table (csrc/eri3c.cuh): the classes (la lb | lq) up to
+# la+lb+lq = ERI3C_LANE_MAX_L, but those of ERI3C_LANE_EXCLUDE, run one
+# (bra pair, aux shell) per thread, everything in registers, and for bras
+# of ERI3C_WIDE_NAB Cartesian components or more ((pd), (dd), the f pairs)
+# only up to ERI3C_LANE_MAX_L_WIDE; every other class runs a block per
+# (bra pair, tile of aux shells) in shared memory, its product Eab . T1 on
+# the f64 tensor cores (DMMA).  Chosen class by class from the card's
+# timings at lane cuts 4 and 6 (PERF.md §6, PR 9, run 8; w32's 3-center
+# build): on the lane route (sp|g) takes 1.15 ms against 1.60 on the block
+# route, but (sd|f) 1.58 against 1.49, (pp|f) 2.16 against 1.79 and the
+# L = 6 classes (sd|g), (pp|g) 0.67, 0.95 against 0.57, 0.81; the wide
+# bras' lane instances spill 3-7 KB of stack at 255 registers from L = 5
+# and lose to the block route by 1.1-1.6x.  The kernels are built with it
+# (eri3c_route_flags).
+ERI3C_LANE_MAX_L = 5
+ERI3C_LANE_EXCLUDE = frozenset({(0, 2, 3), (1, 1, 3)})
+ERI3C_LANE_MAX_L_WIDE = 4
+ERI3C_WIDE_NAB = 16
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DJC_K2_SLAB_M={K2_SLAB_M}",
               f"-DJC_K2_TILE_N={K2_TILE_N}")
@@ -69,19 +92,38 @@ def route_flags() -> tuple:
     return (f"-DJC_ERI4C_LANE_MASK={mask:#x}ULL",)
 
 
+def eri3c_route(la: int, lb: int, lq: int) -> str:
+    """The route K1 takes for a class: "lane" or "block"."""
+    wide = (la + 1) * (la + 2) * (lb + 1) * (lb + 2) // 4 >= ERI3C_WIDE_NAB
+    if (la + lb + lq <= (ERI3C_LANE_MAX_L_WIDE if wide else ERI3C_LANE_MAX_L)
+            and (la, lb, lq) not in ERI3C_LANE_EXCLUDE):
+        return "lane"
+    return "block"
+
+
+def eri3c_route_flags() -> tuple:
+    """K1's route table as the sources take it: bit 5 i + lq of
+    JC_ERI3C_LANE_MASK is the class (ERI3C_BRAS[i] | lq) on the lane
+    route."""
+    lane = 0
+    for i, (la, lb) in enumerate(ERI3C_BRAS):
+        for lq in range(5):
+            if eri3c_route(la, lb, lq) == "lane":
+                lane |= 1 << (5 * i + lq)
+    return (f"-DJC_ERI3C_LANE_MASK={lane:#x}ULL",)
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol -> (kernel it launches, argument types before the stream)
 _FUNCS = {
-    "jc_eri3c": ("eri3c", [_I, _I, _I, _P, _LL, _I, _I, _P, _P, _I, _I,
-                           _P, _P, _P, _P, _LL]),
+    "jc_eri3c": ("eri3c", [_I, _I, _I, _P, _P, _LL, _I, _I, _P, _P, _P, _P,
+                           _I, _I, _P, _P, _P, _P, _I, _LL]),
     "jc_df_gather_w_f64": ("df_gather_w", [_P, _LL, _P, _P, _P, _P, _I, _I,
                                            _I, _P]),
     "jc_df_gather_w_f32": ("df_gather_w", [_P, _LL, _LL, _P, _P, _I, _I,
                                            _I, _P]),
     "jc_df_gather_w_f32b": ("df_gather_w_f32b", [_P, _LL, _P, _P, _P, _P,
                                                  _I, _I, _I, _P]),
-    "jc_eri3c_f32": ("eri3c_f32", [_I, _I, _I, _P, _LL, _I, _I, _P, _P, _I,
-                                   _I, _P, _P, _P, _P, _LL]),
     "jc_split_fold": ("split_fold", [_P, _P, _LL, _P, _LL, _P, _LL, _I, _I,
                                      _I, _I]),
     "jc_boys_probe": ("boys_probe", [_P, _LL, _I, _P]),
@@ -134,7 +176,8 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *route_flags())).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *route_flags(),
+                                 *eri3c_route_flags())).encode())
     for f in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -157,7 +200,8 @@ def build() -> Path:
         procs = []
         for src in _sources():
             obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *route_flags(), "-I", str(CSRC_DIR),
+            cmd = [nvcc, *NVCC_FLAGS, *route_flags(), *eri3c_route_flags(),
+                   "-I", str(CSRC_DIR),
                    "-c", str(src), "-o", str(obj)]
             # compiler output to a file: a pipe could fill while the build
             # polls the processes
@@ -214,6 +258,8 @@ def library() -> ctypes.CDLL:
             lib.jc_mp2_e2_partials.restype = _LL
             lib.jc_eri4c_geometry.argtypes = [_I] * 8 + [_P]
             lib.jc_eri4c_geometry.restype = _I
+            lib.jc_eri3c_geometry.argtypes = [_I] * 6 + [_P]
+            lib.jc_eri3c_geometry.restype = _I
             _lib = lib
         return _lib
 

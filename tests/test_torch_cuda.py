@@ -111,12 +111,118 @@ def test_k1_raises_for_a_class_it_lacks(cuda_device):
         return torch.zeros(shape, dtype=dtype, device=cuda_device)
 
     n, nab = 1, 225
+    bra = eri.PairTable(la=4, lb=4, Ka=1, Kb=1, pair=zeros(n, 10),
+                        meta=zeros(n, 5, dtype=torch.int32))
+    aux = eri3c.AuxTable(lq=0, Kq=1, table=zeros(1, 5),
+                         kq=zeros(1, dtype=torch.int32),
+                         qrow=zeros(1, dtype=torch.int64), ecd=zeros(1, 1, 1, 1))
     with pytest.raises(NotImplementedError):
-        eri3c.eri3c_class(zeros(4, 4), 4, 4, 0, 1, 1, zeros(n, 10),
-                          zeros(1, 5), zeros(1, dtype=torch.int64),
+        eri3c.eri3c_class(zeros(4, 4), bra, aux,
                           zeros(n, nab, dtype=torch.int64),
                           zeros(n, nab, dtype=torch.int64),
                           zeros(n, dtype=torch.uint8))
+
+
+def _k1_classes(prim, aux, dev):
+    """(K1Pairs, AuxTable) of every (pair class | aux class) of the dense
+    3-center tensor and every (unit bra | aux class) of the metric, with
+    each output's width."""
+    nbf = prim.nbf
+    auxs = eri3c.aux_tables(aux, dev)
+    out = []
+    for blocks, col_of, width in (
+            (unique_pair_blocks(prim), lambda ia, ib: ia * nbf + ib,
+             nbf * nbf),
+            (eri3c.aux_unit_blocks(aux), lambda ia, ib: ib, aux.nbf)):
+        for blk in blocks:
+            kp = eri3c.k1_pairs(blk, col_of, dev)
+            out += [(kp, at, width) for at in auxs]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prim_aux", [("6-31+G*", "cc-pVTZ-JKFIT"),
+                                      ("6-31+G*", "6-31+G*")],
+                         ids=["jkfit", "contracted-aux"])
+def test_k1_each_class_on_its_route_matches_plain(cuda_device, prim_aux):
+    """Every class of water's 3-center tensor and metric (d pairs, aux to
+    g; the (ss) class mixes O 1s of 6 primitives with H s of 3 and 1, the
+    contracted aux set Kq up to 6), one launch each on the route of the
+    table as compiled: f64 within 1e-12 x the class's max-abs of the plain
+    version (1e-15 for a class zero by symmetry), the mirror store into
+    cols_t, the f32 store bit for bit the f64 output rounded."""
+    prim, aux = _water(*prim_aux)
+    A = aux.nbf
+    for kp, at, width in _k1_classes(prim, aux, cuda_device):
+        bra = kp.table
+        cls = (bra.la, bra.lb, at.lq)
+        geo = eri3c.eri3c_geometry(*cls, bra.Ka, bra.Kb, at.Kq)
+        assert geo["route"] == kernels.eri3c_route(*cls), cls
+        args = (bra, at, kp.cols, kp.cols_t, kp.mirror)
+        kernels.reset_launches()
+        got = torch.zeros((A, width), dtype=torch.float64, device=cuda_device)
+        eri3c.eri3c_class(got, *args)
+        got32 = torch.zeros((A, width), dtype=torch.float32,
+                            device=cuda_device)
+        eri3c.eri3c_class(got32, *args)
+        assert kernels.class_launches == {"eri3c": {cls: 1},
+                                          "eri3c_f32": {cls: 1}}
+        ref = torch.zeros((A, width), dtype=torch.float64)
+        eri3c.eri3c_class_plain(
+            ref, eri.PairTable(bra.la, bra.lb, bra.Ka, bra.Kb, bra.pair.cpu(),
+                               bra.meta.cpu()),
+            eri3c.AuxTable(at.lq, at.Kq, at.table.cpu(), at.kq.cpu(),
+                           at.qrow.cpu(), at.ecd.cpu()),
+            kp.cols.cpu(), kp.cols_t.cpu(), kp.mirror.cpu())
+        scale = max(float(ref.abs().max()), 1e-3)
+        assert float((got.cpu() - ref).abs().max()) <= 1e-12 * scale, cls
+        assert torch.equal(got32, got.float()), cls
+
+
+def _largest_contractions() -> dict:
+    """The most primitives a shell of each angular momentum has in any
+    basis of the library (an sp shell counts for s and p)."""
+    from juliachem_jl_tpu_torch.basis import library
+
+    ls = {"S": (0,), "P": (1,), "D": (2,), "F": (3,), "G": (4,),
+          "L": (0, 1)}
+    out = {}
+    for name, elements in library._library().items():
+        if name == "__meta__":
+            continue
+        for shells in elements.values():
+            for sh in shells:
+                for lv in ls[sh["l"]]:
+                    out[lv] = max(out.get(lv, 1), len(sh["exps"]))
+    return out
+
+
+@pytest.mark.cuda
+def test_k1_routes_of_all_classes_match_the_table(cuda_device):
+    """K1's 55 classes as compiled (``eri3c_geometry``) take the route of
+    the table of ops/kernels.py; every block-route class, at one primitive
+    a shell and at the largest contractions of the basis library (s 8, p
+    3: (pp) 9 primitive pairs), takes an aux tile of 8, 4, 2 or 1 shells,
+    within ``kEri3cBlockCap`` (100 KB) unless it is one shell, no wider
+    than at one primitive, fits a block's 227 KB ((ff|g) among them), and
+    holds two blocks an SM where its tile is wider than one shell."""
+    cap, kmax = 100 * 1024, _largest_contractions()
+    for cls in sorted(eri3c.KERNEL_CLASSES):
+        la, lb, lq = cls
+        geo = eri3c.eri3c_geometry(*cls, 1, 1, 1)
+        assert geo["route"] == kernels.eri3c_route(*cls), cls
+        assert geo["blocks_per_sm"] >= 1, cls
+        if geo["route"] == "lane":
+            assert geo["QT"] == 1 and geo["smem_bytes"] == 0
+            continue
+        # the metric's unit bra (0, lP) is one primitive pair
+        Ka, Kb = (1, 1) if (la, lb) == (0, 4) else (kmax[la], kmax[lb])
+        for g in (geo, eri3c.eri3c_geometry(*cls, Ka, Kb, kmax[lq])):
+            assert g["route"] == geo["route"] and g["QT"] <= geo["QT"], cls
+            assert g["QT"] in (1, 2, 4, 8), cls
+            assert g["smem_bytes"] <= cap or g["QT"] == 1, cls
+            assert g["smem_bytes"] <= 232448, cls
+            assert g["blocks_per_sm"] >= (2 if g["QT"] > 1 else 1), cls
 
 
 def _k2_inputs(case, seed, dev):

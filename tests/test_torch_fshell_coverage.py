@@ -5,8 +5,9 @@ cc-pVTZ-JKFIT (AutoAux for N, which the set lacks): each (la, lb | lq) that
 ``build`` and ``build_auxiliary`` produce, and each metric bra (0, lP), is in
 K1's ``KERNEL_CLASSES``; each pair class of ``unique_pair_blocks`` is in
 ``PAIR_CLASSES`` of K4/K5/K6.  Then the tables agree with the cases that
-csrc/ instantiates, read from its macros: K1's JC_ERI3C_CASE list times
-the aux momenta of the eri3c_lq*.cu and eri3c_f32_lq*.cu units; K4/K5/K6's
+csrc/ instantiates, read from its macros: K1's JC_ERI3C_CASES list times
+the aux momenta of the eri3c_lq*.cu units (each instance writes double or
+float); K4/K5/K6's
 ket chain (JC_KETS_FROM_*) from each bra unit eri4c_b<la><lb>.cu and the
 bra classes of the dispatch in eri4c.cu.  Runs on the port alone (no JAX).
 """
@@ -63,18 +64,19 @@ def test_f_bases_reach_every_pair_class():
 
 
 def test_k1_table_matches_csrc():
-    text = (CSRC / "eri3c.cuh").read_text()
-    entry = text[text.index("#define JC_ERI3C_ENTRY"):]
+    text = (CSRC / "eri3c_launch.cuh").read_text()
+    cases = text[text.index("#define JC_ERI3C_CASES"):
+                 text.index("#define JC_ERI3C_LQ")]
     bras = {tuple(map(int, m)) for m in
-            re.findall(r"JC_ERI3C_CASE\((\d), (\d), LQ\)", entry)}
-    for macro, prefix in (("JC_ERI3C_LQ", "eri3c_lq"),
-                          ("JC_ERI3C_F32_LQ", "eri3c_f32_lq")):
-        lqs = set()
-        for f in CSRC.glob(f"{prefix}*.cu"):
-            lqs |= {int(x) for x in
-                    re.findall(macro + r"\((\d)\)", f.read_text())}
-        assert {(la, lb, lq) for la, lb in bras for lq in lqs} == \
-            set(eri3c.KERNEL_CLASSES), macro
+            re.findall(r"M\((\d), (\d), LQ\)", cases)}
+    # one instance a class writes double or float (the f32 flag)
+    lqs = set()
+    for f in CSRC.glob("eri3c_lq*.cu"):
+        lqs |= {int(x) for x in
+                re.findall(r"JC_ERI3C_LQ\((\d)\)", f.read_text())}
+    assert {(la, lb, lq) for la, lb in bras for lq in lqs} == \
+        set(eri3c.KERNEL_CLASSES)
+    assert not list(CSRC.glob("eri3c_f32*.cu"))
 
 
 def test_k4_k5_k6_tables_match_csrc():

@@ -10,8 +10,9 @@ MemoryError (its message, with the bytes it names, is recorded), then with
 an f32 B, each after its packed builder's build alone, to read that
 build's peak memory.  Prints the card's name and power limit, each run's
 lines from chip_smoke.run_cluster (B's bytes, build and run peak memory, setup
-phases, Fock s/iter, iterations, energy, wall time to energy) and, last, one
-JSON line with both results.  Needs CUDA; exits 2 without it.
+phases, Fock s/iter, iterations, energy, wall time to energy, K1's launches
+of the run's metric and 3-center builds by class) and, last, one JSON line
+with both results.  Needs CUDA; exits 2 without it.
 """
 
 from __future__ import annotations
@@ -51,14 +52,16 @@ def main() -> int:
     try:
         out["f64"] = cs.run_cluster(tag, jc, args.cluster, {},
                                     f"{args.cluster} f64 B",
-                                    measure_build=True)
+                                    measure_build=True, k1_times=True)
     except MemoryError as exc:
         out["f64"] = {"memory_error": str(exc)}
         print(f"{tag} {args.cluster} f64 B: MemoryError: {exc}", flush=True)
     torch.cuda.empty_cache()
     out["f32"] = cs.run_cluster(tag, jc, args.cluster, {"df_b_dtype": "f32"},
-                                f"{args.cluster} f32 B", measure_build=True)
+                                f"{args.cluster} f32 B", measure_build=True,
+                                k1_times=True)
     jc.finalize()
+    out = cs.str_keys(out)   # K1's classes are tuples
     if args.out:
         Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps(out))

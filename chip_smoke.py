@@ -58,7 +58,11 @@ card's name and power limit):
    and ROHF (in-core) and DF-UHF (dense B); then at the converged RHF
    density and the cation's UHF (Da, Db) one build through the direct
    ScreenedDirectFock (K5 list mode) and one through StreamingDirectFock (K5
-   staircase mode), G and J, K(Da), K(Db) each held to the in-core ones;
+   staircase mode), G and J, K(Da), K(Db) each held to the in-core ones,
+   and K6's time a build at the full in-core size (5.83e6 blocks), class
+   pair by class pair, summed by route, beside its bound, the cached
+   build's wall and the SCF's Fock s/iter (``incore_k6_times``,
+   ``k6_by_route``);
    the identities closed-shell UHF = RHF and RI-UMP2 = RI-MP2; the
    incremental Fock (``fdiff``) conventional and on dense DF with f32
    increments, each held to its full-build run within 1e-8 Eh;
@@ -94,7 +98,8 @@ card's name and power limit):
    DF-RHF (packed B) in 6-311++G(3df,3pd) (nbf 851) and in 6-31G(2df,p)
    (nbf 515); ammonia_trimer in 6-31G(2df,p) conventional (in-core), then
    at its density one direct (K5 list) and one streaming (K5 staircase)
-   build held to the in-core one; the first 2 waters of w32 in
+   build held to the in-core one, and K6's time a build there (1.21e6
+   blocks); the first 2 waters of w32 in
    6-31G(2df,p) conventional; the SCF energies held to the JAX package's,
    and each of K1, K4, K5 (both modes) and K6 shown to have launched an f
    class on its path (K4's (ff|ff) on the SAD atoms).
@@ -181,6 +186,10 @@ SUBSET = 4096  # quartets per class pair in the 4-center kernel checks
 F_BASIS = "6-311++G(3df,3pd)"
 F_BASIS_SMALL = "6-31G(2df,p)"
 BOYS_TCRIT = 35.0  # csrc/boys.cuh: the series up to this T, asymptotic above
+# clock cycles of the kernel that holds the stream while one in-core
+# build's K6 launches are queued (~50 ms at the H100's clocks; queueing 55
+# launches takes a few ms)
+K6_QUEUE_CYCLES = 100_000_000
 T_BUDGET = 1 << 25  # Boys arguments per chunk when counting them
 
 
@@ -312,6 +321,124 @@ def compiled_route(bra, ket) -> str:
     check(got == want, f"{cls}: built on the {got} route, the table of "
           f"ops/kernels.py says {want}")
     return got
+
+
+def compiled_k6_route(bra, ket) -> dict:
+    """K6's launch geometry for a class pair as the kernels were built
+    (``fock.digest_geometry``), its route held to ``kernels.digest_route``,
+    which takes the lane route only where K4/K5's table (as built) has it."""
+    from juliachem_jl_tpu_torch.ops import eri, fock, kernels
+
+    cls = (bra.la, bra.lb, ket.la, ket.lb)
+    geo = fock.digest_geometry(bra, ket)
+    want = kernels.digest_route(*cls)
+    check(geo["route"] == want, f"K6 {cls}: built on the {geo['route']} "
+          f"route, the table of ops/kernels.py says {want}")
+    check(geo["route"] != "lane" or eri.eri4c_geometry(bra, ket)["route"]
+          == "lane", f"K6 {cls}: on the lane route, K4/K5's is "
+          f"{kernels.eri4c_route(*cls)}")
+    return geo
+
+
+def k6_route_text(geo: dict) -> str:
+    return (f"{geo['route']} ({geo['warps_per_block']} warps a block, "
+            f"{geo['warps_per_sm']} warps/SM)")
+
+
+def digest_bound(bra, ket, n: int) -> tuple[float, float]:
+    """(bytes, operations) of K6 over n cached blocks of one class pair, as
+    ``fourc_bounds`` counts them: the blocks, selections and weights and
+    the meta tables read once; 12 operations a block element.  A build
+    adds D read and J, K written once (24 nbf^2 bytes)."""
+    blk = ncart(bra.la) * ncart(bra.lb) * ncart(ket.la) * ncart(ket.lb)
+    return (8.0 * n * blk + 24.0 * n
+            + 4.0 * (bra.meta.numel() + ket.meta.numel()), 12.0 * n * blk)
+
+
+def incore_k6_times(tag: str, fb, D, name: str) -> dict:
+    """One in-core build of the ScreenedDirectFock ``fb`` at D through K6
+    (its blocks cached and one build done before: the warm-up), each class
+    pair's launch timed alone by CUDA events, beside its bound
+    (``digest_bound``); the sum of the launches is K6's device time a
+    build.  The launches and their
+    events are queued behind a sleeping kernel (``K6_QUEUE_CYCLES``), so
+    that a launch's time holds no wait for the host (a build's wall with
+    the host's part is the cached build's in ``builds_at``)."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import fock
+
+    nbf = fb.nbf
+    D = D.to(device=fb.device, dtype=torch.float64).contiguous()
+    JK = torch.zeros((2, nbf, nbf), dtype=torch.float64, device=fb.device)
+    events = []
+    torch.cuda.synchronize()
+    # the launches queue up behind a sleeping kernel, so that the events
+    # time the kernels back to back and not the host's launch path
+    asleep = torch.cuda.Event(enable_timing=True)
+    asleep.record()
+    torch.cuda._sleep(K6_QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for g in fb.groups:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fock.digest_jk(JK, g.I, g.bra, g.ket, g.sel_bra, g.sel_ket, g.weight,
+                       D)
+        ev[1].record()
+        events.append(ev)
+    queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    slept = asleep.elapsed_time(events[0][0]) if events else 0.0
+    check(queued * 1e3 < slept, f"K6 {name}: queueing the launches took "
+          f"{queued * 1e3:.3f} ms, the device slept {slept:.3f} ms")
+    rows, nbytes, ops = [], 8.0 * 3 * nbf * nbf, 0.0
+    for g, (a, b) in zip(fb.groups, events):
+        n = g.sel_bra.shape[0]
+        cls = (g.bra.la, g.bra.lb, g.ket.la, g.ket.lb)
+        by, op = digest_bound(g.bra, g.ket, n)
+        nbytes, ops = nbytes + by, ops + op
+        rows.append({"cls": list(cls), "quartets": n,
+                     "ms": a.elapsed_time(b), **bound_of(by, op)})
+    for v in rows:
+        c = v["cls"]
+        print(f"{tag} K6 {name} class ({c[0]}{c[1]}|{c[2]}{c[3]}): "
+              f"{v['quartets']} blocks, kernel {v['ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']})", flush=True)
+    total = {"system": name, "quartets": sum(v["quartets"] for v in rows),
+             "launches": len(rows), "ms": sum(v["ms"] for v in rows),
+             "queue_s": queued, **bound_of(nbytes, ops), "classes": rows}
+    print(f"{tag} K6 {name}: one in-core build, {total['launches']} launches, "
+          f"{total['quartets']} blocks ({nbytes / 1e9:.4f} GB): "
+          f"{total['ms']:.3f} ms in the launches (CUDA events, queued behind "
+          f"a sleeping kernel; the host queued them in {queued * 1e3:.3f} "
+          f"ms), bound {total['bound_ms']:.4f} ms ({total['bound_by']})",
+          flush=True)
+    return total
+
+
+def k6_by_route(tag: str, fb, k6: dict) -> dict:
+    """The class pairs of ``incore_k6_times``' build ``k6`` on each of K6's
+    routes as built (``compiled_k6_route``): their count, blocks, summed
+    kernel time and bound; each class row gains its route and geometry."""
+    by_route = {}
+    for g, v in zip(fb.groups, k6["classes"]):
+        v["geometry"] = compiled_k6_route(g.bra, g.ket)
+        v["route"] = v["geometry"]["route"]
+        r = by_route.setdefault(v["route"], {"class_pairs": 0, "quartets": 0,
+                                             "ms": 0.0, "bound_ms": 0.0})
+        r["class_pairs"] += 1
+        r["quartets"] += v["quartets"]
+        r["ms"] += v["ms"]
+        r["bound_ms"] += v["bound_ms"]
+    k6["by_route"] = by_route
+    print(f"{tag} K6 {k6['system']} by route (the build's times): " + ", ".join(
+        f"{k} {v['class_pairs']} class pairs, {v['quartets']} blocks, "
+        f"{v['ms']:.3f} ms (bound {v['bound_ms']:.4f})"
+        for k, v in sorted(by_route.items())) + "; " + ", ".join(
+        f"({c[0]}{c[1]}|{c[2]}{c[3]}) {k6_route_text(v['geometry'])}"
+        for v in k6["classes"] for c in [v["cls"]]), flush=True)
+    return by_route
 
 
 def stair_class_times(tag: str, dev, prim, D, name: str, route,
@@ -1147,10 +1274,11 @@ def fmt_instances(out: dict) -> str:
 def eri4c_registers(tag: str) -> dict:
     """Per K4/K5/K6 instance, as ptxas reported it in this process's build:
     registers a thread, stack frame and spill bytes, by kernel (the lane
-    and warp routes of K4 and K5, and K6) and class."""
+    and warp routes of K4, K5 and K6) and class."""
     out = ptxas_instances(re.compile(
         r"\d+(eri4c_jk_lane_kernel|eri4c_lane_kernel|eri4c_jk_kernel|"
-        r"eri4c_kernel|digest_jk_kernel)ILi(\d)ELi(\d)ELi(\d)ELi(\d)E"), 4)
+        r"eri4c_kernel|digest_jk_lane_kernel|digest_jk_warp_kernel)"
+        r"ILi(\d)ELi(\d)ELi(\d)ELi(\d)E"), 4)
     print(f"{tag} K4/K5/K6 instances (ptxas): " + fmt_instances(out),
           flush=True)
     return out
@@ -1363,6 +1491,8 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int,
                           ms=cuda_ms(lambda: run_kernel(zeros()), reps=2),
                           plain_ms=cuda_ms(lambda: run_plain(zeros()), reps=2),
                           **bound_of(*bounds[label]))
+    for x in cases:   # K6's route of each class pair, held to the table
+        compiled_k6_route(x["bra"], x["ket"])
     # K5 staircase over two t0 ranges of each class pair (what each rank of
     # the sharded staircase build launches), against the plain version over
     # the same ranges and the whole-range reference
@@ -2033,12 +2163,15 @@ def run_mp2(tag: str, label: str, scf: dict, ump2: bool) -> dict:
 
 
 def builds_at(tag: str, dev, prim, D, Da, Db,
-              name: str = "ammonia_trimer") -> dict:
+              name: str = "ammonia_trimer",
+              scf_fock_s: float | None = None) -> dict:
     """At a converged RHF density D and a converged UHF pair (Da, Db): one
     in-core build (reference G and J, K(Da), K(Db)), one direct build (K5
     list mode) and one streaming build (K5 staircase mode), each with the
     launch counts of its own path; G, J, Ka, Kb of each held to the in-core
-    ones at 1e-11 x their max-abs."""
+    ones at 1e-11 x their max-abs.  After the in-core builds, K6's time a
+    build at the full in-core size (``incore_k6_times``), printed beside the
+    cached build's wall and the SCF's steady Fock s/iter (``scf_fock_s``)."""
     import torch
 
     from juliachem_jl_tpu_torch.ops import fock, fock_stream, kernels
@@ -2065,6 +2198,23 @@ def builds_at(tag: str, dev, prim, D, Da, Db,
             J, K = fb.jk_halves(D)
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
+        cached = t3 - t2 if label == "incore" else None
+        if label == "incore":   # K6 alone, each class pair timed; uncounted
+            saved = (dict(kernels.launches),
+                     {k: dict(v) for k, v in kernels.class_launches.items()})
+            k6 = incore_k6_times(tag, fb, D, name)
+            k6_by_route(tag, fb, k6)
+            kernels.launches.update(saved[0])
+            kernels.class_launches.clear()
+            kernels.class_launches.update(saved[1])
+            print(f"{tag} {name}: K6 {k6['ms']:.3f} ms a build at the full "
+                  f"in-core size (bound {k6['bound_ms']:.4f} ms); the cached "
+                  f"build's wall {1e3 * cached:.3f} ms"
+                  + (f"; the SCF's steady Fock {1e3 * scf_fock_s:.3f} ms/iter"
+                     if scf_fock_s is not None else ""), flush=True)
+            k6["cached_build_wall_ms"] = 1e3 * cached
+            k6["scf_fock_s_per_iter"] = scf_fock_s
+            t3 = time.perf_counter()
         G = J - 0.5 * K
         jk = fb.two_electron_jk(Da, Db, 1, Timings())
         torch.cuda.synchronize(dev)
@@ -2078,15 +2228,17 @@ def builds_at(tag: str, dev, prim, D, Da, Db,
         err_jk = max(float((a - b).abs().max()) for a, b in zip(jk, jk_ref))
         scale_jk = max(float(x.abs().max()) for x in jk_ref)
         out[label] = {"setup_s": t1 - t0, "build_s": t2 - t1,
-                      "cached_build_s": t3 - t2 if label == "incore" else None,
+                      "cached_build_s": cached,
                       "uhf_jk_s": t4 - t3,
                       "max_abs_err_vs_incore": err,
                       "uhf_jk_max_abs_err_vs_incore": err_jk,
                       "launches": counts, "class_launches": cls_counts,
                       "quartets": fb.n_quartets}
+        if label == "incore":
+            out[label]["k6"] = k6
         print(f"{tag} {name} {label} build at the converged D: setup "
               f"{t1 - t0:.3f} s, build {t2 - t1:.4f} s"
-              + (f" (cached blocks: {t3 - t2:.4f} s)" if label == "incore"
+              + (f" (cached blocks: {cached:.4f} s)" if label == "incore"
                  else "")
               + f", |G - G_incore| {err:.3e} (bound 1e-11 x {scale:.3e}); "
               f"UHF J, K(Da), K(Db) at (Da, Db) {t4 - t3:.4f} s, "
@@ -2854,7 +3006,8 @@ def main() -> int:
     Da = 0.5 * (r_u["Density"] + r_u["Spin Density"])
     Db = 0.5 * (r_u["Density"] - r_u["Spin Density"])
     builds = builds_at(tag, dev, bsets_a.primary, ammonia_conv["density"],
-                       Da, Db)
+                       Da, Db,
+                       scf_fock_s=ammonia_conv["fock_s_per_iter_f64_steady"])
     counts["ammonia_trimer direct build"] = builds["direct"]["launches"]
     counts["ammonia_trimer streaming build"] = builds["streaming"]["launches"]
     # 6d. identities at full width: closed-shell UHF = RHF; RI-UMP2 = RI-MP2
@@ -3087,7 +3240,8 @@ def main() -> int:
     check(f_c["incore"] == "True", f"{label_fc} did not run in-core")
     D_c = f_c["density"]
     builds_f = builds_at(tag, dev, f_c["basis"].primary, D_c, 0.5 * D_c,
-                         0.5 * D_c, name=f"ammonia_trimer {F_BASIS_SMALL}")
+                         0.5 * D_c, name=f"ammonia_trimer {F_BASIS_SMALL}",
+                         scf_fock_s=f_c["fock_s_per_iter_f64_steady"])
     for k in ("direct", "streaming"):
         counts[f"{label_fc} {k} build"] = builds_f[k]["launches"]
         class_counts[f"{label_fc} {k} build"] = builds_f[k]["class_launches"]
@@ -3171,6 +3325,17 @@ def main() -> int:
             "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None})
+    # K6 at the full in-core size: one build's launches (phase 6c, 10c)
+    def k6_build(b):
+        v = b["incore"]["k6"]
+        return {k: v[k] for k in ("system", "quartets", "launches", "ms",
+                                  "bound_ms", "bound_by", "by_route",
+                                  "cached_build_wall_ms",
+                                  "scf_fock_s_per_iter")}
+
+    for k in new_kernels:
+        if k["name"] == "digest_jk":
+            k["per_build"] = k6_build(builds)
     # the kernels' ranges, on the sharded paths (launches of all ranks of
     # the 2-rank group: each launch is one rank's range)
     main_path.update({"e2_rmp2_range": "gloo 2 c RI-MP2 (all ranks)",
@@ -3207,6 +3372,8 @@ def main() -> int:
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "library_ms": None,
             "largest_class": v["largest_class"]})
+    f_kernels[[k["name"] for k in f_kernels].index("digest_jk_f")].update(
+        per_build=k6_build(builds_f))
     kern_line = ([k1, k2] + new_kernels + list(k7.values())
                  + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels)
 

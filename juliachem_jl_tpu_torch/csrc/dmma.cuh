@@ -1,5 +1,6 @@
 // f64 tensor-core (DMMA) and cp.async building blocks for Hopper, shared by
-// K2 (df_gather_w.cu) and K7 (mp2_e2.cu).
+// K2 (df_gather_w.cu) and K7 (mp2_e2.cu); K6 (eri4c.cuh) and K8
+// (split_fold.cu) take the cp.async helpers.
 //
 // wgmma has no f64 form, so the route to the f64 tensor cores on sm_90 is
 // the warp-synchronous mma.sync: here mma.sync.aligned.m16n8k4.row.col.f64,
@@ -57,7 +58,16 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src,
                "l"(src), "r"(ok ? 8 : 0));
 }
 
-// 16 bytes of which the first n (0, 8 or 16) are read, the rest zero-filled
+// 4 bytes, or with ok false a zero-filled destination (src still valid)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// 16 bytes of which the first n (0 to 16, a multiple of 4) are read, the
+// rest zero-filled
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),

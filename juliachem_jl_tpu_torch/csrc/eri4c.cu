@@ -1,5 +1,6 @@
 // Entry points of kernels K4 (jc_eri4c), K5 (jc_eri4c_jk) and K6
-// (jc_digest_jk), and K5's launch geometry (jc_eri4c_geometry): dispatch one (la lb | lc ld) class to the translation
+// (jc_digest_jk), and K5's and K6's launch geometry (jc_eri4c_geometry,
+// jc_digest_jk_geometry): dispatch one (la lb | lc ld) class to the translation
 // unit of its bra class (eri4c_b<la><lb>.cu; design in eri4c.cuh).
 // Returns the CUDA error of the launch (0 on success); a class that is not
 // instantiated returns cudaErrorInvalidValue.
@@ -10,7 +11,9 @@
   extern "C" int jc_eri4c_jk_b##LA##LB(int lc, int ld, JC_ERI4C_JK_ARGS);    \
   extern "C" int jc_digest_jk_b##LA##LB(int lc, int ld, JC_DIGEST_JK_ARGS); \
   extern "C" int jc_eri4c_geometry_b##LA##LB(int lc, int ld, int Ka, int Kb, \
-                                             int Kc, int Kd, long long* out);
+                                             int Kc, int Kd, long long* out); \
+  extern "C" int jc_digest_jk_geometry_b##LA##LB(int lc, int ld,             \
+                                                 long long* out);
 
 JC_ERI4C_DECL(0, 0)
 JC_ERI4C_DECL(0, 1)
@@ -58,4 +61,9 @@ extern "C" int jc_digest_jk(int la, int lb, int lc, int ld,
 extern "C" int jc_eri4c_geometry(int la, int lb, int lc, int ld, int Ka,
                                  int Kb, int Kc, int Kd, long long* out) {
   JC_ERI4C_SWITCH(jc_eri4c_geometry, Ka, Kb, Kc, Kd, out)
+}
+
+extern "C" int jc_digest_jk_geometry(int la, int lb, int lc, int ld,
+                                     long long* out) {
+  JC_ERI4C_SWITCH(jc_digest_jk_geometry, out)
 }

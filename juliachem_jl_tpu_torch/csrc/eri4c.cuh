@@ -63,9 +63,16 @@
 // shell and passes their counts (meta), so the contraction padding of a
 // class (K = 6 for a core s shell) costs nothing.  Sums into J/K are f64
 // atomicAdd (native on sm_90), so J/K change in the last bits from run to
-// run.  K6 keeps one warp per cached block.  DMMA for the products, one
-// persistent launch over all classes and the warp route's slices sized by
-// the live primitive counts are later work.
+// run.
+//
+// K6 digests cached blocks on two routes (the K6 section below): a block
+// a thread for the small blocks of K4/K5's lane class pairs (a warp's 32
+// blocks, contiguous in I, staged by 16-byte cp.async copies, K5's
+// lane_digest, the targets that lanes share summed before their atomics;
+// the in-core batches are bra-row-major,
+// ops/schwarz.py::screened_quartets), and a block a warp for the rest.
+// DMMA for the products, one persistent launch over all classes and the
+// warp route's slices sized by the live primitive counts are later work.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,10 +82,14 @@
 #include <utility>
 
 #include "boys.cuh"
+#include "dmma.cuh"
 #include "mcmurchie.cuh"
 
 #ifndef JC_ERI4C_LANE_MASK
 #error "build with -DJC_ERI4C_LANE_MASK (ops/kernels.py passes its route table)"
+#endif
+#ifndef JC_DIGEST_LANE_MAX_N
+#error "build with -DJC_DIGEST_LANE_MAX_N (ops/kernels.py passes K6's table)"
 #endif
 
 namespace jc {
@@ -422,13 +433,15 @@ __device__ __forceinline__ void lane_block(const double* rb, int Ka, int Kb,
 
 // One K image of a lane's block: K[p,q] += w sum_{i,j} I(.) D[i, j] with
 // (p, q | i, j) = (a, c | b, d), (a, d | b, c), (b, c | a, d), (b, d | a, c)
-// for IMG = 0 .. 3 (a function of its own per image, force-inlined).
+// for IMG = 0 .. 3 (a function of its own per image, force-inlined); with
+// out, the sums w sum(.) go to out[pq] in place of the atomics.
 template <int LA, int LB, int LC, int LD, int IMG>
 __device__ __forceinline__ void lane_image(const double* I, double w,
                                            int64_t oa, int64_t ob, int64_t oc,
                                            int64_t od,
                                            const double* __restrict__ D,
-                                           int64_t nbf, double* K) {
+                                           int64_t nbf, double* K,
+                                           double* out = nullptr) {
   using C = Eri4cClass<LA, LB, LC, LD>;
   constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
   constexpr int NP = IMG < 2 ? NA : NB, NQ = IMG % 2 ? ND : NC;
@@ -450,19 +463,26 @@ __device__ __forceinline__ void lane_image(const double* I, double w,
       constexpr int c = IMG % 2 ? j : q, d = IMG % 2 ? q : j;
       s += I[(a * NB + b) * C::NCD + c * ND + d] * Dij[ij];
     });
-    atomicAdd(K + (op + p) * nbf + oq + q, w * s);
+    if (out) out[pq] = w * s;
+    else atomicAdd(K + (op + p) * nbf + oq + q, w * s);
   });
 }
 
 // Six-image digestion of one lane's block I (weight w) from registers:
 // the five images whose targets differ from lane to lane go to J/K by
-// f64 atomics, j_ab (times 2w) is returned in jab for the run sums.
+// f64 atomics, j_ab (times 2w) is returned in jab for the run sums.  With
+// kc, k_ac and k_bc (whose targets K[a, c], K[b, c] lanes of one bra row
+// and one ket shell c share) are returned there too, k_ac then k_bc; with
+// kd, k_ad and k_bd (targets shared by the lanes of one bra row and one
+// ket shell d), k_ad then k_bd.
 template <int LA, int LB, int LC, int LD>
 __device__ __forceinline__ void lane_digest(const double* I, double w,
                                             const int* mb, const int* mk,
                                             const double* __restrict__ D,
                                             int64_t nbf, double* J, double* K,
-                                            double* jab) {
+                                            double* jab,
+                                            double* kc = nullptr,
+                                            double* kd = nullptr) {
   using C = Eri4cClass<LA, LB, LC, LD>;
   constexpr int NB = C::NB, ND = C::ND, NCD = C::NCD;
   const int64_t oa = mb[0], ob = mb[1], oc = mk[0], od = mk[1];
@@ -493,10 +513,12 @@ __device__ __forceinline__ void lane_digest(const double* I, double w,
       atomicAdd(J + (oc + cd / ND) * nbf + od + cd % ND, w * (2.0 * s));
     });
   }
-  lane_image<LA, LB, LC, LD, 0>(I, w, oa, ob, oc, od, D, nbf, K);
-  lane_image<LA, LB, LC, LD, 1>(I, w, oa, ob, oc, od, D, nbf, K);
-  lane_image<LA, LB, LC, LD, 2>(I, w, oa, ob, oc, od, D, nbf, K);
-  lane_image<LA, LB, LC, LD, 3>(I, w, oa, ob, oc, od, D, nbf, K);
+  lane_image<LA, LB, LC, LD, 0>(I, w, oa, ob, oc, od, D, nbf, K, kc);
+  lane_image<LA, LB, LC, LD, 1>(I, w, oa, ob, oc, od, D, nbf, K, kd);
+  lane_image<LA, LB, LC, LD, 2>(I, w, oa, ob, oc, od, D, nbf, K,
+                                kc ? kc + C::NA * C::NC : nullptr);
+  lane_image<LA, LB, LC, LD, 3>(I, w, oa, ob, oc, od, D, nbf, K,
+                                kd ? kd + C::NA * C::ND : nullptr);
 }
 
 // Sums v[0..N) over the runs of equal key in the warp (a segmented
@@ -518,6 +540,26 @@ __device__ __forceinline__ bool run_sums(double* v, int64_t key, int lane) {
     if (lane >= off) head |= head_o;
   }
   return lane == 31 || next != key;
+}
+
+// Sums v[0..N) over the lanes of the warp with one key, wherever they lie
+// (__match_any_sync), into the group's first lane; returns whether this
+// lane is that one.  Every lane of the warp calls it.
+template <int N>
+__device__ __forceinline__ bool group_sums(double* v, int64_t key, int lane) {
+  const unsigned grp =
+      __match_any_sync(kFullMask, (unsigned long long)key);
+  const int first = __ffs(grp) - 1;
+  unsigned rest = grp & (grp - 1);  // the group but its first lane
+  while (__any_sync(kFullMask, rest != 0)) {
+    const int m = rest ? __ffs(rest) - 1 : lane;
+    static_for<N>([&](auto i) {
+      const double o = __shfl_sync(kFullMask, v[decltype(i)::value], m);
+      if (rest && lane == first) v[decltype(i)::value] += o;
+    });
+    rest &= rest - 1;
+  }
+  return lane == first;
 }
 
 // ------------------------------------------------------------- warp route
@@ -859,26 +901,6 @@ __device__ __forceinline__ double jk_element(const double* sI,
   return s;
 }
 
-// K6's digestion of the block sI (weight w) by the lanes of one warp: D
-// blocks into sDg, then each lane owns whole outputs and adds them to J
-// (= JK) and K (= JK + nbf^2) with f64 atomics.
-template <int LA, int LB, int LC, int LD>
-__device__ void digest_block(const double* sI, double w, const int* mb,
-                             const int* mk, const double* __restrict__ D,
-                             int64_t nbf, double* JK, double* sDg, int lane) {
-  using C = Eri4cClass<LA, LB, LC, LD>;
-  const int64_t oa = mb[0], ob = mb[1], oc = mk[0], od = mk[1];
-  for (int e = lane; e < C::NDG; e += 32)
-    sDg[e] = dg_element<LA, LB, LC, LD>(e, oa, ob, oc, od, D, nbf);
-  __syncwarp();
-  for (int e = lane; e < C::NOUT; e += 32) {
-    double* dst;
-    const double s = jk_element<LA, LB, LC, LD>(sI, sDg, e, oa, ob, oc, od,
-                                                nbf, JK, JK + nbf * nbf, dst);
-    atomicAdd(dst, w * s);
-  }
-}
-
 // Output x of the six images of one quartet (j_ab, j_cd, k_ac, k_ad, k_bc,
 // k_bd, as jk_element) summed over one ket tile: sI the tile's block
 // [NAB][ct] of components cd0 .. cd0 + ct - 1, sDg the quartet's D blocks.
@@ -1148,46 +1170,173 @@ eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
   digest_end(lay, w, wt, mr, mc, nbf, JK, lane);
 }
 
-// Shared memory of one K6 warp: the cached block and the D blocks.
-template <int LA, int LB, int LC, int LD>
-struct DigestSmem {
-  using C = Eri4cClass<LA, LB, LC, LD>;
-  int I, Dg, total;
-  __host__ __device__ DigestSmem() : I(0), Dg(C::NAB * C::NCD), total(C::NAB * C::NCD + C::NDG) {}
-};
+// ------------------------------------------------------------------- K6
 
-// K6: the cached block I[q] of quartet q, digested into JK.
-template <int LA, int LB, int LC, int LD>
-__device__ void digest_jk_body(double* sm, const int* mb, const int* mk,
-                               const int64_t* sel_bra, const int64_t* sel_ket,
-                               const double* weight, int64_t n,
-                               const double* I, const double* D, int64_t nbf,
-                               double* JK, int64_t q, int warp, int lane) {
-  using C = Eri4cClass<LA, LB, LC, LD>;
-  if (q >= n) return;
-  const DigestSmem<LA, LB, LC, LD> lay;
-  double* w = sm + (int64_t)warp * lay.total;
-  const double* Iq = I + q * (C::NAB * C::NCD);
-  for (int e = lane; e < C::NAB * C::NCD; e += 32) w[lay.I + e] = Iq[e];
-  __syncwarp();
-  const int64_t r = sel_bra[q], c = sel_ket[q];
-  digest_block<LA, LB, LC, LD>(w + lay.I, weight[q], mb + r * kMeta,
-                               mk + c * kMeta, D, nbf, JK, w + lay.Dg, lane);
+// Copies cnt doubles from src (8-byte aligned) to dst (16-byte aligned) by
+// this lane's share of 16-byte cp.async copies (one 8-byte copy first
+// when src is not 16-byte aligned), and returns where src[0] lands
+// (dst or dst + 1): the copies of a warp read src in whole sectors.  The
+// caller commits and waits.
+__device__ __forceinline__ const double* stage_doubles(double* dst,
+                                                       const double* src,
+                                                       int64_t cnt, int lane) {
+  const int off = (int)((reinterpret_cast<uintptr_t>(src) >> 3) & 1);
+  if (off && lane == 0 && cnt > 0) cp_async8(dst + 1, src, true);
+  const double* s2 = src + off;
+  double* d2 = dst + 2 * off;
+  const int64_t m = cnt - off;
+  for (int64_t p = 2 * lane; p < m; p += 64)
+    cp_async16(d2 + p, s2 + p, p + 1 < m ? 16 : 8);
+  return dst + off;
 }
 
+// K6's routes, each class pair's fixed at compile time by DigestClass::kLane
+// (ops/kernels.py's digest_route mirrors it), chosen class by class from
+// the card's times at the full in-core size:
+// * lane route, for the class pairs of K4/K5's lane route
+//   (Eri4cClass::kLane) whose blocks hold at most JC_DIGEST_LANE_MAX_N
+//   integrals: one cached block a thread, kDigestLaneBlock threads a block;
+//   a warp's 32 blocks, contiguous in I, are staged in its shared memory
+//   (16-byte cp.async copies: whole sectors), each lane then reading its
+//   own block there.  j_ab is summed over the
+//   lanes of one bra row, k_ac, k_bc over those of one bra row and ket
+//   shell c (run_sums: a row's kets come sorted by their first shell), and
+//   k_ad, k_bd over those of one bra row and ket shell d, wherever they lie
+//   (group_sums), before their atomics;
+// * warp route, for the rest: one block a warp, as many warps as blocks,
+//   the block and its D blocks loaded and digested at once (its outputs
+//   spread over the lanes, so that the atomics of one block's contiguous
+//   outputs share sectors), one atomic an output.
+constexpr int kDigestLaneBlock = 128;
+
+template <int LA, int LB, int LC, int LD>
+struct DigestClass {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  static constexpr int N = C::NAB * C::NCD;  // doubles of one block
+  // the lane route: K4/K5's lane class pairs whose blocks hold at most
+  // JC_DIGEST_LANE_MAX_N integrals
+  static constexpr bool kLane = C::kLane && N <= JC_DIGEST_LANE_MAX_N;
+  // lane route: doubles a warp stages (its 32 blocks and one to realign)
+  static constexpr int kWarpStage = 32 * N + 2;
+  // warp route: a warp's block and its D blocks
+  static constexpr int kWarpDoubles = N + C::NDG;
+  // bytes of dynamic shared memory a warp takes on its route
+  static constexpr size_t warp_bytes() {
+    return sizeof(double) * (kLane ? kWarpStage : kWarpDoubles);
+  }
+};
+
+// K6, lane route: cached block q of thread q, weight[q], digested into JK
+// (K5's lane_digest); j_ab summed over the runs of one bra row in the
+// warp (run_sums) before one lane adds it.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(kDigestLaneBlock)
+digest_jk_lane_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
+                      const int64_t* __restrict__ sel_bra,
+                      const int64_t* __restrict__ sel_ket,
+                      const double* __restrict__ weight, int64_t n,
+                      const double* __restrict__ I,
+                      const double* __restrict__ D, int64_t nbf, double* JK) {
+  using G = DigestClass<LA, LB, LC, LD>;
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NAB = C::NAB, N = G::N;
+  const int lane = threadIdx.x & 31;
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t q0 = q - lane;
+  if (q0 >= n) return;  // the whole warp
+  extern __shared__ double sm[];
+  double* dst = sm + (int64_t)(threadIdx.x >> 5) * G::kWarpStage;
+  const int64_t nq = n - q0 < 32 ? n - q0 : 32;
+  const double* Iq = stage_doubles(dst, I + q0 * N, nq * N, lane) + lane * N;
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  constexpr int NKC = (NA + NB) * NC, NKD = (NA + NB) * ND;
+  double jab[NAB], kc[NKC], kd[NKD];
+  // keys of a lane's own past the last block: its bra row, its bra row
+  // with its ket's first shell (the AO offset c), and with its second (d)
+  int64_t r = -1 - lane, rc = -1 - lane, rd = -1 - lane, c = 0;
+  if (q < n) {
+    r = sel_bra[q];
+    c = sel_ket[q];
+    rc = (r << 24) | mk[c * kMeta];
+    rd = (r << 24) | mk[c * kMeta + 1];
+    lane_digest<LA, LB, LC, LD>(Iq, weight[q], mb + r * kMeta,
+                                mk + c * kMeta, D, nbf, JK, JK + nbf * nbf,
+                                jab, kc, kd);
+  } else {
+    static_for<NAB>([&](auto e) { jab[decltype(e)::value] = 0.0; });
+    static_for<NKC>([&](auto e) { kc[decltype(e)::value] = 0.0; });
+    static_for<NKD>([&](auto e) { kd[decltype(e)::value] = 0.0; });
+  }
+  // j_ab: one sum per run of lanes with one bra row; k_ac, k_bc: one per
+  // run with one bra row and one ket shell c; one atomic an element
+  double* K = JK + nbf * nbf;
+  if (run_sums<NAB>(jab, r, lane) && q < n) {
+    const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
+    static_for<NAB>([&](auto e) {
+      constexpr int ab = decltype(e)::value;
+      atomicAdd(JK + (oa + ab / NB) * nbf + ob + ab % NB, jab[ab]);
+    });
+  }
+  if (run_sums<NKC>(kc, rc, lane) && q < n) {
+    const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
+    const int64_t oc = mk[c * kMeta];
+    static_for<NKC>([&](auto e) {
+      constexpr int x = decltype(e)::value;
+      constexpr int p = x / NC, cc = x % NC;   // p < NA: a, else b = p - NA
+      atomicAdd(K + (p < NA ? oa + p : ob + p - NA) * nbf + oc + cc, kc[x]);
+    });
+  }
+  // k_ad, k_bd: the lanes of one bra row and one ket shell d are not
+  // adjacent (a row's kets come sorted by their first shell), so they are
+  // summed by key into the group's first lane, one atomic an element
+  if (group_sums<NKD>(kd, rd, lane) && q < n) {
+    const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
+    const int64_t od = mk[c * kMeta + 1];
+    static_for<NKD>([&](auto e) {
+      constexpr int x = decltype(e)::value;
+      constexpr int p = x / ND, dd = x % ND;   // p < NA: a, else b = p - NA
+      atomicAdd(K + (p < NA ? oa + p : ob + p - NA) * nbf + od + dd, kd[x]);
+    });
+  }
+}
+
+// K6, warp route: cached block q of warp q, copied into the warp's shared
+// memory with its D blocks and digested at once (jk_element, one f64
+// atomic an output).
 template <int LA, int LB, int LC, int LD>
 __global__ void __launch_bounds__(32 * kEri4cMaxWarps)
-digest_jk_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
-                 const int64_t* __restrict__ sel_bra,
-                 const int64_t* __restrict__ sel_ket,
-                 const double* __restrict__ weight, int64_t n,
-                 const double* __restrict__ I, const double* __restrict__ D,
-                 int64_t nbf, double* JK) {
+digest_jk_warp_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
+                      const int64_t* __restrict__ sel_bra,
+                      const int64_t* __restrict__ sel_ket,
+                      const double* __restrict__ weight, int64_t n,
+                      const double* __restrict__ I,
+                      const double* __restrict__ D, int64_t nbf, double* JK) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int N = C::NAB * C::NCD;
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  digest_jk_body<LA, LB, LC, LD>(sm, mb, mk, sel_bra, sel_ket, weight, n, I,
-                                 D, nbf, JK, q, warp, lane);
+  if (q >= n) return;
+  double* sI = sm + (int64_t)warp * DigestClass<LA, LB, LC, LD>::kWarpDoubles;
+  double* sDg = sI + N;
+  const double* Iq = I + q * N;
+  const int64_t r = sel_bra[q], c = sel_ket[q];
+  const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
+  const int64_t oc = mk[c * kMeta], od = mk[c * kMeta + 1];
+  for (int e = lane; e < N; e += 32) sI[e] = Iq[e];
+  for (int e = lane; e < C::NDG; e += 32)
+    sDg[e] = dg_element<LA, LB, LC, LD>(e, oa, ob, oc, od, D, nbf);
+  __syncwarp();
+  const double w = weight[q];
+  for (int e = lane; e < C::NOUT; e += 32) {
+    double* dst;
+    const double s = jk_element<LA, LB, LC, LD>(sI, sDg, e, oa, ob, oc, od,
+                                                nbf, JK, JK + nbf * nbf, dst);
+    atomicAdd(dst, w * s);
+  }
 }
 
 }  // namespace jc

@@ -4,7 +4,8 @@
 // classes (0,0) (0,1) (0,2) (0,3) (1,1) (1,2) (1,3) (2,2) (2,3) (3,3)
 // reaches from its bra class, so nvcc builds the bra classes in parallel.
 // K4/K5 instantiate only the route of their class pair (lane or warp,
-// JC_ERI4C_LANE_MASK).  Each function returns the CUDA error of its launch
+// JC_ERI4C_LANE_MASK), K6 the route of its class pair (lane or warp,
+// DigestClass::kLane).  Each function returns the CUDA error of its launch
 // (0 on success).
 #pragma once
 
@@ -124,22 +125,59 @@ int eri4c_geometry_query(int Ka, int Kb, int Kc, int Kd, long long* out) {
   return (int)err;
 }
 
+// K6 launches the route of its class pair (DigestClass::kLane): the lane
+// route one block a thread, kDigestLaneBlock threads a block; the warp
+// route one block a warp, warps a block from the footprint.
+template <int LA, int LB, int LC, int LD>
+struct DigestLaunch {
+  using G = DigestClass<LA, LB, LC, LD>;
+  static auto kern() {
+    if constexpr (G::kLane) return digest_jk_lane_kernel<LA, LB, LC, LD>;
+    else return digest_jk_warp_kernel<LA, LB, LC, LD>;
+  }
+  static int warps() {
+    return G::kLane ? kDigestLaneBlock / 32 : eri4c_warps(G::warp_bytes());
+  }
+};
+
 template <int LA, int LB, int LC, int LD>
 int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
                      const long long* sel_ket, const double* weight,
                      long long n, const double* I, const double* D,
                      long long nbf, double* JK, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const size_t wb = sizeof(double) * DigestSmem<LA, LB, LC, LD>().total;
-  const int W = eri4c_warps(wb);
-  auto kern = digest_jk_kernel<LA, LB, LC, LD>;
-  cudaError_t err = eri4c_prepare(kern, W * wb);
+  using L = DigestLaunch<LA, LB, LC, LD>;
+  auto kern = L::kern();
+  const int W = L::warps();
+  const size_t bytes = W * L::G::warp_bytes();
+  cudaError_t err = eri4c_prepare(kern, bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n + W - 1) / W;
-  kern<<<(unsigned)blocks, 32 * W, W * wb, stream>>>(
+  const long long per = L::G::kLane ? kDigestLaneBlock : W;
+  kern<<<(unsigned)((n + per - 1) / per), 32 * W, bytes, stream>>>(
       mb, mk, reinterpret_cast<const int64_t*>(sel_bra),
       reinterpret_cast<const int64_t*>(sel_ket), weight, n, I, D, nbf, JK);
   return (int)cudaGetLastError();
+}
+
+// K6's launch geometry for one class pair, as built, for the smoke and the
+// tools: out = {lane route (1) or warp route (0), warps a block, bytes of
+// shared memory a warp, blocks an SM holds (CUDA's occupancy
+// calculator)}; nothing is launched.
+template <int LA, int LB, int LC, int LD>
+int digest_geometry_query(long long* out) {
+  using L = DigestLaunch<LA, LB, LC, LD>;
+  auto kern = L::kern();
+  const int W = L::warps();
+  const size_t bytes = W * L::G::warp_bytes();
+  int blocks = 0;
+  cudaError_t err = eri4c_prepare(kern, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, 32 * W,
+                                                        bytes);
+  const long long v[4] = {L::G::kLane ? 1 : 0, W,
+                          (long long)L::G::warp_bytes(), blocks};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return (int)err;
 }
 
 }  // namespace jc
@@ -178,10 +216,14 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
     return jc::digest_jk_launch<LA, LB, LC, LD>(                             \
         mb, mk, sel_bra, sel_ket, weight, n, I, D, nbf, JK,                  \
         (cudaStream_t)stream);
+#define JC_DIGEST_GEOMETRY_KET(LA, LB, LC, LD)                               \
+  if (lc == LC && ld == LD)                                                  \
+    return jc::digest_geometry_query<LA, LB, LC, LD>(out);
 
 // jc_eri4c_b<LA><LB> (K4), jc_eri4c_jk_b<LA><LB> (K5),
-// jc_digest_jk_b<LA><LB> (K6) and jc_eri4c_geometry_b<LA><LB> (K5's
-// geometry) over the ket classes KETS(X) of one bra class; a ket class it
+// jc_digest_jk_b<LA><LB> (K6), jc_eri4c_geometry_b<LA><LB> (K5's
+// geometry) and jc_digest_jk_geometry_b<LA><LB> (K6's) over the ket
+// classes KETS(X) of one bra class; a ket class it
 // lacks returns cudaErrorInvalidValue.
 #define JC_ERI4C_BRA(LA, LB, KETS)                                           \
   static int jc_eri4c_any_b##LA##LB(                                         \
@@ -212,6 +254,11 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
   extern "C" int jc_eri4c_geometry_b##LA##LB(int lc, int ld, int Ka, int Kb, \
                                              int Kc, int Kd, long long* out) { \
     KETS(JC_GEOMETRY_KET, LA, LB)                                            \
+    return (int)cudaErrorInvalidValue;                                       \
+  }                                                                          \
+  extern "C" int jc_digest_jk_geometry_b##LA##LB(int lc, int ld,             \
+                                                 long long* out) {           \
+    KETS(JC_DIGEST_GEOMETRY_KET, LA, LB)                                     \
     return (int)cudaErrorInvalidValue;                                       \
   }
 

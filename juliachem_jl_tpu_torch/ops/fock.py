@@ -14,10 +14,12 @@ skeleton-Fock + symmetrise scheme (SCF.jl:626-641).
 
 On the card the digestion is kernel K5 (``eri4c_jk``: ERI + digestion fused,
 direct mode) or K6 (``digest_jk``: cached blocks, in-core mode, filled once by
-K4), both summing into J/K with f64 atomics; on the CPU their plain versions
-run (``_digest_vals`` + ``index_add_``).  Targets come from the pair offsets,
-so no per-quartet index streams are kept; the JAX package's TPU workarounds
-(nbf padding, bucketed chunk counts, the gather-sum plan) are not ported.
+K4; each class pair on its route of ``kernels.digest_route``, as built:
+``digest_geometry``), both summing into J/K with f64 atomics; on the CPU
+their plain versions run (``_digest_vals`` + ``index_add_``).  Targets come
+from the pair offsets, so no per-quartet index streams are kept; the JAX
+package's TPU workarounds (nbf padding, bucketed chunk counts, the
+gather-sum plan) are not ported.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ from ..basis.structs import Basis, ncart
 from ..models.scf import FockBuilder
 from ..utils.timings import Timings
 from . import kernels
-from .eri import (PairTable, check_tables, eri4c_class, eri4c_plain,
-                  full_eri_tensor, pair_table, plain_chunk)
+from .eri import (PairTable, check_kernel_class, check_tables, eri4c_class,
+                  eri4c_plain, full_eri_tensor, pair_table, plain_chunk)
 from .pairs import PairBlock, unique_pair_blocks
 from .schwarz import pair_schwarz, screened_quartets
 from .segsum import reduce_into
@@ -214,7 +216,10 @@ def digest_jk(JK, I, bra: PairTable, ket: PairTable, sel_bra, sel_ket,
               weight, D) -> None:
     """Kernel K6: JK[0] (J) and JK[1] (K) += the six-image digestion of the
     cached blocks I [N, nab, ncd] of quartets (sel_bra, sel_ket) with their
-    symmetry weights, against the symmetric D [nbf, nbf]."""
+    symmetry weights, against the symmetric D [nbf, nbf].  Quartets in bra-row
+    order (``screened_quartets``) let the lane route sum the targets that
+    consecutive blocks share before its atomics; any order gives the same
+    J/K."""
     n = sel_bra.shape[0]
     if I.shape[0] != n or sel_ket.shape != (n,) or weight.shape != (n,):
         raise ValueError("digest_jk: inconsistent quartet counts")
@@ -226,11 +231,32 @@ def digest_jk(JK, I, bra: PairTable, ket: PairTable, sel_bra, sel_ket,
                  (sel_ket, torch.int64), (weight, torch.float64),
                  (I, torch.float64))
     if n:
-        kernels.launch("jc_digest_jk", bra.la, bra.lb, ket.la, ket.lb,
-                       bra.meta.data_ptr(), ket.meta.data_ptr(),
-                       sel_bra.data_ptr(), sel_ket.data_ptr(),
-                       weight.data_ptr(), n, I.data_ptr(), D.data_ptr(), nbf,
-                       JK.data_ptr(), cls=(bra.la, bra.lb, ket.la, ket.lb))
+        cls = (bra.la, bra.lb, ket.la, ket.lb)
+        kernels.launch("jc_digest_jk", *cls, bra.meta.data_ptr(),
+                       ket.meta.data_ptr(), sel_bra.data_ptr(),
+                       sel_ket.data_ptr(), weight.data_ptr(), n, I.data_ptr(),
+                       D.data_ptr(), nbf, JK.data_ptr(), cls=cls)
+
+
+def digest_geometry(bra: PairTable, ket: PairTable) -> dict:
+    """K6's launch geometry for the class pair of two CUDA pair tables, as
+    csrc/eri4c_launch.cuh built it: the route ("lane" or "warp"), warps a
+    block, shared-memory bytes a warp and the blocks an SM holds (CUDA's
+    occupancy calculator).  Nothing is launched."""
+    import ctypes
+
+    cls = (bra.la, bra.lb, ket.la, ket.lb)
+    check_kernel_class("digest_geometry", *cls)
+    out = (ctypes.c_longlong * 4)()
+    lib = kernels.library()
+    rc = lib.jc_digest_jk_geometry(*cls, out)
+    if rc != 0:
+        raise RuntimeError(f"jc_digest_jk_geometry failed: CUDA error {rc} "
+                           f"({lib.jc_error_string(rc).decode()})")
+    lane, W, nbytes, blocks = list(out)
+    return {"route": "lane" if lane else "warp", "warps_per_block": W,
+            "warp_bytes": nbytes, "blocks_per_sm": blocks,
+            "warps_per_sm": blocks * W}
 
 
 def launch_eri4c_jk(JK, D, bra: PairTable, ket: PairTable, n: int, *,

@@ -32,6 +32,9 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # built with them (csrc/df_gather_w.cu) and models/df_screened.py::k2_slabs
 # lists its live slabs on the same tiles
 K2_SLAB_M, K2_TILE_N = 16, 64
+# K8's tile (csrc/split_fold.cu): output rows and columns per block and k
+# per shared-memory stage
+K8_TILE_M, K8_TILE_N, K8_SLAB = 128, 64, 16
 # K4/K5's route table (csrc/eri4c.cuh): the class pairs (la lb | lc ld)
 # that run one quartet per thread, everything in registers; every other
 # class pair runs quartets per warp in shared memory.  Chosen class by class
@@ -42,6 +45,15 @@ K2_SLAB_M, K2_TILE_N = 16, 64
 # memory).  The kernels are built with it (route_flags).
 ERI4C_LANE_MAX_L = 6
 ERI4C_LANE_EXCLUDE = frozenset({(1, 2, 1, 2)})
+# K6's route table (csrc/eri4c.cuh DigestClass): the class pairs of K4/K5's
+# lane route whose blocks hold at most DIGEST_LANE_MAX_N integrals digest
+# one cached block a thread (lane); the rest one block a warp (warp).
+# Chosen class by class from the card's times of both routes over one
+# in-core build of ammonia_trimer in 6-311++G(2d,2p) and 6-31G(2df,p)
+# (PERF.md §6): the lane route wins to N = 27 (1.1-8.8x), loses from N =
+# 36.  The kernels are built with it (NVCC_FLAGS), each class pair on its
+# route only.
+DIGEST_LANE_MAX_N = 27
 # K1's bra classes (la, lb), in the order of the bits of its route masks
 # (csrc/eri3c.cuh eri3c_bra: bit 5 * index + lq): the primary pairs to
 # (ff) and the (0, 4) unit bra of the 2-center metric
@@ -67,13 +79,23 @@ ERI3C_LANE_MAX_L_WIDE = 4
 ERI3C_WIDE_NAB = 16
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DJC_K2_SLAB_M={K2_SLAB_M}",
-              f"-DJC_K2_TILE_N={K2_TILE_N}")
+              f"-DJC_K2_TILE_N={K2_TILE_N}", f"-DJC_K8_TILE_M={K8_TILE_M}",
+              f"-DJC_K8_TILE_N={K8_TILE_N}", f"-DJC_K8_SLAB={K8_SLAB}",
+              f"-DJC_DIGEST_LANE_MAX_N={DIGEST_LANE_MAX_N}")
 
 
 def eri4c_route(la: int, lb: int, lc: int, ld: int) -> str:
     """The route K4/K5 take for a class pair: "lane" or "warp"."""
     lane = (la + lb + lc + ld <= ERI4C_LANE_MAX_L
             and (la, lb, lc, ld) not in ERI4C_LANE_EXCLUDE)
+    return "lane" if lane else "warp"
+
+
+def digest_route(la: int, lb: int, lc: int, ld: int) -> str:
+    """The route K6 takes for a class pair: "lane" or "warp"."""
+    n = ((la + 1) * (la + 2) * (lb + 1) * (lb + 2) * (lc + 1) * (lc + 2)
+         * (ld + 1) * (ld + 2)) // 16
+    lane = eri4c_route(la, lb, lc, ld) == "lane" and n <= DIGEST_LANE_MAX_N
     return "lane" if lane else "warp"
 
 
@@ -258,6 +280,8 @@ def library() -> ctypes.CDLL:
             lib.jc_mp2_e2_partials.restype = _LL
             lib.jc_eri4c_geometry.argtypes = [_I] * 8 + [_P]
             lib.jc_eri4c_geometry.restype = _I
+            lib.jc_digest_jk_geometry.argtypes = [_I] * 4 + [_P]
+            lib.jc_digest_jk_geometry.restype = _I
             lib.jc_eri3c_geometry.argtypes = [_I] * 6 + [_P]
             lib.jc_eri3c_geometry.restype = _I
             _lib = lib

@@ -12,12 +12,15 @@ Bounds: K1 and K4 1e-12 x the output's max-abs, K2 1e-12 relative in f64
 1e-14 relative; K4 and K5 on each route (lane, warp) in every mode, at
 quartet counts and t0 that are not multiples of 32; K5 (list and staircase modes) and K6:
 J and K within 1e-11 x max(|J|, |K|) of the plain versions (f64 atomics sum
-in no fixed order); K7 (the MP2 pair energy, modes rmp2, ss, os) within
+in no fixed order), K6 on its route (lane or warp) for every class pair,
+from blocks that are not 16-byte aligned and over batches whose bra runs
+cross warps; K7 (the MP2 pair energy, modes rmp2, ss, os) within
 1e-12 x max(1, |E|) of its plain version, the same bits from two
 launches, and its occupied-range split
 (like K5's t0 split) summing to the whole-range launch; K8 (the split fold) within
 4 sqrt(K) 2^-24 (|Mh| + |Ml|) |X| of its plain version and of the f64
-product; K1's f32 store and K2's f32-B instance bit for bit equal to the f64
+product, at shapes ragged in R, K and C, M lower triangular or full, and
+at w8's fold chunk; K1's f32 store and K2's f32-B instance bit for bit equal to the f64
 output rounded and to the f64 instance on the upcast block; the DF-RHF,
 conventional RHF and UHF/ROHF energies on the card within 1e-9 Eh of the
 same runs on the CPU, RI-UMP2 on the card's orbitals within 1e-10 Eh; two
@@ -974,3 +977,113 @@ def test_k5_ket_tiles_of_the_f_classes(cuda_device):
     assert (3, 3, 3, 3) in tiled
     assert err4 <= 1e-12 * scale4
     assert float((got - ref).abs().max()) <= 1e-11 * float(ref.abs().max())
+
+
+# --- K6's routes (csrc/eri4c.cuh: lane route one cached block a thread,
+# warp route one block a warp)
+
+def _k6_each_route(cuda_device, prim, seed):
+    """K6 on every class pair of the in-core batches of ``prim``, each on
+    its route as built (``fock.digest_geometry``, held to
+    ``kernels.digest_route``), over the whole batch, from its second block
+    (blocks 8 bytes off a 16-byte boundary where a block has an odd count)
+    and over its first 45 (a warp short after a whole one), against
+    ``digest_plain``; returns the class pairs seen on each route and their
+    geometries."""
+    fb = fock.ScreenedDirectFock(prim, incore=True, device=cuda_device)
+    fb.fill_incore()
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
+                    device=cuda_device, generator=g)
+    D = (X + X.T).contiguous()
+    seen, geos = {"lane": set(), "warp": set()}, {}
+    crossing = 0
+    for grp in fb.groups:   # bra runs that cross a warp's 32 blocks
+        sb = grp.sel_bra.cpu().numpy()
+        crossing += int(np.sum(sb[31:-1:32] == sb[32::32]))
+    assert crossing > 0
+    got, ref = (torch.zeros((2, prim.nbf, prim.nbf), dtype=torch.float64,
+                            device=cuda_device) for _ in range(2))
+    kernels.reset_launches()
+    launches = 0
+    for grp in fb.groups:
+        cls = (grp.bra.la, grp.bra.lb, grp.ket.la, grp.ket.lb)
+        n = grp.sel_bra.shape[0]
+        geos[cls] = geo = fock.digest_geometry(grp.bra, grp.ket)
+        assert geo["route"] == kernels.digest_route(*cls), cls
+        assert geo["blocks_per_sm"] >= 1, cls
+        seen[geo["route"]].add(cls)
+        for sel in (slice(None), slice(1, None), slice(0, 45)):
+            if len(range(n)[sel]) == 0:
+                continue
+            args = (grp.I[sel], grp.bra, grp.ket, grp.sel_bra[sel],
+                    grp.sel_ket[sel], grp.weight[sel], D)
+            fock.digest_jk(got, *args)
+            fock.digest_plain(ref, args[0], args[5], D, args[1], args[2],
+                              args[3], args[4])
+            launches += 1
+    assert kernels.launches["digest_jk"] == launches
+    assert float((got - ref).abs().max()) <= 1e-11 * float(ref.abs().max())
+    return seen, geos
+
+
+@pytest.mark.cuda
+def test_k6_each_class_pair_on_its_route_matches_plain(cuda_device):
+    """Water in 6-311++G(2d,2p), class pairs to (dd|dd): K6, each class
+    pair on its route, within 1e-11 x max(|J|, |K|) of ``digest_plain``
+    (``_k6_each_route``); the lane route runs on exactly the route table's
+    class pairs, all of them on K4/K5's lane route."""
+    prim, _ = _water("6-311++G(2d,2p)")
+    seen, _ = _k6_each_route(cuda_device, prim, 19)
+    assert len(seen["lane"]) + len(seen["warp"]) == 21
+    assert seen["lane"] and all(kernels.eri4c_route(*c) == "lane"
+                                for c in seen["lane"])
+    assert (2, 2, 2, 2) in seen["warp"]
+
+
+@pytest.mark.cuda
+def test_k6_each_f_class_pair_on_its_route_matches_plain(cuda_device):
+    """Two waters in 6-31G(2df,p), all 55 class pairs to (ff|ff): K6, each
+    class pair on its route, within 1e-11 x max(|J|, |K|) of
+    ``digest_plain``; (ff|ff) on the warp route, two warps an SM."""
+    prim, _ = _two_waters_f()
+    seen, geos = _k6_each_route(cuda_device, prim, 23)
+    assert len(seen["lane"]) + len(seen["warp"]) == 55
+    assert len(seen["lane"]) >= 8
+    assert geos[(3, 3, 3, 3)]["route"] == "warp"
+    assert geos[(3, 3, 3, 3)]["warps_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("R,K,C,off", [
+    (129, 131, 67, 1), (300, 300, 1001, 4), (1112, 1112, 16384, 32),
+    (257, 250, 130, 0)])
+def test_k8_ragged_shapes_match_plain_and_f64(cuda_device, R, K, C, off,
+                                              lower):
+    """K8 at shapes that are not multiples of its 128 x 64 tile nor of its
+    16-deep slab (and w8's fold chunk, A = 1112, C = 16384), M lower
+    triangular or full, X a column chunk of a wider B (offset ``off``:
+    4-byte copies where a row is not 16-byte aligned): one launch each,
+    within 4 sqrt(K) 2^-24 (|Mh| + |Ml|) |X| of the plain version and of
+    the f64 product elementwise."""
+    from juliachem_jl_tpu_torch.models import linalg
+
+    rng = np.random.default_rng(R + K + C)
+    M = rng.standard_normal((R, K)) / K ** 0.5
+    if lower:
+        M = np.tril(M)
+    Bfull = rng.standard_normal((K, C + off + 3)).astype(np.float32)
+    Mh = torch.tensor(M, device=cuda_device).float()
+    Ml = (torch.tensor(M, device=cuda_device) - Mh.double()).float()
+    X = torch.tensor(Bfull, device=cuda_device)[:, off:off + C]
+    n0 = kernels.launches["split_fold"]
+    got = linalg.split_fold(Mh, Ml, X, lower=lower)
+    assert kernels.launches["split_fold"] == n0 + 1
+    assert got.shape == (R, C) and bool(torch.isfinite(got).all())
+    ref = linalg.split_fold_plain(Mh, Ml, X)
+    bound = 4 * K**0.5 * 2.0**-24 * ((Mh.abs() + Ml.abs()).double()
+                                     @ X.abs().double())
+    assert bool(((got - ref).double().abs() <= bound).all())
+    exact = (Mh.double() + Ml.double()) @ X.double()
+    assert bool(((got.double() - exact).abs() <= bound).all())

@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Time K5 (staircase mode) class pair by class pair over one full
-conventional build of benzene_2_water on one NVIDIA GPU.
+"""Time K5 (staircase mode) or K6 (in-core digestion) class pair by class
+pair over full conventional builds on one NVIDIA GPU.
 
-    python3 tools/eri4c_class_times.py [--root DIR] [--out result.json]
+    python3 tools/eri4c_class_times.py [--mode stair|digest_jk] [--root DIR]
+                                       [--out result.json]
 
 Builds the kernels of the package under ``--root`` (default: this
 checkout; another checkout, such as a parent commit unpacked beside it,
-compares two trees in one call), then runs one full StreamingDirectFock
-build of benzene_2_water (the S22x3 geometry, 6-311++G(2d,2p)) at a
-seeded random symmetric density (the kernel's work does not depend on D),
-each class pair's launch timed by CUDA events after a warm-up build:
-``chip_smoke.stair_class_times``, with each class pair's route as the
-package was built (a package without ``eri.eri4c_geometry`` has one warp
-per quartet: "warp").  Every line names the card and its power limit.  Needs CUDA;
-exits 2 without it.
+compares two trees in one call), then, at a seeded random symmetric
+density (the kernels' work does not depend on D), each class pair's
+launch timed by CUDA events after a warm-up build:
+
+- ``--mode stair`` (default): one full StreamingDirectFock build of
+  benzene_2_water (the S22x3 geometry, 6-311++G(2d,2p)),
+  ``chip_smoke.stair_class_times``, with each class pair's route as the
+  package was built (a package without ``eri.eri4c_geometry`` has one
+  warp per quartet: "warp");
+- ``--mode digest_jk``: one in-core ScreenedDirectFock build (K4 fills the
+  blocks, K6 digests them) of ammonia_trimer in its S22x3 basis
+  (6-311++G(2d,2p), 5.83e6 quartets) and in 6-31G(2df,p) (1.21e6),
+  ``chip_smoke.incore_k6_times`` (each class pair's K6 route is
+  ``kernels.digest_route``'s, fixed when the package is built).
+
+Every line names the card and its power limit.  Needs CUDA; exits 2
+without it.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ HERE = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("stair", "digest_jk"), default="stair")
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -63,6 +74,32 @@ def main() -> int:
     regs = smoke.eri4c_registers(tag) if "log" in kernels.build_info else {}
     goldens = json.loads((HERE / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
+    if args.mode == "digest_jk":
+        from juliachem_jl_tpu_torch.ops import fock
+
+        golden = goldens["ammonia_trimer"]
+        out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+               "root": str(root), "ptxas": regs, "builds": {}}
+        for basis in (golden["basis"], smoke.F_BASIS_SMALL):
+            sp = jc.io.parse_input(smoke.system_input(
+                "ammonia_trimer", {**golden, "basis": basis}, aux=False))
+            prim = jc.basis.run(jc.molecule.run(sp), sp.model).primary
+            gen = torch.Generator(device=dev).manual_seed(5)
+            X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
+                            device=dev, generator=gen)
+            fb = fock.ScreenedDirectFock(prim, incore=True, device=dev)
+            fb.jk_halves(X + X.T)   # K4 fills the blocks; the warm-up build
+            name = f"ammonia_trimer {basis}"
+            out["builds"][name] = smoke.incore_k6_times(
+                tag, fb, X + X.T, name)
+            fb.finalize()
+            del fb
+            torch.cuda.empty_cache()
+        jc.finalize()
+        if args.out:
+            Path(args.out).write_text(json.dumps(smoke.str_keys(out),
+                                                 indent=1, default=str))
+        return 0
     golden = goldens["benzene_2_water"]
     inp = smoke.system_input("benzene_2_water", golden, aux=False)
     sp = jc.io.parse_input(inp)

@@ -14,7 +14,10 @@ every class pair of the Schwarz staircase: K4 on the staircase's quartets
 against ``eri4c_plain``; K5 in staircase mode over the whole range and
 over three ranges whose starts are not multiples of 32, and in list mode
 over ScreenedDirectFock's batches, against the plain versions; K6 on the
-list batches against ``digest_plain``.  Bounds: K4 1e-12 x max |I|, J/K
+list batches against ``digest_plain``, each class pair on its route as
+built (lane or warp), then from the second block of each batch (blocks 8
+bytes off a 16-byte boundary) and on its first 45 blocks.  Bounds: K4
+1e-12 x max |I|, J/K
 1e-11 x max(|J|, |K|), the card's gates.  Prints each error, exits 1 if
 one is over its bound.  Classes up to (dd|dd), and the f class pairs when
 the basis has f shells (harness.cpp's lists); ``--warp-cap`` builds the
@@ -60,7 +63,9 @@ def build(cut: int, warp_cap: int | None, with_f: bool) -> ctypes.CDLL:
     extra = ([f"-DJC_ERI4C_WARP_CAP={warp_cap}"] if warp_cap else []) + \
         (["-DRH_WITH_F"] if with_f else [])
     subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
-                    "-pthread", *kernels.route_flags(), *extra,
+                    "-pthread", *kernels.route_flags(),
+                    f"-DJC_DIGEST_LANE_MAX_N={kernels.DIGEST_LANE_MAX_N}",
+                    *extra,
                     "-I", str(HERE / "shim"), "-I", str(CSRC),
                     str(HERE / "harness.cpp"), "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
@@ -72,6 +77,7 @@ def build(cut: int, warp_cap: int | None, with_f: bool) -> ctypes.CDLL:
                                            _P, _LL, _P]
     lib.rh_digest_jk.argtypes = [_I] * 4 + [_P, _P, _P, _P, _P, _LL, _P, _P,
                                             _LL, _P]
+    lib.rh_digest_lane.argtypes = [_I] * 4
     return lib
 
 
@@ -98,6 +104,19 @@ def k5(lib, JK, D, bra, ket, n, sel_bra=None, sel_ket=None, weight=None,
                          ptr(weight), ptr(cum),
                          0 if cum is None else cum.shape[0], int(same), n, t0,
                          ptr(D), D.shape[0], ptr(JK))
+    assert rc == 0, rc
+
+
+def k6(lib, JK, D, g, I, sel):
+    """K6 on the quartets ``sel`` of batch g (blocks I[sel], which may
+    start 8 bytes off a 16-byte boundary), on the route of its class pair
+    as built."""
+    sb, sk, w = (t[sel].contiguous() for t in (g.sel_bra, g.sel_ket,
+                                                g.weight))
+    rc = lib.rh_digest_jk(g.bra.la, g.bra.lb, g.ket.la, g.ket.lb,
+                          ptr(g.bra.meta), ptr(g.ket.meta), ptr(sb), ptr(sk),
+                          ptr(w), sb.shape[0], ptr(I), ptr(D), D.shape[0],
+                          ptr(JK))
     assert rc == 0, rc
 
 
@@ -168,8 +187,10 @@ def main() -> int:
         report("K5 staircase from t0 (ranges split at 5 and 37 + N/3)",
                max(float((split - ref).abs().max()),
                    float((split - plain_split).abs().max())), 1e-11 * s)
-        # K5 list mode and K6 over ScreenedDirectFock's batches
+        # K5 list mode and K6 over ScreenedDirectFock's batches, K6 on the
+        # route of each class pair as built (held to kernels.digest_route)
         ref, got, got6 = zeros(), zeros(), zeros()
+        routes = {}
         for g in sdirect.groups:
             n = g.sel_bra.shape[0]
             I = eri.eri4c_plain(g.bra, g.ket, g.sel_bra, g.sel_ket)
@@ -177,17 +198,37 @@ def main() -> int:
                               g.sel_ket)
             k5(lib, got, D, g.bra, g.ket, n, sel_bra=g.sel_bra,
                sel_ket=g.sel_ket, weight=g.weight)
-            I = I.contiguous()
-            rc = lib.rh_digest_jk(g.bra.la, g.bra.lb, g.ket.la, g.ket.lb,
-                                  ptr(g.bra.meta), ptr(g.ket.meta),
-                                  ptr(g.sel_bra), ptr(g.sel_ket),
-                                  ptr(g.weight), n, ptr(I), ptr(D), nbf,
-                                  ptr(got6))
-            assert rc == 0, rc
+            k6(lib, got6, D, g, I.contiguous(), slice(None))
+            cls = (g.bra.la, g.bra.lb, g.ket.la, g.ket.lb)
+            routes[cls] = ("warp", "lane")[lib.rh_digest_lane(*cls)]
+            if routes[cls] != kernels.digest_route(*cls):
+                bad += 1
+                print(f"  K6 {cls}: built {routes[cls]}, table "
+                      f"{kernels.digest_route(*cls)}  FAIL", flush=True)
         s = float(ref.abs().max())
         report(f"K5 list, {len(sdirect.groups)} batches",
                float((got - ref).abs().max()), 1e-11 * s)
-        report("K6", float((got6 - ref).abs().max()), 1e-11 * s)
+        report("K6, each class pair on its route",
+               float((got6 - ref).abs().max()), 1e-11 * s)
+        print("  K6 routes built: " + ", ".join(
+            f"({c[0]}{c[1]}|{c[2]}{c[3]}) {r}"
+            for c, r in sorted(routes.items())), flush=True)
+        # K6 from the second block on (I 8 bytes off a 16-byte boundary
+        # where a block has an odd count) and on the first 45 blocks (a
+        # warp short of 32 after one whole warp)
+        ref, got6 = zeros(), zeros()
+        for g in sdirect.groups:
+            n = g.sel_bra.shape[0]
+            I = eri.eri4c_plain(g.bra, g.ket, g.sel_bra, g.sel_ket)
+            for sel in (slice(1, None), slice(0, 45)):
+                if len(range(n)[sel]) == 0:
+                    continue
+                fock.digest_plain(ref, I[sel], g.weight[sel], D, g.bra,
+                                  g.ket, g.sel_bra[sel], g.sel_ket[sel])
+                k6(lib, got6, D, g, I.contiguous()[sel], sel)
+        report("K6 from block 1 and on blocks 0-44",
+               float((got6 - ref).abs().max()),
+               1e-11 * float(ref.abs().max()))
     return 1 if bad else 0
 
 

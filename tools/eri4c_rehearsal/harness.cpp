@@ -17,7 +17,8 @@ thread_local dim3 threadIdx, blockIdx, blockDim;
 thread_local WarpCtx* tl_warp;
 
 namespace jc {
-double sm[1 << 17];  // the dynamic shared memory of the block that runs
+// the dynamic shared memory of the block that runs
+alignas(16) double sm[1 << 17];
 }
 
 namespace {
@@ -95,15 +96,30 @@ int eri4c_jk(const double* pb, int Ka, int Kb, const int* mb,
   return 0;
 }
 
+// K6 on the route of its class pair (DigestClass::kLane): the lane
+// route's blocks of kDigestLaneBlock threads, the warp route's warps of
+// one block each, warps a block from the footprint
 template <int LA, int LB, int LC, int LD>
 int digest_jk(const int* mb, const int* mk, const int64_t* sb,
               const int64_t* sk, const double* weight, long long n,
               const double* I, const double* D, long long nbf, double* JK) {
   using namespace jc;
+  using G = DigestClass<LA, LB, LC, LD>;
   if (n <= 0) return 0;
-  run_grid(cdiv(n, kEri4cMaxWarps), 32 * kEri4cMaxWarps, [&] {
-    digest_jk_kernel<LA, LB, LC, LD>(mb, mk, sb, sk, weight, n, I, D, nbf, JK);
-  });
+  if constexpr (G::kLane) {
+    if ((kDigestLaneBlock / 32) * G::warp_bytes() > sizeof(sm)) return 1;
+    run_grid(cdiv(n, kDigestLaneBlock), kDigestLaneBlock, [&] {
+      digest_jk_lane_kernel<LA, LB, LC, LD>(mb, mk, sb, sk, weight, n, I, D,
+                                            nbf, JK);
+    });
+  } else {
+    const int W = eri4c_warps(G::warp_bytes());
+    if (W * G::warp_bytes() > sizeof(sm)) return 1;
+    run_grid(cdiv(n, W), 32 * W, [&] {
+      digest_jk_warp_kernel<LA, LB, LC, LD>(mb, mk, sb, sk, weight, n, I, D,
+                                            nbf, JK);
+    });
+  }
   return 0;
 }
 
@@ -191,6 +207,17 @@ int digest_jk(const int* mb, const int* mk, const int64_t* sb,
                                      D, nbf, JK);
 
 extern "C" unsigned long long rh_lane_mask() { return JC_ERI4C_LANE_MASK; }
+
+// K6's route of a class pair as built: lane (1) or warp (0)
+#define RH_K6_ROUTE(LA, LB, LC, LD)                                           \
+  if (la == LA && lb == LB && lc == LC && ld == LD)                           \
+    return jc::DigestClass<LA, LB, LC, LD>::kLane ? 1 : 0;
+
+extern "C" int rh_digest_lane(int la, int lb, int lc, int ld) {
+  RH_CLASSES(RH_K6_ROUTE)
+  RH_F_CLASSES(RH_K6_ROUTE)
+  return 2;
+}
 
 extern "C" int rh_eri4c(int la, int lb, int lc, int ld, const double* pb,
                         int Ka, int Kb, const int* mb, const double* pk,

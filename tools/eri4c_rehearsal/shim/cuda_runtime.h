@@ -4,17 +4,21 @@
 // std::barrier of its 32 threads, __syncthreads one of the block's, a
 // shuffle an exchange through the warp's slots between two barrier waits,
 // atomicAdd an atomic_ref, and dmma.cuh's mma.sync m16n8k4 f64 step an
-// exchange of the 32 lanes' fragments (the PTX ISA's fragment maps).  Used
-// by harness.cpp and eri3c_harness.cpp only.
+// exchange of the 32 lanes' fragments (the PTX ISA's fragment maps), and
+// dmma.cuh's cp.async copies queued per thread and done at the wait that
+// retires their group (zero-filled past the bytes read; the card's
+// alignment asserted).  Used by harness.cpp and eri3c_harness.cpp only.
 #pragma once
 
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cassert>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 #define __host__
 #define __device__
@@ -75,6 +79,44 @@ inline void dmma_16x8x4(double (&c)[4], double a0, double a1, double b) {
   tl_warp->bar->arrive_and_wait();
   for (int e = 0; e < 4; ++e) c[e] = d[e];
 }
+
+struct CpAsyncCopy {
+  void* dst;
+  const void* src;
+  int size, n;
+};
+inline thread_local std::vector<std::vector<CpAsyncCopy>> tl_cp_groups;
+inline thread_local std::vector<CpAsyncCopy> tl_cp_open;
+
+inline void cp_async_queue(void* dst, const void* src, int size, int n) {
+  assert(reinterpret_cast<uintptr_t>(dst) % size == 0);
+  assert(n == 0 || reinterpret_cast<uintptr_t>(src) % size == 0);
+  assert(n >= 0 && n <= size);
+  tl_cp_open.push_back({dst, src, size, n});
+}
+inline void cp_async4(void* dst, const void* src, bool ok) {
+  cp_async_queue(dst, src, 4, ok ? 4 : 0);
+}
+inline void cp_async8(void* dst, const void* src, bool ok) {
+  cp_async_queue(dst, src, 8, ok ? 8 : 0);
+}
+inline void cp_async16(void* dst, const void* src, int n) {
+  cp_async_queue(dst, src, 16, n);
+}
+inline void cp_async_commit() {
+  tl_cp_groups.push_back(std::move(tl_cp_open));
+  tl_cp_open.clear();
+}
+template <int N>
+inline void cp_async_wait() {
+  while (tl_cp_groups.size() > (size_t)N) {
+    for (const CpAsyncCopy& c : tl_cp_groups.front()) {
+      std::memcpy(c.dst, c.src, c.n);
+      std::memset(static_cast<char*>(c.dst) + c.n, 0, c.size - c.n);
+    }
+    tl_cp_groups.erase(tl_cp_groups.begin());
+  }
+}
 }  // namespace jc
 
 template <class T>
@@ -87,6 +129,38 @@ T shfl_from(T v, int src) {
   std::memcpy(&o, tl_warp->slots[src], sizeof(T));
   tl_warp->bar->arrive_and_wait();
   return o;
+}
+
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+
+// the lanes of the warp whose key equals this lane's
+inline unsigned __match_any_sync(unsigned, unsigned long long key) {
+  const int lane = threadIdx.x & 31;
+  std::memcpy(tl_warp->slots[lane], &key, 8);
+  tl_warp->bar->arrive_and_wait();
+  unsigned m = 0;
+  for (int j = 0; j < 32; ++j) {
+    unsigned long long o;
+    std::memcpy(&o, tl_warp->slots[j], 8);
+    if (o == key) m |= 1u << j;
+  }
+  tl_warp->bar->arrive_and_wait();
+  return m;
+}
+
+inline bool __any_sync(unsigned, bool p) {
+  const int lane = threadIdx.x & 31;
+  tl_warp->slots[lane][0] = p;
+  tl_warp->bar->arrive_and_wait();
+  bool any = false;
+  for (int j = 0; j < 32; ++j) any = any || tl_warp->slots[j][0];
+  tl_warp->bar->arrive_and_wait();
+  return any;
+}
+
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  return shfl_from(v, src & 31);
 }
 
 template <class T>

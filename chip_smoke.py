@@ -39,7 +39,12 @@ card's name and power limit):
    the products), and K5's launch geometry of every class pair (its lane
    or warp route as compiled, held to the table of ops/kernels.py; ket
    tiles; warps an SM: a tiled class pair, (ff|ff) among them, must hold
-   two);
+   two); then the g classes the same way at benzene_2_water's shapes in
+   6-311++G(3df,3pd)+G (its GAMESS-US file through ``model.basis_file``):
+   K1 on every g bra (sg) .. (gg) against lq 0..4, (gg|g) alone too, and
+   K4, K6, K5 list and staircase on the first 1024 quartets of every class
+   pair with a g shell, (gg|gg) alone too (bra and ket tiles), with the g
+   instances' routes, registers and spills;
 4. ammonia_trimer DF-RHF through run_spec (dense-B route);
 5. benzene_2_water DF-RHF through run_spec (packed route); the same on an
    f32 B (``df_b_dtype: f32``), held to the JAX package's f32-B energy, and
@@ -102,7 +107,17 @@ card's name and power limit):
    blocks); the first 2 waters of w32 in
    6-31G(2df,p) conventional; the SCF energies held to the JAX package's,
    and each of K1, K4, K5 (both modes) and K6 shown to have launched an f
-   class on its path (K4's (ff|ff) on the SAD atoms).
+   class on its path (K4's (ff|ff) on the SAD atoms);
+11. the g basis 6-311++G(3df,3pd)+G (pair classes to (gg|gg)) through
+   ``model.basis_file``: benzene_2_water DF-RHF (packed B, nbf 1046),
+   below the 3df energy and held to the JAX package's where one is
+   recorded; ethene_ethyne_2 DF-RHF (dense B, nbf 512) held to the JAX
+   package's energy; the first 2 waters of w32 conventional in-core (nbf 196),
+   held to the JAX package's energy, then at its density one direct (K5
+   list) and one streaming (K5 staircase) build held to the in-core one,
+   and K6's time a build there; each of K1, K4, K5 (both modes) and K6
+   shown to have launched a g class on its path (K4's (gg|gg) launches
+   on the SAD atoms counted).
 
 The packed K pass of the w-cluster runs and of one ``benzene_2_water``
 build at its converged D is split by phase with CUDA events (K2, W^T W,
@@ -114,8 +129,8 @@ synchronised wall (``K1Times``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after (each launch is also counted per angular-momentum class).  Energies
-are held to the JAX package's recorded DF, f32-B, MP2 and f-basis
-energies (juliachem_jl_tpu_torch/data/smoke_reference.json, 1e-6 Eh) and to GAMESS
+are held to the JAX package's recorded DF, f32-B, MP2, f-basis and
+g-basis energies (juliachem_jl_tpu_torch/data/smoke_reference.json, 1e-6 Eh) and to GAMESS
 (tests/data/s22x3_gamess_goldens.json: DF within 1.5e-3 Eh, conventional
 within 1.49e-8 relative).  The second-to-last line is ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": ...}``.  Any failed check exits
@@ -181,10 +196,19 @@ W8_SCF = {"niter": 60, "dele": 1e-9, "rmsd": 1e-7,
 E_RESTART_TOL = 1e-9   # restart from the caches vs the run that wrote them
 E_FDIFF_TOL = 1e-8     # incremental Fock vs the full build each iteration
 SUBSET = 4096  # quartets per class pair in the 4-center kernel checks
+# ... and in phase 3g's checks of the g class pairs: their warp route and
+# plain versions take ~2.5 and ~10 s over 4096 quartets of the 65 class
+# pairs, so the check runs at a quarter of that depth
+SUBSET_G = 1024
 # phase 10, the f bases: the repo's production f basis
 # (tools/make_basis_library.py:233) and the smallest f basis of the library
 F_BASIS = "6-311++G(3df,3pd)"
 F_BASIS_SMALL = "6-31G(2df,p)"
+# phase 11, the g basis: the production f basis plus one G shell on C and
+# O (the G exponents of cc-pVTZ-JKFIT), read from its GAMESS-US file
+# through model.basis_file (tools/make_g_basis.py writes it)
+G_BASIS = "6-311++G(3df,3pd)+G"
+G_BASIS_FILE = "tests/data/6-311ppG_3df_3pd_G.gbs"
 BOYS_TCRIT = 35.0  # csrc/boys.cuh: the series up to this T, asymptotic above
 # clock cycles of the kernel that holds the stream while one in-core
 # build's K6 launches are queued (~50 ms at the H100's clocks; queueing 55
@@ -442,19 +466,25 @@ def k6_by_route(tag: str, fb, k6: dict) -> dict:
 
 
 def stair_class_times(tag: str, dev, prim, D, name: str, route,
-                      warm: bool = True) -> dict:
+                      warm: bool = True, only_l: int | None = None) -> dict:
     """One full StreamingDirectFock build of ``prim`` at D, each class
     pair's K5 staircase launch timed alone by CUDA events (after one
     warm-up build unless ``warm`` is False), with its quartets, live and
     Boys-series primitive quartets (``staircase_prims``), its bound
     (``eri_ops`` + digestion, as in ``check_4c``), that bound split by
     pipe, and its route (``route(bra, ket)``: ``compiled_route`` on this
-    tree)."""
+    tree); with ``only_l``, only the class pairs that hold a shell of that
+    angular momentum."""
     import torch
 
     from juliachem_jl_tpu_torch.ops import fock_stream
 
     sdf = fock_stream.StreamingDirectFock(prim, device=dev)
+    if only_l is not None:
+        sdf.pairs = [cp for cp in sdf.pairs if only_l in (
+            sdf.blocks[cp.bi].table.la, sdf.blocks[cp.bi].table.lb,
+            sdf.blocks[cp.ki].table.la, sdf.blocks[cp.ki].table.lb)]
+        sdf.n_quartets = sum(cp.N for cp in sdf.pairs)
     stair = staircase_prims(sdf)
     nbf = prim.nbf
     D = D.to(device=dev, dtype=torch.float64).contiguous()
@@ -1252,16 +1282,19 @@ def ptxas_instances(pat, nidx: int) -> dict:
                        spill_loads=nums[2])
         elif cur is not None and "Used" in ln and "registers" in ln:
             cur["registers"] = int(ln.split("Used", 1)[1].split()[0])
-    out = {}
-    for kern, cls in per.items():
-        regs = [v.get("registers", 0) for v in cls.values()]
-        out[kern] = {"instances": len(cls), "registers_min": min(regs),
-                     "registers_max": max(regs),
-                     "stack_max": max(v.get("stack", 0) for v in cls.values()),
-                     "spilling": sorted(k for k, v in cls.items()
-                                        if v.get("spill_stores", 0)),
-                     "classes": cls}
-    return out
+    return {kern: instance_summary(cls) for kern, cls in per.items()}
+
+
+def instance_summary(cls: dict) -> dict:
+    """A kernel's instances (class -> ptxas's registers, stack, spills):
+    their count, register range, largest stack and the spilling ones."""
+    regs = [v.get("registers", 0) for v in cls.values()]
+    return {"instances": len(cls), "registers_min": min(regs),
+            "registers_max": max(regs),
+            "stack_max": max(v.get("stack", 0) for v in cls.values()),
+            "spilling": sorted(k for k, v in cls.items()
+                               if v.get("spill_stores", 0)),
+            "classes": cls}
 
 
 def fmt_instances(out: dict) -> str:
@@ -1406,12 +1439,15 @@ def fourc_runners(cases, I_ref, D) -> dict:
 
 
 def check_4c(tag: str, dev, name: str, bsets, seed: int,
-             largest=None) -> dict:
+             largest=None, need_l: int | None = None,
+             subset: int = SUBSET) -> dict:
     """K4, K6 and K5 (list and staircase mode) against their plain versions
-    on the first SUBSET quartets of every class pair of the system's Schwarz
+    on the first ``subset`` quartets of every class pair of the system's Schwarz
     staircase, with one random symmetric D; per kernel: errors, CUDA-event
     times of all class pairs, the bound and the primitive-quartet counts;
-    with ``largest`` (la, lb, lc, ld), that class pair timed alone too."""
+    with ``largest`` (la, lb, lc, ld), that class pair timed alone too;
+    with ``need_l``, only the class pairs that hold a shell of that angular
+    momentum (and no full-build bound)."""
     import numpy as np
     import torch
 
@@ -1426,7 +1462,10 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int,
     cases = []
     for cp in sdf.pairs:
         bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
-        m = min(cp.N, SUBSET)
+        if need_l is not None and need_l not in (bra.la, bra.lb, ket.la,
+                                                 ket.lb):
+            continue
+        m = min(cp.N, subset)
         t = torch.arange(m, dtype=torch.int64, device=dev)
         r, c, w = fock_stream.decode_staircase(cp.cum, t, bra, ket, cp.same)
         kb = (bra.meta[r, 2] * bra.meta[r, 3]).double()
@@ -1569,18 +1608,28 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int,
         geometry[cls] = eri.eri4c_geometry(x["bra"], x["ket"])
     warp = {c: g for c, g in geometry.items() if g["route"] == "warp"}
     tiled = {c: g for c, g in warp.items()
-             if g["CT"] < ncart(c[2]) * ncart(c[3])}
+             if g["CT"] < ncart(c[2]) * ncart(c[3])
+             or g["AT"] < ncart(c[0]) * ncart(c[1])}
     print(f"{tag} K5 geometry {name}: {len(geometry) - len(warp)} class pairs "
           f"on the lane route, {len(warp)} on the warp route (" + ", ".join(
-              f"{c} CT {g['CT']} {g['warp_bytes'] / 1024:.1f} KiB "
-              f"{g['warps_per_sm']} warps/SM" for c, g in sorted(warp.items()))
-          + f"); in ket tiles: {sorted(tiled) or 'none'}", flush=True)
+              f"{c} CT {g['CT']} AT {g['AT']} {g['warp_bytes'] / 1024:.1f} "
+              f"KiB {g['warps_per_sm']} warps/SM"
+              for c, g in sorted(warp.items()))
+          + f"); in tiles: {sorted(tiled) or 'none'}", flush=True)
     check(all(g["warps_per_sm"] >= 2 for g in tiled.values()),
           f"{name}: a tiled class pair holds fewer than 2 warps an SM")
     if largest is not None:
         check(geometry[tuple(largest)]["warps_per_sm"] >= 2,
               f"{name}: {tuple(largest)} holds "
               f"{geometry[tuple(largest)]['warps_per_sm']} warps an SM")
+    if need_l is not None:
+        return {"system": name, "class_pairs": len(cases), "quartets": nq,
+                "primitive_quartets": n_prim,
+                "series_primitive_quartets": n_series,
+                "padded_primitive_quartets": padded, "jk_scale": scale,
+                "kernels": out, "full": None,
+                "geometry": {"".join(map(str, c)): g
+                             for c, g in geometry.items()}}
     # the bound of one full build (every screened quartet) through K5
     ops_full = 0.0
     bytes_full = 8.0 * 3 * nbf * nbf   # D read, J and K written
@@ -1978,6 +2027,29 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
           f"{label}: route {summary['route']}")
     check(summary["converged"] or not gated, f"{label}: SCF did not converge")
     return summary
+
+
+def g_input(name: str, golden: dict, extra: dict | None = None,
+            scf: dict | None = None, aux: bool = True) -> dict:
+    """``system_input`` in the g basis, read from its file through
+    ``model.basis_file``."""
+    inp = system_input(name, {**golden, "basis": G_BASIS}, extra, scf, aux)
+    inp["model"]["basis_file"] = str(ROOT / G_BASIS_FILE)
+    return inp
+
+
+def g_instances(tag: str, sass: dict) -> dict:
+    """The g instances of K1 and K4/K5/K6 as ptxas reported them (route by
+    kernel name, registers, stack, spills), printed and returned."""
+    out = {}
+    for kern, v in [*sass["eri4c"].items(),
+                    *sass["eri3c"]["instances"].items()]:
+        cls = {c: x for c, x in v["classes"].items()
+               if "4" in (c if len(c) == 4 else c[:2])}
+        if cls:
+            out[kern] = instance_summary(cls)
+    print(f"{tag} g instances (ptxas): " + fmt_instances(out), flush=True)
+    return out
 
 
 def run_system(tag: str, jc, name: str, golden: dict | None,
@@ -2840,6 +2912,29 @@ def main() -> int:
               f"coefficients ({f['series_primitive_quartets']} on the Boys "
               f"series), {f['padded_primitive_quartets']} with the class "
               f"padding", flush=True)
+    # 3g. the g classes at benzene_2_water's shapes in 6-311++G(3df,3pd)+G,
+    #     read through model.basis_file: K1 (f64 and the f32 store) on every
+    #     g bra against every aux class, (gg|g) alone too; K4, K6, K5 list
+    #     and K5 staircase on the first SUBSET_G quartets of every class
+    #     pair with a g shell, (gg|gg) alone too; the g instances' routes,
+    #     registers and spills
+    bz_g = f"benzene_2_water {G_BASIS}"
+    spec_g = jc.io.parse_input(g_input("benzene_2_water",
+                                       goldens["benzene_2_water"]))
+    bsets_g = jc.basis.run(jc.molecule.run(spec_g), spec_g.model)
+    check(bsets_g.primary.nbf == 1046, f"{bz_g}: nbf {bsets_g.primary.nbf}")
+    calls = [c for c in k1_calls(dev, bsets_g) if c["cls"][1] == 4]
+    k1_g = check_k1(tag, dev, bsets_g, calls, name="eri3c_g",
+                    largest=(4, 4, 4))
+    k1_geometry[bz_g] = k1_routes(tag, calls)
+    k1_f32["g_classes"] = check_k1_f32(tag, dev, bsets_g, calls,
+                                       largest=(4, 4, 4))
+    del calls
+    fourc[bz_g] = check_4c(tag, dev, bz_g, bsets_g, 4, largest=(4, 4, 4, 4),
+                           need_l=4, subset=SUBSET_G)
+    sass["g_instances"] = g_instances(tag, sass)
+    del bsets_g
+    torch.cuda.empty_cache()
 
     counts = {}
     class_counts = {}
@@ -3276,6 +3371,73 @@ def main() -> int:
           f"K4 on {label_fa}: {ff}; f-class launches per kernel: " + ", ".join(
               f"{n} {f_launches(lb, n)} ({lb})" for n, lb in f_main.items()),
           flush=True)
+    # 11. the g basis end to end, through model.basis_file: (a)
+    #     benzene_2_water DF-RHF in 6-311++G(3df,3pd)+G (nbf 1046, packed
+    #     B), held to the JAX package's energy where one is recorded and
+    #     below the 3df energy of phase 10; (a') ethene_ethyne_2 DF-RHF (nbf
+    #     512, dense B, a G shell on each of its 4 C), held to the JAX
+    #     package's energy; (b) the first 2 waters of w32 conventional
+    #     in-core from SAD (nbf 196, a G shell on each O), held to the JAX
+    #     package's energy; at its density one direct (K5 list) and one
+    #     streaming (K5 staircase) build held to the in-core one, and K6
+    #     timed a build
+    t_g = time.perf_counter()
+    refs_gs = smoke_ref["g_shell"]["systems"]
+    label_ga = f"{bz_g} DF"
+    label_gb = f"w2 {G_BASIS} conventional"
+    g_a = path(label_ga, lambda: run_system(
+        tag, jc, bz_g, None, refs_gs.get(f"{bz_g} DF"),
+        "ScreenedDFFockBuilder",
+        inp=g_input("benzene_2_water", g_bz, df_nomp)))
+    check(g_a["energy"] < f_a["energy"],
+          f"{bz_g}: E = {g_a['energy']:.8f} is not below the 3df basis's "
+          f"{f_a['energy']:.8f}")
+    label_gc = f"ethene_ethyne_2 {G_BASIS} DF"
+    g_c = path(label_gc, lambda: run_system(
+        tag, jc, f"ethene_ethyne_2 {G_BASIS}", None, refs_gs[label_gc],
+        "DFFockBuilder",
+        inp=g_input("ethene_ethyne_2", goldens["ethene_ethyne_2"], df_nomp)))
+    g_b = path(label_gb, lambda: run_system(
+        tag, jc, f"w2 {G_BASIS}", None, refs_gs[f"w2 {G_BASIS} RHF"],
+        "ScreenedDirectFock",
+        inp={"molecule": {"symbols": w32["symbols"][:6],
+                          "geometry": w32["geometry"][:18],
+                          "molecular_charge": 0},
+             "driver": "energy",
+             "model": {"method": "RHF", "basis": G_BASIS,
+                       "basis_file": str(ROOT / G_BASIS_FILE)},
+             "keywords": {"scf": {**CONV_SCF, "guess": "sad"},
+                          "prop": PROPS}}))
+    check(g_b["incore"] == "True", f"{label_gb} did not run in-core")
+    D_g = g_b["density"]
+    builds_g = builds_at(tag, dev, g_b["basis"].primary, D_g, 0.5 * D_g,
+                         0.5 * D_g, name=f"w2 {G_BASIS}",
+                         scf_fock_s=g_b["fock_s_per_iter_f64_steady"])
+    for k in ("direct", "streaming"):
+        counts[f"{label_gb} {k} build"] = builds_g[k]["launches"]
+        class_counts[f"{label_gb} {k} build"] = builds_g[k]["class_launches"]
+
+    def g_launches(label, name):   # launches of a kernel's g classes (K1:
+        # of a g bra)
+        return sum(n for c, n in class_counts[label].get(name, {}).items()
+                   if 4 in (c[:2] if name == "eri3c" else c))
+
+    gg = {lb: class_counts[lb].get("eri4c", {}).get((4, 4, 4, 4), 0)
+          for lb in (label_ga, label_gb)}
+    check(gg[label_ga] > 0, f"K4 never launched (gg|gg) on {label_ga} (SAD "
+          "atoms, Schwarz diagonal)")
+    g_main = {"eri3c": label_ga, "eri4c": label_gb, "digest_jk": label_gb,
+              "eri4c_jk_list": f"{label_gb} direct build",
+              "eri4c_jk_stair": f"{label_gb} streaming build"}
+    for name, label in g_main.items():
+        check(g_launches(label, name) > 0,
+              f"kernel {name} never launched a g class on {label}")
+    g_s = time.perf_counter() - t_g
+    print(f"{tag} phase 11 (g basis) took {g_s:.1f} s; (gg|gg) launches of "
+          f"K4: " + ", ".join(f"{n} ({lb})" for lb, n in gg.items())
+          + "; g-class launches per kernel: " + ", ".join(
+              f"{n} {g_launches(lb, n)} ({lb})" for n, lb in g_main.items()),
+          flush=True)
     jc.finalize()
 
     # each kernel's launches on its path
@@ -3374,13 +3536,30 @@ def main() -> int:
             "largest_class": v["largest_class"]})
     f_kernels[[k["name"] for k in f_kernels].index("digest_jk_f")].update(
         per_build=k6_build(builds_f))
+    # the g classes (phase 3g at benzene_2_water's 6-311++G(3df,3pd)+G
+    # shapes), launches of their g classes on phase 11's paths
+    g_kernels = [{**k1_g, "launches": g_launches(label_ga, "eri3c"),
+                  "path": label_ga, "shapes": bz_g}]
+    for name, (src, rep) in meta.items():
+        v = fourc[bz_g]["kernels"][name]
+        g_kernels.append({
+            "name": f"{name}_g", "route": "cuda", "source": src,
+            "replaces": rep, "launches": g_launches(g_main[name], name),
+            "path": g_main[name], "shapes": bz_g,
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": None,
+            "largest_class": v["largest_class"]})
+    g_kernels[[k["name"] for k in g_kernels].index("digest_jk_g")].update(
+        per_build=k6_build(builds_g))
     kern_line = ([k1, k2] + new_kernels + list(k7.values())
-                 + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels)
+                 + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels + g_kernels)
 
     systems = [ammonia, benzene, bz_f32, bz_split, *w8.values(),
                ammonia_conv, benzene_conv,
                cation, amm_uhf, amm_rohf, amm_df, amm_singlet, amm_fdiff,
-               amm_df_fdiff, w32a, w32b, w32c, w32s, f_a, f_b, f_c, f_d]
+               amm_df_fdiff, w32a, w32b, w32c, w32s, f_a, f_b, f_c, f_d,
+               g_a, g_b, g_c]
     for x in systems:
         for key in ("density", "result", "basis"):
             x.pop(key, None)
@@ -3409,6 +3588,8 @@ def main() -> int:
             "systems": systems,
             "f_shell": {"builds_at_ammonia_convergence": builds_f,
                         "seconds": f_s},
+            "g_shell": {"builds_at_w2_convergence": builds_g,
+                        "seconds": g_s, "gg_gg_launches": gg},
             "correlated": correlated, "sharded": sharded}), indent=1,
             default=str))
     print(f"{tag} chip_smoke: all phases passed in {total_s:.1f} s", flush=True)

@@ -75,11 +75,20 @@ def build_auxiliary(mol, aux_name: str, primary_name: str) -> Basis:
 
 
 def register_basis_file(path: str, name: str | None = None) -> str:
-    """GAMESS-US basis files are not ported yet (ROADMAP.md A1,
-    ``basis/external.py``)."""
-    raise NotImplementedError(
-        "basis_file / auxiliary_basis_file are not ported to the PyTorch "
-        "package yet (ROADMAP.md A1: basis/external.py)")
+    """Load a GAMESS-US format basis file and register it for lookup.
+
+    Returns the registered basis name (the file stem when not given).
+    Covers any element — the escape hatch for elements beyond the bundled
+    library's exact-data coverage (see basis/external.py)."""
+    import os
+
+    from . import external
+
+    data = external.load_basis_file(path)
+    if name is None:
+        name = os.path.splitext(os.path.basename(path))[0]
+    library.register(name, data)
+    return name
 
 
 def run(mol, model: dict, output: int = 0) -> CalculationBasisSets:

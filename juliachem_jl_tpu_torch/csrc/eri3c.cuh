@@ -25,7 +25,7 @@
 //   the padding of a class to its largest contraction (K = 6 for a core s
 //   shell) costs nothing;
 // * two routes, chosen per class at compile time (Eri3cClass::kLane, from
-//   -DJC_ERI3C_LANE_MASK, which ops/kernels.py passes from its route
+//   -DJC_ERI3C_LANE_MASK_B<i>, which ops/kernels.py passes from its route
 //   table):
 //   - lane route (the low classes): one (bra pair, aux shell) per thread,
 //     nothing in shared memory.  The lanes of a warp take 32 consecutive
@@ -44,7 +44,11 @@
 //     axial norms and (-1)^|g| folded in), and out = Eab^T T1 on the f64
 //     tensor cores (mma.sync m16n8k4, dmma.cuh).  QT is the largest of 8,
 //     4, 2, 1 whose shared memory stays within kEri3cBlockCap, so that two
-//     blocks share an SM.
+//     blocks share an SM.  Where Eab of one primitive pair would pass
+//     kEri3cATileCap (the (fg) and (gg) bras: 157 and 328 KB; the block
+//     may hold 227 KB), A is built one tile of 16 FMT components ab at a
+//     time, each tile's product run and stored before the next; B = T1
+//     is built once per block.
 // * the Boys series multiplies by compile-time reciprocals (boys<L, true>,
 //   boys.cuh): no f64 divide in its 128 steps;
 // * stores: the wrapper sorts each class's bra pairs by their first output
@@ -75,8 +79,8 @@
 #include "dmma.cuh"
 #include "eri4c.cuh"
 
-#ifndef JC_ERI3C_LANE_MASK
-#error "build with -DJC_ERI3C_LANE_MASK (ops/kernels.py passes its route table)"
+#ifndef JC_ERI3C_LANE_MASK_B14
+#error "build with -DJC_ERI3C_LANE_MASK_B0 .. _B14 (ops/kernels.py's table)"
 #endif
 
 namespace jc {
@@ -86,12 +90,36 @@ constexpr int kEri3cThreads = 128;
 // such blocks fit an SM's 228 KB
 constexpr size_t kEri3cBlockCap = 100 * 1024;
 
+// the block route's A (the bra expansion, [K4][16 FM + 4]) of one live
+// primitive pair is built whole up to this size (to the (ff) bras, 78 KB),
+// else in tiles of at most kEri3cATile bytes a primitive pair
+constexpr int kEri3cATileCap = 80 * 1024;
+constexpr int kEri3cATile = 48 * 1024;
+
 // Index of K1's bra class (la, lb) in the order (0,0) (0,1) (0,2) (1,1)
-// (1,2) (2,2) (0,3) (1,3) (2,3) (3,3) (0,4) (ops/kernels.py::ERI3C_BRAS):
-// the class (la lb | lq) is bit 5 * eri3c_bra(la, lb) + lq of the route
-// masks.
+// (1,2) (2,2) (0,3) (1,3) (2,3) (3,3) (0,4) (1,4) (2,4) (3,4) (4,4)
+// (ops/kernels.py::ERI3C_BRAS): the route table JC_ERI3C_LANE_MASK_B<i>
+// is the mask of bra class i, whose bit lq is the class (la lb | lq) on the
+// lane route.
 __host__ __device__ constexpr int eri3c_bra(int la, int lb) {
-  return lb <= 2 ? la * 3 - la * (la - 1) / 2 + (lb - la) : (lb == 3 ? 6 + la : 10);
+  return lb <= 2 ? la * 3 - la * (la - 1) / 2 + (lb - la) : (lb == 3 ? 6 + la : 10 + la);
+}
+constexpr unsigned kEri3cLaneMasks[15] = {
+    JC_ERI3C_LANE_MASK_B0, JC_ERI3C_LANE_MASK_B1, JC_ERI3C_LANE_MASK_B2,
+    JC_ERI3C_LANE_MASK_B3, JC_ERI3C_LANE_MASK_B4, JC_ERI3C_LANE_MASK_B5,
+    JC_ERI3C_LANE_MASK_B6, JC_ERI3C_LANE_MASK_B7, JC_ERI3C_LANE_MASK_B8,
+    JC_ERI3C_LANE_MASK_B9, JC_ERI3C_LANE_MASK_B10, JC_ERI3C_LANE_MASK_B11,
+    JC_ERI3C_LANE_MASK_B12, JC_ERI3C_LANE_MASK_B13, JC_ERI3C_LANE_MASK_B14};
+
+// m16 fragments over ab of one A tile of the block route: all FM where the
+// A of one primitive pair fits kEri3cATileCap, else the most within
+// kEri3cATile (at least one)
+__host__ __device__ constexpr int eri3c_ftile(int FM, int NHB) {
+  const int k4 = (NHB + 3) / 4 * 4;
+  if (8 * k4 * (16 * FM + 4) <= kEri3cATileCap) return FM;
+  int f = FM;
+  while (f > 1 && 8 * k4 * (16 * f + 4) > kEri3cATile) --f;
+  return f;
 }
 
 template <int LA, int LB, int LQ>
@@ -101,10 +129,12 @@ struct Eri3cClass {
   static constexpr int NHB = nherm(LP), NHQ = nherm(LQ), NH = nherm(L);
   static constexpr int NE = (LA + 1) * (LB + 1) * (LP + 1);
   static constexpr int FM = (NAB + 15) / 16;  // m16 fragments over ab
-  static constexpr int kBit = 5 * eri3c_bra(LA, LB) + LQ;
+  // block route: m16 fragments of one A tile, and the tiles
+  static constexpr int FMT = eri3c_ftile(FM, NHB);
+  static constexpr int NTILE = (FM + FMT - 1) / FMT;
   // the route: one (pair, aux shell) per thread, or a block per (pair,
   // aux tile) whose product runs on DMMA
-  static constexpr bool kLane = (JC_ERI3C_LANE_MASK >> kBit) & 1;
+  static constexpr bool kLane = (kEri3cLaneMasks[eri3c_bra(LA, LB)] >> LQ) & 1;
 };
 
 // one store into B: double, or rounded once to float
@@ -287,8 +317,9 @@ eri3c_lane_kernel(const double* __restrict__ pair, int Ka, int Kb,
 
 // Shared memory of one block-route block, in doubles, for K2 = Ka Kb
 // primitive pairs (the class's padded count: a size), Kq aux primitives
-// and a tile of QT aux shells.  A = Eab as [K4][lda] (K4: K2 NHB rounded
-// up to the k-step of 4, rows kk = k NHB + h, columns ab), B = T1 as
+// and a tile of QT aux shells.  A = one tile of Eab as [K4][lda] (K4: K2
+// NHB rounded up to the k-step of 4, rows kk = k NHB + h, columns the
+// tile's 16 FMT components ab), B = T1 as
 // [K4][ldb] (columns n = qi NCQ + c), the columns padded to whole DMMA
 // fragments (16 a row of A, 8 of B) and each row by 4 more doubles, so
 // that a fragment's loads hit distinct banks (dmma.cuh).
@@ -298,7 +329,7 @@ struct Eri3cSmem {
   int K4, lda, Np, ldb, P, E, A, R, B, total;
   __host__ __device__ Eri3cSmem(int K2, int Kq, int QT) {
     K4 = (K2 * K::NHB + 3) / 4 * 4;
-    lda = 16 * K::FM + 4;
+    lda = 16 * K::FMT + 4;
     Np = (QT * K::NCQ + 7) / 8 * 8;
     ldb = Np + 4;
     P = 0;                             // [K2][4]: p, Px, Py, Pz
@@ -360,29 +391,37 @@ eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
   for (int e = tid; e < 3 * k2; e += NT)
     pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sE, sP);
   __syncthreads();
-  // 2. A[kk][ab] = Eab[k][ab][h] with axial norms and contraction folded
-  //    in, one row kk = k NHB + h a thread (the components ab at
-  //    compile time); zero past the live rows and the components
-  for (int kk = tid; kk < KL; kk += NT) {
-    const int k = kk / NHB;
-    int t, u, v;
-    herm_triple(kk % NHB, t, u, v);
-    const double* Ek = sE + k * 3 * NE;
-    const double cc = rb[Ka + k / kb] * rb[2 * Ka + Kb + k % kb];
-    double* arow = sA + kk * lda;
-    static_for<NAB>([&](auto ab_) {
-      constexpr int ab = decltype(ab_)::value, ai = ab / K::NB, bi = ab % K::NB;
-      constexpr int ax = cart_x(LA, ai), ay = cart_y(LA, ai), az = cart_z(LA, ai);
-      constexpr int bx = cart_x(LB, bi), by = cart_y(LB, bi), bz = cart_z(LB, bi);
-      constexpr int NT1 = LA + LB + 1;
-      constexpr double f = caxial(LA, ai) * caxial(LB, bi);
-      arow[ab] = Ek[(ax * (LB + 1) + bx) * NT1 + t] *
-                 Ek[NE + (ay * (LB + 1) + by) * NT1 + u] *
-                 Ek[2 * NE + (az * (LB + 1) + bz) * NT1 + v] * f * cc;
-    });
-    for (int ab = NAB; ab < lda; ++ab) arow[ab] = 0.0;
-  }
-  for (int e = KL * lda + tid; e < K4 * lda; e += NT) sA[e] = 0.0;
+  // 2. A[kk][j] = Eab[k][ab0 + j][h] of the tile of components ab0 ..
+  //    ab0 + 16 FMT - 1 with axial norms and contraction folded in, one
+  //    row kk = k NHB + h a thread (the components at compile time); zero
+  //    past the live rows and the components.  Tile 0 here, the others
+  //    after the product of the one before (step 5)
+  auto build_a = [&](auto tile_) {
+    constexpr int AB0 = 16 * K::FMT * decltype(tile_)::value;
+    constexpr int ABN = NAB - AB0 < 16 * K::FMT ? NAB - AB0 : 16 * K::FMT;
+    for (int kk = tid; kk < KL; kk += NT) {
+      const int k = kk / NHB;
+      int t, u, v;
+      herm_triple(kk % NHB, t, u, v);
+      const double* Ek = sE + k * 3 * NE;
+      const double cc = rb[Ka + k / kb] * rb[2 * Ka + Kb + k % kb];
+      double* arow = sA + kk * lda;
+      static_for<ABN>([&](auto j_) {
+        constexpr int j = decltype(j_)::value, ab = AB0 + j;
+        constexpr int ai = ab / K::NB, bi = ab % K::NB;
+        constexpr int ax = cart_x(LA, ai), ay = cart_y(LA, ai), az = cart_z(LA, ai);
+        constexpr int bx = cart_x(LB, bi), by = cart_y(LB, bi), bz = cart_z(LB, bi);
+        constexpr int NT1 = LA + LB + 1;
+        constexpr double f = caxial(LA, ai) * caxial(LB, bi);
+        arow[j] = Ek[(ax * (LB + 1) + bx) * NT1 + t] *
+                  Ek[NE + (ay * (LB + 1) + by) * NT1 + u] *
+                  Ek[2 * NE + (az * (LB + 1) + bz) * NT1 + v] * f * cc;
+      });
+      for (int j = ABN; j < lda; ++j) arow[j] = 0.0;
+    }
+    for (int e = KL * lda + tid; e < K4 * lda; e += NT) sA[e] = 0.0;
+  };
+  build_a(std::integral_constant<int, 0>{});
   // 3. R of every (live primitive pair k, aux shell qi of the tile, live
   //    aux primitive r), one item a thread: item (k QT + qi) Kq + r; the
   //    recursion at compile-time indices (hermite_R_lane) into shared memory
@@ -444,32 +483,42 @@ eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
     for (int nn = QT * NCQ; nn < ldb; ++nn) sB[kk * ldb + nn] = 0.0;
   for (int e = KL * ldb + tid; e < K4 * ldb; e += NT) sB[e] = 0.0;
   __syncthreads();
-  // 5. out[ab][qi, c] = sum_kk A[kk][ab] B[kk][qi, c] on DMMA, stored
-  //    into B: warp w takes the n8 fragments w, w + 4, ... of every m16 row
+  // 5. per A tile: out[ab][qi, c] = sum_kk A[kk][ab] B[kk][qi, c] on DMMA,
+  //    stored into B: warp w takes the n8 fragments w, w + 4, ... of every
+  //    m16 row of the tile; then the next tile of A
   const uint8_t mir = mirror[p];
   const int64_t* cp = cols + p * NAB;
   const int64_t* ct = cols_t + p * NAB;
   const int nout = QT * NCQ;
   const int warp = tid >> 5, lane = tid & 31;
-  for (int fv = warp; fv < lay.Np / 8; fv += NT / 32) {
-    DmmaTile<K::FM, 1> acc;
-    acc.zero();
-    for (int k0 = 0; k0 < K4; k0 += 4)
-      acc.step(sA + k0 * lda, lda, sB + k0 * ldb + fv * 8, ldb, lane);
+  static_for<K::NTILE>([&](auto tile_) {
+    constexpr int tile = decltype(tile_)::value, F0 = tile * K::FMT;
+    constexpr int FT = K::FM - F0 < K::FMT ? K::FM - F0 : K::FMT;
+    if constexpr (tile > 0) {
+      __syncthreads();  // the product of the tile before has read A
+      build_a(tile_);
+      __syncthreads();
+    }
+    for (int fv = warp; fv < lay.Np / 8; fv += NT / 32) {
+      DmmaTile<FT, 1> acc;
+      acc.zero();
+      for (int k0 = 0; k0 < K4; k0 += 4)
+        acc.step(sA + k0 * lda, lda, sB + k0 * ldb + fv * 8, ldb, lane);
 #pragma unroll
-    for (int fu = 0; fu < K::FM; ++fu)
+      for (int fu = 0; fu < FT; ++fu)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ab = DmmaTile<K::FM, 1>::row(fu, e, lane);
-        const int nn = fv * 8 + DmmaTile<K::FM, 1>::col(0, e, lane);
-        const int qi = nn / NCQ, q = q0 + qi;
-        if (ab < NAB && nn < nout && q < nq) {
-          const int64_t o = (qrow[q] + nn % NCQ) * ld;
-          eri3c_store(out, f32, o + cp[ab], acc.c[fu][0][e]);
-          if (mir) eri3c_store(out, f32, o + ct[ab], acc.c[fu][0][e]);
+        for (int e = 0; e < 4; ++e) {
+          const int ab = 16 * F0 + DmmaTile<FT, 1>::row(fu, e, lane);
+          const int nn = fv * 8 + DmmaTile<FT, 1>::col(0, e, lane);
+          const int qi = nn / NCQ, q = q0 + qi;
+          if (ab < NAB && nn < nout && q < nq) {
+            const int64_t o = (qrow[q] + nn % NCQ) * ld;
+            eri3c_store(out, f32, o + cp[ab], acc.c[fu][0][e]);
+            if (mir) eri3c_store(out, f32, o + ct[ab], acc.c[fu][0][e]);
+          }
         }
-      }
-  }
+    }
+  });
 }
 
 }  // namespace jc

@@ -2,7 +2,7 @@
 // entry points of one aux angular momentum: eri3c_lq<lq>.cu instantiates
 // them for every bra class, so nvcc builds the aux momenta in parallel.
 // Each class instantiates only its route (lane or block:
-// JC_ERI3C_LANE_MASK).  Each function returns the CUDA
+// JC_ERI3C_LANE_MASK_B<i>).  Each function returns the CUDA
 // error of its launch (0 on success).
 #pragma once
 
@@ -116,7 +116,11 @@ int eri3c_geometry(int Ka, int Kb, int Kq, long long* out) {
   M(1, 3, LQ)                                                                \
   M(2, 3, LQ)                                                                \
   M(3, 3, LQ)                                                                \
-  M(0, 4, LQ)
+  M(0, 4, LQ)                                                                \
+  M(1, 4, LQ)                                                                \
+  M(2, 4, LQ)                                                                \
+  M(3, 4, LQ)                                                                \
+  M(4, 4, LQ)
 
 #define JC_ERI3C_LQ(LQ)                                                      \
   extern "C" int jc_eri3c_lq##LQ(                                            \

@@ -19,12 +19,17 @@ JC_ERI4C_DECL(0, 0)
 JC_ERI4C_DECL(0, 1)
 JC_ERI4C_DECL(0, 2)
 JC_ERI4C_DECL(0, 3)
+JC_ERI4C_DECL(0, 4)
 JC_ERI4C_DECL(1, 1)
 JC_ERI4C_DECL(1, 2)
 JC_ERI4C_DECL(1, 3)
+JC_ERI4C_DECL(1, 4)
 JC_ERI4C_DECL(2, 2)
 JC_ERI4C_DECL(2, 3)
+JC_ERI4C_DECL(2, 4)
 JC_ERI4C_DECL(3, 3)
+JC_ERI4C_DECL(3, 4)
+JC_ERI4C_DECL(4, 4)
 
 #define JC_ERI4C_SWITCH(FN, ...)                                             \
   switch (la * 10 + lb) {                                                    \
@@ -32,12 +37,17 @@ JC_ERI4C_DECL(3, 3)
     case 1: return FN##_b01(lc, ld, __VA_ARGS__);                            \
     case 2: return FN##_b02(lc, ld, __VA_ARGS__);                            \
     case 3: return FN##_b03(lc, ld, __VA_ARGS__);                            \
+    case 4: return FN##_b04(lc, ld, __VA_ARGS__);                            \
     case 11: return FN##_b11(lc, ld, __VA_ARGS__);                           \
     case 12: return FN##_b12(lc, ld, __VA_ARGS__);                           \
     case 13: return FN##_b13(lc, ld, __VA_ARGS__);                           \
+    case 14: return FN##_b14(lc, ld, __VA_ARGS__);                           \
     case 22: return FN##_b22(lc, ld, __VA_ARGS__);                           \
     case 23: return FN##_b23(lc, ld, __VA_ARGS__);                           \
+    case 24: return FN##_b24(lc, ld, __VA_ARGS__);                           \
     case 33: return FN##_b33(lc, ld, __VA_ARGS__);                           \
+    case 34: return FN##_b34(lc, ld, __VA_ARGS__);                           \
+    case 44: return FN##_b44(lc, ld, __VA_ARGS__);                           \
   }                                                                          \
   return (int)cudaErrorInvalidValue;
 

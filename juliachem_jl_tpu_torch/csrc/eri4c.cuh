@@ -29,7 +29,7 @@
 // of benzene_2_water's in 6-311++G(2d,2p)) whose blocks hold at most 27
 // integrals and which have few live primitive quartets (1 for every
 // diffuse and polarisation shell).  So two routes, chosen per class pair
-// at compile time (Eri4cClass::kLane, from -DJC_ERI4C_LANE_MASK, which
+// at compile time (Eri4cClass::kLane, from -DJC_ERI4C_LANE_MASK_B<i>, which
 // ops/kernels.py passes from its route table):
 //
 // * lane route (the class pairs to L = 6 but (pd|pd)): one quartet per
@@ -49,7 +49,12 @@
 //   and I are built one tile of ket components cd at a time: each tile's
 //   block is written out (K4) or its share of every J/K output summed in
 //   shared memory (K5), so that two warps share an SM.  One round's R
-//   serves every tile; more rounds are recomputed per tile.
+//   serves every tile; more rounds are recomputed per tile.  Where the bra
+//   expansion Eab alone would pass the cap (the g bras: 297 KiB at (gg|),
+//   144 KiB at (fg|)), the bra is tiled too: T1 of a ket tile does not
+//   depend on ab, so it is built once per ket tile, and the tiles of bra
+//   components ab loop inside it, each building its slice of Eab and its
+//   [ab tile][cd tile] block.
 //
 // The Boys series multiplies by compile-time reciprocals (boys<L, true>):
 // no f64 divide in its 128 steps.  j_ab's targets are the same for every
@@ -85,8 +90,8 @@
 #include "dmma.cuh"
 #include "mcmurchie.cuh"
 
-#ifndef JC_ERI4C_LANE_MASK
-#error "build with -DJC_ERI4C_LANE_MASK (ops/kernels.py passes its route table)"
+#ifndef JC_ERI4C_LANE_MASK_B14
+#error "build with -DJC_ERI4C_LANE_MASK_B0 .. _B14 (ops/kernels.py's table)"
 #endif
 #ifndef JC_DIGEST_LANE_MAX_N
 #error "build with -DJC_DIGEST_LANE_MAX_N (ops/kernels.py passes K6's table)"
@@ -108,17 +113,20 @@ constexpr int kEri4cLaneBlock = 128;  // threads (= quartets) of a lane-route bl
 constexpr size_t kEri4cWarpCap = JC_ERI4C_WARP_CAP;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Index of class pair (la lb | lc ld), bra pair class i <= ket pair class
-// j, in the order of the pair classes (0,0) (0,1) (0,2) (0,3) (1,1) (1,2)
-// (1,3) (2,2) (2,3) (3,3) (ops/eri.py::PAIR_CLASSES): bit of the route
-// table JC_ERI4C_LANE_MASK.
+// Index of pair class (a, b), a <= b <= 4, in the order (0,0) (0,1) ..
+// (0,4) (1,1) .. (1,4) (2,2) .. (4,4) (ops/eri.py::PAIR_CLASSES).  The
+// route table JC_ERI4C_LANE_MASK_B<i> is the mask of bra pair class i,
+// whose bit j is the class pair (bra i | ket j), j >= i, on the lane
+// route (one macro a bra: nvcc splits a -D value at its commas).
 __host__ __device__ constexpr int pair_class(int a, int b) {
-  return a * 4 - a * (a - 1) / 2 + (b - a);
+  return a * 5 - a * (a - 1) / 2 + (b - a);
 }
-__host__ __device__ constexpr int class_pair(int la, int lb, int lc, int ld) {
-  const int i = pair_class(la, lb), j = pair_class(lc, ld);
-  return i * 10 - i * (i - 1) / 2 + (j - i);
-}
+constexpr unsigned kEri4cLaneMasks[15] = {
+    JC_ERI4C_LANE_MASK_B0, JC_ERI4C_LANE_MASK_B1, JC_ERI4C_LANE_MASK_B2,
+    JC_ERI4C_LANE_MASK_B3, JC_ERI4C_LANE_MASK_B4, JC_ERI4C_LANE_MASK_B5,
+    JC_ERI4C_LANE_MASK_B6, JC_ERI4C_LANE_MASK_B7, JC_ERI4C_LANE_MASK_B8,
+    JC_ERI4C_LANE_MASK_B9, JC_ERI4C_LANE_MASK_B10, JC_ERI4C_LANE_MASK_B11,
+    JC_ERI4C_LANE_MASK_B12, JC_ERI4C_LANE_MASK_B13, JC_ERI4C_LANE_MASK_B14};
 
 template <int LA, int LB, int LC, int LD>
 struct Eri4cClass {
@@ -135,7 +143,7 @@ struct Eri4cClass {
   static constexpr int NOUT = NAB + NCD + NA * NC + NA * ND + NB * NC + NB * ND;
   // the route: one quartet per lane, or one per warp
   static constexpr bool kLane =
-      (JC_ERI4C_LANE_MASK >> class_pair(LA, LB, LC, LD)) & 1;
+      (kEri4cLaneMasks[pair_class(LA, LB)] >> pair_class(LC, LD)) & 1;
 };
 
 // ---------------------------------------------------------------- helpers
@@ -565,29 +573,31 @@ __device__ __forceinline__ bool group_sums(double* v, int64_t key, int lane) {
 // ------------------------------------------------------------- warp route
 
 // Shared memory of one warp of the warp route (one quartet), in doubles,
-// for ket tiles of CT components cd.  Kab, Kcd: padded primitive-pair
-// counts of the class (sizes); RS: primitive quartets per R round.
-// Regions whose lifetimes do not meet share space.  With one tile (CT =
-// NCD): the E tables (steps 1-3a) lie where the R round (step 3b) goes,
-// and the block I (step 4 on), the D blocks and the output sums of the
-// digestion lie over Ecd and the R round.  With several tiles the ket E
-// tables, the D blocks and the output sums live through every tile, and
-// each tile's I lies over its Ecd; the bra E tables lie where the R round
-// goes.
+// for ket tiles of CT components cd and bra tiles of AT components ab.
+// Kab, Kcd: padded primitive-pair counts of the class (sizes); RS:
+// primitive quartets per R round.  Regions whose lifetimes do not meet
+// share space.  With one tile (CT = NCD, AT = NAB): the E tables (steps
+// 1-3a) lie where the R round (step 3b) goes, and the block I (step 4
+// on), the D blocks and the output sums of the digestion lie over Ecd and
+// the R round.  With several tiles the ket E tables, the D blocks and the
+// output sums live through every tile, and each tile's I lies over its
+// Ecd; the bra E tables lie where the R round goes, unless the bra is
+// tiled too (AT < NAB): then they live through every tile beside it.
 template <int LA, int LB, int LC, int LD>
 struct Eri4cSmem {
   using C = Eri4cClass<LA, LB, LC, LD>;
-  int CT, Pb, Pk, Eab, T1, Ecd, I, Eb, Ek, R, Dg, Acc, total;
-  __host__ __device__ Eri4cSmem(int Kab, int Kcd, int RS, int CT_) : CT(CT_) {
+  int CT, AT, Pb, Pk, Eab, T1, Ecd, I, Eb, Ek, R, Dg, Acc, total;
+  __host__ __device__ Eri4cSmem(int Kab, int Kcd, int RS, int CT_, int AT_)
+      : CT(CT_), AT(AT_) {
     const int eb = Kab * 3 * C::NEB, ek = Kcd * 3 * C::NEK;
-    const int ecd = Kcd * CT * C::NHK, i = C::NAB * CT, r = RS * C::NH;
+    const int ecd = Kcd * CT * C::NHK, i = AT * CT, r = RS * C::NH;
     Pb = 0;                              // [Kab][4]: p, Px, Py, Pz
     Pk = Pb + 4 * Kab;                   // [Kcd][4]: q, Qx, Qy, Qz
-    Eab = Pk + 4 * Kcd;                  // [Kab][NAB][NHB]
-    T1 = Eab + Kab * C::NAB * C::NHB;    // [Kab][NHB][CT]
+    Eab = Pk + 4 * Kcd;                  // [Kab][AT][NHB]
+    T1 = Eab + Kab * AT * C::NHB;        // [Kab][NHB][CT]
     Ecd = T1 + Kab * C::NHB * CT;        // [Kcd][CT][NHK]  step 3
-    I = Ecd;                             // [NAB][CT]       step 4 on
-    if (CT >= C::NCD) {
+    I = Ecd;                             // [AT][CT]        step 4 on
+    if (CT >= C::NCD && AT >= C::NAB) {
       Eb = Ecd + (ecd > i ? ecd : i);    // [Kab][3][NEB]   steps 1-2
       Ek = Eb + eb;                      // [Kcd][3][NEK]   steps 1-3a
       R = Eb;                            // [RS][NH]        step 3b
@@ -601,18 +611,25 @@ struct Eri4cSmem {
       Dg = Ek + ek;
       Acc = Dg + C::NDG;
       Eb = Acc + C::NOUT;
-      R = Eb;
-      total = Eb + (eb > r ? eb : r);
+      if (AT < C::NAB) {
+        R = Eb + eb;
+        total = R + r;
+      } else {
+        R = Eb;
+        total = Eb + (eb > r ? eb : r);
+      }
     }
   }
 };
 
 // Launch geometry of the warp route: ket tile (CT: NCD, or the widest tile
 // that keeps the warp's slice within kEri4cWarpCap, so that two warps
-// share an SM), primitive quartets a round (RS), warps a block (W,
-// eri4c_warps) and bytes of shared memory a warp.
+// share an SM), bra tile (AT: NAB, or where even one ket component a tile
+// passes the cap, bra and ket tiles shrunk together, the wider first),
+// primitive quartets a round (RS), warps a block (W, eri4c_warps) and
+// bytes of shared memory a warp.
 struct Eri4cGeometry {
-  int CT, RS, W;
+  int CT, AT, RS, W;
   size_t warp_bytes;
 };
 
@@ -626,18 +643,33 @@ __host__ __device__ inline int eri4c_warps(size_t warp_bytes) {
 template <int LA, int LB, int LC, int LD>
 __host__ __device__ Eri4cGeometry eri4c_geometry(int Ka, int Kb, int Kc,
                                                  int Kd) {
+  constexpr int NAB = Eri4cClass<LA, LB, LC, LD>::NAB;
   constexpr int NCD = Eri4cClass<LA, LB, LC, LD>::NCD;
   const int Kab = Ka * Kb, Kcd = Kc * Kd, n = Kab * Kcd;
   Eri4cGeometry g;
   g.RS = n < 32 ? n : 32;
-  auto bytes = [&](int CT) {
+  auto bytes = [&](int CT, int AT) {
     return sizeof(double) *
-           (size_t)Eri4cSmem<LA, LB, LC, LD>(Kab, Kcd, g.RS, CT).total;
+           (size_t)Eri4cSmem<LA, LB, LC, LD>(Kab, Kcd, g.RS, CT, AT).total;
   };
+  g.AT = NAB;
   g.CT = NCD;
-  for (int nt = 2; g.CT > 1 && bytes(g.CT) > kEri4cWarpCap; ++nt)
+  for (int nt = 2; g.CT > 1 && bytes(g.CT, NAB) > kEri4cWarpCap; ++nt)
     g.CT = (NCD + nt - 1) / nt;
-  g.warp_bytes = bytes(g.CT);
+  if (bytes(g.CT, g.AT) > kEri4cWarpCap) {
+    g.CT = NCD;
+    for (int na = 1, nc = 1;
+         (g.AT > 1 || g.CT > 1) && bytes(g.CT, g.AT) > kEri4cWarpCap;) {
+      if (g.AT >= g.CT) {
+        ++na;
+        g.AT = (NAB + na - 1) / na;
+      } else {
+        ++nc;
+        g.CT = (NCD + nc - 1) / nc;
+      }
+    }
+  }
+  g.warp_bytes = bytes(g.CT, g.AT);
   g.W = eri4c_warps(g.warp_bytes);
   return g;
 }
@@ -709,12 +741,14 @@ __device__ __forceinline__ void decode_quartet(
 }
 
 // The (ab|cd) block of one quartet, computed by the 32 lanes of one warp
-// one ket tile at a time: rb, rk its pair rows, mb, mk their meta rows.
-// For each tile of components cd0 .. cd0 + ct - 1 the tile's block lies in
-// w[lay.I] ([NAB][ct], row-major) when emit(cd0, ct) is called, which reads
-// it (every lane calls it).  kTiles: lay.CT < NCD; without tiles every
-// index divides by compile-time constants (a division by a runtime ct
-// costs ~12 % of the class's time).
+// one tile at a time: rb, rk its pair rows, mb, mk their meta rows.  For
+// each ket tile of components cd0 .. cd0 + ct - 1 and, inside it, each bra
+// tile of components ab0 .. ab0 + at - 1, the tile's block lies in
+// w[lay.I] ([at][ct], row-major) when emit(ab0, at, cd0, ct) is called,
+// which reads it (every lane calls it).  kTiles: lay.CT < NCD or lay.AT <
+// NAB; without tiles every index divides by compile-time constants (a
+// division by a runtime ct costs ~12 % of the class's time).  With bra
+// tiles each one's slice of Eab is built per ket tile.
 template <int LA, int LB, int LC, int LD, bool kTiles, class Emit>
 __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
                            const double* rk, int Kc, int Kd, const int* mk,
@@ -725,6 +759,8 @@ __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
   constexpr int NAB = C::NAB, NCD = C::NCD, NHB = C::NHB, NHK = C::NHK;
   constexpr int NH = C::NH, L = C::L, LKET = C::LKET;
   const int CT = kTiles ? lay.CT : NCD;
+  const int AT = kTiles ? lay.AT : NAB;
+  const bool bra_tiles = kTiles && AT < NAB;
   double* sEb = w + lay.Eb;
   double* sEk = w + lay.Ek;
   double* sPb = w + lay.Pb;
@@ -747,10 +783,12 @@ __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
                         sEk, sPk);
   }
   __syncwarp();
-  // 2. the bra Hermite expansions
-  for (int e = lane; e < K2b * NAB * NHB; e += 32)
-    sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb, e);
-  __syncwarp();
+  // 2. the bra Hermite expansions, whole where the bra is one tile
+  if (!bra_tiles) {
+    for (int e = lane; e < K2b * NAB * NHB; e += 32)
+      sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb, e);
+    __syncwarp();
+  }
   // the primitive quartets f = k*K2k + l; in one round their R serves
   // every tile
   const int nprim = K2b * K2k;
@@ -806,20 +844,32 @@ __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
       }
       __syncwarp();
     }
-    // 4. I[ab][cdt] = sum_k sum_h Eab[k][ab][h] T1[k][h][cdt]
-    for (int e = lane; e < NAB * ct; e += 32) {
-      const int ab = e / ct, cdt = e % ct;
-      double acc = 0.0;
-      for (int k = 0; k < K2b; ++k) {
-        const double* Ek = sEab + (k * NAB + ab) * NHB;
-        const double* Tk = sT1 + k * NHB * ct + cdt;
-        for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * ct];
+    for (int ab0 = 0; ab0 < NAB; ab0 += AT) {
+      const int at = !bra_tiles ? NAB : NAB - ab0 < AT ? NAB - ab0 : AT;
+      if (bra_tiles) {
+        // 2'. the bra tile's expansions Eab[k][abt][h]
+        for (int e = lane; e < K2b * at * NHB; e += 32) {
+          const int k = e / (at * NHB), abt = (e / NHB) % at, h = e % NHB;
+          sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb,
+                                           (k * NAB + ab0 + abt) * NHB + h);
+        }
+        __syncwarp();
       }
-      sI[e] = acc;
+      // 4. I[abt][cdt] = sum_k sum_h Eab[k][abt][h] T1[k][h][cdt]
+      for (int e = lane; e < at * ct; e += 32) {
+        const int abt = e / ct, cdt = e % ct;
+        double acc = 0.0;
+        for (int k = 0; k < K2b; ++k) {
+          const double* Ek = sEab + (k * at + abt) * NHB;
+          const double* Tk = sT1 + k * NHB * ct + cdt;
+          for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * ct];
+        }
+        sI[e] = acc;
+      }
+      __syncwarp();
+      emit(ab0, at, cd0, ct);
+      __syncwarp();
     }
-    __syncwarp();
-    emit(cd0, ct);
-    __syncwarp();
   }
 }
 
@@ -902,13 +952,14 @@ __device__ __forceinline__ double jk_element(const double* sI,
 }
 
 // Output x of the six images of one quartet (j_ab, j_cd, k_ac, k_ad, k_bc,
-// k_bd, as jk_element) summed over one ket tile: sI the tile's block
-// [NAB][ct] of components cd0 .. cd0 + ct - 1, sDg the quartet's D blocks.
-// J outputs carry their factor 2.
+// k_bd, as jk_element) summed over one tile: sI the tile's block [at][ct]
+// of components ab0 .. ab0 + at - 1 and cd0 .. cd0 + ct - 1, sDg the
+// quartet's D blocks.  J outputs carry their factor 2.
 template <int LA, int LB, int LC, int LD>
 __device__ __forceinline__ double jk_partial(const double* sI,
                                              const double* sDg, int x,
-                                             int cd0, int ct) {
+                                             int ab0, int at, int cd0,
+                                             int ct) {
   using C = Eri4cClass<LA, LB, LC, LD>;
   constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
   constexpr int NAB = C::NAB, NCD = C::NCD;
@@ -918,54 +969,62 @@ __device__ __forceinline__ double jk_partial(const double* sI,
   const double* Dbc = Dbd + NB * ND;
   const double* Dad = Dbc + NB * NC;
   const double* Dac = Dad + NA * ND;
-  const int cd1 = cd0 + ct;
-  // the tile's cd = c*ND + d of one c: d in [dlo, dhi); of one d: c in
-  // [clo, chi)
-  auto d_run = [&](int c, int& dlo, int& dhi) {
-    dlo = cd0 - c * ND > 0 ? cd0 - c * ND : 0;
-    dhi = cd1 - c * ND < ND ? cd1 - c * ND : ND;
+  const int ab1 = ab0 + at, cd1 = cd0 + ct;
+  // the tile's i = r*N2 + j (r < N1) of one r: j in [lo, hi); of one j: r
+  // in [lo, hi) (cd = c*ND + d against [cd0, cd1), ab = a*NB + b against
+  // [ab0, ab1))
+  auto j_run = [](int r, int N2, int i0, int i1, int& lo, int& hi) {
+    lo = i0 - r * N2 > 0 ? i0 - r * N2 : 0;
+    hi = i1 - r * N2 < N2 ? i1 - r * N2 : N2;
   };
-  auto c_run = [&](int d, int& clo, int& chi) {
-    clo = cd0 > d ? (cd0 - d + ND - 1) / ND : 0;
-    chi = cd1 > d ? (cd1 - d + ND - 1) / ND : 0;
-    if (chi > NC) chi = NC;
+  auto r_run = [](int j, int N1, int N2, int i0, int i1, int& lo,
+                  int& hi) {
+    lo = i0 > j ? (i0 - j + N2 - 1) / N2 : 0;
+    hi = i1 > j ? (i1 - j + N2 - 1) / N2 : 0;
+    if (hi > N1) hi = N1;
+  };
+  // element (a, b, c, d) of the tile's block
+  auto at_ = [&](int a, int b, int c, int d) {
+    return sI[(a * NB + b - ab0) * ct + c * ND + d - cd0];
   };
   double s = 0.0;
   if (x < NAB) {                                   // j_ab
-    for (int t = 0; t < ct; ++t) s += sI[x * ct + t] * Dcd[cd0 + t];
+    if (x < ab0 || x >= ab1) return 0.0;
+    for (int t = 0; t < ct; ++t) s += sI[(x - ab0) * ct + t] * Dcd[cd0 + t];
     return 2.0 * s;
   }
   if ((x -= NAB) < NCD) {                          // j_cd
     if (x < cd0 || x >= cd1) return 0.0;
-    for (int ab = 0; ab < NAB; ++ab) s += sI[ab * ct + x - cd0] * Dab[ab];
+    for (int ab = ab0; ab < ab1; ++ab)
+      s += sI[(ab - ab0) * ct + x - cd0] * Dab[ab];
     return 2.0 * s;
   }
-  int lo, hi;
+  int lo, hi, alo, ahi;
   if ((x -= NCD) < NA * NC) {                      // k_ac
     const int a = x / NC, c = x % NC;
-    d_run(c, lo, hi);
+    j_run(c, ND, cd0, cd1, lo, hi);
+    j_run(a, NB, ab0, ab1, alo, ahi);
     for (int d = lo; d < hi; ++d)
-      for (int b = 0; b < NB; ++b)
-        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dbd[b * ND + d];
+      for (int b = alo; b < ahi; ++b) s += at_(a, b, c, d) * Dbd[b * ND + d];
   } else if ((x -= NA * NC) < NA * ND) {           // k_ad
     const int a = x / ND, d = x % ND;
-    c_run(d, lo, hi);
+    r_run(d, NC, ND, cd0, cd1, lo, hi);
+    j_run(a, NB, ab0, ab1, alo, ahi);
     for (int c = lo; c < hi; ++c)
-      for (int b = 0; b < NB; ++b)
-        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dbc[b * NC + c];
+      for (int b = alo; b < ahi; ++b) s += at_(a, b, c, d) * Dbc[b * NC + c];
   } else if ((x -= NA * ND) < NB * NC) {           // k_bc
     const int b = x / NC, c = x % NC;
-    d_run(c, lo, hi);
+    j_run(c, ND, cd0, cd1, lo, hi);
+    r_run(b, NA, NB, ab0, ab1, alo, ahi);
     for (int d = lo; d < hi; ++d)
-      for (int a = 0; a < NA; ++a)
-        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dad[a * ND + d];
+      for (int a = alo; a < ahi; ++a) s += at_(a, b, c, d) * Dad[a * ND + d];
   } else {                                         // k_bd
     x -= NB * NC;
     const int b = x / ND, d = x % ND;
-    c_run(d, lo, hi);
+    r_run(d, NC, ND, cd0, cd1, lo, hi);
+    r_run(b, NA, NB, ab0, ab1, alo, ahi);
     for (int c = lo; c < hi; ++c)
-      for (int a = 0; a < NA; ++a)
-        s += sI[(a * NB + b) * ct + c * ND + d - cd0] * Dac[a * NC + c];
+      for (int a = alo; a < ahi; ++a) s += at_(a, b, c, d) * Dac[a * NC + c];
   }
   return s;
 }
@@ -1006,11 +1065,11 @@ __device__ __forceinline__ void digest_begin(
 
 template <int LA, int LB, int LC, int LD>
 __device__ __forceinline__ void digest_tile(
-    const Eri4cSmem<LA, LB, LC, LD>& lay, double* w, int cd0, int ct,
-    int lane) {
+    const Eri4cSmem<LA, LB, LC, LD>& lay, double* w, int ab0, int at,
+    int cd0, int ct, int lane) {
   for (int e = lane; e < Eri4cClass<LA, LB, LC, LD>::NOUT; e += 32)
     w[lay.Acc + e] += jk_partial<LA, LB, LC, LD>(w + lay.I, w + lay.Dg, e,
-                                                 cd0, ct);
+                                                 ab0, at, cd0, ct);
 }
 
 template <int LA, int LB, int LC, int LD>
@@ -1103,24 +1162,25 @@ eri4c_kernel(const double* __restrict__ pb, int Ka, int Kb,
              const int* __restrict__ mb, const double* __restrict__ pk,
              int Kc, int Kd, const int* __restrict__ mk,
              const int64_t* __restrict__ sel_bra,
-             const int64_t* __restrict__ sel_ket, int64_t n, int CT, int RS,
-             double* __restrict__ out) {
+             const int64_t* __restrict__ sel_ket, int64_t n, int CT, int AT,
+             int RS, double* __restrict__ out) {
   using C = Eri4cClass<LA, LB, LC, LD>;
   constexpr int NAB = C::NAB, NCD = C::NCD;
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (q >= n) return;  // the whole warp
-  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT);
+  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT, AT);
   double* w = sm + (int64_t)warp * lay.total;
   const int64_t r = sel_bra[q], c = sel_ket[q];
-  auto emit = [&](int cd0, int ct) {
-    for (int e = lane; e < NAB * ct; e += 32)
-      out[q * (NAB * NCD) + (e / ct) * NCD + cd0 + e % ct] = w[lay.I + e];
+  auto emit = [&](int ab0, int at, int cd0, int ct) {
+    for (int e = lane; e < at * ct; e += 32)
+      out[q * (NAB * NCD) + (ab0 + e / ct) * NCD + cd0 + e % ct] =
+          w[lay.I + e];
   };
   const double* rb = pb + r * (2 * Ka + 2 * Kb + 6);
   const double* rk = pk + c * (2 * Kc + 2 * Kd + 6);
-  if (CT < NCD)
+  if (CT < NCD || AT < NAB)
     eri4c_warp<LA, LB, LC, LD, true>(rb, Ka, Kb, mb + r * kMeta, rk, Kc, Kd,
                                      mk + c * kMeta, RS, w, lay, lane, emit);
   else
@@ -1138,13 +1198,14 @@ eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
                 const int64_t* __restrict__ sel_ket,
                 const double* __restrict__ weight,
                 const int64_t* __restrict__ cum, int64_t n_bra,
-                int same_block, int64_t n, int64_t t0, int CT, int RS,
+                int same_block, int64_t n, int64_t t0, int CT, int AT, int RS,
                 const double* __restrict__ D, int64_t nbf, double* JK) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (q >= n) return;  // the whole warp: nothing to add
-  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT);
+  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT, AT);
   double* w = sm + (int64_t)warp * lay.total;
   int64_t r, c;
   double wt;
@@ -1152,16 +1213,16 @@ eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
                  mb, mk, r, c, wt);
   const int* mr = mb + r * kMeta;
   const int* mc = mk + c * kMeta;
-  auto emit = [&](int cd0, int ct) {
-    if (cd0 == 0) {
+  auto emit = [&](int ab0, int at, int cd0, int ct) {
+    if (ab0 == 0 && cd0 == 0) {
       digest_begin(lay, w, mr, mc, D, nbf, lane);
       __syncwarp();
     }
-    digest_tile(lay, w, cd0, ct, lane);
+    digest_tile(lay, w, ab0, at, cd0, ct, lane);
   };
   const double* rb = pb + r * (2 * Ka + 2 * Kb + 6);
   const double* rk = pk + c * (2 * Kc + 2 * Kd + 6);
-  if (CT < Eri4cClass<LA, LB, LC, LD>::NCD)
+  if (CT < C::NCD || AT < C::NAB)
     eri4c_warp<LA, LB, LC, LD, true>(rb, Ka, Kb, mr, rk, Kc, Kd, mc, RS, w,
                                      lay, lane, emit);
   else
@@ -1206,7 +1267,11 @@ __device__ __forceinline__ const double* stage_doubles(double* dst,
 // * warp route, for the rest: one block a warp, as many warps as blocks,
 //   the block and its D blocks loaded and digested at once (its outputs
 //   spread over the lanes, so that the atomics of one block's contiguous
-//   outputs share sectors), one atomic an output.
+//   outputs share sectors), one atomic an output.  The block is staged in
+//   shared memory while block and D blocks take at most kEri4cWarpCap (to
+//   (ff|ff), 85 KB); a larger block (the g class pairs from (dg|ff): 405
+//   KB at (gg|gg)) stays in global memory, each output reading its row or
+//   column of it there, and only the D blocks are staged.
 constexpr int kDigestLaneBlock = 128;
 
 template <int LA, int LB, int LC, int LD>
@@ -1218,8 +1283,11 @@ struct DigestClass {
   static constexpr bool kLane = C::kLane && N <= JC_DIGEST_LANE_MAX_N;
   // lane route: doubles a warp stages (its 32 blocks and one to realign)
   static constexpr int kWarpStage = 32 * N + 2;
-  // warp route: a warp's block and its D blocks
-  static constexpr int kWarpDoubles = N + C::NDG;
+  // warp route: whether the block is staged beside its D blocks
+  static constexpr bool kStage =
+      sizeof(double) * (size_t)(N + C::NDG) <= kEri4cWarpCap;
+  // warp route: a warp's D blocks and, staged, its block
+  static constexpr int kWarpDoubles = kStage ? N + C::NDG : C::NDG;
   // bytes of dynamic shared memory a warp takes on its route
   static constexpr size_t warp_bytes() {
     return sizeof(double) * (kLane ? kWarpStage : kWarpDoubles);
@@ -1304,8 +1372,8 @@ digest_jk_lane_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
 }
 
 // K6, warp route: cached block q of warp q, copied into the warp's shared
-// memory with its D blocks and digested at once (jk_element, one f64
-// atomic an output).
+// memory with its D blocks (or, past the stage cap, read where it lies)
+// and digested at once (jk_element, one f64 atomic an output).
 template <int LA, int LB, int LC, int LD>
 __global__ void __launch_bounds__(32 * kEri4cMaxWarps)
 digest_jk_warp_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
@@ -1315,18 +1383,21 @@ digest_jk_warp_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
                       const double* __restrict__ I,
                       const double* __restrict__ D, int64_t nbf, double* JK) {
   using C = Eri4cClass<LA, LB, LC, LD>;
+  using G = DigestClass<LA, LB, LC, LD>;
   constexpr int N = C::NAB * C::NCD;
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (q >= n) return;
-  double* sI = sm + (int64_t)warp * DigestClass<LA, LB, LC, LD>::kWarpDoubles;
-  double* sDg = sI + N;
+  double* sw = sm + (int64_t)warp * G::kWarpDoubles;
+  double* sDg = G::kStage ? sw + N : sw;
   const double* Iq = I + q * N;
+  const double* sI = G::kStage ? sw : Iq;
   const int64_t r = sel_bra[q], c = sel_ket[q];
   const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
   const int64_t oc = mk[c * kMeta], od = mk[c * kMeta + 1];
-  for (int e = lane; e < N; e += 32) sI[e] = Iq[e];
+  if constexpr (G::kStage)
+    for (int e = lane; e < N; e += 32) sw[e] = Iq[e];
   for (int e = lane; e < C::NDG; e += 32)
     sDg[e] = dg_element<LA, LB, LC, LD>(e, oa, ob, oc, od, D, nbf);
   __syncwarp();

@@ -1,0 +1,5 @@
+// Kernels K4, K5 and K6 for bra class (dg| against every ket class
+// from (dg| on (design in eri4c.cuh, launches in eri4c_launch.cuh).
+#include "eri4c_launch.cuh"
+
+JC_ERI4C_BRA(2, 4, JC_KETS_FROM_24)

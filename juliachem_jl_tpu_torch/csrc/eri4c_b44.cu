@@ -1,0 +1,5 @@
+// Kernels K4, K5 and K6 for bra class (gg| against every ket class
+// from (gg| on (design in eri4c.cuh, launches in eri4c_launch.cuh).
+#include "eri4c_launch.cuh"
+
+JC_ERI4C_BRA(4, 4, JC_KETS_FROM_44)

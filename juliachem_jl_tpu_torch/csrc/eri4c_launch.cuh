@@ -1,10 +1,10 @@
 // Launches of kernels K4, K5 and K6 (device code and design in eri4c.cuh),
 // and the C entry points of one bra class: eri4c_b<la><lb>.cu instantiates
 // them for every ket class (lc, ld) that the i <= j walk over the pair
-// classes (0,0) (0,1) (0,2) (0,3) (1,1) (1,2) (1,3) (2,2) (2,3) (3,3)
-// reaches from its bra class, so nvcc builds the bra classes in parallel.
+// classes (0,0) (0,1) .. (0,4) (1,1) .. (1,4) (2,2) .. (4,4) reaches from
+// its bra class, so nvcc builds the bra classes in parallel.
 // K4/K5 instantiate only the route of their class pair (lane or warp,
-// JC_ERI4C_LANE_MASK), K6 the route of its class pair (lane or warp,
+// JC_ERI4C_LANE_MASK_B<i>), K6 the route of its class pair (lane or warp,
 // DigestClass::kLane).  Each function returns the CUDA error of its launch
 // (0 on success).
 #pragma once
@@ -21,13 +21,13 @@ inline cudaError_t eri4c_prepare(Kern kern, size_t bytes) {
 }
 
 // K4/K5's warp route: the dynamic shared memory of a block and, for a
-// class pair in ket tiles, the whole of the SM's unified memory as shared
+// class pair in tiles, the whole of the SM's unified memory as shared
 // memory, so that two warps of the largest slices (kEri4cWarpCap) share an
 // SM; the other class pairs leave the split to the CUDA runtime.
 template <typename Kern>
 inline cudaError_t eri4c_prepare_warp(Kern kern, const Eri4cGeometry& g,
-                                      int ncd) {
-  if (g.CT < ncd) {
+                                      int nab, int ncd) {
+  if (g.CT < ncd || g.AT < nab) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
@@ -58,12 +58,13 @@ int eri4c_launch(const double* pb, int Ka, int Kb, const int* mb,
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     auto kern = eri4c_kernel<LA, LB, LC, LD>;
-    cudaError_t err =
-        eri4c_prepare_warp(kern, g, Eri4cClass<LA, LB, LC, LD>::NCD);
+    cudaError_t err = eri4c_prepare_warp(
+        kern, g, Eri4cClass<LA, LB, LC, LD>::NAB,
+        Eri4cClass<LA, LB, LC, LD>::NCD);
     if (err != cudaSuccess) return (int)err;
     kern<<<(unsigned)((n + g.W - 1) / g.W), 32 * g.W, g.W * g.warp_bytes,
-           stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n, g.CT, g.RS,
-                     out);
+           stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n, g.CT, g.AT,
+                     g.RS, out);
   }
   return (int)cudaGetLastError();
 }
@@ -88,19 +89,21 @@ int eri4c_jk_launch(const double* pb, int Ka, int Kb, const int* mb,
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     auto kern = eri4c_jk_kernel<LA, LB, LC, LD>;
-    cudaError_t err =
-        eri4c_prepare_warp(kern, g, Eri4cClass<LA, LB, LC, LD>::NCD);
+    cudaError_t err = eri4c_prepare_warp(
+        kern, g, Eri4cClass<LA, LB, LC, LD>::NAB,
+        Eri4cClass<LA, LB, LC, LD>::NCD);
     if (err != cudaSuccess) return (int)err;
     kern<<<(unsigned)((n + g.W - 1) / g.W), 32 * g.W, g.W * g.warp_bytes,
            stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, weight, cm,
-                     n_bra, same_block, n, t0, g.CT, g.RS, D, nbf, JK);
+                     n_bra, same_block, n, t0, g.CT, g.AT, g.RS, D, nbf,
+                     JK);
   }
   return (int)cudaGetLastError();
 }
 
 // K5's launch geometry for one class pair, for the smoke and the tools:
 // out = {lane route (1) or warp route (0), CT, RS, warps a block, bytes of
-// shared memory a warp, blocks an SM holds}; nothing is launched.
+// shared memory a warp, blocks an SM holds, AT}; nothing is launched.
 template <int LA, int LB, int LC, int LD>
 int eri4c_geometry_query(int Ka, int Kb, int Kc, int Kd, long long* out) {
   using C = Eri4cClass<LA, LB, LC, LD>;
@@ -109,18 +112,19 @@ int eri4c_geometry_query(int Ka, int Kb, int Kc, int Kd, long long* out) {
   if constexpr (C::kLane) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, eri4c_jk_lane_kernel<LA, LB, LC, LD>, kEri4cLaneBlock, 0);
-    const long long v[6] = {1, C::NCD, 0, kEri4cLaneBlock / 32, 0, blocks};
-    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    const long long v[7] = {1, C::NCD, 0, kEri4cLaneBlock / 32, 0, blocks,
+                            C::NAB};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     auto kern = eri4c_jk_kernel<LA, LB, LC, LD>;
-    err = eri4c_prepare_warp(kern, g, C::NCD);
+    err = eri4c_prepare_warp(kern, g, C::NAB, C::NCD);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, kern, 32 * g.W, g.W * g.warp_bytes);
-    const long long v[6] = {0, g.CT, g.RS, g.W, (long long)g.warp_bytes,
-                            blocks};
-    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    const long long v[7] = {0, g.CT, g.RS, g.W, (long long)g.warp_bytes,
+                            blocks, g.AT};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
   }
   return (int)err;
 }
@@ -266,10 +270,15 @@ int digest_geometry_query(long long* out) {
 #define JC_KETS_FROM_00(M, LA, LB) M(LA, LB, 0, 0) JC_KETS_FROM_01(M, LA, LB)
 #define JC_KETS_FROM_01(M, LA, LB) M(LA, LB, 0, 1) JC_KETS_FROM_02(M, LA, LB)
 #define JC_KETS_FROM_02(M, LA, LB) M(LA, LB, 0, 2) JC_KETS_FROM_03(M, LA, LB)
-#define JC_KETS_FROM_03(M, LA, LB) M(LA, LB, 0, 3) JC_KETS_FROM_11(M, LA, LB)
+#define JC_KETS_FROM_03(M, LA, LB) M(LA, LB, 0, 3) JC_KETS_FROM_04(M, LA, LB)
+#define JC_KETS_FROM_04(M, LA, LB) M(LA, LB, 0, 4) JC_KETS_FROM_11(M, LA, LB)
 #define JC_KETS_FROM_11(M, LA, LB) M(LA, LB, 1, 1) JC_KETS_FROM_12(M, LA, LB)
 #define JC_KETS_FROM_12(M, LA, LB) M(LA, LB, 1, 2) JC_KETS_FROM_13(M, LA, LB)
-#define JC_KETS_FROM_13(M, LA, LB) M(LA, LB, 1, 3) JC_KETS_FROM_22(M, LA, LB)
+#define JC_KETS_FROM_13(M, LA, LB) M(LA, LB, 1, 3) JC_KETS_FROM_14(M, LA, LB)
+#define JC_KETS_FROM_14(M, LA, LB) M(LA, LB, 1, 4) JC_KETS_FROM_22(M, LA, LB)
 #define JC_KETS_FROM_22(M, LA, LB) M(LA, LB, 2, 2) JC_KETS_FROM_23(M, LA, LB)
-#define JC_KETS_FROM_23(M, LA, LB) M(LA, LB, 2, 3) JC_KETS_FROM_33(M, LA, LB)
-#define JC_KETS_FROM_33(M, LA, LB) M(LA, LB, 3, 3)
+#define JC_KETS_FROM_23(M, LA, LB) M(LA, LB, 2, 3) JC_KETS_FROM_24(M, LA, LB)
+#define JC_KETS_FROM_24(M, LA, LB) M(LA, LB, 2, 4) JC_KETS_FROM_33(M, LA, LB)
+#define JC_KETS_FROM_33(M, LA, LB) M(LA, LB, 3, 3) JC_KETS_FROM_34(M, LA, LB)
+#define JC_KETS_FROM_34(M, LA, LB) M(LA, LB, 3, 4) JC_KETS_FROM_44(M, LA, LB)
+#define JC_KETS_FROM_44(M, LA, LB) M(LA, LB, 4, 4)

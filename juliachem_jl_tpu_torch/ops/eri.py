@@ -34,8 +34,7 @@ TWO_PI_POW_2_5 = 2.0 * math.pi**2.5
 # pair classes of K4/K5/K6 in the order of unique_pair_blocks; a class
 # (bra | ket) is instantiated when the ket's pair class is the bra's or a
 # later one (the i <= j walk over the pair blocks)
-PAIR_CLASSES = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3),
-                (2, 2), (2, 3), (3, 3))
+PAIR_CLASSES = tuple((a, b) for a in range(5) for b in range(a, 5))
 # plain version: elements of the largest per-quartet intermediate per chunk
 _PLAIN_BUDGET = 2.0e7
 
@@ -52,7 +51,7 @@ def check_kernel_class(name: str, la, lb, lc, ld) -> None:
             or PAIR_CLASSES.index(ket) < PAIR_CLASSES.index(bra)):
         raise NotImplementedError(
             f"{name} is not instantiated for class ({la}{lb}|{lc}{ld}): "
-            "4-center kernels for shells above f are ROADMAP.md B17(b)")
+            "the 4-center kernels stop at g shells (l = 4)")
 
 
 def bra_hermite(la, lb, aexp, bexp, acoef, bcoef, A, B):
@@ -70,16 +69,13 @@ def live_pairs(acoef, bcoef) -> torch.Tensor:
         acoef.shape[0], -1)
 
 
-def eri_class(la, lb, lc, ld, aexp, bexp, acoef, bcoef, A, B,
-              cexp, dexp, ccoef, dcoef, C, D) -> torch.Tensor:
+def eri_class(Lb, Lk, Eab, p, P, live_b, Ecd, q, Q, live_k) -> torch.Tensor:
     """Quartet-class body -> blocks [N, nca*ncb, ncc*ncd] (the plain form of
-    ``_eri_kernel_body``)."""
-    Lb = la + lb
-    Lk = lc + ld
+    ``_eri_kernel_body``), from the quartets' bra and ket Hermite
+    expansions (``bra_hermite``: Eab, p, P; Ecd, q, Q) and live primitive
+    pairs (``live_pairs``), Lb = la + lb, Lk = lc + ld."""
     L = Lb + Lk
     comb, sign = combine_tables(Lb, Lk)
-    Eab, p, P = bra_hermite(la, lb, aexp, bexp, acoef, bcoef, A, B)
-    Ecd, q, Q = bra_hermite(lc, ld, cexp, dexp, ccoef, dcoef, C, D)
 
     PQ = P[:, :, None, :] - Q[:, None, :, :]          # [N,K2b,K2k,3]
     psum = p[:, :, None] + q[:, None, :]
@@ -89,8 +85,7 @@ def eri_class(la, lb, lc, ld, aexp, bexp, acoef, bcoef, A, B,
     # Boys and R only where both primitive pairs have nonzero
     # coefficients, as the kernels loop: the terms of the padding of a
     # class to its largest contraction are exactly zero either way
-    live = (live_pairs(acoef, bcoef)[:, :, None]
-            & live_pairs(ccoef, dcoef)[:, None, :])
+    live = live_b[:, :, None] & live_k[:, None, :]
     F = boys(Targ[live], L) * pref[live][:, None]
     R = Targ.new_zeros(Targ.shape + (nherm(L),))      # [N,K2b,K2k,nherm(L)]
     R[live] = r_tensor(L, alpha[live], PQ[live], F)
@@ -133,6 +128,18 @@ class PairTable:
         return (x[:, :Ka], x[:, 2 * Ka:2 * Ka + Kb], x[:, Ka:2 * Ka],
                 x[:, 2 * Ka + Kb:o], x[:, o:o + 3], x[:, o + 3:o + 6])
 
+    def hermite(self, sel: torch.Tensor):
+        """(Eab, p, P, live) of the rows sel (``bra_hermite``,
+        ``live_pairs``; plain form), each row's expansion computed once for
+        the table: a quartet batch visits each pair row many times."""
+        h = self.__dict__.get("_hermite")
+        if h is None:
+            aexp, bexp, acoef, bcoef, A, B = self.columns(slice(None))
+            h = (*bra_hermite(self.la, self.lb, aexp, bexp, acoef, bcoef, A,
+                              B), live_pairs(acoef, bcoef))
+            self.__dict__["_hermite"] = h
+        return tuple(x[sel] for x in h)
+
 
 def pair_table(block: PairBlock, device) -> PairTable:
     """Pack a PairBlock for K4/K5/K6 (and their plain versions)."""
@@ -167,9 +174,9 @@ def eri4c_plain(bra: PairTable, ket: PairTable, sel_bra, sel_ket):
     out = []
     csize = plain_chunk(bra, ket)
     for s in range(0, len(sel_bra), csize):
-        out.append(eri_class(bra.la, bra.lb, ket.la, ket.lb,
-                             *bra.columns(sel_bra[s:s + csize]),
-                             *ket.columns(sel_ket[s:s + csize])))
+        out.append(eri_class(bra.la + bra.lb, ket.la + ket.lb,
+                             *bra.hermite(sel_bra[s:s + csize]),
+                             *ket.hermite(sel_ket[s:s + csize])))
     nab, ncd = (ncart(bra.la) * ncart(bra.lb), ncart(ket.la) * ncart(ket.lb))
     if not out:
         return bra.pair.new_zeros((0, nab, ncd))
@@ -216,21 +223,22 @@ def eri4c_class(bra: PairTable, ket: PairTable, sel_bra: torch.Tensor,
 def eri4c_geometry(bra: PairTable, ket: PairTable) -> dict:
     """K5's launch geometry for the class pair of two CUDA pair tables, as
     csrc/eri4c_launch.cuh computes it: the route it was built with, ket
-    tile (CT of NCD components), primitive quartets a round (RS), warps a
-    block, shared-memory bytes a warp and the blocks an SM holds (CUDA's
-    occupancy calculator).  Nothing is launched."""
+    tile (CT of NCD components), bra tile (AT of NAB components), primitive
+    quartets a round (RS), warps a block, shared-memory bytes a warp and
+    the blocks an SM holds (CUDA's occupancy calculator).  Nothing is
+    launched."""
     import ctypes
 
     check_kernel_class("eri4c_geometry", bra.la, bra.lb, ket.la, ket.lb)
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * 7)()
     lib = kernels.library()
     rc = lib.jc_eri4c_geometry(bra.la, bra.lb, ket.la, ket.lb, bra.Ka, bra.Kb,
                                ket.Ka, ket.Kb, out)
     if rc != 0:
         raise RuntimeError(f"jc_eri4c_geometry failed: CUDA error {rc} "
                            f"({lib.jc_error_string(rc).decode()})")
-    lane, CT, RS, W, nbytes, blocks = list(out)
-    return {"route": "lane" if lane else "warp", "CT": CT, "RS": RS,
+    lane, CT, RS, W, nbytes, blocks, AT = list(out)
+    return {"route": "lane" if lane else "warp", "CT": CT, "AT": AT, "RS": RS,
             "warps_per_block": W, "warp_bytes": nbytes,
             "blocks_per_sm": blocks, "warps_per_sm": blocks * W}
 

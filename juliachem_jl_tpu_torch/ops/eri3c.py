@@ -39,9 +39,8 @@ from .mcmurchie import r_tensor
 from .pairs import PairBlock, unique_pair_blocks
 
 # (la, lb, lq) classes compiled into K1 (JC_ERI3C_CASES in
-# csrc/eri3c_launch.cuh):
-# la <= lb <= 3 primary pairs against aux shells up to g, plus the (0, 4)
-# unit bra of the 2-center metric ((0, lP) with lP <= 3 is a primary class)
+# csrc/eri3c_launch.cuh): la <= lb <= 4 primary pairs against aux shells up
+# to g; the 2-center metric's bras (0, lP) are primary classes
 KERNEL_CLASSES = frozenset(
     (la, lb, lq) for la, lb in kernels.ERI3C_BRAS for lq in range(5))
 
@@ -215,8 +214,8 @@ def eri3c_class(out, bra: PairTable, aux: AuxTable, cols, cols_t, mirror):
         return
     if (la, lb, lq) not in KERNEL_CLASSES:
         raise NotImplementedError(
-            f"K1 is not instantiated for class ({la},{lb}|{lq}): primary "
-            "shells above f are ROADMAP.md B17(b)")
+            f"K1 is not instantiated for class ({la},{lb}|{lq}): it stops "
+            "at g shells (l = 4)")
     if out.dtype not in (torch.float64, torch.float32):
         raise ValueError("eri3c_class: out must be f64 or f32")
     for t, dt in ((out, out.dtype), (bra.pair, torch.float64),

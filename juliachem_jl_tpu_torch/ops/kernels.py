@@ -54,11 +54,12 @@ ERI4C_LANE_EXCLUDE = frozenset({(1, 2, 1, 2)})
 # 36.  The kernels are built with it (NVCC_FLAGS), each class pair on its
 # route only.
 DIGEST_LANE_MAX_N = 27
-# K1's bra classes (la, lb), in the order of the bits of its route masks
-# (csrc/eri3c.cuh eri3c_bra: bit 5 * index + lq): the primary pairs to
-# (ff) and the (0, 4) unit bra of the 2-center metric
+# K1's bra classes (la, lb), in the order of its route masks (csrc/eri3c.cuh
+# eri3c_bra: mask index, bit lq): the primary pairs to (ff), then the g
+# pairs (sg) .. (gg); (sg) is also the (0, 4) unit bra of the 2-center
+# metric
 ERI3C_BRAS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2), (0, 3), (1, 3),
-              (2, 3), (3, 3), (0, 4))
+              (2, 3), (3, 3), (0, 4), (1, 4), (2, 4), (3, 4), (4, 4))
 # K1's route table (csrc/eri3c.cuh): the classes (la lb | lq) up to
 # la+lb+lq = ERI3C_LANE_MAX_L, but those of ERI3C_LANE_EXCLUDE, run one
 # (bra pair, aux shell) per thread, everything in registers, and for bras
@@ -100,18 +101,21 @@ def digest_route(la: int, lb: int, lc: int, ld: int) -> str:
 
 
 def route_flags() -> tuple:
-    """The route table as the sources take it: bit k of JC_ERI4C_LANE_MASK
-    is the k-th class pair (bra i <= ket j in the order of
-    ops/eri.py::PAIR_CLASSES) on the lane route."""
+    """The route table as the sources take it: JC_ERI4C_LANE_MASK_B<i> is
+    the mask of bra pair class i (the order of ops/eri.py::PAIR_CLASSES),
+    whose bit j is the class pair (bra i | ket j), j >= i, on the lane
+    route (one flag a bra: nvcc splits a -D value at its commas)."""
     from .eri import PAIR_CLASSES
 
-    mask, k = 0, 0
+    masks = []
     for i, bra in enumerate(PAIR_CLASSES):
-        for ket in PAIR_CLASSES[i:]:
-            if eri4c_route(*bra, *ket) == "lane":
-                mask |= 1 << k
-            k += 1
-    return (f"-DJC_ERI4C_LANE_MASK={mask:#x}ULL",)
+        m = 0
+        for j in range(i, len(PAIR_CLASSES)):
+            if eri4c_route(*bra, *PAIR_CLASSES[j]) == "lane":
+                m |= 1 << j
+        masks.append(m)
+    return tuple(f"-DJC_ERI4C_LANE_MASK_B{i}={m:#x}"
+                 for i, m in enumerate(masks))
 
 
 def eri3c_route(la: int, lb: int, lq: int) -> str:
@@ -124,15 +128,18 @@ def eri3c_route(la: int, lb: int, lq: int) -> str:
 
 
 def eri3c_route_flags() -> tuple:
-    """K1's route table as the sources take it: bit 5 i + lq of
-    JC_ERI3C_LANE_MASK is the class (ERI3C_BRAS[i] | lq) on the lane
-    route."""
-    lane = 0
-    for i, (la, lb) in enumerate(ERI3C_BRAS):
+    """K1's route table as the sources take it: JC_ERI3C_LANE_MASK_B<i> is
+    the mask of bra class i (the order of ERI3C_BRAS), whose bit lq is the
+    class (ERI3C_BRAS[i] | lq) on the lane route."""
+    masks = []
+    for la, lb in ERI3C_BRAS:
+        m = 0
         for lq in range(5):
             if eri3c_route(la, lb, lq) == "lane":
-                lane |= 1 << (5 * i + lq)
-    return (f"-DJC_ERI3C_LANE_MASK={lane:#x}ULL",)
+                m |= 1 << lq
+        masks.append(m)
+    return tuple(f"-DJC_ERI3C_LANE_MASK_B{i}={m:#x}"
+                 for i, m in enumerate(masks))
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

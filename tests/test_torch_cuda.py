@@ -28,7 +28,10 @@ gloo ranks sharing the card give the sharded packed G of one device.  The
 f classes (pair classes to (ff), 34 class pairs with an f shell) are held
 the same way on two waters in 6-31G(2df,p), and (ff|ff) on one C atom in
 6-311++G(3df,3pd); the class pairs that run in ket tiles hold two warps an
-SM; a g primary class raises.
+SM.  The g classes (pair classes to (gg), 65 class pairs with a g shell,
+K1's bras (sg) .. (gg)) are held the same way on two waters in
+6-311++G(3df,3pd)+G (tests/data/6-311ppG_3df_3pd_G.gbs), and (gg|gg) on one
+O atom; a class above g (l = 5) raises.
 """
 
 import pathlib
@@ -108,13 +111,13 @@ def test_k1_eri3c(cuda_device, what, aux_name):
 
 @pytest.mark.cuda
 def test_k1_raises_for_a_class_it_lacks(cuda_device):
-    """(gg|s) is not instantiated (g primary shells are ROADMAP.md B17(b)):
-    the wrapper raises instead of launching."""
+    """(hh|s) is not instantiated (K1 stops at g shells, l = 4): the
+    wrapper raises instead of launching."""
     def zeros(*shape, dtype=torch.float64):
         return torch.zeros(shape, dtype=dtype, device=cuda_device)
 
-    n, nab = 1, 225
-    bra = eri.PairTable(la=4, lb=4, Ka=1, Kb=1, pair=zeros(n, 10),
+    n, nab = 1, 441
+    bra = eri.PairTable(la=5, lb=5, Ka=1, Kb=1, pair=zeros(n, 10),
                         meta=zeros(n, 5, dtype=torch.int32))
     aux = eri3c.AuxTable(lq=0, Kq=1, table=zeros(1, 5),
                          kq=zeros(1, dtype=torch.int32),
@@ -336,8 +339,8 @@ def test_k4_eri4c_every_class(cuda_device):
 
 @pytest.mark.cuda
 def test_k4_raises_for_a_class_it_lacks(cuda_device):
-    """(ss|gg) is not instantiated (g primary shells are ROADMAP.md
-    B17(b)): the wrapper raises instead of launching."""
+    """(ss|hh) is not instantiated (the 4-center kernels stop at g shells,
+    l = 4): the wrapper raises instead of launching."""
     def table(l, n=1):
         return eri.PairTable(
             la=l, lb=l, Ka=1, Kb=1,
@@ -346,7 +349,7 @@ def test_k4_raises_for_a_class_it_lacks(cuda_device):
 
     sel = torch.zeros(1, dtype=torch.int64, device=cuda_device)
     with pytest.raises(NotImplementedError):
-        eri.eri4c_class(table(0), table(4), sel, sel)
+        eri.eri4c_class(table(0), table(5), sel, sel)
 
 
 @pytest.mark.cuda
@@ -915,7 +918,7 @@ def test_k4_k5_each_route_matches_plain(cuda_device, mode):
 def test_compiled_routes_of_all_55_class_pairs_match_the_table(cuda_device):
     """The route nvcc built for each of the 55 class pairs to (ff|ff)
     (``jc_eri4c_geometry``: ``Eri4cClass::kLane`` from the build's
-    ``-DJC_ERI4C_LANE_MASK``) is the one ``kernels.eri4c_route`` gives it,
+    ``-DJC_ERI4C_LANE_MASK_B<i>``) is the one ``kernels.eri4c_route`` gives it,
     on pair tables of two waters in 6-31G(2df,p)."""
     import itertools
 
@@ -924,12 +927,12 @@ def test_compiled_routes_of_all_55_class_pairs_match_the_table(cuda_device):
     tables = {}
     for b in sdf.blocks:
         tables.setdefault((b.table.la, b.table.lb), b.table)
-    assert set(tables) == set(eri.PAIR_CLASSES)
+    pcs = [pc for pc in eri.PAIR_CLASSES if max(pc) <= 3]
+    assert set(tables) == set(pcs)
     built = {}
-    for i, j in itertools.combinations_with_replacement(
-            range(len(eri.PAIR_CLASSES)), 2):
-        bra = tables[eri.PAIR_CLASSES[i]]
-        ket = tables[eri.PAIR_CLASSES[j]]
+    for i, j in itertools.combinations_with_replacement(range(len(pcs)), 2):
+        bra = tables[pcs[i]]
+        ket = tables[pcs[j]]
         built[(bra.la, bra.lb, ket.la, ket.lb)] = \
             eri.eri4c_geometry(bra, ket)["route"]
     assert len(built) == 55
@@ -1087,3 +1090,206 @@ def test_k8_ragged_shapes_match_plain_and_f64(cuda_device, R, K, C, off,
     assert bool(((got - ref).double().abs() <= bound).all())
     exact = (Mh.double() + Ml.double()) @ X.double()
     assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+# --- the g classes: the first 1 or 2 waters of the generated w32 cluster
+# in 6-311++G(3df,3pd)+G (one G shell on each O), read from its basis file;
+# one water already makes all 15 pair classes and the 65 class pairs with a
+# g shell, and keeps the CPU's plain references to seconds
+
+G_BASIS = "6-311++G(3df,3pd)+G"
+G_FILE = pathlib.Path(__file__).parent / "data" / "6-311ppG_3df_3pd_G.gbs"
+
+
+def _waters_g(n=2, aux="cc-pVTZ-JKFIT"):
+    import json
+
+    jc.basis.register_basis_file(str(G_FILE), G_BASIS)
+    c = json.loads((pathlib.Path(jc.__file__).resolve().parent / "data" /
+                    "water_clusters.json").read_text())["w32"]
+    mol = jc.molecule.from_input_dict({"symbols": c["symbols"][:3 * n],
+                                       "geometry": c["geometry"][:9 * n]})
+    return (jc.basis.build(mol, G_BASIS),
+            jc.basis.build_auxiliary(mol, aux, G_BASIS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_eri3c_g_classes(cuda_device, dtype):
+    """The 3-center tensor and the metric of the g basis (primary pairs to
+    (gg), aux to g: every g bra against lq 0..4 launched, (gg|g) in A
+    tiles) against the CPU's: f64 within 1e-12 x its max-abs; the f32 store
+    bit for bit the f64 output rounded."""
+    prim, aux = _waters_g()
+    kernels.reset_launches()
+    got = eri3c.three_center_tensor(prim, aux, cuda_device,
+                                    out_dtype=dtype).cpu()
+    launched = set(kernels.class_launches["eri3c" if dtype == torch.float64
+                                          else "eri3c_f32"])
+    assert {(la, 4, lq) for la in range(5) for lq in range(5)} <= launched
+    if dtype == torch.float64:
+        ref = eri3c.three_center_tensor(prim, aux, CPU)
+        assert float((got - ref).abs().max()) <= \
+            1e-12 * float(ref.abs().max())
+        M = eri3c.two_center_metric(aux, cuda_device).cpu()
+        Mr = eri3c.two_center_metric(aux, CPU)
+        assert float((M - Mr).abs().max()) <= 1e-12 * float(Mr.abs().max())
+    else:
+        ref = eri3c.three_center_tensor(prim, aux, cuda_device).cpu()
+        assert torch.equal(got, ref.float())
+
+
+@pytest.mark.cuda
+def test_k4_eri4c_g_classes(cuda_device):
+    """Every class pair with a g shell (65), all its quartets, within
+    1e-12 x the largest integral, and each class launched; the class
+    pairs whose bra expansion passes the warp cap run in bra tiles (one
+    water)."""
+    from juliachem_jl_tpu_torch.basis.structs import ncart
+
+    prim, _ = _waters_g(1)
+    blocks = unique_pair_blocks(prim)
+    kernels.reset_launches()
+    pairs, bra_tiled = [], set()
+    for i, bra in enumerate(blocks):
+        for ket in blocks[i:]:
+            cls = (bra.la, bra.lb, ket.la, ket.lb)
+            if 4 not in cls:
+                continue
+            sb, sk = np.meshgrid(np.arange(bra.n), np.arange(ket.n),
+                                 indexing="ij")
+            got = eri.eri_block(bra, ket, sb.ravel(), sk.ravel(),
+                                cuda_device).cpu()
+            ref = eri.eri_block(bra, ket, sb.ravel(), sk.ravel(), CPU)
+            pairs.append((cls, got, ref))
+            geo = eri.eri4c_geometry(eri.pair_table(bra, cuda_device),
+                                     eri.pair_table(ket, cuda_device))
+            assert geo["route"] == kernels.eri4c_route(*cls), cls
+            assert geo["blocks_per_sm"] >= 1, cls
+            if geo["route"] == "warp" and geo["AT"] < ncart(bra.la) * \
+                    ncart(bra.lb):
+                bra_tiled.add(cls)
+    assert len(pairs) == 65
+    assert set(kernels.class_launches["eri4c"]) == {c for c, _, _ in pairs}
+    assert (4, 4, 4, 4) in bra_tiled and (3, 4, 4, 4) in bra_tiled
+    scale = max(float(ref.abs().max()) for _, _, ref in pairs)
+    for cls, got, ref in pairs:
+        assert float((got - ref).abs().max()) <= 1e-12 * scale, cls
+
+
+@pytest.mark.cuda
+def test_k4_gg_gg_of_an_oxygen_atom(cuda_device):
+    """The SAD case: the full ERI tensor of one O atom in
+    6-311++G(3df,3pd)+G ((gg|gg) and every other class of one centre, in
+    bra and ket tiles) within 1e-12 x its max-abs of the CPU's."""
+    jc.basis.register_basis_file(str(G_FILE), G_BASIS)
+    mol = jc.molecule.from_input_dict({"symbols": ["O"],
+                                       "geometry": [0.0, 0.0, 0.0]})
+    prim = jc.basis.build(mol, G_BASIS)
+    kernels.reset_launches()
+    got = eri.full_eri_tensor(prim, cuda_device).cpu()
+    assert kernels.class_launches["eri4c"].get((4, 4, 4, 4), 0) == 1
+    ref = eri.full_eri_tensor(prim, CPU)
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder,kernel", [
+    ("incore", "digest_jk"), ("direct", "eri4c_jk_list"),
+    ("streaming", "eri4c_jk_stair")])
+def test_k5_k6_jk_match_plain_g_classes(cuda_device, builder, kernel):
+    """J, K at a fixed symmetric D through K6, K5 list and K5 staircase on
+    the g basis, every g class launched, within 1e-11 x max(|J|, |K|) of
+    the plain versions (one water)."""
+    prim, _ = _waters_g(1)
+    rng = np.random.default_rng(29)
+    X = rng.normal(size=(prim.nbf, prim.nbf))
+    D = torch.as_tensor(X + X.T)
+
+    def make(dev):
+        if builder == "streaming":
+            return fock_stream.StreamingDirectFock(prim, device=dev)
+        return fock.ScreenedDirectFock(prim, incore=builder == "incore",
+                                       device=dev)
+
+    fb = make(cuda_device)
+    if builder == "streaming":
+        tabs = [(fb.blocks[cp.bi].table, fb.blocks[cp.ki].table)
+                for cp in fb.pairs]
+    else:
+        tabs = [(g.bra, g.ket) for g in fb.groups]
+    want = {(b.la, b.lb, k.la, k.lb) for b, k in tabs}
+    want = {c for c in want if 4 in c}
+    assert (4, 4, 4, 4) in want
+    kernels.reset_launches()
+    Jg, Kg = (x.cpu() for x in fb.jk_halves(D.to(cuda_device)))
+    assert {c for c in kernels.class_launches[kernel] if 4 in c} == want
+    Jr, Kr = make(CPU).jk_halves(D)
+    scale = max(float(Jr.abs().max()), float(Kr.abs().max()))
+    assert float((Jg - Jr).abs().max()) <= 1e-11 * scale
+    assert float((Kg - Kr).abs().max()) <= 1e-11 * scale
+
+
+@pytest.mark.cuda
+def test_k6_each_g_class_pair_on_its_route_matches_plain(cuda_device):
+    """Two waters in 6-311++G(3df,3pd)+G, all 120 class pairs to (gg|gg):
+    K6, each class pair on its route, within 1e-11 x max(|J|, |K|) of
+    ``digest_plain``; (gg|gg) on the warp route, its block read where it
+    lies (405 KB: past the stage cap)."""
+    prim, _ = _waters_g()
+    seen, geos = _k6_each_route(cuda_device, prim, 31)
+    assert len(seen["lane"]) + len(seen["warp"]) == 120
+    assert geos[(4, 4, 4, 4)]["route"] == "warp"
+    assert geos[(4, 4, 4, 4)]["warp_bytes"] < 110 * 1024
+
+
+@pytest.mark.cuda
+def test_compiled_routes_of_all_120_class_pairs_match_the_table(cuda_device):
+    """The route nvcc built for each of the 120 class pairs to (gg|gg) is
+    the one ``kernels.eri4c_route`` gives it (K6's, ``digest_route``), on
+    pair tables of two waters in 6-311++G(3df,3pd)+G."""
+    import itertools
+
+    prim, _ = _waters_g()
+    sdf = fock_stream.StreamingDirectFock(prim, device=cuda_device)
+    tables = {}
+    for b in sdf.blocks:
+        tables.setdefault((b.table.la, b.table.lb), b.table)
+    assert set(tables) == set(eri.PAIR_CLASSES)
+    built = {}
+    for bra_c, ket_c in itertools.combinations_with_replacement(
+            eri.PAIR_CLASSES, 2):
+        bra, ket = tables[bra_c], tables[ket_c]
+        cls = (*bra_c, *ket_c)
+        built[cls] = eri.eri4c_geometry(bra, ket)["route"]
+        assert fock.digest_geometry(bra, ket)["route"] == \
+            kernels.digest_route(*cls), cls
+    assert len(built) == 120
+    assert built == {c: kernels.eri4c_route(*c) for c in built}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scf_type,n", [("df", 2), ("rhf", 1)])
+def test_g_basis_rhf_on_card_matches_cpu(cuda_device, scf_type, n):
+    """DF-RHF of two waters and conventional RHF of one in the g basis,
+    through ``model.basis_file`` (SAD: K4 on the O atom's (gg|gg)), within
+    1e-9 Eh of the CPU's."""
+    import json
+
+    c = json.loads((pathlib.Path(jc.__file__).resolve().parent / "data" /
+                    "water_clusters.json").read_text())["w32"]
+    spec = jc.io.parse_input({
+        "molecule": {"symbols": c["symbols"][:3 * n],
+                     "geometry": c["geometry"][:9 * n]},
+        "model": {"method": "RHF", "basis": G_BASIS,
+                  "basis_file": str(G_FILE),
+                  "auxiliary_basis": "cc-pVTZ-JKFIT"},
+        "keywords": {"scf": {"scf_type": scf_type, "niter": 60,
+                             "dele": 1e-10, "rmsd": 1e-8, "guess": "sad",
+                             "mixed_precision": False}}})
+    kernels.reset_launches()
+    e_card = jc.run_spec(spec, device=cuda_device)["Energy"]
+    assert kernels.class_launches["eri4c"].get((4, 4, 4, 4), 0) > 0
+    e_cpu = jc.run_spec(spec, device=CPU)["Energy"]
+    assert e_card["Converged?"] and e_cpu["Converged?"]
+    assert abs(e_card["Energy"] - e_cpu["Energy"]) <= 1e-9

@@ -13,8 +13,8 @@ that a plain version can mirror.
   version evaluates the Boys function for the live primitive products only,
   as many as the packing's counts give K1 to walk.
 - K1's route table of ``ops/kernels.py`` against the ``-D`` flags the
-  build passes (bit masks over the 55 classes) and the macros of csrc/
-  that read them.
+  build passes (one bit mask a bra class, bit lq, over the 75 classes to
+  (gg|g)) and the macros of csrc/ that read them.
 - A plain walk of the kernels' thread -> (pair, aux shell, component) maps
   (lane route; block route with its DMMA fragments, at aux tiles of 1 to
   8 shells) over water's sorted pairs: every (row, column) target,
@@ -149,43 +149,49 @@ def test_k1_walks_the_live_primitive_products_only(monkeypatch):
     assert sum(seen) == walked
 
 
-def _mask(flags, name):
-    m = [re.fullmatch(rf"-D{name}=(0x[0-9a-f]+)ULL", f) for f in flags]
-    m = [x for x in m if x]
-    assert len(m) == 1, flags
-    return int(m[0].group(1), 16)
+def _masks(flags, name):
+    """The route masks of the -D<name>_B<i>=0x.. flags: one a bra, in
+    order."""
+    m = [re.fullmatch(rf"-D{name}_B{i}=(0x[0-9a-f]+)", f)
+         for i, f in enumerate(flags)]
+    assert all(m), flags
+    return [int(x.group(1), 16) for x in m]
 
 
 def test_k1_route_table_matches_the_build_and_csrc():
     flags = kernels.eri3c_route_flags()
-    lane = _mask(flags, "JC_ERI3C_LANE_MASK")
-    assert len(flags) == 1, flags
+    lane = _masks(flags, "JC_ERI3C_LANE_MASK")
+    assert len(flags) == 15, flags
     head = (CSRC / "eri3c.cuh").read_text()
-    assert "#ifndef JC_ERI3C_LANE_MASK" in head
-    assert "static constexpr int kBit = 5 * eri3c_bra(LA, LB) + LQ;" in head
-    assert "static constexpr bool kLane = (JC_ERI3C_LANE_MASK >> kBit) & 1;" \
-        in head
+    assert "#ifndef JC_ERI3C_LANE_MASK_B14" in head
+    assert re.search(r"constexpr unsigned kEri3cLaneMasks\[15\] = \{\s+"
+                     + r",\s+".join(f"JC_ERI3C_LANE_MASK_B{i}"
+                                    for i in range(15)) + r"\};", head)
+    assert ("static constexpr bool kLane = (kEri3cLaneMasks[eri3c_bra(LA, "
+            "LB)] >> LQ) & 1;") in head
     assert re.search(r"return lb <= 2 \? la \* 3 - la \* \(la - 1\) / 2 \+ "
-                     r"\(lb - la\) : \(lb == 3 \? 6 \+ la : 10\);", head)
+                     r"\(lb - la\) : \(lb == 3 \? 6 \+ la : 10 \+ la\);",
+                     head)
 
     def eri3c_bra(la, lb):   # csrc/eri3c.cuh
         return (la * 3 - la * (la - 1) // 2 + (lb - la) if lb <= 2
-                else (6 + la if lb == 3 else 10))
+                else (6 + la if lb == 3 else 10 + la))
 
-    assert [eri3c_bra(*b) for b in kernels.ERI3C_BRAS] == list(range(11))
-    # the route of each class is the table's, in the bit the csrc reads
+    assert [eri3c_bra(*b) for b in kernels.ERI3C_BRAS] == list(range(15))
+    assert len(lane) == 15
+    # the route of each class is the table's, in the mask and bit the csrc
+    # reads
     for (i, (la, lb)), lq in itertools.product(
             enumerate(kernels.ERI3C_BRAS), range(5)):
         route = kernels.eri3c_route(la, lb, lq)
-        bit = 5 * i + lq
-        assert (lane >> bit) & 1 == (route == "lane"), (la, lb, lq)
+        assert (lane[i] >> lq) & 1 == (route == "lane"), (la, lb, lq)
         wide = ncart(la) * ncart(lb) >= kernels.ERI3C_WIDE_NAB
         cut = (kernels.ERI3C_LANE_MAX_L_WIDE if wide
                else kernels.ERI3C_LANE_MAX_L)
         on_lane = (la + lb + lq <= cut
                    and (la, lb, lq) not in kernels.ERI3C_LANE_EXCLUDE)
         assert route == ("lane" if on_lane else "block"), (la, lb, lq)
-    assert lane < 1 << 55
+    assert all(m < 1 << 5 for m in lane)
     assert {(la, lb, lq) for la, lb in kernels.ERI3C_BRAS
             for lq in range(5)} == set(eri3c.KERNEL_CLASSES)
     # every class of L <= 4 runs one (pair, aux shell) a thread

@@ -9,8 +9,9 @@ runs that a plain version can mirror.
   are rounded once, so the forms differ in the last bits: 3.1e-15 at
   most on this grid).
 - The lane/warp route table of ``ops/kernels.py`` against the ``-D``
-  flag the build passes (a bit mask over the 55 class pairs) and the
-  macros of csrc/ that read it.
+  flag the build passes (one bit mask a bra pair class, bit j the ket pair
+  class j, over the 120 class pairs to (gg|gg)) and the macros of csrc/
+  that read it.
 - A plain walk of K5's j_ab reduction: the quartets t0 .. t0 + n - 1 of
   a staircase cut into 32-lane windows from t0, the runs of one bra row
   in a window taken from cum, one sum per run added to J; held to
@@ -78,19 +79,23 @@ def test_reciprocal_boys_series_matches_boys_np(mmax):
 
 def test_route_table_matches_the_build_and_csrc():
     flags = kernels.route_flags()
-    m = re.fullmatch(r"-DJC_ERI4C_LANE_MASK=(0x[0-9a-f]+)ULL", flags[0])
-    assert len(flags) == 1 and m
-    mask = int(m.group(1), 16)
+    m = [re.fullmatch(rf"-DJC_ERI4C_LANE_MASK_B{i}=(0x[0-9a-f]+)", f)
+         for i, f in enumerate(flags)]
+    assert len(flags) == 15 and all(m)
+    masks = [int(x.group(1), 16) for x in m]
     head = (CSRC / "eri4c.cuh").read_text()
-    assert "#ifndef JC_ERI4C_LANE_MASK" in head
-    assert re.search(r"static constexpr bool kLane =\s+\(JC_ERI4C_LANE_MASK >> "
-                     r"class_pair\(LA, LB, LC, LD\)\) & 1;", head)
-    # class_pair's index in csrc/ (pair_class, class_pair) is the bit the
+    assert "#ifndef JC_ERI4C_LANE_MASK_B14" in head
+    assert re.search(r"constexpr unsigned kEri4cLaneMasks\[15\] = \{\s+"
+                     + r",\s+".join(f"JC_ERI4C_LANE_MASK_B{i}"
+                                    for i in range(15)) + r"\};", head)
+    assert re.search(r"static constexpr bool kLane =\s+\(kEri4cLaneMasks\["
+                     r"pair_class\(LA, LB\)\] >> pair_class\(LC, LD\)\) & 1;",
+                     head)
+    # pair_class's index in csrc/ is the mask (bra) and the bit (ket) the
     # table sets: the i <= j walk over PAIR_CLASSES
     def pair_class(a, b):
-        return a * 4 - a * (a - 1) // 2 + (b - a)
-    assert re.search(r"return a \* 4 - a \* \(a - 1\) / 2 \+ \(b - a\);", head)
-    assert re.search(r"return i \* 10 - i \* \(i - 1\) / 2 \+ \(j - i\);", head)
+        return a * 5 - a * (a - 1) // 2 + (b - a)
+    assert re.search(r"return a \* 5 - a \* \(a - 1\) / 2 \+ \(b - a\);", head)
     launch = (CSRC / "eri4c_launch.cuh").read_text()
     # K4 and K5 each take the route of their class pair from that flag
     assert len(re.findall(r"if constexpr \(Eri4cClass<LA, LB, LC, LD>::kLane\)",
@@ -100,13 +105,14 @@ def test_route_table_matches_the_build_and_csrc():
     seen = set()
     for i, j in itertools.combinations_with_replacement(range(len(pcs)), 2):
         cls = (*pcs[i], *pcs[j])
-        k = i * 10 - i * (i - 1) // 2 + (j - i)
-        seen.add(k)
+        seen.add((i, j))
         lane = (sum(cls) <= kernels.ERI4C_LANE_MAX_L
                 and cls not in kernels.ERI4C_LANE_EXCLUDE)
         assert kernels.eri4c_route(*cls) == ("lane" if lane else "warp"), cls
-        assert (mask >> k) & 1 == lane, cls
-    assert seen == set(range(55)) and mask < 1 << 55
+        assert (masks[i] >> j) & 1 == lane, cls
+    assert len(seen) == 120 and len(masks) == 15
+    assert all(m < 1 << 15 and m & ((1 << i) - 1) == 0
+               for i, m in enumerate(masks))
     # every class pair of total angular momentum 3 or less takes the lane
     # route, and the table is what the build hashes and passes
     assert all(kernels.eri4c_route(*c) == "lane" for c in

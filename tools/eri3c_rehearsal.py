@@ -49,22 +49,26 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LANE_MAX_L_WIDE = kernels.ERI3C_LANE_MAX_L_WIDE
 
 
-def build(cut: int, with_f: bool) -> ctypes.CDLL:
+def build(cut: int, with_f: bool, with_g: bool = False) -> ctypes.CDLL:
     """The harness with K1's route table at this cut."""
     out = ROOT / "juliachem_jl_tpu_torch" / "_build" / "rehearsal"
     out.mkdir(parents=True, exist_ok=True)
-    so = out / f"eri3c_rehearsal_cut{cut}{'_f' if with_f else ''}.so"
+    so = out / (f"eri3c_rehearsal_cut{cut}{'_f' if with_f else ''}"
+                f"{'_g' if with_g else ''}.so")
     kernels.ERI3C_LANE_MAX_L = cut
     kernels.ERI3C_LANE_MAX_L_WIDE = min(cut, LANE_MAX_L_WIDE)
     subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
                     "-pthread", *kernels.route_flags(),
                     *kernels.eri3c_route_flags(),
+                    f"-DJC_DIGEST_LANE_MAX_N={kernels.DIGEST_LANE_MAX_N}",
                     *(["-DRH_WITH_F"] if with_f else []),
+                    *(["-DRH_WITH_G"] if with_g else []),
                     "-I", str(HERE / "shim"), "-I", str(CSRC),
                     str(HERE / "eri3c_harness.cpp"), "-o", str(so)],
                    check=True)
     lib = ctypes.CDLL(str(so))
     lib.rh_lane_mask.restype = ctypes.c_ulonglong
+    lib.rh_lane_mask.argtypes = [_I]
     lib.rh_eri3c.argtypes = [_I, _I, _I, _P, _P, _LL, _I, _I, _P, _P, _P, _P,
                              _I, _I, _P, _P, _P, _P, _I, _LL]
     lib.rh_eri3c_tile.argtypes = [_I] * 6
@@ -102,14 +106,20 @@ def main() -> int:
     ap.add_argument("--cut", type=int, nargs="+",
                     default=[kernels.ERI3C_LANE_MAX_L, 0])
     ap.add_argument("--basis", default="6-31+G*")
+    ap.add_argument("--basis-file", default=None,
+                    help="a GAMESS-US basis file, registered as --basis "
+                         "(tests/data/6-311ppG_3df_3pd_G.gbs: the g bras)")
     ap.add_argument("--aux", default="cc-pVTZ-JKFIT")
     args = ap.parse_args()
     torch.set_num_threads(1)
+    if args.basis_file:
+        basis.register_basis_file(args.basis_file, args.basis)
     mol = molecule.from_input_dict(WATER)
     prim = basis.build(mol, args.basis)
     systems = [(args.aux, basis.build_auxiliary(mol, args.aux, args.basis)),
                (args.basis, basis.build(mol, args.basis))]
     with_f = 3 in prim.classes
+    with_g = 4 in prim.classes
     bad = 0
 
     def report(what, err, bound):
@@ -120,8 +130,10 @@ def main() -> int:
               f"{'' if ok else '  <-- OVER'}", flush=True)
 
     for cut in args.cut:
-        lib = build(cut, with_f)
-        print(f"cut {cut} (lane mask {lib.rh_lane_mask():#x}), water "
+        lib = build(cut, with_f, with_g)
+        masks = ",".join(f"{lib.rh_lane_mask(i):#x}"
+                         for i in range(len(kernels.ERI3C_BRAS)))
+        print(f"cut {cut} (lane masks {masks}), water "
               f"{args.basis}", flush=True)
         for aux_name, aux in systems:
             A = aux.nbf

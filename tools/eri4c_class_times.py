@@ -3,7 +3,8 @@
 pair over full conventional builds on one NVIDIA GPU.
 
     python3 tools/eri4c_class_times.py [--mode stair|digest_jk] [--root DIR]
-                                       [--out result.json]
+                                       [--basis-file FILE --basis NAME]
+                                       [--only-l L] [--out result.json]
 
 Builds the kernels of the package under ``--root`` (default: this
 checkout; another checkout, such as a parent commit unpacked beside it,
@@ -15,7 +16,11 @@ launch timed by CUDA events after a warm-up build:
   benzene_2_water (the S22x3 geometry, 6-311++G(2d,2p)),
   ``chip_smoke.stair_class_times``, with each class pair's route as the
   package was built (a package without ``eri.eri4c_geometry`` has one
-  warp per quartet: "warp");
+  warp per quartet: "warp"); with ``--basis-file`` and ``--basis``, in
+  that GAMESS-US basis (registered under that name: the g basis of
+  tests/data/6-311ppG_3df_3pd_G.gbs as "6-311++G(3df,3pd)+G"), and with
+  ``--only-l``, only the class pairs that hold a shell of that angular
+  momentum;
 - ``--mode digest_jk``: one in-core ScreenedDirectFock build (K4 fills the
   blocks, K6 digests them) of ammonia_trimer in its S22x3 basis
   (6-311++G(2d,2p), 5.83e6 quartets) and in 6-31G(2df,p) (1.21e6),
@@ -41,6 +46,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("stair", "digest_jk"), default="stair")
     ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--basis-file")
+    ap.add_argument("--basis")
+    ap.add_argument("--only-l", type=int)
     ap.add_argument("--out")
     args = ap.parse_args()
     import torch
@@ -101,6 +109,9 @@ def main() -> int:
                                                  indent=1, default=str))
         return 0
     golden = goldens["benzene_2_water"]
+    if args.basis_file:
+        jc.basis.register_basis_file(args.basis_file, args.basis)
+        golden = {**golden, "basis": args.basis}
     inp = smoke.system_input("benzene_2_water", golden, aux=False)
     sp = jc.io.parse_input(inp)
     bsets = jc.basis.run(jc.molecule.run(sp), sp.model)
@@ -112,7 +123,8 @@ def main() -> int:
            "root": str(root), "ptxas": regs,
            "full_build": smoke.stair_class_times(
                tag, dev, bsets.primary, X + X.T,
-               f"benzene_2_water {golden['basis']}", route)}
+               f"benzene_2_water {golden['basis']}", route,
+               only_l=args.only_l)}
     jc.finalize()
     if args.out:
         Path(args.out).write_text(json.dumps(smoke.str_keys(out), indent=1,

@@ -51,17 +51,19 @@ WATER = {"symbols": ["O", "H", "H"],
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def build(cut: int, warp_cap: int | None, with_f: bool) -> ctypes.CDLL:
+def build(cut: int, warp_cap: int | None, with_f: bool,
+          with_g: bool = False) -> ctypes.CDLL:
     """The harness with the route table of ops/kernels.py at this cut (and
-    the warp route's tile cap, the f class pairs, where asked)."""
+    the warp route's tile cap, the f and g class pairs, where asked)."""
     out = ROOT / "juliachem_jl_tpu_torch" / "_build" / "rehearsal"
     out.mkdir(parents=True, exist_ok=True)
     tag = f"cut{cut}" + (f"_cap{warp_cap}" if warp_cap else "") + \
-        ("_f" if with_f else "")
+        ("_f" if with_f else "") + ("_g" if with_g else "")
     so = out / f"eri4c_rehearsal_{tag}.so"
     kernels.ERI4C_LANE_MAX_L = cut
     extra = ([f"-DJC_ERI4C_WARP_CAP={warp_cap}"] if warp_cap else []) + \
-        (["-DRH_WITH_F"] if with_f else [])
+        (["-DRH_WITH_F"] if with_f else []) + \
+        (["-DRH_WITH_G"] if with_g else [])
     subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
                     "-pthread", *kernels.route_flags(),
                     f"-DJC_DIGEST_LANE_MAX_N={kernels.DIGEST_LANE_MAX_N}",
@@ -70,6 +72,7 @@ def build(cut: int, warp_cap: int | None, with_f: bool) -> ctypes.CDLL:
                     str(HERE / "harness.cpp"), "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
     lib.rh_lane_mask.restype = ctypes.c_ulonglong
+    lib.rh_lane_mask.argtypes = [_I]
     lib.rh_eri4c.argtypes = [_I] * 4 + [_P, _I, _I, _P, _P, _I, _I, _P, _P,
                                         _P, _LL, _P]
     lib.rh_eri4c_jk.argtypes = [_I] * 4 + [_P, _I, _I, _P, _P, _I, _I, _P,
@@ -124,12 +127,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cut", type=int, nargs="+", default=[3, 6])
     ap.add_argument("--basis", default="6-311++G(2d,2p)")
+    ap.add_argument("--basis-file", default=None,
+                    help="a GAMESS-US basis file, registered as --basis "
+                         "(tests/data/6-311ppG_3df_3pd_G.gbs: the g classes)")
     ap.add_argument("--warp-cap", type=int, default=None,
                     help="bytes a warp-route quartet may take before its "
                          "kets are tiled (JC_ERI4C_WARP_CAP; small values "
                          "tile every warp-route class)")
     args = ap.parse_args()
     torch.set_num_threads(1)
+    if args.basis_file:
+        basis.register_basis_file(args.basis_file, args.basis)
     mol = molecule.from_input_dict(WATER)
     prim = basis.build(mol, args.basis)
     nbf = prim.nbf
@@ -139,6 +147,7 @@ def main() -> int:
     sdf = fock_stream.StreamingDirectFock(prim, device="cpu")
     sdirect = fock.ScreenedDirectFock(prim, incore=False, device="cpu")
     with_f = any(3 in (b.table.la, b.table.lb) for b in sdf.blocks)
+    with_g = any(4 in (b.table.la, b.table.lb) for b in sdf.blocks)
     bad = 0
 
     def report(what, err, bound):
@@ -152,8 +161,10 @@ def main() -> int:
         return torch.zeros((2, nbf, nbf), dtype=torch.float64)
 
     for cut in args.cut:
-        lib = build(cut, args.warp_cap, with_f)
-        print(f"lane cut {cut} (route mask {lib.rh_lane_mask():#x}), warp "
+        lib = build(cut, args.warp_cap, with_f, with_g)
+        masks = ",".join(f"{lib.rh_lane_mask(i):#x}"
+                         for i in range(len(eri.PAIR_CLASSES)))
+        print(f"lane cut {cut} (route masks {masks}), warp "
               f"cap {args.warp_cap or 'as built'}, water {args.basis}, nbf "
               f"{nbf}", flush=True)
         # K4 on the staircase's quartets, each class pair

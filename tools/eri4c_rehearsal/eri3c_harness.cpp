@@ -2,7 +2,7 @@
 // as C++20 against shim/cuda_runtime.h, each launch emulated block by block
 // with one std::thread per CUDA thread and the grid, block size and shared
 // memory of eri3c_launch.cuh (the route of each class from
-// -DJC_ERI3C_LANE_MASK, the block route's aux tile from eri3c_tile).
+// -DJC_ERI3C_LANE_MASK_B<i>, the block route's aux tile from eri3c_tile).
 // rh_eri3c takes the arguments of jc_eri3c without the
 // stream; rh_eri3c_tile returns a block-route class's tile (0 on the lane
 // route).  Classes to (dd|g) and the metric's (0,3), (0,4) bras, and with
@@ -106,10 +106,21 @@ int tile(int Ka, int Kb, int Kq) {
 #define RH_F_BRAS(M, LQ)
 #endif
 
+#ifdef RH_WITH_G
+#define RH_G_BRAS(M, LQ) \
+  M(1, 4, LQ) \
+  M(2, 4, LQ) \
+  M(3, 4, LQ) \
+  M(4, 4, LQ)
+#else
+#define RH_G_BRAS(M, LQ)
+#endif
+
 #define RH_CLASSES(M) \
   RH_BRAS(M, 0) RH_BRAS(M, 1) RH_BRAS(M, 2) RH_BRAS(M, 3) RH_BRAS(M, 4) \
   RH_F_BRAS(M, 0) RH_F_BRAS(M, 1) RH_F_BRAS(M, 2) RH_F_BRAS(M, 3) \
-  RH_F_BRAS(M, 4)
+  RH_F_BRAS(M, 4) RH_G_BRAS(M, 0) RH_G_BRAS(M, 1) RH_G_BRAS(M, 2) \
+  RH_G_BRAS(M, 3) RH_G_BRAS(M, 4)
 
 #define RH_K1(LA, LB, LQ)                                                     \
   if (la == LA && lb == LB && lq == LQ)                                       \
@@ -120,7 +131,10 @@ int tile(int Ka, int Kb, int Kq) {
 #define RH_TILE(LA, LB, LQ) \
   if (la == LA && lb == LB && lq == LQ) return tile<LA, LB, LQ>(Ka, Kb, Kq);
 
-extern "C" unsigned long long rh_lane_mask() { return JC_ERI3C_LANE_MASK; }
+// the route mask of K1's bra class i (bit lq: the class on the lane route)
+extern "C" unsigned long long rh_lane_mask(int i) {
+  return jc::kEri3cLaneMasks[i];
+}
 
 extern "C" int rh_eri3c(int la, int lb, int lq, const double* pair,
                         const int* meta, long long n, int Ka, int Kb,

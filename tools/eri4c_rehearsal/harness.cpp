@@ -2,10 +2,11 @@
 // compiled as C++20 against shim/cuda_runtime.h, each launch emulated block
 // by block with one std::thread per CUDA thread and the grid, block size
 // and shared memory of eri4c_launch.cuh (the route of each class pair from
-// -DJC_ERI4C_LANE_MASK, the warp route's geometry from eri4c_geometry).
+// -DJC_ERI4C_LANE_MASK_B<i>, the warp route's geometry from eri4c_geometry).
 // The C entry points take the arguments of jc_eri4c / jc_eri4c_jk /
-// jc_digest_jk without the stream.  Classes up to (dd|dd), and with
-// -DRH_WITH_F the f class pairs, to (ff|ff).  Built and held
+// jc_digest_jk without the stream.  Classes up to (dd|dd), with
+// -DRH_WITH_F the f class pairs, to (ff|ff), and with -DRH_WITH_G the g
+// class pairs, to (gg|gg).  Built and held
 // against the plain torch versions by tools/eri4c_rehearsal.py.
 #include <memory>
 #include <thread>
@@ -64,7 +65,7 @@ int eri4c(const double* pb, int Ka, int Kb, const int* mb, const double* pk,
     if (g.W * g.warp_bytes > sizeof(sm)) return 1;
     run_grid(cdiv(n, g.W), 32 * g.W, [&] {
       eri4c_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n,
-                                   g.CT, g.RS, out);
+                                   g.CT, g.AT, g.RS, out);
     });
   }
   return 0;
@@ -90,7 +91,7 @@ int eri4c_jk(const double* pb, int Ka, int Kb, const int* mb,
     run_grid(cdiv(n, g.W), 32 * g.W, [&] {
       eri4c_jk_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk,
                                       weight, cum, n_bra, same_block, n, t0,
-                                      g.CT, g.RS, D, nbf, JK);
+                                      g.CT, g.AT, g.RS, D, nbf, JK);
     });
   }
   return 0;
@@ -189,6 +190,78 @@ int digest_jk(const int* mb, const int* mk, const int64_t* sb,
 #define RH_F_CLASSES(M)
 #endif
 
+// the 65 class pairs with a g shell, built with -DRH_WITH_G
+#ifdef RH_WITH_G
+#define RH_G_CLASSES(M) \
+  M(0, 0, 0, 4) \
+  M(0, 0, 1, 4) \
+  M(0, 0, 2, 4) \
+  M(0, 0, 3, 4) \
+  M(0, 0, 4, 4) \
+  M(0, 1, 0, 4) \
+  M(0, 1, 1, 4) \
+  M(0, 1, 2, 4) \
+  M(0, 1, 3, 4) \
+  M(0, 1, 4, 4) \
+  M(0, 2, 0, 4) \
+  M(0, 2, 1, 4) \
+  M(0, 2, 2, 4) \
+  M(0, 2, 3, 4) \
+  M(0, 2, 4, 4) \
+  M(0, 3, 0, 4) \
+  M(0, 3, 1, 4) \
+  M(0, 3, 2, 4) \
+  M(0, 3, 3, 4) \
+  M(0, 3, 4, 4) \
+  M(0, 4, 0, 4) \
+  M(0, 4, 1, 1) \
+  M(0, 4, 1, 2) \
+  M(0, 4, 1, 3) \
+  M(0, 4, 1, 4) \
+  M(0, 4, 2, 2) \
+  M(0, 4, 2, 3) \
+  M(0, 4, 2, 4) \
+  M(0, 4, 3, 3) \
+  M(0, 4, 3, 4) \
+  M(0, 4, 4, 4) \
+  M(1, 1, 1, 4) \
+  M(1, 1, 2, 4) \
+  M(1, 1, 3, 4) \
+  M(1, 1, 4, 4) \
+  M(1, 2, 1, 4) \
+  M(1, 2, 2, 4) \
+  M(1, 2, 3, 4) \
+  M(1, 2, 4, 4) \
+  M(1, 3, 1, 4) \
+  M(1, 3, 2, 4) \
+  M(1, 3, 3, 4) \
+  M(1, 3, 4, 4) \
+  M(1, 4, 1, 4) \
+  M(1, 4, 2, 2) \
+  M(1, 4, 2, 3) \
+  M(1, 4, 2, 4) \
+  M(1, 4, 3, 3) \
+  M(1, 4, 3, 4) \
+  M(1, 4, 4, 4) \
+  M(2, 2, 2, 4) \
+  M(2, 2, 3, 4) \
+  M(2, 2, 4, 4) \
+  M(2, 3, 2, 4) \
+  M(2, 3, 3, 4) \
+  M(2, 3, 4, 4) \
+  M(2, 4, 2, 4) \
+  M(2, 4, 3, 3) \
+  M(2, 4, 3, 4) \
+  M(2, 4, 4, 4) \
+  M(3, 3, 3, 4) \
+  M(3, 3, 4, 4) \
+  M(3, 4, 3, 4) \
+  M(3, 4, 4, 4) \
+  M(4, 4, 4, 4) 
+#else
+#define RH_G_CLASSES(M)
+#endif
+
 #define RH_K4(LA, LB, LC, LD)                                                 \
   if (la == LA && lb == LB && lc == LC && ld == LD)                           \
     return eri4c<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk,              \
@@ -206,7 +279,11 @@ int digest_jk(const int* mb, const int* mk, const int64_t* sb,
                                      (const int64_t*)sel_ket, weight, n, I,   \
                                      D, nbf, JK);
 
-extern "C" unsigned long long rh_lane_mask() { return JC_ERI4C_LANE_MASK; }
+// the route mask of bra pair class i (bit j: ket pair class j on the lane
+// route)
+extern "C" unsigned long long rh_lane_mask(int i) {
+  return jc::kEri4cLaneMasks[i];
+}
 
 // K6's route of a class pair as built: lane (1) or warp (0)
 #define RH_K6_ROUTE(LA, LB, LC, LD)                                           \
@@ -216,6 +293,7 @@ extern "C" unsigned long long rh_lane_mask() { return JC_ERI4C_LANE_MASK; }
 extern "C" int rh_digest_lane(int la, int lb, int lc, int ld) {
   RH_CLASSES(RH_K6_ROUTE)
   RH_F_CLASSES(RH_K6_ROUTE)
+  RH_G_CLASSES(RH_K6_ROUTE)
   return 2;
 }
 
@@ -226,6 +304,7 @@ extern "C" int rh_eri4c(int la, int lb, int lc, int ld, const double* pb,
                         long long n, double* out) {
   RH_CLASSES(RH_K4)
   RH_F_CLASSES(RH_K4)
+  RH_G_CLASSES(RH_K4)
   return 2;
 }
 
@@ -239,6 +318,7 @@ extern "C" int rh_eri4c_jk(int la, int lb, int lc, int ld, const double* pb,
                            double* JK) {
   RH_CLASSES(RH_K5)
   RH_F_CLASSES(RH_K5)
+  RH_G_CLASSES(RH_K5)
   return 2;
 }
 
@@ -249,5 +329,6 @@ extern "C" int rh_digest_jk(int la, int lb, int lc, int ld, const int* mb,
                             long long nbf, double* JK) {
   RH_CLASSES(RH_K6)
   RH_F_CLASSES(RH_K6)
+  RH_G_CLASSES(RH_K6)
   return 2;
 }

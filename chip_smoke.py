@@ -117,7 +117,21 @@ card's name and power limit):
    list) and one streaming (K5 staircase) build held to the in-core one,
    and K6's time a build there; each of K1, K4, K5 (both modes) and K6
    shown to have launched a g class on its path (K4's (gg|gg) launches
-   on the SAD atoms counted).
+   on the SAD atoms counted);
+12. the spherical-harmonic AO basis and the nuclear derivatives:
+   benzene_2_water DF-RHF in the spherical basis (nbf 517 -> 491, packed
+   B; not below the Cartesian energy) and its analytic DF gradient (K1's
+   dense (A|pq), the derivative programs of ops/oei_grad.py and
+   ops/eri_grad.py), translationally invariant and held to central
+   differences of the card's own energy; the first 2 waters of w32 in
+   cc-pVDZ spherical: conventional RHF gradients through the in-core,
+   direct and streaming builders, the cation's UHF, ROHF and DF-UHF
+   gradients, each held to the JAX package's recorded gradient within
+   1e-7 Eh/bohr, and RI-MP2 on the RHF orbitals to its E2 within 1e-8 Eh;
+   one water DF-RHF spherical through run_file with the drivers gradient,
+   optimize (from a stretched O-H) and frequencies, held to the JAX
+   package's recorded gradient, optimized energy and geometry, and
+   frequencies.  Each gradient's parts are timed beside their bounds.
 
 The packed K pass of the w-cluster runs and of one ``benzene_2_water``
 build at its converged D is split by phase with CUDA events (K2, W^T W,
@@ -2329,6 +2343,332 @@ def builds_at(tag: str, dev, prim, D, Da, Db,
     return out
 
 
+# --------------------------------------------------------------- phase 12
+
+def spherical(inp: dict) -> dict:
+    """A run_spec input in the spherical-harmonic AO basis."""
+    return {**inp, "model": {**inp["model"], "spherical": True}}
+
+
+def grad_bounds(tm: dict, primary, aux, natom: int) -> dict:
+    """Per part of one gradient, its synchronised wall (ms, ``tm``) beside
+    the least time the card could take for the same work (``bound_of``):
+    each input read once, each output written once, and the operations of
+    the run's inputs: the Hermite R entries (one FMA each) of every
+    primitive product the derivative programs evaluated (the pairs and
+    quartets ``tm["work"]`` counts, or for the DF parts every (aux shell,
+    pair) and (aux, aux) product of the live primitives) and the FMAs of
+    their contractions."""
+    from juliachem_jl_tpu_torch.ops.eri_grad import (aux_unit_blocks,
+                                                     live_groups)
+    from juliachem_jl_tpu_torch.ops.pairs import unique_pair_blocks
+
+    nbf = primary.nbf
+    out = {}
+
+    def part(key, nbytes, ops):
+        if key in tm:
+            out[key] = {"ms": 1e3 * tm[key], **bound_of(nbytes, ops)}
+
+    work = tm.get("work", {})
+
+    def counted(kind):
+        return [(key[1:], n) for key, n in work.items() if key[0] == kind]
+
+    ops = sum(n * (2 * k2 * na * nherm(la + lb + 1)
+                   + 4 * 3 * ncart(la) * ncart(lb) * (1 + na))
+              for (la, lb, k2, na), n in counted("stv"))
+    part("one_electron", 3 * natom * 3 * nbf * nbf * 8 + 2 * nbf * nbf * 8,
+         ops)
+    if aux is None:
+        ops = sum(n * (2 * k2b * k2k * nherm(la + lb + lc + ld + 1)
+                       + 2 * 3 * 3 * ncart(la) * ncart(lb) * ncart(lc)
+                       * ncart(ld))
+                  for (la, lb, lc, ld, k2b, k2k), n in counted("eri"))
+        part("two_electron", 3 * nbf * nbf * 8, ops)
+        return out
+    A = aux.nbf
+    aux_g = [g for b in aux_unit_blocks(aux) for _, g in live_groups(b)]
+    pair_g = [g for b in unique_pair_blocks(primary) for _, g in live_groups(b)]
+
+    def k2(g):
+        return g.aexp.shape[1] * g.bexp.shape[1]
+
+    def triples(bras, kets):
+        return sum(a.n * p.n * (2 * k2(a) * k2(p)
+                                * nherm(a.la + p.la + p.lb + 1)
+                                + 2 * 2 * 3 * ncart(a.la) * ncart(p.la)
+                                * ncart(p.lb)) for a in bras for p in kets)
+
+    part("three_center", A * nbf * nbf * 8, 0.0)
+    part("metric", A * A * 8, 0.0)
+    part("fit", 4 * A * nbf * nbf * 8,
+         4 * A * nbf ** 3 + 2.0 / 3.0 * A ** 3 + 6 * A * A * nbf * nbf)
+    part("three_center_derivative", A * nbf * nbf * 8,
+         triples(aux_g, pair_g))
+    part("metric_derivative", A * A * 8, triples(aux_g, aux_g))
+    return out
+
+
+def run_gradient(tag: str, jc, label: str, inp: dict, ref: dict | None,
+                 route: str, incore: str | None = None,
+                 env: dict | None = None, tol: float = 1e-7) -> dict:
+    """models.gradient.run on a run_spec input (its SCF flags, method and
+    aux set), its parts timed and bounded (``grad_bounds``), held to the
+    JAX package's recorded gradient (max-abs ``tol`` Eh/bohr) and energy
+    (E_REF_TOL), to translational invariance, and its Mulliken charges to
+    the molecular charge."""
+    import torch
+
+    from juliachem_jl_tpu_torch.models import gradient, properties
+
+    spec = jc.io.parse_input(inp)
+    mol = jc.molecule.run(spec)
+    bsets = jc.basis.run(mol, spec.model)
+    flags = dict(spec.scf_keywords)
+    method = str(spec.model.get("method", "RHF")).upper()
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    tm = {}
+    t0 = time.perf_counter()
+    try:
+        res = gradient.run(mol, bsets, flags, method=method, timings=tm)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    g = res["Gradient"].cpu().numpy()
+    nt = res["Timings"].non_timing_data
+    aux = bsets.auxiliary if flags.get("scf_type") == "df" else None
+    parts = grad_bounds(tm, bsets.primary, aux, mol.natom)
+    charges = properties.mulliken_charges(mol, bsets.primary, res)
+    out = {"system": label, "energy": float(res["Energy"]),
+           "iterations": int(res["Iterations"]), "route": nt["fock_builder"],
+           "incore": nt.get("incore"), "gradient": g.tolist(),
+           "sum_abs_max": float(abs(g.sum(axis=0)).max()),
+           "scf_s": res["Timings"].run_time, "wall_s": wall, "parts": parts,
+           "peak_device_bytes": peak,
+           "charge_sum_minus_charge": float(charges.sum()) - mol.charge,
+           "on_cuda": res["Gradient"].is_cuda}
+    if ref:
+        out["minus_jax_gradient"] = float(abs(g - ref["gradient"]).max())
+        out["minus_jax_energy"] = out["energy"] - ref["energy"]
+    print(f"{tag} {label}: route {out['route']} (incore {out['incore']}), "
+          f"{out['iterations']} iterations, E = {out['energy']:.10f} Eh"
+          + (f" (E - JAX {out['minus_jax_energy']:.3e}, |g - JAX| "
+             f"{out['minus_jax_gradient']:.3e})" if ref else "")
+          + f", |sum g| {out['sum_abs_max']:.2e}; SCF {out['scf_s']:.2f} s, "
+          f"gradient wall {wall - out['scf_s']:.2f} s; parts ms (bound ms, "
+          "by): " + ", ".join(
+              f"{k} {v['ms']:.1f} ({v['bound_ms']:.3f}, {v['bound_by']})"
+              for k, v in parts.items())
+          + f"; peak device memory {peak / 1e9:.3f} GB", flush=True)
+    check(out["route"] == route, f"{label}: route {out['route']}, expected "
+          f"{route}")
+    if incore is not None:
+        check(out["incore"] == incore, f"{label}: incore {out['incore']}")
+    check(out["on_cuda"], f"{label}: the gradient is not on the card")
+    check(out["sum_abs_max"] <= 1e-8,
+          f"{label}: |sum of the gradient| = {out['sum_abs_max']:.3e}")
+    check(abs(out["charge_sum_minus_charge"]) <= 1e-10,
+          f"{label}: Mulliken charges sum to "
+          f"{out['charge_sum_minus_charge'] + mol.charge:.12f}")
+    if ref:
+        check(out["minus_jax_gradient"] <= tol,
+              f"{label}: |g - JAX| = {out['minus_jax_gradient']:.3e} > {tol}")
+        check(abs(out["minus_jax_energy"]) <= E_REF_TOL,
+              f"{label}: |E - JAX| = {abs(out['minus_jax_energy']):.3e}")
+    out.update(result=res, basis=bsets, molecule=mol, flags=flags,
+               model=spec.model)
+    return out
+
+
+def finite_differences(tag: str, jc, label: str, run: dict, coords,
+                       h: float = 2e-4, tol: float = 5e-6) -> dict:
+    """Central differences of the card's own converged energy (step h
+    bohr) on the given (atom, axis) against the analytic gradient of
+    ``run`` (a ``run_gradient`` result), within tol Eh/bohr."""
+    from juliachem_jl_tpu_torch.models import rhf
+    from juliachem_jl_tpu_torch.models.optimize import molecule_at
+
+    mol, g = run["molecule"], run["gradient"]
+    x0 = mol.coords.reshape(-1)
+    out = {}
+    for k, d in coords:
+        es = []
+        for sgn in (+1, -1):
+            x = x0.copy()
+            x[3 * k + d] += sgn * h
+            m = molecule_at(mol, x)
+            r = rhf.energy(m, jc.basis.run(m, run["model"]), run["flags"])
+            check(r["Converged?"], f"{label}: displaced SCF did not converge")
+            es.append(float(r["Energy"]))
+        fd = (es[0] - es[1]) / (2 * h)
+        key = f"{mol.symbols[k]}{k} {'xyz'[d]}"
+        out[key] = {"fd": fd, "analytic": g[k][d], "diff": fd - g[k][d]}
+        print(f"{tag} {label}: d E / d {key}: finite differences {fd:.9f}, "
+              f"analytic {g[k][d]:.9f}, difference {fd - g[k][d]:.3e} Eh/bohr "
+              f"(bound {tol})", flush=True)
+        check(abs(fd - g[k][d]) <= tol,
+              f"{label}: finite differences off the analytic gradient at "
+              f"{key} by {abs(fd - g[k][d]):.3e}")
+    return out
+
+
+def run_phase12(tag: str, jc, path, counts: dict, refs_d: dict, cart: dict,
+                inp_a: dict, expect_nsph: int) -> dict:
+    """Phase 12 (module docstring): the spherical-harmonic AO basis and the
+    nuclear derivatives.  ``path(label, fn)`` runs fn with the launch
+    counts set to 0 just before and records them in ``counts[label]``;
+    ``refs_d`` is smoke_reference.json's ``derivatives`` systems; ``cart``
+    the Cartesian run of ``inp_a`` (phase 5's ``benzene_2_water`` DF), and
+    ``expect_nsph`` the spherical function count of ``inp_a``'s basis.
+    Returns the phase's record."""
+    from juliachem_jl_tpu_torch.models import mp2 as mp2_mod
+
+    #     (a) benzene_2_water DF-RHF spherical (nbf 517 -> 491, packed B),
+    #     not below phase 5's Cartesian energy; (b) its analytic DF gradient
+    #     (27 atoms) at dele 1e-11, translationally invariant and held to
+    #     central differences of the card's own energy on the first heavy
+    #     atom's (a C) and the first H's coordinate; (c) the first 2 waters of w32, cc-pVDZ spherical: the
+    #     conventional RHF gradient in-core (K4, K6), direct and streaming
+    #     (K5), the cation's UHF and ROHF gradients and its DF-UHF gradient
+    #     (cc-pVDZ-JKFIT), each held to the JAX package's recorded gradient,
+    #     and RI-MP2 on the RHF orbitals (K7) to its E2; (d) one water
+    #     DF-RHF cc-pVDZ / cc-pVDZ-JKFIT spherical through run_file: driver
+    #     optimize from O-H stretched by 0.1 A, frequencies at the JAX
+    #     package's optimized geometry, gradient at the stretched one, each
+    #     held to the JAX package's recorded result
+    t_d = time.perf_counter()
+    label_sa = "benzene_2_water spherical DF"
+    sph_a = path(label_sa, lambda: run_system(
+        tag, jc, label_sa, None, None, "ScreenedDFFockBuilder",
+        inp=spherical(inp_a)))
+    nsph = sph_a["result"]["MO Coeff"].shape[0]
+    print(f"{tag} {label_sa}: nbf {sph_a['nbf']} Cartesian -> {nsph} "
+          f"spherical, E - E(Cartesian, phase 5) = "
+          f"{sph_a['energy'] - cart['energy']:.6e} Eh, Fock "
+          f"{sph_a['fock_s_per_iter_f64_steady'] * 1e3:.3f} ms/iter (Cartesian "
+          f"{cart['fock_s_per_iter_f64_steady'] * 1e3:.3f})", flush=True)
+    check(nsph == expect_nsph, f"{label_sa}: {nsph} spherical functions, "
+          f"expected {expect_nsph}")
+    check(sph_a["energy"] >= cart["energy"] - 1e-9,
+          f"{label_sa}: E = {sph_a['energy']:.10f} below the Cartesian "
+          f"{cart['energy']:.10f}")
+    label_sb = "benzene_2_water spherical DF gradient"
+    sph_b = path(label_sb, lambda: run_gradient(
+        tag, jc, label_sb, spherical({**inp_a, "keywords": {
+            **inp_a["keywords"], "scf": {**inp_a["keywords"]["scf"],
+                                         "dele": 1e-11, "rmsd": 1e-9,
+                                         "niter": 100}}}),
+        None, "ScreenedDFFockBuilder"))
+    syms = sph_b["molecule"].symbols
+    sph_b["finite_differences"] = finite_differences(
+        tag, jc, label_sb, sph_b,
+        [(next(i for i, x in enumerate(syms) if x != "H"), 2),
+         (syms.index("H"), 0)])
+    grads = {label_sb: sph_b}
+    for label, key, env, route, incore in (
+            ("w2 spherical RHF gradient in-core", "w2 rhf", {},
+             "ScreenedDirectFock", "True"),
+            ("w2 spherical RHF gradient direct", "w2 rhf",
+             {"JCHEM_INCORE_BUDGET": "0"}, "ScreenedDirectFock", "False"),
+            ("w2 spherical RHF gradient streaming", "w2 rhf",
+             {"JCHEM_CONV_STREAM": "1"}, "StreamingDirectFock", None),
+            ("w2+ spherical UHF gradient", "w2+ uhf", {},
+             "ScreenedDirectFock", "True"),
+            ("w2+ spherical ROHF gradient", "w2+ rohf", {},
+             "ScreenedDirectFock", "True"),
+            ("w2+ spherical DF-UHF gradient", "w2+ df-uhf", {},
+             "DFFockBuilder", None)):
+        ref = refs_d[key]
+        grads[label] = path(label, lambda: run_gradient(
+            tag, jc, label, {**ref["input"], "driver": "gradient"}, ref,
+            route, incore, env))
+    w2 = grads["w2 spherical RHF gradient in-core"]
+    label_mp = "w2 spherical RI-MP2"
+    m_w2 = path(label_mp, lambda: mp2_mod.ri_mp2_energy(w2["result"],
+                                                        w2["basis"]))
+    d_e2 = m_w2["E2"] - refs_d["w2 rhf"]["E2"]
+    print(f"{tag} {label_mp}: E2 = {m_w2['E2']:.10f} Eh, E2 - JAX = "
+          f"{d_e2:.3e} (bound 1e-8)", flush=True)
+    check(abs(d_e2) <= 1e-8, f"{label_mp}: |E2 - JAX| = {abs(d_e2):.3e}")
+    # (d), (e): the input-file route of the three derivative drivers
+    run_files = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for driver, key in (("gradient", "w1 gradient"),
+                            ("optimize", "w1 optimize"),
+                            ("frequencies", "w1 frequencies")):
+            p = Path(tmp) / f"w1_{driver}.json"
+            p.write_text(json.dumps(refs_d[key]["input"]))
+            label = f"w1 spherical DF run_file {driver}"
+            t0 = time.perf_counter()
+            run_files[driver] = path(label, lambda: jc.run_file(str(p)))
+            run_files[driver]["wall_s"] = time.perf_counter() - t0
+    r_g = run_files["gradient"]["Energy"]
+    d_g = float(abs(r_g["Gradient"].cpu().numpy()
+                    - refs_d["w1 gradient"]["gradient"]).max())
+    r_o = run_files["optimize"]["Energy"]
+    ref_o = refs_d["w1 optimize"]
+    d_eo = r_o["Energy"] - ref_o["energy"]
+    d_xo = float(abs(r_o["Molecule"].coords - ref_o["coords_bohr"]).max())
+    f_port = run_files["frequencies"]["Energy"]["Frequencies"]
+    d_f = float(abs(f_port - refs_d["w1 frequencies"]["frequencies"]).max())
+    print(f"{tag} w1 spherical DF run_file: gradient |g - JAX| {d_g:.3e} "
+          f"(bound 1e-7), {run_files['gradient']['wall_s']:.2f} s; optimize "
+          f"{r_o['Steps']} steps (JAX {ref_o['steps']}), E = "
+          f"{r_o['Energy']:.10f} Eh, E - JAX {d_eo:.3e} (bound 1e-8), |x - "
+          f"JAX| {d_xo:.3e} bohr (bound 1e-4), "
+          f"{run_files['optimize']['wall_s']:.2f} s; frequencies "
+          + ", ".join(f"{x:.2f}" for x in f_port)
+          + f" cm^-1, |f - JAX| {d_f:.3e} (bound 0.5), "
+          f"{run_files['frequencies']['wall_s']:.2f} s", flush=True)
+    check(d_g <= 1e-7, f"w1 run_file gradient: |g - JAX| = {d_g:.3e}")
+    check(r_o["Converged?"], "w1 run_file optimize did not converge")
+    check(abs(d_eo) <= 1e-8, f"w1 run_file optimize: |E - JAX| = {d_eo:.3e}")
+    check(d_xo <= 1e-4, f"w1 run_file optimize: |x - JAX| = {d_xo:.3e}")
+    check(d_f <= 0.5, f"w1 run_file frequencies: |f - JAX| = {d_f:.3e}")
+    d_main = {"df_gather_w": label_sa, "eri3c": label_sb,
+              "eri4c": "w2 spherical RHF gradient in-core",
+              "digest_jk": "w2 spherical RHF gradient in-core",
+              "eri4c_jk_list": "w2 spherical RHF gradient direct",
+              "eri4c_jk_stair": "w2 spherical RHF gradient streaming",
+              "e2_rmp2": label_mp}
+    for name, label in d_main.items():
+        check(counts[label].get(name, 0) > 0,
+              f"kernel {name} never launched on {label}")
+    d_s = time.perf_counter() - t_d
+    print(f"{tag} phase 12 (spherical basis, derivatives) took {d_s:.1f} s; "
+          "launches per kernel: " + ", ".join(
+              f"{n} {counts[lb][n]} ({lb})" for n, lb in d_main.items()),
+          flush=True)
+    return {
+        "benzene_2_water spherical DF": {
+            k: v for k, v in sph_a.items()
+            if k not in ("density", "result", "basis")},
+        "gradients": {k: {kk: vv for kk, vv in v.items() if kk not in (
+            "result", "basis", "molecule", "flags", "model")}
+            for k, v in grads.items()},
+        "w2 spherical RI-MP2 E2": m_w2["E2"],
+        "run_file": {"gradient_minus_jax": d_g,
+                     "optimize": {"energy": r_o["Energy"],
+                                  "minus_jax": d_eo, "coords_minus_jax": d_xo,
+                                  "steps": r_o["Steps"],
+                                  "wall_s": run_files["optimize"]["wall_s"]},
+                     "frequencies": {"cm1": list(map(float, f_port)),
+                                     "minus_jax": d_f,
+                                     "wall_s":
+                                         run_files["frequencies"]["wall_s"]}},
+        "seconds": d_s}
+
+
 # --------------------------------------------------------------- phase 9
 
 def packed_build_times(fb, D) -> dict:
@@ -3438,6 +3778,11 @@ def main() -> int:
           + "; g-class launches per kernel: " + ", ".join(
               f"{n} {g_launches(lb, n)} ({lb})" for n, lb in g_main.items()),
           flush=True)
+    # 12. the spherical-harmonic AO basis and the nuclear derivatives
+    derivatives = run_phase12(
+        tag, jc, path, counts, smoke_ref["derivatives"]["systems"], benzene,
+        system_input("benzene_2_water", goldens["benzene_2_water"],
+                     {"mixed_precision": False}), 491)
     jc.finalize()
 
     # each kernel's launches on its path
@@ -3590,7 +3935,8 @@ def main() -> int:
                         "seconds": f_s},
             "g_shell": {"builds_at_w2_convergence": builds_g,
                         "seconds": g_s, "gg_gg_launches": gg},
-            "correlated": correlated, "sharded": sharded}), indent=1,
+            "correlated": correlated, "sharded": sharded,
+            "derivatives": derivatives}), indent=1,
             default=str))
     print(f"{tag} chip_smoke: all phases passed in {total_s:.1f} s", flush=True)
     print(smi)

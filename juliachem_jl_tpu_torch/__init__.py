@@ -1,11 +1,15 @@
 """juliachem_jl_tpu_torch — the PyTorch / CUDA port of juliachem_jl_tpu.
 
-RHF, UHF and ROHF, density-fitted and conventional (direct SCF), with
-properties, and RI-MP2 / SCS-MP2 / RI-UMP2, through the same entry points as
-the JAX package (``initialize / io.read_input / molecule.run / basis.run /
+RHF, UHF and ROHF, density-fitted and conventional (direct SCF), in a
+Cartesian or spherical-harmonic AO basis, with properties, RI-MP2 / SCS-MP2 /
+RI-UMP2, analytic nuclear gradients, geometry optimization and harmonic
+frequencies, through the same entry points as the JAX package
+(``initialize / io.read_input / molecule.run / basis.run /
 models.rhf.energy / models.uhf.energy / models.rohf.energy /
-models.mp2.ri_mp2_energy / models.properties.run / finalize``, or
-``run_file`` / ``run_spec``).  Plain
+models.mp2.ri_mp2_energy / models.properties.run / models.gradient.run /
+models.optimize.optimize / models.hessian.frequencies / finalize``, or
+``run_file`` / ``run_spec`` with the drivers energy, gradient, optimize and
+frequencies).  Plain
 tensor code is torch in float64 on the card unless the caller names the CPU
 (``initialize("cpu")`` or ``device="cpu"``); the hot kernels are CUDA C++ for Hopper
 (``csrc/``, built with nvcc at first use), each with a plain torch version

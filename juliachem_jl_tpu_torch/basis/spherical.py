@@ -34,6 +34,10 @@ __all__ = [
     "cart_to_sph_shell",
     "cart_to_sph_basis",
     "nsph",
+    "sph_transform",
+    "lift_rows_sph",
+    "project_metric_sph",
+    "sph_bf_to_atom",
 ]
 
 
@@ -246,3 +250,67 @@ def aux_needs_sph(basis: Basis) -> bool:
     """True when the solid-harmonic aux projection changes anything
     (a d or higher shell exists; s/p transforms are the identity)."""
     return any(s.l >= 2 for s in basis.shells)
+
+
+def sph_transform(basis: Basis, device):
+    """``cart_to_sph_basis`` as a float64 tensor on ``device``."""
+    import torch
+
+    return torch.as_tensor(cart_to_sph_basis(basis), dtype=torch.float64,
+                           device=device)
+
+
+def _shell_rows(basis: Basis):
+    """Per angular momentum l: (T_l [ncart, nsph], Cartesian rows
+    [nshell_l, ncart], spherical rows [nshell_l, nsph]) in
+    cart_to_sph_basis' shell order."""
+    shells = sorted(basis.shells, key=lambda s: s.offset)
+    out: dict = {}
+    col = 0
+    for s in shells:
+        nc, ns = ncart(s.l), nsph(s.l)
+        rows = out.setdefault(s.l, ([], []))
+        rows[0].append(np.arange(s.offset, s.offset + nc))
+        rows[1].append(np.arange(col, col + ns))
+        col += ns
+    return {l: (cart_to_sph_shell(l), np.stack(c), np.stack(r))
+            for l, (c, r) in out.items()}, col
+
+
+def lift_rows_sph(basis: Basis, X):
+    """Port of ``lift_rows_sph``: lift the rows of the torch tensor X
+    [nbf_sph, ...] back to Cartesian aux rows, T @ X with T the block-
+    diagonal per-shell transform, without forming T: one batched product a
+    shell class.  Because T is geometry-independent, quantities fitted in
+    the projected space (the DF gradient's gamma and Omega) lift to
+    Cartesian rows exactly."""
+    import torch
+
+    per_l, n_sph = _shell_rows(basis)
+    if X.shape[0] != n_sph:
+        raise ValueError(f"lift_rows_sph: {X.shape[0]} rows, expected {n_sph}")
+    out = X.new_zeros((basis.nbf,) + tuple(X.shape[1:]))
+    for l, (T, c_rows, s_rows) in per_l.items():
+        Tt = torch.as_tensor(T, dtype=X.dtype, device=X.device)
+        s_idx = torch.as_tensor(s_rows, device=X.device)
+        c_idx = torch.as_tensor(c_rows, device=X.device)
+        Xs = X[s_idx.reshape(-1)].reshape(s_rows.shape + tuple(X.shape[1:]))
+        out[c_idx.reshape(-1)] = torch.tensordot(Tt, Xs, dims=([1], [1])) \
+            .transpose(0, 1).reshape((-1,) + tuple(X.shape[1:]))
+    return out
+
+
+def project_metric_sph(basis: Basis, M):
+    """Solid-harmonic projection of the [A, A] aux Coulomb metric (a torch
+    tensor): M_s = T^T M T."""
+    T = sph_transform(basis, M.device).to(M.dtype)
+    return T.T @ M @ T
+
+
+def sph_bf_to_atom(basis: Basis) -> np.ndarray:
+    """Per-spherical-bf atom index (Mulliken/Lowdin analysis), matching the
+    shell order of cart_to_sph_basis."""
+    out = []
+    for s in sorted(basis.shells, key=lambda sh: sh.offset):
+        out += [s.atom] * nsph(s.l)
+    return np.asarray(out, dtype=np.int64)

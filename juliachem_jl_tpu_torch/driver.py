@@ -4,10 +4,12 @@ Port of ``juliachem_jl_tpu/driver.py`` (the reference's canonical script
 sequence, example_scripts/full-rhf.jl):
   initialize -> JCInput.run -> JCMolecule.run -> JCBasis.run ->
   JCRHF.Energy.run -> JCRHF.Properties.run -> finalize.
-RHF, UHF and ROHF energies, density-fitted or conventional (no auxiliary
-basis needed for ``scf_type: "rhf"``); every other driver raises
-NotImplementedError naming its ROADMAP.md item, and any other method name
-raises ValueError.
+RHF, UHF and ROHF, density-fitted or conventional (no auxiliary basis
+needed for ``scf_type: "rhf"``), in a Cartesian or spherical-harmonic AO
+basis; the drivers ``energy``, ``gradient`` (the analytic nuclear
+gradient), ``optimize`` (BFGS) and ``frequencies`` (central differences of
+the analytic gradient), as the JAX package's ``driver.py``.  Any other
+method name raises ValueError.
 """
 
 from __future__ import annotations
@@ -35,16 +37,34 @@ def run_spec(spec, output: int = 0, device=None) -> dict:
     if method not in _ENERGY:
         raise ValueError(f"model.method {method!r}: expected one of "
                          f"{', '.join(_ENERGY)}")
-    if spec.driver != "energy":
-        raise NotImplementedError(
-            f"driver {spec.driver!r} is not ported yet (ROADMAP.md A10)")
     mol = molecule_mod.run(spec, output=output)
     bsets = basis_mod.run(mol, spec.model, output=output)
     scf_flags = dict(spec.scf_keywords)
     if spec.auxiliary_basis and "scf_type" not in scf_flags:
         scf_flags["scf_type"] = "df"
-    result = _ENERGY[method](
-        mol, bsets, scf_flags, output=output, device=device)
+    if spec.driver == "optimize":
+        from .models import optimize as optimize_mod
+
+        result = optimize_mod.optimize(mol, spec.model, scf_flags,
+                                       method=method, output=output,
+                                       device=device)
+        result = {**result.pop("SCF Result"), **result}
+    elif spec.driver == "frequencies":
+        from .models import hessian as hessian_mod
+
+        freq = hessian_mod.frequencies(mol, spec.model, scf_flags,
+                                       method=method, output=output,
+                                       device=device)
+        result = {**_ENERGY[method](mol, bsets, scf_flags, output=output,
+                                    device=device), **freq}
+    elif spec.driver == "gradient":
+        from .models import gradient as gradient_mod
+
+        result = gradient_mod.run(mol, bsets, scf_flags, output=output,
+                                  method=method, device=device)
+    else:
+        result = _ENERGY[method](
+            mol, bsets, scf_flags, output=output, device=device)
     props = properties_mod.run(mol, bsets, result, spec.prop_keywords,
                                output=output)
     return {

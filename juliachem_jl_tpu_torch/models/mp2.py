@@ -186,13 +186,12 @@ def occupied_ranges(nocc: int, n: int) -> list[tuple[int, int]]:
 
 
 def _cart_mo(result, C):
-    """MO coefficients over the Cartesian AO rows: the identity, since the
-    port runs Cartesian AO bases only (a spherical one raises, ROADMAP.md
-    A4)."""
-    if result.get("Spherical Transform") is not None:
-        raise NotImplementedError(
-            "the spherical-harmonic AO basis is not ported yet (ROADMAP.md A4)")
-    return C
+    """MO coefficients over the Cartesian AO rows: spherical-harmonic runs
+    store C over the 2l+1 spherical AOs, while B is built from the
+    Cartesian kernels; C_cart = T C_sph spans the identical MO space, so
+    E2 is exact."""
+    T = result.get("Spherical Transform")
+    return C if T is None else T @ C
 
 
 def mo_b(B, Cocc, Cvirt) -> torch.Tensor:

@@ -24,8 +24,19 @@ def mo_energies(result) -> dict:
             "homo_lumo": float(lumo - homo)}
 
 
-def _atom_sums(mol, basis, per_bf: torch.Tensor) -> np.ndarray:
-    bf_atom = torch.as_tensor(basis.bf_to_atom(), device=per_bf.device)
+def _bf_to_atom(basis, result) -> np.ndarray:
+    """Per-bf atom map in the run's computational basis (spherical runs
+    carry fewer functions per shell than the Cartesian compiled basis)."""
+    if result.get("Spherical Transform") is not None:
+        from ..basis.spherical import sph_bf_to_atom
+
+        return sph_bf_to_atom(basis)
+    return basis.bf_to_atom()
+
+
+def _atom_sums(mol, basis, result, per_bf: torch.Tensor) -> np.ndarray:
+    bf_atom = torch.as_tensor(_bf_to_atom(basis, result),
+                              device=per_bf.device)
     pops = torch.zeros(mol.natom, dtype=torch.float64, device=per_bf.device)
     pops.index_add_(0, bf_atom, per_bf)
     return pops.cpu().numpy()
@@ -35,7 +46,7 @@ def mulliken_populations(mol, basis, result) -> np.ndarray:
     """Per-atom Mulliken populations from (D * S) block sums
     (Mulliken.jl:3-60)."""
     ds = result["Density"] * result["Overlap"]
-    return _atom_sums(mol, basis, ds.sum(dim=1))
+    return _atom_sums(mol, basis, result, ds.sum(dim=1))
 
 
 def mulliken_charges(mol, basis, result) -> np.ndarray:
@@ -48,7 +59,7 @@ def lowdin_populations(mol, basis, result) -> np.ndarray:
     w, U = torch.linalg.eigh(S)
     S_half = (U * torch.sqrt(torch.clamp(w, min=0.0))[None, :]) @ U.T
     diag = torch.einsum("pq,qr,rp->p", S_half, D, S_half)
-    return _atom_sums(mol, basis, diag)
+    return _atom_sums(mol, basis, result, diag)
 
 
 def dipole_moment(mol, basis, result) -> dict:
@@ -56,6 +67,11 @@ def dipole_moment(mol, basis, result) -> dict:
     from ..ops.oei import dipole_matrices
 
     D = result["Density"]
+    T = result.get("Spherical Transform")
+    if T is not None:
+        # tr(D_s T^T M T) = tr((T D_s T^T) M): map the spherical density to
+        # Cartesian once and reuse the Cartesian dipole integrals
+        D = T @ D @ T.T
     mx, my, mz = dipole_matrices(basis, D.device, origin=np.zeros(3))
     el = -np.array([float(torch.sum(D * m)) for m in (mx, my, mz)])
     nuc = (np.asarray(mol.z, dtype=float)[:, None] * mol.coords).sum(axis=0)
@@ -96,7 +112,9 @@ def run(mol, basis_sets, rhf_result, prop_keywords: dict | None = None,
             # Mulliken sums of the spin density (alpha minus beta)
             out["Mulliken Spin Population"] = mulliken_populations(
                 mol, basis, {"Density": rhf_result["Spin Density"],
-                             "Overlap": rhf_result["Overlap"]})
+                             "Overlap": rhf_result["Overlap"],
+                             "Spherical Transform":
+                                 rhf_result.get("Spherical Transform")})
             if output >= 1:
                 print("Mulliken spin populations:",
                       out["Mulliken Spin Population"])

@@ -7,8 +7,11 @@ sharded builders of models/df_sharded.py, ops/fock_sharded.py and
 ops/fock_stream.py; every rank returns the same result).  Returns
 the same result dictionary shape as the JAX package (Fock, Density, W, MO
 Coeff, MO Energies, Overlap as tensors on the calculation's device; Energy,
-Converged?, Stagnated, Deadline Hit, Iterations, Timings).  The route taken
-is recorded in ``Timings.non_timing_data["fock_builder"]``.
+Converged?, Stagnated, Deadline Hit, Iterations, Timings, and the
+Spherical Transform T of a spherical-harmonic run, else None).  A
+spherical run (``basis_sets.spherical``) wraps whichever builder the router
+picks in ``scf.SphericalFockAdapter``.  The route taken is recorded in
+``Timings.non_timing_data["fock_builder"]``.
 """
 
 from __future__ import annotations
@@ -162,9 +165,6 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
     scf_flags = scf_flags or {}
     opts = create_scf_options(scf_flags)
     _check_ported(scf_flags, opts)
-    if getattr(basis_sets, "spherical", False):
-        raise NotImplementedError(
-            "the spherical-harmonic AO basis is not ported yet (ROADMAP.md A4)")
     timings = Timings()
     timings.set_user_options(scf_flags)
     timings.set_options(opts)
@@ -177,19 +177,24 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
     if output >= 1:
         print_scf_options(opts)
 
+    # spherical-harmonic AO basis: every matrix of the SCF in the 2l+1
+    # space, the builders Cartesian behind the adapter
+    sph_T = scf_mod.spherical_transform(basis_sets, device)
     e_nuc = mol.nuclear_repulsion()
     fingerprint = scf_mod.system_fingerprint(mol, primary)
+    if sph_T is not None:
+        fingerprint = "sph:" + fingerprint
     restart_path = scf_flags.get("restart")
     if restart_path:
         state = scf_mod.load_checkpoint(restart_path, device, fingerprint,
                                         e_nuc)
     else:
         state = scf_mod.initial_state(mol, primary, opts, timings, device,
-                                      output)
+                                      output, sph_T=sph_T)
     use_df = opts.scf_type == C.SCFType.density_fitting
     df_guess = opts.guess == C.Guess.density_fitting
-    fock_builder = _make_fock_builder(basis_sets, opts, device,
-                                      use_df or df_guess, timings)
+    fock_builder = scf_mod.wrap_spherical(_make_fock_builder(
+        basis_sets, opts, device, use_df or df_guess, timings), sph_T)
     if df_guess and not use_df:
         # DF warm-up phase, then conventional iterations (SCF.jl:527-550)
         scf_mod.scf_loop(
@@ -199,12 +204,14 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
             density_convergence=opts.df_density_convergence,
         )
         fock_builder.finalize()
-        timings.non_timing_data["df_guess_builder"] = type(
-            fock_builder).__name__
+        timings.non_timing_data["df_guess_builder"] = scf_mod.builder_name(
+            fock_builder)
         timings.non_timing_data["df_guess_iterations"] = str(state.iteration)
-        fock_builder = _make_fock_builder(basis_sets, opts, device, False,
-                                          timings)
-    timings.non_timing_data["fock_builder"] = type(fock_builder).__name__
+        fock_builder = scf_mod.wrap_spherical(_make_fock_builder(
+            basis_sets, opts, device, False, timings), sph_T)
+    timings.non_timing_data["fock_builder"] = scf_mod.builder_name(
+        fock_builder)
+    timings.non_timing_data["spherical"] = str(sph_T is not None)
     if hasattr(fock_builder, "incore"):
         timings.non_timing_data["incore"] = str(fock_builder.incore)
     timings.non_timing_data["device"] = str(device)
@@ -270,5 +277,9 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         "Deadline Hit": state.deadline_hit,
         "Iterations": state.iteration,
         "Timings": timings,
+        # T [nbf_cart, nbf_sph] of a spherical-harmonic run, else None:
+        # every matrix above is then in the spherical (computational) basis,
+        # and properties, MP2 and gradients map through T
+        "Spherical Transform": sph_T,
     }
 

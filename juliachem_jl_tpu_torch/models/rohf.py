@@ -164,5 +164,5 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         "Converged?": converged,
         "Iterations": it,
         "Timings": timings,
-        "Spherical Transform": None,
+        "Spherical Transform": st["sph_T"],
     }

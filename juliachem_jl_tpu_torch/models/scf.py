@@ -87,6 +87,80 @@ class FockBuilder:
         pass
 
 
+class SphericalFockAdapter(FockBuilder):
+    """Wrap any Cartesian Fock builder for a spherical-harmonic SCF (the JAX
+    package's ``models/scf.py:66-99``): G_s(D_s) = T^T G_c(T D_s T^T) T with
+    the geometry-independent block transform T [nbf_cart, nbf_sph]
+    (basis/spherical.py).  G is linear in D, so the wrapped builder's
+    screening, DF and kernels apply unchanged; the occupied orbitals go in
+    as T C_s, which spans the same occupied space.  Every other attribute
+    (``mesh``, ``incore``, ...) is the wrapped builder's."""
+
+    def __init__(self, inner: FockBuilder, T: torch.Tensor):
+        self.inner = inner
+        self.T = T
+        self.supports_f32_phase = inner.supports_f32_phase
+
+    def __getattr__(self, name):
+        if name == "inner":   # not set yet (unpickling): no recursion
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def _up(self, M):
+        return None if M is None else self.T @ M
+
+    def _sym_up(self, D):
+        return self.T @ D @ self.T.T
+
+    def _down(self, G):
+        return self.T.T @ G @ self.T
+
+    def two_electron_fock(self, D, iteration, timings: Timings, C_occ=None,
+                          precision: str = "f64"):
+        G = self.inner.two_electron_fock(self._sym_up(D), iteration, timings,
+                                         self._up(C_occ), precision=precision)
+        return self._down(G)
+
+    def two_electron_jk(self, Da, Db, iteration, timings: Timings, Ca=None,
+                        Cb=None):
+        J, Ka, Kb = self.inner.two_electron_jk(
+            self._sym_up(Da), self._sym_up(Db), iteration, timings,
+            self._up(Ca), self._up(Cb))
+        return self._down(J), self._down(Ka), self._down(Kb)
+
+    def finalize(self):
+        self.inner.finalize()
+
+
+def spherical_transform(basis_sets, device) -> torch.Tensor | None:
+    """T [nbf_cart, nbf_sph] on ``device`` for a spherical-harmonic run
+    (``basis_sets.spherical``), else None."""
+    if not getattr(basis_sets, "spherical", False):
+        return None
+    from ..basis.spherical import sph_transform
+
+    return sph_transform(basis_sets.primary, device)
+
+
+def wrap_spherical(builder: FockBuilder, T) -> FockBuilder:
+    """``builder`` behind a SphericalFockAdapter when T is given."""
+    return builder if T is None else SphericalFockAdapter(builder, T)
+
+
+def builder_name(builder: FockBuilder) -> str:
+    """The class name of the builder that does the work (the adapter's
+    wrapped one)."""
+    return type(getattr(builder, "inner", builder)).__name__
+
+
+def project_guess(D, S_sph, S_cart, T):
+    """Metric projection of a Cartesian guess density onto the spherical
+    span: D_s = Q D_c Q^T, Q = S_s^-1 T^T S_c (only a guess: trace and
+    idempotency need not be exact)."""
+    Q = torch.linalg.solve(S_sph, T.T @ S_cart)
+    return Q @ D @ Q.T
+
+
 def electronic_energy(D, H, F) -> float:
     """E_elec = 1/2 sum D (H + F)  (reference SCF.jl:1110-1125 convention,
     D = 2 C_occ C_occ^T)."""
@@ -371,10 +445,16 @@ def energy_weighted_density(state: SCFState) -> torch.Tensor:
 
 
 def initial_state(mol, basis, opts: SCFOptions, timings: Timings, device,
-                  output: int = 0) -> SCFState:
+                  output: int = 0, sph_T: torch.Tensor | None = None
+                  ) -> SCFState:
     """Hamiltonian core pieces + orthogonalizer + guess density.  With
     ``opts.oei_cache`` (a path prefix) S, T and V are loaded from, or saved
-    to, ``<prefix>_torch_oei.npz``, guarded by ``system_fingerprint``."""
+    to, ``<prefix>_torch_oei.npz``, guarded by ``system_fingerprint``.
+
+    sph_T (optional [nbf_cart, nbf_sph], ``spherical_transform``) switches
+    the SCF to the real-solid-harmonic basis: the Cartesian one-electron
+    matrices are built as usual and projected once, and the SAD guess is
+    projected onto the spherical metric (``project_guess``)."""
     with timings.timed(JCTC.H_time):
         S = None
         path = rank_path(opts.oei_cache + "_torch_oei.npz"
@@ -400,6 +480,10 @@ def initial_state(mol, basis, opts: SCFOptions, timings: Timings, device,
                 except OSError:
                     pass
     H = T + V
+    S_cart = S
+    if sph_T is not None:
+        H = sph_T.T @ H @ sph_T
+        S = sph_T.T @ S @ sph_T
     X = linalg.orthogonalizer(S)
     nocc = basis.nels // 2
     if basis.nels % 2 != 0:
@@ -412,7 +496,10 @@ def initial_state(mol, basis, opts: SCFOptions, timings: Timings, device,
         if opts.guess == C.Guess.sad:
             from .guess import sad_guess
 
-            state.D = sad_guess(mol, basis, device)
+            D = sad_guess(mol, basis, device)
+            if sph_T is not None:
+                D = project_guess(D, S, S_cart, sph_T)
+            state.D = D
             state.F = None
         else:  # hcore guess (F = H): SCF.jl:107-117
             eps, Cmo, D = linalg.roothaan_step(H, X, nocc)

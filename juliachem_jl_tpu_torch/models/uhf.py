@@ -13,8 +13,9 @@ calculation's device.  The result dict has the JAX package's keys (S^2,
 multiplicity, spin density).  With ``num_devices: n`` the builders are the
 sharded ones over the n ranks of a process group (ShardedDFJKBuilder, or
 ShardedDirectFock for conventional), and the loop keeps every rank's state
-bit-identical by broadcasting rank 0's (as models/scf.py does).  The
-spherical-harmonic AO basis is not ported (ROADMAP.md A4).
+bit-identical by broadcasting rank 0's (as models/scf.py does).  A
+spherical-harmonic run projects H and S (and the SAD guess) and wraps the
+builder in ``scf.SphericalFockAdapter``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from ..utils.options import create_scf_options
 from ..utils.timings import JCTC, Timings
 from . import linalg
 from .rhf import _check_ported
+from .scf import (builder_name, project_guess, spherical_transform,
+                  wrap_spherical)
 
 
 def _occupations(nels: int, multiplicity: int) -> tuple[int, int]:
@@ -74,9 +77,6 @@ def setup(mol, basis_sets, scf_flags, device):
     guess_mix = float(scf_flags.pop("guess_mix", 0.0))
     opts = create_scf_options(scf_flags)
     _check_ported(scf_flags, opts, open_shell=True)
-    if getattr(basis_sets, "spherical", False):
-        raise NotImplementedError(
-            "the spherical-harmonic AO basis is not ported yet (ROADMAP.md A4)")
     timings = Timings()
     timings.set_user_options(scf_flags)
     timings.set_options(opts)
@@ -88,16 +88,23 @@ def setup(mol, basis_sets, scf_flags, device):
     with timings.timed(JCTC.H_time):
         S, T, V = overlap_kinetic_nuclear(primary, mol, device)
     H = T + V
+    S_cart = S
+    sph_T = spherical_transform(basis_sets, device)
+    if sph_T is not None:
+        H = sph_T.T @ H @ sph_T
+        S = sph_T.T @ S @ sph_T
     X = linalg.orthogonalizer(S)
     use_df = opts.scf_type == C.SCFType.density_fitting
-    builder = make_jk_builder(basis_sets, opts, use_df, timings, device)
-    timings.non_timing_data["fock_builder"] = type(builder).__name__
+    builder = wrap_spherical(
+        make_jk_builder(basis_sets, opts, use_df, timings, device), sph_T)
+    timings.non_timing_data["fock_builder"] = builder_name(builder)
     if hasattr(builder, "incore"):
         timings.non_timing_data["incore"] = str(builder.incore)
+    timings.non_timing_data["spherical"] = str(sph_T is not None)
     timings.non_timing_data["device"] = str(device)
     return dict(opts=opts, timings=timings, multiplicity=multiplicity,
-                guess_mix=guess_mix, na=na, nb=nb, S=S, H=H, X=X,
-                builder=builder, device=device)
+                guess_mix=guess_mix, na=na, nb=nb, S=S, S_cart=S_cart, H=H,
+                X=X, builder=builder, device=device, sph_T=sph_T)
 
 
 def finish(name: str, timings: Timings, opts, converged: bool, E_total: float,
@@ -146,7 +153,10 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         if opts.guess == C.Guess.sad:
             from .guess import sad_guess
 
-            Da = Db = 0.5 * sad_guess(mol, basis_sets.primary, dev)
+            Dt = sad_guess(mol, basis_sets.primary, dev)
+            if st["sph_T"] is not None:
+                Dt = project_guess(Dt, S, st["S_cart"], st["sph_T"])
+            Da = Db = 0.5 * Dt
         else:  # hcore
             _, Ca, Da = _spin_step(H, X, na)
             _, Cb, Db = _spin_step(H, X, nb)
@@ -277,7 +287,7 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
         "Converged?": converged,
         "Iterations": it,
         "Timings": timings,
-        "Spherical Transform": None,
+        "Spherical Transform": st["sph_T"],
     }
 
 

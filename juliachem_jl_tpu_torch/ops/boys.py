@@ -54,6 +54,42 @@ def boys(T: torch.Tensor, mmax: int) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+_ROWS = 1 << 18  # Boys arguments a chunk of boys_rows ([2^18, 128] f64)
+
+
+def boys_rows(T: torch.Tensor, mmax: int) -> torch.Tensor:
+    """``boys`` with the series' terms formed side by side (a cumulative
+    product of the term ratios 2T / (2 mmax + 2k + 3), then one sum) in
+    place of 128 dependent steps: the same series, recursions and branches
+    in a few operations a chunk of ``_ROWS`` arguments, for callers whose
+    batches are bound by their launches on the card (the derivative
+    programs of ops/oei_grad.py and ops/eri_grad.py).  Equal to ``boys`` to
+    rounding; ``boys`` stays the kernels' plain form, whose one-step-at-a-time
+    series is the device's (the K3 probe holds the two within 1e-14)."""
+    flat = T.reshape(-1)
+    k = torch.arange(_NSERIES, dtype=T.dtype, device=T.device)
+    inv = 1.0 / (2.0 * mmax + 2.0 * k + 3.0)
+    parts = []
+    for s in range(0, max(flat.shape[0], 1), _ROWS):
+        t = flat[s:s + _ROWS]
+        Ts = torch.clamp(t, max=TCRIT)
+        Tl = torch.clamp(t, min=TCRIT)
+        expTs = torch.exp(-Ts)
+        terms = torch.cumprod((2.0 * Ts)[:, None] * inv[None, :], dim=1)
+        fs = expTs * (1.0 + terms.sum(dim=1)) / (2.0 * mmax + 1.0)
+        small = [fs]
+        for m in range(mmax - 1, -1, -1):   # downward: stable
+            small.append((2.0 * Ts * small[-1] + expTs) / (2.0 * m + 1.0))
+        large = [0.5 * torch.sqrt(math.pi / Tl)]
+        expTl, inv2T = torch.exp(-Tl), 0.5 / Tl
+        for m in range(1, mmax + 1):        # upward: stable for T > TCRIT
+            large.append(((2.0 * m - 1.0) * large[-1] - expTl) * inv2T)
+        parts.append(torch.where((t <= TCRIT)[:, None],
+                                 torch.stack(small[::-1], dim=-1),
+                                 torch.stack(large, dim=-1)))
+    return torch.cat(parts).reshape(T.shape + (mmax + 1,))
+
+
 def boys_probe(T: torch.Tensor, mmax: int, recip: bool = False
                ) -> torch.Tensor:
     """F_0..F_mmax(T) through the CUDA device Boys function (kernel K3):

@@ -13,10 +13,13 @@ Conventions (Helgaker/Jorgensen/Olsen ch. 9):
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
 from .boys import boys  # noqa: F401  (re-exported, as in the JAX package)
-from .class_tables import herm_list, pair_tables
+from .class_tables import herm_index, herm_list, pair_tables
 
 
 def pair_primitive_data(aexp, bexp, acoef, bcoef, A, B):
@@ -47,44 +50,36 @@ def e_dense(la: int, lb: int, prim) -> torch.Tensor:
     """Dense per-dimension E-coefficient table.
 
     Returns E[N, K2, 3, la+1, lb+1, la+lb+1] with zeros where t > i+j.
+
+    The recursions E^{i,0}_t = E^{i-1,0}_{t-1} / 2p + PA E^{i-1,0}_t + (t+1)
+    E^{i-1,0}_{t+1} (then the same in j with PB) step over i, then j, with
+    every t (and, for j, every i) at once: the same operations as the JAX
+    package's entry-by-entry recursion, in a few launches a step.
     """
     p, mu = prim["p"], prim["mu"]
     PA, PB = prim["PA"], prim["PB"]                   # [N, K2, 3]
     AB = prim["AB"]                                   # [N, 3]
-    oo2p = (0.5 / p)[:, :, None]                      # [N, K2, 1]
-    zero = torch.zeros_like(PA)
+    T = la + lb + 1
+    tco = torch.arange(1, T + 1, dtype=p.dtype, device=p.device)
 
-    e = {(0, 0, 0): torch.exp(-mu[:, :, None] * AB[:, None, :] ** 2)}
+    def step(E, P, oo2p):
+        # E [..., T] -> the next i (or j), every t at once (zero outside)
+        pad = torch.zeros_like(E[..., :1])
+        down = torch.cat([pad, E[..., :-1]], dim=-1)          # E_{t-1}
+        up = torch.cat([E[..., 1:], pad], dim=-1)             # E_{t+1}
+        return oo2p * down + P * E + tco * up
 
-    def get(i, j, t):
-        if t < 0 or t > i + j:
-            return zero
-        return e[(i, j, t)]
-
-    for i in range(1, la + 1):
-        for t in range(i + 1):
-            e[(i, 0, t)] = (
-                oo2p * get(i - 1, 0, t - 1)
-                + PA * get(i - 1, 0, t)
-                + (t + 1) * get(i - 1, 0, t + 1)
-            )
-    for j in range(1, lb + 1):
-        for i in range(la + 1):
-            for t in range(i + j + 1):
-                e[(i, j, t)] = (
-                    oo2p * get(i, j - 1, t - 1)
-                    + PB * get(i, j - 1, t)
-                    + (t + 1) * get(i, j - 1, t + 1)
-                )
-
-    L = la + lb
-    rows = []
-    for i in range(la + 1):
-        cols = []
-        for j in range(lb + 1):
-            cols.append(torch.stack([get(i, j, t) for t in range(L + 1)], dim=-1))
-        rows.append(torch.stack(cols, dim=-2))
-    return torch.stack(rows, dim=-3)                  # [N,K2,3,la+1,lb+1,L+1]
+    e00 = torch.exp(-mu[:, :, None] * AB[:, None, :] ** 2)   # [N, K2, 3]
+    E = torch.zeros(e00.shape + (T,), dtype=e00.dtype, device=e00.device)
+    E[..., 0] = e00
+    oo2p = (0.5 / p)[:, :, None, None]                # [N, K2, 1, 1]
+    rows = [E]
+    for _ in range(la):
+        rows.append(step(rows[-1], PA[..., None], oo2p))
+    cols = [torch.stack(rows, dim=-2)]                # [N, K2, 3, la+1, T]
+    for _ in range(lb):
+        cols.append(step(cols[-1], PB[..., None, None], oo2p[..., None]))
+    return torch.stack(cols, dim=-2)                  # [N,K2,3,la+1,lb+1,T]
 
 
 def hermite_expansion(la: int, lb: int, prim, fold_coefs: bool = True) -> torch.Tensor:
@@ -118,45 +113,56 @@ def hermite_expansion(la: int, lb: int, prim, fold_coefs: bool = True) -> torch.
     return Eab
 
 
+@lru_cache(maxsize=None)
+def _r_layers(L: int, device: torch.device):
+    """Per recursion level n = L-1 .. 0, the gather maps of ``r_tensor``'s
+    layer over herm_list(L - n) from the layer above (herm_list(L - n - 1)):
+    the index of each entry's "hi" and "lo" source, the dimension it
+    recurses in (the first of t, u, v that is nonzero) and the lo
+    coefficient (that index minus 1; 0 where the scalar recursion has no
+    lo term).  Entry 0 of every layer, (0,0,0), is the Boys term."""
+    layers = []
+    for n in range(L - 1, -1, -1):
+        below = herm_index(L - n - 1)
+        hi, lo, dim, coef = [], [], [], []
+        for (t, u, v) in herm_list(L - n)[1:]:
+            d = 0 if t > 0 else (1 if u > 0 else 2)
+            k = (t, u, v)[d]
+            step = [0, 0, 0]
+            step[d] = 1
+            hi.append(below[(t - step[0], u - step[1], v - step[2])])
+            has_lo = k >= 2
+            lo.append(below[(t - 2 * step[0], u - 2 * step[1],
+                             v - 2 * step[2])] if has_lo else 0)
+            dim.append(d)
+            coef.append(float(k - 1) if has_lo else 0.0)
+        layers.append(tuple(torch.as_tensor(np.asarray(x), device=device)
+                            for x in (hi, lo, dim, coef)))
+    return layers
+
+
 def r_tensor(L: int, alpha, X, F) -> torch.Tensor:
     """Hermite Coulomb integrals R^0_{tuv} stacked in herm_list(L) order.
 
     alpha: [...], X: [..., 3] (the P-Q separation), F: [..., L+1] Boys values
     (any linear prefactor may be pre-multiplied into F).
     Returns [..., nherm(L)].
+
+    The JAX package's scalar recursion (R^n_{tuv} = (t-1) R^{n+1}_{t-2,u,v}
+    + X R^{n+1}_{t-1,u,v}, in the first nonzero index) evaluated a level n
+    at a time over all of its (t, u, v) with gathers (``_r_layers``): the
+    same operations on every entry, in a few launches a level.
     """
-    Xd = [X[..., 0], X[..., 1], X[..., 2]]
     m2a = -2.0 * alpha
     pows = [torch.ones_like(alpha)]
     for n in range(1, L + 1):
         pows.append(pows[-1] * m2a)
-
-    memo = {}
-
-    def R(n, t, u, v):
-        if t < 0 or u < 0 or v < 0:
-            return None
-        key = (n, t, u, v)
-        if key in memo:
-            return memo[key]
-        if t == u == v == 0:
-            val = pows[n] * F[..., n]
-        elif t > 0:
-            lo = R(n + 1, t - 2, u, v)
-            hi = R(n + 1, t - 1, u, v)
-            val = Xd[0] * hi if lo is None else (t - 1) * lo + Xd[0] * hi
-        elif u > 0:
-            lo = R(n + 1, t, u - 2, v)
-            hi = R(n + 1, t, u - 1, v)
-            val = Xd[1] * hi if lo is None else (u - 1) * lo + Xd[1] * hi
-        else:
-            lo = R(n + 1, t, u, v - 2)
-            hi = R(n + 1, t, u, v - 1)
-            val = Xd[2] * hi if lo is None else (v - 1) * lo + Xd[2] * hi
-        memo[key] = val
-        return val
-
-    return torch.stack([R(0, t, u, v) for (t, u, v) in herm_list(L)], dim=-1)
+    R = (pows[L] * F[..., L])[..., None]
+    for n, (hi, lo, dim, coef) in zip(range(L - 1, -1, -1),
+                                      _r_layers(L, alpha.device)):
+        rest = coef * R[..., lo] + X[..., dim] * R[..., hi]
+        R = torch.cat([(pows[n] * F[..., n])[..., None], rest], dim=-1)
+    return R
 
 
 __all__ = ["pair_primitive_data", "e_dense", "hermite_expansion", "r_tensor", "boys"]

@@ -295,12 +295,23 @@ def test_run_spec_unknown_method_raises(method):
 
 
 def test_spherical_basis_raises_for_open_shell():
+    """The spherical-harmonic AO basis runs for UHF and ROHF now (it raised
+    before it was ported): in 6-31G, which has no d shell, the spherical
+    span is the Cartesian one, so the energies agree (the property
+    tests/test_spherical.py holds for the JAX package); the JAX package's
+    spherical energies are held in tests/test_torch_spherical.py."""
     mol, bsets = _system(OH, aux=None)
-    pb = interop.basis_sets(bsets)
-    pb.spherical = True
+    pm, pb = interop.molecule(mol), interop.basis_sets(bsets)
+    flags = {"niter": 80, "dele": 1e-10, "rmsd": 1e-8}
     for energy in (tc_uhf.energy, tc_rohf.energy):
-        with pytest.raises(NotImplementedError):
-            energy(interop.molecule(mol), pb, {}, device=CPU)
+        cart = energy(pm, pb, flags, device=CPU)
+        pb.spherical = True
+        sph = energy(pm, pb, flags, device=CPU)
+        pb.spherical = False
+        assert cart["Spherical Transform"] is None
+        assert sph["Spherical Transform"].shape == (11, 11)
+        assert sph["Converged?"] and cart["Converged?"]
+        assert abs(sph["Energy"] - cart["Energy"]) < 1e-9
 
 
 def test_builder_without_spin_resolved_jk_raises():

@@ -65,20 +65,21 @@ def test_run_spec_matches_jax(case):
 
 
 OUT_OF_SLICE = {
-    # UHF energies run (tests/test_torch_open_shell.py); its gradient not
-    "uhf": {"method": "UHF", "driver": "gradient"},
-    "gradient": {"driver": "gradient"},
     "multi-device": {"scf": {"num_devices": 2}},
     "conventional-multi-device": {"scf": {"scf_type": "rhf",
                                           "num_devices": 2}},
     "debug": {"scf": {"debug": True}},
 }
-# out of slice before the large-system chain was ported: they run now
+# out of slice before the large-system chain and the derivatives were
+# ported: they run now (the gradients are held to the JAX package in
+# tests/test_torch_gradients.py)
 NOW_RUN = {
-    "fdiff": {"fdiff": True},
-    "restart": {"restart": "{tmp}/ckpt.npz"},
-    "b-cache": {"df_b_cache": "{tmp}/x"},
-    "f32-B": {"df_b_dtype": "f32"},
+    "fdiff": {"scf": {"fdiff": True}},
+    "restart": {"scf": {"restart": "{tmp}/ckpt.npz"}},
+    "b-cache": {"scf": {"df_b_cache": "{tmp}/x"}},
+    "f32-B": {"scf": {"df_b_dtype": "f32"}},
+    "uhf": {"method": "UHF", "driver": "gradient"},
+    "gradient": {"driver": "gradient"},
 }
 
 
@@ -88,15 +89,22 @@ def test_out_of_slice_raises(case, tmp_path):
     > 1 with no process group: RuntimeError); the keywords of NOW_RUN
     converge (``restart`` from a checkpoint written first)."""
     if case in NOW_RUN:
+        spec = NOW_RUN[case]
         scf = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
-               for k, v in NOW_RUN[case].items()}
+               for k, v in spec.get("scf", {}).items()}
         if case == "restart":
             tc.run_spec(tc.io.parse_input(_input(
                 "6-31G", "cc-pVDZ-JKFIT", {"checkpoint": scf["restart"]})),
                 device="cpu")
         out = tc.run_spec(tc.io.parse_input(
-            _input("6-31G", "cc-pVDZ-JKFIT", scf)), device="cpu")
+            _input("6-31G", "cc-pVDZ-JKFIT", scf,
+                   driver=spec.get("driver", "energy"),
+                   method=spec.get("method", "RHF"))), device="cpu")
         assert out["Energy"]["Converged?"]
+        if spec.get("driver") == "gradient":
+            g = out["Energy"]["Gradient"]
+            assert g.shape == (3, 3)
+            assert float(g.sum(dim=0).abs().max()) < 1e-8
         return
     spec = OUT_OF_SLICE[case]
     inp = _input("6-31G", "cc-pVDZ-JKFIT", spec.get("scf", {}),

@@ -10,6 +10,8 @@ stanzas mirror ``MULTICHIP_r05.json`` / ``__graft_entry__.py::_dryrun_impl``:
 - water DF-RHF through run_spec with ``num_devices``, f64 and mixed
   precision: E within 1e-10 Eh of one device and of the JAX package's
   sharded E, the same on every rank; each rank's checkpoint in its own file;
+  at 2 ranks also in the spherical-harmonic AO basis (6-31G*), within 1e-10
+  Eh of one device and of the JAX package;
 - packed sharded G at a fixed D (cc-pVDZ-JKFIT, and cc-pVTZ-JKFIT with its
   spherical aux projection and an uneven aux partition), from orbitals and
   from the eigen-factor, and in the per-phase (profile_fock) form: within
@@ -198,6 +200,10 @@ def inputs(tmp_path_factory):
         "STO-3G", "cc-pVDZ-JKFIT", RHF)), device=CPU)["Energy"]["Energy"]
     ref["rhf_mixed"] = tc.run_spec(tc.io.parse_input(_spec(
         "STO-3G", "cc-pVDZ-JKFIT", RHF_MIXED)), device=CPU)["Energy"]["Energy"]
+    # spherical-harmonic AO basis (2 ranks): the adapter around the
+    # sharded builder
+    ref["rhf_sph"] = tc.run_spec(tc.io.parse_input(_sph_spec(RHF)),
+                                 device=CPU)["Energy"]["Energy"]
     per_world = {}
     for n in WORLDS:
         ckpt = str(tmp / f"ckpt{n}.npz")
@@ -206,7 +212,16 @@ def inputs(tmp_path_factory):
                          {**RHF, "num_devices": n, "checkpoint": ckpt}),
             "rhf_mixed": _spec("STO-3G", "cc-pVDZ-JKFIT",
                                {**RHF_MIXED, "num_devices": n})}}
+    per_world[2]["run_spec"]["rhf_sph"] = _sph_spec(
+        {**RHF, "num_devices": 2})
     return per_world, ref
+
+
+def _sph_spec(scf):
+    """Water 6-31G* / cc-pVDZ-JKFIT DF-RHF in the spherical AO basis."""
+    spec = _spec("6-31G*", "cc-pVDZ-JKFIT", scf)
+    spec["model"]["spherical"] = True
+    return spec
 
 
 @pytest.fixture(scope="module")
@@ -250,6 +265,20 @@ def test_sharded_df_rhf_energy(groups, ref, n, key):
     mol, bs = _jx_system(WATER, "STO-3G", "cc-pVDZ-JKFIT")
     flags = RHF if key == "rhf" else RHF_MIXED
     e_jx = jx.models.rhf.energy(mol, bs, {**flags, "num_devices": n})
+    assert abs(out["E"] - float(e_jx["Energy"])) <= 1e-10
+
+
+def test_sharded_spherical_df_rhf(groups, ref):
+    """The spherical-harmonic basis under num_devices 2 (the adapter wraps
+    the sharded builder): one energy on both ranks, within 1e-10 Eh of one
+    device and of the JAX package's (one device, its CPU backend)."""
+    out = _same_on_every_rank(groups[2], "rhf_sph")
+    assert out["converged"]
+    assert out["builder"] == "ShardedDFFockBuilder"
+    assert abs(out["E"] - ref["rhf_sph"]) <= 1e-10
+    mol, bs = _jx_system(WATER, "6-31G*", "cc-pVDZ-JKFIT")
+    bs.spherical = True
+    e_jx = jx.models.rhf.energy(mol, bs, RHF)
     assert abs(out["E"] - float(e_jx["Energy"])) <= 1e-10
 
 

@@ -131,7 +131,24 @@ card's name and power limit):
    one water DF-RHF spherical through run_file with the drivers gradient,
    optimize (from a stretched O-H) and frequencies, held to the JAX
    package's recorded gradient, optimized energy and geometry, and
-   frequencies.  Each gradient's parts are timed beside their bounds.
+   frequencies.  Each gradient's parts are timed beside their bounds;
+13. the host-streamed B (``models/df_screened.py``'s memory modes): (a)
+   the machine's MemTotal and MemAvailable and the page-locked host ->
+   card bandwidth of one 2 GB copy; (b) w32 streamed with B32 resident
+   (ScreenedDFFockBuilder's B_FRACTION and W_FRACTION set here so that the
+   f64 B streams in Q-blocks of about a tenth of its rows), with the B
+   cache, within 1e-9 Eh of phase 8's f64 B, and G at phase 8's converged
+   D within 1e-12 x max|G| of the resident builder's on the same blocks,
+   each build's wall beside max(B bytes / that bandwidth, the resident
+   build); (c) w32 from (b)'s B cache (no 3-center build, the same B
+   checksum); (d) w32 with nothing resident (the f32 phase on streamed
+   blocks cast on the card), within 1e-9 Eh of (b); (e) w64 at the
+   defaults (f64 B, mixed precision), which must choose the stream with
+   B32 resident on its own, its build's device peak below B's bytes; (f)
+   w64 resident on an f64 B without the mixed-precision phase, within
+   1e-8 Eh of (e), whose f64 build time (e)'s is printed beside; (g) the
+   benzene_2_water cation's J, K(Da), K(Db) on a streamed B within 1e-12
+   relative of the resident builder's, K2 launched twice a block.
 
 The packed K pass of the w-cluster runs and of one ``benzene_2_water``
 build at its converged D is split by phase with CUDA events (K2, W^T W,
@@ -155,6 +172,7 @@ directory without the package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -204,6 +222,10 @@ W_BASIS, W_AUX = "6-31+G*", "cc-pVTZ-JKFIT"
 # -1.661e-4 Eh at w32 on an H100 80GB HBM3), so 1e-4 does not hold at w32;
 # the gate sits just above the measured shift, so a worse f32 B fails
 E_F32_B_TOL = 3e-4
+# w64 on an f32 B, converged with W_SCF (tools/run_water_cluster.py w64 on
+# an NVIDIA H100 80GB HBM3 at 700 W): phase 13 prints the f32 storage's
+# shift against its own f64-B energy
+W64_F32B_ENERGY = -4865.1375295166
 # the first 8 waters of w32 as the JAX package's recorded runs have them
 W8_SCF = {"niter": 60, "dele": 1e-9, "rmsd": 1e-7,
           "contraction_mode": "screened", "mixed_precision": False}
@@ -1934,7 +1956,8 @@ def fmt_split(split: dict) -> str:
 
 def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
                 waters: int | None = None, measure_build: bool = False,
-                gated: bool = True, k1_times: bool = False) -> dict:
+                gated: bool = True, k1_times: bool = False,
+                checksum: bool = True, keep_density: bool = False) -> dict:
     """One DF-RHF run_spec of a water cluster on the card (peak device memory
     reset just before it); with ``measure_build``, first the peak of the
     packed builder's build alone (``build_peak``).  Returns the energy,
@@ -1946,7 +1969,12 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     taken from the builder ``ScreenedDFFockBuilder.build`` returns, wrapped
     for this run only.  A run that is not ``gated`` is recorded whether it
     converges or not.  With ``k1_times``, K1's launches of run_spec's
-    3-center build and metric timed by class (``K1Times``)."""
+    3-center build and metric timed by class (``K1Times``).  Also the
+    builder's memory mode, the bytes of a B in host memory, and the device
+    bytes run_spec's builder build added at its peak (``build_peak_inline``:
+    the peak reset just before it).  ``checksum`` False skips B's checksum
+    (a host B's is summed on the CPU); ``keep_density`` keeps the converged
+    D as "density"."""
     import contextlib
     import io
 
@@ -1972,9 +2000,19 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     sums = []
     build = ScreenedDFFockBuilder.__dict__["build"]
 
+    built = {}
+
     def build_and_sum(cls, *args, **kwargs):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         fb = build.__func__(cls, *args, **kwargs)
-        sums.append(b_checksum(fb.B))
+        torch.cuda.synchronize(dev)
+        built.update(peak=torch.cuda.max_memory_allocated(dev) - base,
+                     mode=fb.mode, host_bytes=(0 if fb.B.is_cuda else
+                                               fb.B.numel() * fb.B.element_size()))
+        if checksum:
+            sums.append(b_checksum(fb.B))
         return fb
 
     ScreenedDFFockBuilder.build = classmethod(build_and_sum)
@@ -1999,7 +2037,8 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
         ("two_center", JCTC.two_center_time),
         ("three_center", JCTC.three_center_time), ("B", JCTC.B_time),
         ("screening", JCTC.screening_time), ("H", JCTC.H_time),
-        ("guess", JCTC.guess_time))}
+        ("guess", JCTC.guess_time), ("host_alloc", "B_host_alloc_time"),
+        ("builder_init", "builder_init_time"))}
     fmt = lambda v, f=".3f": "absent" if v is None else format(v, f)
     summary = {
         "system": label, "route": nt["fock_builder"],
@@ -2009,6 +2048,8 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
         "B_shape": nt.get("B_shape"), "B_bytes": int(nt.get("B_bytes", 0)),
         "B_checksum": sums[-1] if sums else None,
         "build_peak_device_bytes": peak_build,
+        "build_peak_inline_bytes": built.get("peak"),
+        "B_mode": built.get("mode"), "host_B_bytes": built.get("host_bytes"),
         "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
         "setup_s": setup, **fock_stats(tm, int(res["Iterations"])),
         "k_pass_split_ms": k_pass_split(sweeps), "wall_s": wall,
@@ -2021,6 +2062,10 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
           f"iterations, E = {summary['energy']:.10f} Eh; wall {wall:.2f} s; "
           f"build peak {fmt(peak_build and peak_build / 1e9)} GB, run peak "
           f"{summary['peak_device_bytes'] / 1e9:.3f} GB", flush=True)
+    print(f"{tag} {label}: B {summary['B_mode']}, host B "
+          f"{(summary['host_B_bytes'] or 0) / 1e9:.3f} GB, run_spec's build "
+          f"peak {fmt(built.get('peak') and built['peak'] / 1e9)} GB",
+          flush=True)
     print(f"{tag} {label}: setup s " + ", ".join(
         f"{k} {fmt(v)}" for k, v in setup.items())
         + f"; Fock f64 steady {fmt(summary['fock_s_per_iter_f64_steady'], '.4f')}"
@@ -2040,6 +2085,8 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     check(summary["route"] == "ScreenedDFFockBuilder",
           f"{label}: route {summary['route']}")
     check(summary["converged"] or not gated, f"{label}: SCF did not converge")
+    if keep_density:
+        summary["density"] = res["Density"]
     return summary
 
 
@@ -2667,6 +2714,295 @@ def run_phase12(tag: str, jc, path, counts: dict, refs_d: dict, cart: dict,
                                      "wall_s":
                                          run_files["frequencies"]["wall_s"]}},
         "seconds": d_s}
+
+
+# --------------------------------------------------------------- phase 13
+
+def host_facts(tag: str) -> dict:
+    """The machine's MemTotal and MemAvailable (/proc/meminfo) and the
+    page-locked host -> card bandwidth of one 2 GB copy (CUDA events, the
+    best of three), as the streamed B's copies see it."""
+    import torch
+
+    from juliachem_jl_tpu_torch.models.df_screened import host_empty
+
+    mem = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, val = line.split(":", 1)
+        if key in ("MemTotal", "MemAvailable"):
+            mem[key] = int(val.split()[0]) * 1024
+    n = 2 * 10**9 // 8
+    src = host_empty((n,), torch.float64, torch.device("cuda"))
+    src.fill_(1.0)
+    dst = torch.empty(n, dtype=torch.float64, device="cuda")
+    times = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    check(bool((dst[::10**6] == 1.0).all()), "host -> card copy: wrong values")
+    out = {**mem, "h2d_bytes": 8 * n, "h2d_ms": min(times),
+           "h2d_bytes_s": 8 * n / (min(times) / 1e3),
+           "pinned": bool(src.is_pinned())}
+    del src, dst
+    torch.cuda.empty_cache()
+    print(f"{tag} host: MemTotal {mem['MemTotal'] / 1e9:.2f} GB, MemAvailable "
+          f"{mem['MemAvailable'] / 1e9:.2f} GB; page-locked host -> card copy "
+          f"of {out['h2d_bytes'] / 1e9:.1f} GB in {out['h2d_ms']:.3f} ms = "
+          f"{out['h2d_bytes_s'] / 1e9:.2f} GB/s (best of 3; pinned "
+          f"{out['pinned']})", flush=True)
+    check(out["pinned"], "host_empty did not give page-locked memory")
+    return out
+
+
+@contextlib.contextmanager
+def builder_fractions(b_fraction: float | None = None,
+                      w_fraction: float | None = None):
+    """ScreenedDFFockBuilder's budget fractions (B_FRACTION, W_FRACTION)
+    set for a block of the smoke, restored after."""
+    from juliachem_jl_tpu_torch.models.df_screened import ScreenedDFFockBuilder
+
+    saved = (ScreenedDFFockBuilder.B_FRACTION,
+             ScreenedDFFockBuilder.W_FRACTION)
+    if b_fraction is not None:
+        ScreenedDFFockBuilder.B_FRACTION = b_fraction
+    if w_fraction is not None:
+        ScreenedDFFockBuilder.W_FRACTION = w_fraction
+    try:
+        yield
+    finally:
+        (ScreenedDFFockBuilder.B_FRACTION,
+         ScreenedDFFockBuilder.W_FRACTION) = saved
+
+
+def best_wall(fn, reps: int = 3):
+    """(fn()'s result, the best synchronised wall in s of ``reps`` calls)."""
+    import torch
+
+    best, out = math.inf, None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def stream_vs_resident(tag: str, label: str, make, D, b_fraction: float,
+                       w_fraction: float, bw: float) -> dict:
+    """G at D (its signed factor) from a resident builder and from one
+    forced to stream by ``b_fraction``, both on Q-blocks of ``w_fraction``:
+    held within 1e-12 x max|G|; each build's best wall, the streamed one
+    beside max(B's bytes / the H2D bandwidth, the resident one)."""
+    import torch
+
+    from juliachem_jl_tpu_torch.utils.timings import Timings
+
+    def fock(fb):
+        return fb.two_electron_fock(D, 1, Timings())
+
+    with builder_fractions(w_fraction=w_fraction):
+        fb = make()
+        G0, t_res = best_wall(lambda: fock(fb))
+        mode0 = fb.mode
+        fb.finalize()
+        del fb
+        torch.cuda.empty_cache()
+    with builder_fractions(b_fraction, w_fraction):
+        fb = make()
+        G1, t_st = best_wall(lambda: fock(fb))
+        mode1, nbytes, blocks = fb.mode, fb.B.numel() * 8, -(-fb.A // fb.q_chunk)
+        fb.finalize()
+        del fb
+        torch.cuda.empty_cache()
+    err = float((G1 - G0).abs().max()) / float(G0.abs().max())
+    bound = max(nbytes / bw, t_res)
+    out = {"modes": [mode0, mode1], "rel_err": err, "resident_s": t_res,
+           "stream_s": t_st, "h2d_bound_s": nbytes / bw,
+           "max_h2d_resident_s": bound, "stream_over_bound": t_st / bound,
+           "q_blocks": blocks}
+    print(f"{tag} {label}: G at the converged D, {mode1} vs {mode0} on "
+          f"{blocks} Q-blocks: max |dG| / max |G| = {err:.3e} (bound 1e-12); "
+          f"one f64 build {1e3 * t_st:.2f} ms streamed, {1e3 * t_res:.2f} ms "
+          f"resident, H2D bound {1e3 * nbytes / bw:.2f} ms: streamed / "
+          f"max(H2D bound, resident) = {out['stream_over_bound']:.3f}",
+          flush=True)
+    check(mode0 == "resident" and mode1 != "resident",
+          f"{label}: modes {mode0}, {mode1}")
+    check(err <= 1e-12, f"{label}: streamed G off the resident G by {err:.3e}")
+    return out
+
+
+def run_phase13(tag: str, jc, path, counts: dict, w32a: dict,
+                cation: dict) -> dict:
+    """Phase 13, the host-streamed B: (a) host facts; (b) w32 streamed with
+    B32 resident (budget fractions set here), with the B cache, and G at
+    phase 8's D against the resident builder's; (c) w32 from (b)'s B
+    cache; (d) w32 with nothing resident (the f32 phase on streamed blocks
+    cast on the card); (e) w64 at the defaults, streamed with B32 resident
+    by its own choice; (f) w64 resident on an f64 B without the
+    mixed-precision phase, within 1e-8 Eh of (e); (g) one UHF J, K(Da),
+    K(Db) build of the benzene_2_water cation on a streamed B against the
+    resident one."""
+    import torch
+
+    from juliachem_jl_tpu_torch.models.df_screened import (
+        STREAM, STREAM_B32, ScreenedDFFockBuilder)
+    from juliachem_jl_tpu_torch.models.df_screened_jk import ScreenedDFJKBuilder
+    from juliachem_jl_tpu_torch.utils.options import create_scf_options
+    from juliachem_jl_tpu_torch.utils.timings import Timings
+
+    dev = torch.device("cuda")
+    t13 = time.perf_counter()
+    out = {"host": host_facts(tag)}
+    bw = out["host"]["h2d_bytes_s"]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    # (b)-(d): w32's f64 B streams in Q-blocks of W_W32 of the card (about
+    # a tenth of its rows); the B budget between the modes' sizes
+    W_W32 = 0.005
+    rows, width = json.loads(w32a["B_shape"])
+    b64, b32 = rows * width * 8, rows * width * 4
+    spec = jc.io.parse_input(cluster_input("w32"))
+    bsets = jc.basis.run(jc.molecule.run(spec), spec.model)
+    with builder_fractions(w_fraction=W_W32):
+        qc = ScreenedDFFockBuilder.block_rows(
+            bsets.primary.nbf, bsets.primary.nels // 2, rows, dev)
+    buffers = 2 * qc * width * 8
+    frac_b32 = (b32 + buffers + b64 + b32) / 2 / total
+    frac_none = (b32 + buffers / 2) / total
+    print(f"{tag} w32: B {b64 / 1e9:.3f} GB, B32 {b32 / 1e9:.3f} GB, two "
+          f"Q-block buffers of {qc} rows {buffers / 1e9:.3f} GB; B budget "
+          f"{frac_b32 * total / 1e9:.3f} GB (stream, B32 resident), "
+          f"{frac_none * total / 1e9:.3f} GB (stream)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="jchem_smoke13_")
+    try:
+        cache = os.path.join(tmp, "w32")
+        with builder_fractions(frac_b32, W_W32):
+            b = path("w32 stream B32", lambda: run_cluster(
+                tag, jc, "w32", {"df_b_cache": cache}, "w32 stream B32"))
+            c = path("w32 stream B32 from the B cache", lambda: run_cluster(
+                tag, jc, "w32", {"df_b_cache": cache},
+                "w32 stream B32 from the B cache"))
+        with builder_fractions(frac_none, W_W32):
+            d = path("w32 stream", lambda: run_cluster(
+                tag, jc, "w32", {}, "w32 stream"))
+        opts = create_scf_options(spec.scf_keywords)
+        out["w32_G"] = stream_vs_resident(
+            tag, "w32", lambda: ScreenedDFFockBuilder.build(
+                bsets.primary, bsets.auxiliary, opts, dev),
+            w32a["density"], frac_b32, W_W32, bw)
+        d_b8 = b["energy"] - w32a["energy"]
+        d_cb = c["energy"] - b["energy"]
+        d_db = d["energy"] - b["energy"]
+        print(f"{tag} w32 streamed: E(stream, B32) - E(phase 8 f64 B) = "
+              f"{d_b8:.3e} Eh; from the B cache: E - E(b) = {d_cb:.3e} Eh, "
+              f"3-center {c['setup_s']['three_center']}, B checksum equal "
+              f"{c['B_checksum'] == b['B_checksum']}; nothing resident: E - "
+              f"E(b) = {d_db:.3e} Eh, f32 phase {d['f32_phase_iters']} "
+              "iterations on streamed blocks (bound 1e-9 Eh each)", flush=True)
+        check(b["B_mode"] == STREAM_B32 and c["B_mode"] == STREAM_B32
+              and d["B_mode"] == STREAM, "w32: memory modes "
+              f"{b['B_mode']}, {c['B_mode']}, {d['B_mode']}")
+        check(abs(d_b8) <= 1e-9, f"w32 stream B32: |dE| = {abs(d_b8):.3e}")
+        check(c["loaded_B_cache"] and not c["setup_s"]["three_center"],
+              "w32 from the B cache built a 3-center tensor")
+        check(c["B_checksum"] == b["B_checksum"],
+              "w32: the cached host B differs from the one built")
+        check(abs(d_cb) <= 1e-9 and abs(d_db) <= 1e-9,
+              f"w32 streamed: |dE| {abs(d_cb):.3e}, {abs(d_db):.3e}")
+        check(d["f32_phase_iters"] > 0 and "cast" in d["k_pass_split_ms"].get(
+            "float32", {}), "w32 stream: no f32 phase on streamed blocks")
+        for lab in ("w32 stream B32", "w32 stream"):
+            check(counts[lab].get("df_gather_w", 0) > 0,
+                  f"K2 never launched on {lab}")
+        # (e) w64 at the defaults, (f) resident without the f32 copy; the
+        #     one-electron cache carries S/T/V from (e) to (f)
+        oei = os.path.join(tmp, "w64")
+        e = path("w64 f64 B defaults", lambda: run_cluster(
+            tag, jc, "w64", {"oei_cache": oei}, "w64 f64 B defaults",
+            checksum=False))
+        torch.cuda.empty_cache()
+        f = path("w64 f64 B resident", lambda: run_cluster(
+            tag, jc, "w64", {"oei_cache": oei, "mixed_precision": False},
+            "w64 f64 B resident, mixed_precision false", checksum=False))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    d_ef = e["energy"] - f["energy"]
+    t_f64 = e["fock_s_per_iter_f64_steady"]
+    bound = max(e["B_bytes"] / bw, f["fock_s_per_iter_f64_steady"])
+    split = e["k_pass_split_ms"].get("float64", {})
+    print(f"{tag} w64 at the defaults: {e['B_mode']}, host B "
+          f"{e['host_B_bytes'] / 1e9:.3f} GB, build peak "
+          f"{e['build_peak_inline_bytes'] / 1e9:.3f} GB (B {e['B_bytes'] / 1e9:.3f}"
+          f" GB), run peak {e['peak_device_bytes'] / 1e9:.3f} GB; host B "
+          f"allocation {e['setup_s']['host_alloc']:.3f} s, 3-center "
+          f"{e['setup_s']['three_center']:.3f} s, fold and copy out "
+          f"{e['setup_s']['B']:.3f} s (chunked), B32 from the host blocks "
+          f"{e['setup_s']['builder_init']:.3f} s; f32 phase "
+          f"{e['fock_s_per_iter_f32_phase'] or math.nan:.4f} s/iter over "
+          f"{e['f32_phase_iters']}, f64 "
+          f"{t_f64:.4f} s/iter, max(H2D bound {e['B_bytes'] / bw:.4f}, "
+          f"resident (f) {f['fock_s_per_iter_f64_steady']:.4f}) = {bound:.4f}: "
+          f"ratio {t_f64 / bound:.3f}; its K pass ms: H2D "
+          f"{split.get('H2D', 0.0):.1f}, wait {split.get('wait', 0.0):.1f}; "
+          f"E(e) - E(f) = {d_ef:.3e} Eh (bound 1e-8); E(f32 B, recorded) - "
+          f"E(f64 B) = {W64_F32B_ENERGY - e['energy']:.4e} Eh", flush=True)
+    check(e["B_mode"] == STREAM_B32, f"w64 defaults: mode {e['B_mode']}")
+    check(f["B_mode"] == "resident", f"w64 f64 unmixed: mode {f['B_mode']}")
+    check(e["build_peak_inline_bytes"] < e["B_bytes"],
+          "w64 defaults: the build's device peak is not below B's bytes")
+    check(abs(d_ef) <= 1e-8, f"w64: |E(stream) - E(resident)| = {abs(d_ef):.3e}")
+    check(counts["w64 f64 B defaults"].get("df_gather_w", 0) > 0
+          and counts["w64 f64 B defaults"].get("eri3c", 0) > 0,
+          "w64 defaults: K1 or K2 never launched")
+    # (g) one UHF build on a streamed B: the benzene_2_water cation's
+    #     (Ca, Cb); Q-blocks at a W_FRACTION of 2e-4 (17 blocks on an 80 GB
+    #     card), B over a 0.1 GB budget
+    r = cation["result"]
+    na, nb = int(r["N Alpha"]), int(r["N Beta"])
+    Ca = r["MO Coeff Alpha"][:, :na].contiguous()
+    Cb = r["MO Coeff Beta"][:, :nb].contiguous()
+    cb = cation["basis"]
+    opts_c = create_scf_options({"scf_type": "df", "mixed_precision": False})
+
+    def jk(frac):
+        with builder_fractions(frac, 2e-4):
+            fb = ScreenedDFJKBuilder.build(cb.primary, cb.auxiliary, opts_c,
+                                           dev)
+            res = fb.two_electron_jk(Ca @ Ca.T, Cb @ Cb.T, 1, Timings(), Ca,
+                                     Cb)
+            meta = (fb.mode, -(-fb.A // fb.chunk_for(max(na, nb))))
+            fb.finalize()
+        return res, meta
+
+    ref, meta0 = jk(None)
+    got, meta1 = path("benzene_2_water cation streamed JK build",
+                      lambda: jk(0.1e9 / total))
+    errs = [float((g - x).abs().max()) / float(x.abs().max())
+            for g, x in zip(got, ref)]
+    k2 = counts["benzene_2_water cation streamed JK build"].get(
+        "df_gather_w", 0)
+    print(f"{tag} benzene_2_water cation: J, K(Da), K(Db) on a streamed B "
+          f"({meta1[0]}, {meta1[1]} Q-blocks) vs resident ({meta0[0]}): "
+          "max |d| / max: " + ", ".join(f"{x:.3e}" for x in errs)
+          + f" (bound 1e-12); K2 launches {k2}", flush=True)
+    check(meta1[0] != "resident" and meta0[0] == "resident",
+          "cation JK: modes")
+    check(max(errs) <= 1e-12, "cation JK on a streamed B off the resident")
+    check(k2 == 2 * meta1[1], f"cation JK: K2 launched {k2} times, not twice "
+          f"a block of {meta1[1]}")
+    out.update(w32_stream_b32=b, w32_from_cache=c, w32_stream=d,
+               w64_defaults=e, w64_resident_f64=f,
+               cation_jk={"rel_err": errs, "modes": [meta0[0], meta1[0]],
+                          "q_blocks": meta1[1], "k2_launches": k2},
+               seconds=time.perf_counter() - t13)
+    print(f"{tag} phase 13 (host-streamed B) took {out['seconds']:.1f} s",
+          flush=True)
+    return out
 
 
 # --------------------------------------------------------------- phase 9
@@ -3391,7 +3727,7 @@ def main() -> int:
     label_cat = "benzene_2_water cation DF-UHF + RI-UMP2"
     cation, cation_mp2 = path(label_cat, cation_path)
     check(counts[label_cat]["df_gather_w"] >= 2 * cation["iterations"],
-          "cation DF-UHF: K2 did not run in every iteration's two passes")
+          "cation DF-UHF: K2 did not run for both spins in every iteration")
     check(cation["S2"] >= 0.75 - 1e-9, f"cation S2 {cation['S2']} < 0.75")
     jax_cat = refs_corr["benzene_2_water cation"]
     d_e = cation["energy"] - jax_cat["energy"]
@@ -3532,7 +3868,7 @@ def main() -> int:
         ckpt = os.path.join(tmp, "w32_ckpt.npz")
         w32a = path("w32 f64 B", lambda: run_cluster(
             tag, jc, "w32", {"bench_fock_reps": 4}, "w32 f64 B",
-            measure_build=True, k1_times=True))
+            measure_build=True, k1_times=True, keep_density=True))
         w32b = path("w32 f32 B", lambda: run_cluster(
             tag, jc, "w32", {"df_b_dtype": "f32", "df_b_cache": cache,
                              "oei_cache": cache, "checkpoint": ckpt,
@@ -3783,6 +4119,8 @@ def main() -> int:
         tag, jc, path, counts, smoke_ref["derivatives"]["systems"], benzene,
         system_input("benzene_2_water", goldens["benzene_2_water"],
                      {"mixed_precision": False}), 491)
+    # 13. the host-streamed B
+    streamed = run_phase13(tag, jc, path, counts, w32a, cation)
     jc.finalize()
 
     # each kernel's launches on its path
@@ -3936,7 +4274,8 @@ def main() -> int:
             "g_shell": {"builds_at_w2_convergence": builds_g,
                         "seconds": g_s, "gg_gg_launches": gg},
             "correlated": correlated, "sharded": sharded,
-            "derivatives": derivatives}), indent=1,
+            "derivatives": derivatives,
+            "host_streamed_B": {k: v for k, v in streamed.items()}}), indent=1,
             default=str))
     print(f"{tag} chip_smoke: all phases passed in {total_s:.1f} s", flush=True)
     print(smi)

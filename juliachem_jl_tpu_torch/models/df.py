@@ -26,7 +26,7 @@ from ..ops import eri3c, schwarz
 from ..ops.eri import as_f64
 from ..ops.pairs import unique_pair_blocks
 from ..utils.timings import JCTC, Timings
-from .linalg import fold_metric
+from .linalg import fold_metric, metric_fold
 from .scf import FockBuilder
 
 
@@ -44,16 +44,34 @@ def screened_pair_blocks(primary, sigma: float, metric_diag_max: float,
     return out
 
 
-def fitted_metric_and_rows(aux, metric, P3, opts):
-    """Project metric and 3-center rows onto the solid-harmonic aux span
-    when the aux set has d or higher shells (df_spherical_aux, default on;
-    juliachem_jl_tpu/models/df.py:71-77), then fold.  Works in place on
-    P3 (f64 or f32): returns B, the first fitted rows of P3 (a view)."""
+def _fitted_space(aux, metric, opts):
+    """The metric in the fitting space and the in-place row projection onto
+    it: the solid-harmonic span when the aux set has d or higher shells
+    (df_spherical_aux, default on; juliachem_jl_tpu/models/df.py:71-77),
+    else the metric itself and no projection."""
     if opts.df_spherical_aux and aux_needs_sph(aux):
         T = as_f64(cart_to_sph_basis(aux), metric.device)
-        metric = T.T @ metric @ T
-        P3 = project_rows_sph_(aux, P3)
-    return fold_metric(metric, P3)
+        return T.T @ metric @ T, lambda P3: project_rows_sph_(aux, P3)
+    return metric, lambda P3: P3
+
+
+def fitted_metric_and_rows(aux, metric, P3, opts):
+    """Project metric and 3-center rows onto the fitting space, then fold.
+    Works in place on P3 (f64 or f32): returns B, the first fitted rows of
+    P3 (a view)."""
+    metric, project = _fitted_space(aux, metric, opts)
+    return fold_metric(metric, project(P3))
+
+
+def fitted_fold(aux, metric, opts, dtype):
+    """``fitted_metric_and_rows`` with the metric factored once for a B of
+    ``dtype``: returns fold(P3), which projects and folds any column block
+    P3 [aux.nbf, c] in place and returns its fitted rows (a view).  The
+    projection and the fold combine rows only, so each column range of B
+    is built on its own."""
+    metric, project = _fitted_space(aux, metric, opts)
+    fold = metric_fold(metric, dtype)
+    return lambda P3: fold(project(P3))
 
 
 def build_B(primary, aux, opts, device,

@@ -2,9 +2,12 @@
 
 Port of ``juliachem_jl_tpu/models/df_screened_jk.py``.  The closed-shell
 ScreenedDFFockBuilder fuses J - K/2 into one pass over the packed Q-blocks of
-B; open-shell SCF needs (J(Da+Db), K(Da), K(Db)).  This builder makes two
-passes of the same sweep (``ScreenedDFFockBuilder.sweep``, K2 for the
-exchange factor): J of the total density with K(Da), then K(Db).
+B; open-shell SCF needs (J(Da+Db), K(Da), K(Db)).  This builder makes one
+pass (``ScreenedDFFockBuilder.sweep_factors``, K2 for each exchange
+factor): each block serves J of the total density, K(Da) and K(Db) while
+it is on the card, so a host-streamed B crosses to the card once a build
+(the JAX package makes two passes, ``_k_pass``).  The blocks are sized for
+the larger factor.
 
 Factor conventions: uhf.py passes factor-1 spin densities (Da = Ca Ca^T);
 the sweep builds K(C C^T) from explicit orbitals, which is K(Da).  Without
@@ -24,13 +27,6 @@ from .df_screened import ScreenedDFFockBuilder, _sync
 class ScreenedDFJKBuilder(ScreenedDFFockBuilder):
     """ScreenedDFFockBuilder plus the spin-resolved two_electron_jk."""
 
-    def _k_pass(self, d, Cs, s):
-        """One f64 sweep over the packed B blocks (f64 products on an f32
-        B, as in the closed-shell f64 iterations): (K of the density
-        factored by (Cs, s), the packed Coulomb vector of d, or None when d
-        is None)."""
-        return self.sweep(self.q_blocks(self.B, Cs.shape[1]), d, Cs, s)
-
     @staticmethod
     def _spin_factor(D, C_occ):
         if C_occ is not None and C_occ.shape[1] > 0:
@@ -43,9 +39,11 @@ class ScreenedDFJKBuilder(ScreenedDFFockBuilder):
         d = torch.cat([(Da + Db).reshape(-1)[self._pq_flat], Da.new_zeros(1)])
         Cs_a, s_a = self._spin_factor(Da, Ca)
         Cs_b, s_b = self._spin_factor(Db, Cb)
+        blocks = self.blocks(torch.float64,
+                             max(Cs_a.shape[1], Cs_b.shape[1]))
         with timings.timed(JCTC.K_time, iteration):
-            Ka, Jp = self._k_pass(d, Cs_a, s_a)
-            Kb, _ = self._k_pass(None, Cs_b, s_b)
+            (Ka, Kb), Jp = self.sweep_factors(blocks, d, [(Cs_a, s_a),
+                                                          (Cs_b, s_b)])
             _sync(Da.device)
         with timings.timed(JCTC.J_time, iteration):
             J = self.scatter_j(Jp)

@@ -2,9 +2,10 @@
 and the DF metric fold.
 
 Port of ``juliachem_jl_tpu/models/linalg.py``.  Every step runs in f64 torch
-on the calculation's device.  The metric fold works in place on B, one
-column chunk at a time, so the build never holds a second copy of B.  What
-differs from the JAX package on purpose:
+on the calculation's device.  The metric fold is factored once
+(``metric_fold``) and works in place on B, or on any column block of it,
+one column chunk at a time, so the build never holds a second copy of B.
+What differs from the JAX package on purpose:
 
 - the f64 fold of an f64 B stays a triangular solve (chunked), where the JAX
   package multiplies by an explicit inverse (its TPU had no fast f64 solve);
@@ -109,19 +110,24 @@ def split_fold(Mh: torch.Tensor, Ml: torch.Tensor, X: torch.Tensor,
 # ---------------------------------------------------------------- the fold
 
 
-def _apply_square(M: torch.Tensor, B: torch.Tensor,
-                  lower: bool = False) -> torch.Tensor:
+def _split_parts(M: torch.Tensor):
+    """Mh = f32(M), Ml = f32(M - Mh): K8's two factors of M."""
+    Mh = M.float().contiguous()
+    return Mh, (M - Mh.double()).float().contiguous()
+
+
+def _apply_square(M: torch.Tensor, B: torch.Tensor, lower: bool = False,
+                  parts=None) -> torch.Tensor:
     """In place B <- M B for a square f64 [A, A] fold matrix, one column
     chunk at a time.  f64 product on each chunk (an f64 copy of it, so the
     output can go back by row blocks of M), stored in B's dtype; for an f32
     B with ``JCHEM_SPLIT_FOLD=1`` (read at each call, as the JAX package
-    does) the split product K8 with Mh = f32(M), Ml = f32(M - Mh), told
-    whether M is ``lower`` triangular."""
+    does) the split product K8 with Mh = f32(M), Ml = f32(M - Mh) (``parts``
+    when prepared once), told whether M is ``lower`` triangular."""
     split = (B.dtype == torch.float32
              and os.environ.get("JCHEM_SPLIT_FOLD", "0") == "1")
     if split:
-        Mh = M.float().contiguous()
-        Ml = (M - Mh.double()).float().contiguous()
+        Mh, Ml = parts if parts is not None else _split_parts(M)
     for cs in _chunks(B.shape[0], B.shape[1]):
         if split:
             B[:, cs] = split_fold(Mh, Ml, B[:, cs], lower)
@@ -132,33 +138,55 @@ def _apply_square(M: torch.Tensor, B: torch.Tensor,
     return B
 
 
-def apply_triangular_inverse(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """In place B <- L^{-1} B for lower-triangular f64 L (the DF metric
-    fold, calculate_B analog — ScreenedDF.jl:98-105).
+def _square_fold(M: torch.Tensor, dtype, lower: bool = False):
+    """The fold by a square M, its split factors made once for an f32 B."""
+    parts = (_split_parts(M) if dtype == torch.float32
+             and os.environ.get("JCHEM_SPLIT_FOLD", "0") == "1" else None)
+    return lambda B: _apply_square(M, B, lower, parts)
+
+
+def triangular_fold(L: torch.Tensor, dtype):
+    """B <- L^{-1} B for lower-triangular f64 L, prepared once for a B of
+    ``dtype`` and applied in place to any column block of B (the DF metric
+    fold, calculate_B analog — ScreenedDF.jl:98-105): the fold combines
+    rows only, so every column range is folded on its own.
 
     f64 B: a triangular solve per column chunk.  f32 B, in the JAX package's
     order of rounding: with d_i = ||L[i,:]||, L = D Ls and L^{-1} B =
     Ls^{-1} (D^{-1} B); B *= f32(1/d) is an f32 multiply, then the f64
     product with the explicit Ls^{-1} (whose cond is that of the
     Jacobi-scaled metric, far below L's), stored in f32."""
-    if B.dtype == torch.float32:
+    if dtype == torch.float32:
         d = torch.sqrt(torch.einsum("ij,ij->i", L, L))
-        Ls = L / d[:, None]
-        B.mul_((1.0 / d).float()[:, None])
-        return _apply_square(triangular_inverse(Ls).tril_(), B, lower=True)
-    for cs in _chunks(B.shape[0], B.shape[1]):
-        B[:, cs] = torch.linalg.solve_triangular(L, B[:, cs], upper=False)
-    return B
+        scale = (1.0 / d).float()[:, None]
+        square = _square_fold(triangular_inverse(L / d[:, None]).tril_(),
+                              dtype, lower=True)
+
+        def fold_f32(B):
+            B.mul_(scale)
+            return square(B)
+        return fold_f32
+
+    def fold_f64(B):
+        for cs in _chunks(B.shape[0], B.shape[1]):
+            B[:, cs] = torch.linalg.solve_triangular(L, B[:, cs], upper=False)
+        return B
+    return fold_f64
 
 
-def fold_metric(metric: torch.Tensor, B: torch.Tensor,
-                lindep_thresh: float = 1e-10) -> torch.Tensor:
-    """In-place DF metric fold B <- f(J) B (B f64 or f32), with
-    conditioning-aware f; returns B.
+def apply_triangular_inverse(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """In place B <- L^{-1} B (``triangular_fold`` for B's dtype)."""
+    return triangular_fold(L, B.dtype)(B)
+
+
+def metric_fold(metric: torch.Tensor, dtype, lindep_thresh: float = 1e-10):
+    """f(J) of the DF metric for a B of ``dtype``, factored once; returns
+    fold(B), which applies it in place to B or to any column block of B and
+    returns it.
 
     Healthy metric: f = L^{-1} (Cholesky, the reference's route —
-    ScreenedDF.jl:98-105), ``apply_triangular_inverse``.  Numerically
-    singular metric: the symmetric pseudo-inverse square root
+    ScreenedDF.jl:98-105), ``triangular_fold``.  Numerically singular
+    metric: the symmetric pseudo-inverse square root
     V_k diag(w_k^{-1/2}) V_k^T with eigenvalues below ``lindep_thresh * w_max``
     dropped (dropped directions become exact zero rows of B).
     """
@@ -166,7 +194,7 @@ def fold_metric(metric: torch.Tensor, B: torch.Tensor,
     if int(info) == 0:
         d = torch.diagonal(L)
         if float((d.min() / d.max()) ** 2) >= _METRIC_DIAG_RATIO2:
-            return apply_triangular_inverse(L, B)
+            return triangular_fold(L, dtype)
     w, V = torch.linalg.eigh(metric)
     keep = w >= lindep_thresh * w[-1]
     warnings.warn(
@@ -174,8 +202,14 @@ def fold_metric(metric: torch.Tensor, B: torch.Tensor,
         f"{float(w[-1]):.2e}); folding with pseudo-inverse sqrt, dropping "
         f"{int((~keep).sum())}/{len(w)} auxiliary directions", stacklevel=2)
     Vk = V[:, keep]
-    M = (Vk / torch.sqrt(w[keep])[None, :]) @ Vk.T
-    return _apply_square(M, B)
+    return _square_fold((Vk / torch.sqrt(w[keep])[None, :]) @ Vk.T, dtype)
+
+
+def fold_metric(metric: torch.Tensor, B: torch.Tensor,
+                lindep_thresh: float = 1e-10) -> torch.Tensor:
+    """In-place DF metric fold B <- f(J) B (B f64 or f32), with
+    conditioning-aware f (``metric_fold``); returns B."""
+    return metric_fold(metric, B.dtype, lindep_thresh)(B)
 
 
 def orthogonalizer(S: torch.Tensor, lindep_thresh: float = 1.0e-6) -> torch.Tensor:

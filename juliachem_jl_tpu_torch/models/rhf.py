@@ -28,14 +28,10 @@ from ..utils.options import create_scf_options, print_scf_options
 from ..utils.timings import JCTC, Timings
 from . import scf as scf_mod
 
-# keywords of the JAX package this port does not run yet -> ROADMAP.md item
-_NOT_PORTED = {
-    "debug": "A4 (debug dumps: h5py)",
-}
 # keywords only the RHF loop runs (the JAX package's UHF/ROHF loops ignore
 # them; the port's raise instead)
 _RHF_ONLY = ("restart", "checkpoint", "oei_cache", "fdiff", "fdiff_f32",
-             "wall_deadline", "bench_fock_reps")
+             "wall_deadline", "bench_fock_reps", "debug")
 # keywords the sharded builders do not run (the JAX package's router and
 # sharded build ignore them under num_devices > 1; the port raises)
 _SHARDED_REFUSES = {
@@ -47,10 +43,6 @@ _SHARDED_REFUSES = {
 
 
 def _check_ported(scf_flags: dict, opts, open_shell: bool = False) -> None:
-    for key, item in _NOT_PORTED.items():
-        if scf_flags.get(key):
-            raise NotImplementedError(
-                f"scf keyword {key!r} is not ported yet (ROADMAP.md {item})")
     if opts.num_devices > 1:
         for key, refused in _SHARDED_REFUSES.items():
             if key in scf_flags and refused(scf_flags[key]):
@@ -237,6 +229,8 @@ def energy(mol, basis_sets, scf_flags: dict | None = None, output: int = 0,
                     torch.cuda.synchronize(device)
             timings.record("fock_rep", 1.0, it)
     fock_builder.finalize()
+    if state.debug is not None:
+        state.debug.close()
 
     E_total = state.energy_elec + e_nuc
     timings.set_converged(converged, E_total, state.iteration)

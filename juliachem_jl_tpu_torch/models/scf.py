@@ -60,6 +60,7 @@ class SCFState:
     iteration: int = 0
     stagnated: bool = False  # converged via the energy-stagnation exit
     deadline_hit: bool = False  # stopped early at opts.wall_deadline
+    debug: object = None  # DebugDump or None
 
 
 class FockBuilder:
@@ -328,6 +329,12 @@ def scf_loop(state: SCFState, fock_builder: FockBuilder, opts: SCFOptions,
         state.energy_elec = E_elec
         E_old, D_old = E_elec, D
 
+        if state.debug is not None:
+            state.debug.write("fock", F, it)
+            state.debug.write("density", D, it)
+            state.debug.write("coefficients", Cmo, it)
+            state.debug.write("energy", E_elec, it)
+
         t_el = time.perf_counter() - t_it
         t_last_iter = t_el
         timings.record(JCTC.iteration_time, t_el, it)
@@ -485,12 +492,24 @@ def initial_state(mol, basis, opts: SCFOptions, timings: Timings, device,
         H = sph_T.T @ H @ sph_T
         S = sph_T.T @ S @ sph_T
     X = linalg.orthogonalizer(S)
+    debug = None
+    # the JAX package's keys (models/scf.py:470-476); S and H in the
+    # computational basis, T and V Cartesian; under num_devices > 1 rank 0
+    # writes the one file
+    if opts.debug and not (torch.distributed.is_initialized()
+                           and torch.distributed.get_rank() != 0):
+        from ..utils.debug_dump import DebugDump
+
+        debug = DebugDump(enabled=True)
+        for key, val in (("overlap", S), ("kinetic", T), ("nuc_attr", V),
+                         ("core_hamiltonian", H), ("ortho", X)):
+            debug.write(key, val)
     nocc = basis.nels // 2
     if basis.nels % 2 != 0:
         raise ValueError(
             f"RHF requires an even number of electrons (got {basis.nels})"
         )
-    state = SCFState(H=H, S=S, X=X, nocc=nocc)
+    state = SCFState(H=H, S=S, X=X, nocc=nocc, debug=debug)
 
     with timings.timed(JCTC.guess_time):
         if opts.guess == C.Guess.sad:

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..utils import elements
+from . import analysis  # noqa: F401
 
 
 @dataclass

@@ -328,6 +328,7 @@ def three_center_tensor(
     col_map: np.ndarray | None = None,
     packed_width: int | None = None,
     out_dtype: torch.dtype = torch.float64,
+    col_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """(Q | mu nu) integrals, accumulated on ``device`` in ``out_dtype``
     (f64, or f32: computed in f64 and rounded at the store, so an f32 B is
@@ -341,11 +342,33 @@ def three_center_tensor(
     (mu,nu) to a packed screened-pq column, with screened-out entries
     pointing at a trash column npq = col_map.max(); returns (A, npq+1) with
     the trash column zeroed.
+    Packed mode with ``col_range`` (c0, c1), c1 <= npq: the packed columns
+    [c0, c1) alone, as (A, c1 - c0 + 1) with a zero trash column last.  K1
+    runs only for the pairs with an output column in the range, chosen on
+    the host; their other columns go to the local trash column, which is
+    zeroed after (K1's plain stores race there harmlessly: every column of
+    the range is still written by exactly one (pair, aux function)).
     """
     A, nbf = aux.nbf, primary.nbf
     if pair_blocks is None:
         pair_blocks = unique_pair_blocks(primary)
     packed = col_map is not None
+    if col_range is not None:
+        if not packed:
+            raise ValueError("three_center_tensor: col_range needs col_map")
+        c0, c1 = col_range
+        trash = c1 - c0
+        pair_blocks = [b for b in (_pairs_in_range(b, col_map, nbf, c0, c1)
+                                   for b in pair_blocks) if b.n]
+
+        def col_of(ia, ib):
+            g = col_map[ia * nbf + ib]
+            return np.where((g >= c0) & (g < c1), g - c0, trash)
+
+        out = torch.zeros((A, trash + 1), dtype=out_dtype, device=device)
+        _fill(out, pair_blocks, aux_tables(aux, device), col_of)
+        out[:, -1] = 0.0
+        return out
     if packed:
         width = packed_width if packed_width is not None else int(col_map.max()) + 1
     else:
@@ -361,3 +384,18 @@ def three_center_tensor(
         out[:, -1] = 0.0  # trash column (screened-out scatter target)
         return out
     return out.reshape(A, nbf, nbf)
+
+
+def _pairs_in_range(block: PairBlock, col_map, nbf: int, c0: int,
+                    c1: int) -> PairBlock:
+    """The pairs of ``block`` that K1 writes into a packed column in [c0,
+    c1): through cols, or through cols_t where the pair is mirrored."""
+    ia, ib = _pair_bf_indices_flat(block)
+
+    def hit(cols):
+        return ((cols >= c0) & (cols < c1)).any(axis=1)
+
+    keep = hit(col_map[ia * nbf + ib])
+    mirror = block.ish != block.jsh
+    keep[mirror] |= hit(col_map[ib[mirror] * nbf + ia[mirror]])
+    return block.select(keep)

@@ -24,7 +24,9 @@ at w8's fold chunk; K1's f32 store and K2's f32-B instance bit for bit equal to 
 output rounded and to the f64 instance on the upcast block; the DF-RHF,
 conventional RHF and UHF/ROHF energies on the card within 1e-9 Eh of the
 same runs on the CPU, RI-UMP2 on the card's orbitals within 1e-10 Eh; two
-gloo ranks sharing the card give the sharded packed G of one device.  The
+gloo ranks sharing the card give the sharded packed G of one device; a
+host-streamed B (both stream modes, forced by the budget) gives the
+resident builder's B, G and J, K(Da), K(Db).  The
 f classes (pair classes to (ff), 34 class pairs with an f shell) are held
 the same way on two waters in 6-31G(2df,p), and (ff|ff) on one C atom in
 6-311++G(3df,3pd); the class pairs that run in ket tiles hold two warps an
@@ -299,6 +301,61 @@ def test_dfrhf_on_card_matches_cpu(cuda_device, mode):
     assert e_card["Converged?"] and e_cpu["Converged?"]
     assert e_card["Density"].is_cuda
     assert abs(e_card["Energy"] - e_cpu["Energy"]) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stream_b32", "stream"])
+def test_streamed_sweep_on_card_equals_resident(cuda_device, mode,
+                                                monkeypatch):
+    """A B over a forced budget is built in column chunks (K1 on the card
+    into each range) into page-locked host memory, equal to the resident B
+    within 1e-13 x max|B|; its sweeps copy each Q-block into one of two
+    device buffers on the side stream while K2 runs on the other: G (f64
+    orbitals, the f32 phase, the signed factor) and J, K(Da), K(Db) equal
+    the resident builder's within 1e-12 relative, K2 launched on every
+    block, the copies and waits recorded by ``KPassSplit``."""
+    from juliachem_jl_tpu_torch.models.df_screened_jk import (
+        ScreenedDFJKBuilder)
+    from juliachem_jl_tpu_torch.utils.options import create_scf_options
+    from juliachem_jl_tpu_torch.utils.timings import Timings
+
+    prim, aux = _water()
+    opts = create_scf_options({"scf_type": "df", "df_exchange_n_blocks": 3})
+    res = ScreenedDFJKBuilder.build(prim, aux, opts, cuda_device)
+    rows, width = res.B.shape
+    b32, buffers = rows * width * 4, 2 * res.q_chunk * width * 8
+    budget = b32 + buffers if mode == "stream_b32" else b32 + buffers - 1
+    monkeypatch.setattr(ScreenedDFJKBuilder, "budgets",
+                        classmethod(lambda cls, dev: (budget, 1e9)))
+    monkeypatch.setattr(df_screened, "stream_build_cols",
+                        lambda rows, dtype, dev: 100)
+    st = ScreenedDFJKBuilder.build(prim, aux, opts, cuda_device)
+    assert st.mode == {"stream_b32": df_screened.STREAM_B32,
+                       "stream": df_screened.STREAM}[mode]
+    assert not st.B.is_cuda and st.B.is_pinned()
+    assert (st.B32 is None) == (mode == "stream")
+    ref = res.B.cpu()
+    assert float((st.B - ref).abs().max()) <= 1e-13 * float(ref.abs().max())
+    rng = np.random.default_rng(5)
+    C = torch.tensor(rng.normal(size=(prim.nbf, 5)), device=cuda_device)
+    D = 2.0 * C @ C.T
+    split = df_screened.KPassSplit()
+    for kw in ({"C_occ": C}, {"C_occ": C, "precision": "f32"}, {}):
+        g0 = res.two_electron_fock(D, 1, Timings(), **kw)
+        n0 = kernels.launches["df_gather_w"]
+        st.split = split
+        g1 = st.two_electron_fock(D, 1, Timings(), **kw)
+        st.split = None
+        assert kernels.launches["df_gather_w"] - n0 == 3
+        assert float((g1 - g0).abs().max()) <= 1e-12 * float(g0.abs().max())
+    streamed = [ph for dt, ph in split.sweeps
+                if dt == "float64" or mode == "stream"]
+    assert streamed and all(len(ph["H2D"]) == 3 and len(ph["wait"]) == 3
+                            for ph in streamed)
+    Ca, Cb = C, C[:, :3].contiguous()
+    args = (Ca @ Ca.T, Cb @ Cb.T, 1, Timings(), Ca, Cb)
+    for g, r in zip(st.two_electron_jk(*args), res.two_electron_jk(*args)):
+        assert float((g - r).abs().max()) <= 1e-12 * float(r.abs().max())
 
 
 def test_k2_wrapper_checks_its_inputs():

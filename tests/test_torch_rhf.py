@@ -68,10 +68,9 @@ OUT_OF_SLICE = {
     "multi-device": {"scf": {"num_devices": 2}},
     "conventional-multi-device": {"scf": {"scf_type": "rhf",
                                           "num_devices": 2}},
-    "debug": {"scf": {"debug": True}},
 }
-# out of slice before the large-system chain and the derivatives were
-# ported: they run now (the gradients are held to the JAX package in
+# out of slice before the large-system chain, the derivatives and the
+# debug dumps were ported: they run now (the gradients are held to the JAX package in
 # tests/test_torch_gradients.py)
 NOW_RUN = {
     "fdiff": {"scf": {"fdiff": True}},
@@ -80,15 +79,18 @@ NOW_RUN = {
     "f32-B": {"scf": {"df_b_dtype": "f32"}},
     "uhf": {"method": "UHF", "driver": "gradient"},
     "gradient": {"driver": "gradient"},
+    "debug": {"scf": {"debug": True}},
 }
 
 
 @pytest.mark.parametrize("case", list(OUT_OF_SLICE) + list(NOW_RUN))
-def test_out_of_slice_raises(case, tmp_path):
+def test_out_of_slice_raises(case, tmp_path, monkeypatch):
     """What the port does not run raises NotImplementedError (num_devices
     > 1 with no process group: RuntimeError); the keywords of NOW_RUN
-    converge (``restart`` from a checkpoint written first)."""
+    converge (``restart`` from a checkpoint written first; ``debug``
+    writes its debug.h5 in the working directory, here tmp_path)."""
     if case in NOW_RUN:
+        monkeypatch.chdir(tmp_path)
         spec = NOW_RUN[case]
         scf = {k: v.format(tmp=tmp_path) if isinstance(v, str) else v
                for k, v in spec.get("scf", {}).items()}
@@ -101,6 +103,8 @@ def test_out_of_slice_raises(case, tmp_path):
                    driver=spec.get("driver", "energy"),
                    method=spec.get("method", "RHF"))), device="cpu")
         assert out["Energy"]["Converged?"]
+        if case == "debug":
+            assert (tmp_path / "debug.h5").exists()
         if spec.get("driver") == "gradient":
             g = out["Energy"]["Gradient"]
             assert g.shape == (3, 3)

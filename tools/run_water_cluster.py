@@ -5,10 +5,11 @@
 
 Runs DF-RHF of the cluster (juliachem_jl_tpu_torch/data/water_clusters.json;
 6-31+G* / cc-pVTZ-JKFIT and chip_smoke.py's convergence keywords) twice
-through run_spec: with an f64 B, which may stop at the packed builder's
-MemoryError (its message, with the bytes it names, is recorded), then with
-an f32 B, each after its packed builder's build alone, to read that
-build's peak memory.  Prints the card's name and power limit, each run's
+through run_spec: with an f64 B (streamed from page-locked host memory
+where the card's budget cannot hold it with its f32 copy; a MemoryError,
+with the bytes it names, is recorded), then with an f32 B, each after its
+packed builder's build alone, to read that build's peak memory, and prints
+E(f32 B) - E(f64 B).  Prints the card's name and power limit, each run's
 lines from chip_smoke.run_cluster (B's bytes, build and run peak memory, setup
 phases, Fock s/iter, iterations, energy, wall time to energy, K1's launches
 of the run's metric and 3-center builds by class) and, last, one JSON line
@@ -60,6 +61,10 @@ def main() -> int:
     out["f32"] = cs.run_cluster(tag, jc, args.cluster, {"df_b_dtype": "f32"},
                                 f"{args.cluster} f32 B", measure_build=True,
                                 k1_times=True)
+    if "energy" in out["f64"]:
+        out["f32_minus_f64_B"] = out["f32"]["energy"] - out["f64"]["energy"]
+        print(f"{tag} {args.cluster}: E(f32 B) - E(f64 B) = "
+              f"{out['f32_minus_f64_B']:.6e} Eh", flush=True)
     jc.finalize()
     out = cs.str_keys(out)   # K1's classes are tuples
     if args.out:

@@ -11,7 +11,8 @@ card's name and power limit):
 2. build the CUDA kernels of juliachem_jl_tpu_torch/csrc with nvcc (one
    process per source, in parallel); 2a. ``cuobjdump -sass`` of the built
    library: every f64 tensor-core instance of K2 and K7 holds DMMA
-   instructions; ptxas's registers, stack and spills of every K4/K5/K6
+   instructions, K2's f32 instance FFMA and no tensor-core instruction
+   (no TF32); ptxas's registers, stack and spills of every K4/K5/K6
    and K1 instance, and the build wall of K1's sources;
 3. each kernel against its plain torch version on the card, times from CUDA
    events beside the least time the card could take (``bound_ms``):
@@ -21,8 +22,11 @@ card's name and power limit):
    ops/kernels.py as compiled, a block-route class within a block's
    shared memory and two blocks an SM; the primitive products K1 walks
    in the full 3-center builds of benzene_2_water and w32 equal to those
-   of nonzero coefficients), K2 (packed-B exchange factor, f64 and f32;
-   also at w32's Q-block, whose col_map has whole dead tiles), the
+   of nonzero coefficients), K2 (packed-B exchange factor: the f64
+   instance and the FP32 FMA instance of the mixed-precision phase, beside
+   the f64 instance's time and the replaced f32 body's recorded one; also
+   at w32's Q-block, whose col_map has whole dead tiles, and in phase 13
+   at w64's), the
    probe K3 (device Boys function), and at the class shapes of
    ammonia_trimer and benzene_2_water (6-311++G(2d,2p)), the first quartets
    of every class pair of the Schwarz staircase: K4 (4-center integrals),
@@ -229,6 +233,17 @@ W64_F32B_ENERGY = -4865.1375295166
 # the first 8 waters of w32 as the JAX package's recorded runs have them
 W8_SCF = {"niter": 60, "dele": 1e-9, "rmsd": 1e-7,
           "contraction_mode": "screened", "mixed_precision": False}
+# K2's f32 instance before its FP32 register-tiled design (one row q and
+# 16 orbitals a block over every row m), as this script and
+# tools/run_water_cluster.py recorded it on the tree before that design,
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5-6): printed on a line
+# of its own beside the design's time, never in the kernels line
+K2_F32_RECORDED = {
+    "benzene_2_water": "5.070 ms a launch at this Q-block (PERF.md §6)",
+    "w32 Q-block": "77.3 ms a launch at this Q-block, the K2 of an "
+                   "f32-phase build (PR 7 run 9, PERF.md §5)",
+    "w64 Q-block": "1124.6 ms of K2 in an f32-phase build of 8 such blocks "
+                   "on an f32 B (PR 13 run 1, PERF.md §5)"}
 E_RESTART_TOL = 1e-9   # restart from the caches vs the run that wrote them
 E_FDIFF_TOL = 1e-8     # incremental Fock vs the full build each iteration
 SUBSET = 4096  # quartets per class pair in the 4-center kernel checks
@@ -1128,24 +1143,20 @@ def check_k8(tag: str, dev, A: int, label: str) -> dict:
             "f64_fold_ms": f64_ms, **b}
 
 
-def check_k2(tag: str, dev, bsets, opts, label: str = "benzene_2_water",
-             k: int | None = None, qc: int | None = None,
-             f32: bool = True) -> tuple[dict, dict]:
-    """K2 at a system's packed shapes: its real screen (Schwarz-screened
-    col_map, whose dead 16 x 64 tiles K2 skips: live slabs printed), one
-    Q-block of ``qc`` fitted aux rows (default all of them), a factor of
-    ``k`` columns (default the occupied count); f64, f32 (FMA body) where
-    ``f32``, and the f32-B instance (f32 B, f64 C and W), held bit for bit
-    to the f64 instance on the upcast block.  Every kernel is held to the
-    plain version on all ``qc`` rows.  Returns the kernel line entries of
-    K2 and of its f32-B instance."""
+def k2_block(dev, bsets, opts, k: int | None = None,
+             qc: int | None = None) -> dict:
+    """K2's inputs at a system's packed shapes: its real screen
+    (Schwarz-screened col_map, whose dead 16 x 64 tiles K2 skips), one
+    Q-block of ``qc`` fitted aux rows (default all of them) of random f64
+    B with a zero trash column, a random f64 factor of ``k`` columns
+    (default the occupied count), the live-slab list, the count of live
+    (m, n) entries and a line that names the shapes."""
     import torch
 
     from juliachem_jl_tpu_torch.models.df import screened_pair_blocks
     from juliachem_jl_tpu_torch.models.df_screened import (
-        build_packed_screen, df_gather_w, df_gather_w_plain, fitted_rows,
-        k2_slabs)
-    from juliachem_jl_tpu_torch.ops import eri3c, kernels
+        build_packed_screen, fitted_rows, k2_slabs)
+    from juliachem_jl_tpu_torch.ops import eri3c
 
     prim, aux = bsets.primary, bsets.auxiliary
     metric_max = float(torch.diagonal(eri3c.two_center_metric(aux, dev)).max())
@@ -1162,58 +1173,95 @@ def check_k2(tag: str, dev, bsets, opts, label: str = "benzene_2_water",
     ptr, idx = k2_slabs(screen.col_map, nbf, screen.npq)
     slabs = (torch.as_tensor(ptr, device=dev), torch.as_tensor(idx, device=dev))
     n_slabs = -(-nbf // 16) * (len(ptr) - 1)
-    live = int((col_map != screen.npq).sum())
-    what = (f"{label} Qc={qc} npq={screen.npq} nbf={nbf} k={k}, live slabs "
-            f"{len(idx)} of {n_slabs}")
+    return {"Bc": Bc, "C": C, "col_map": col_map, "slabs": slabs,
+            "npq": screen.npq, "nbf": nbf, "k": k, "qc": qc,
+            "live": int((col_map != screen.npq).sum()),
+            "live_slabs": len(idx), "n_slabs": n_slabs,
+            "shapes": [qc, screen.npq, nbf, k],
+            "what": f"Qc={qc} npq={screen.npq} nbf={nbf} k={k}, live slabs "
+                    f"{len(idx)} of {n_slabs}"}
+
+
+def k2_f32_bound(blk: dict) -> dict:
+    """The f32 instance's bound: f32 words of B, C and W and col_map moved
+    once, one FP32 FMA per (q, i, live (m, n)) entry."""
+    qc, k, nbf = blk["qc"], blk["k"], blk["nbf"]
+    return bound_of(4.0 * blk["Bc"].numel() + 4.0 * blk["col_map"].numel()
+                    + 4.0 * blk["C"].numel() + 4.0 * qc * k * nbf,
+                    2.0 * qc * blk["live"] * k, PEAK_F32_OPS_S)
+
+
+def check_k2(tag: str, dev, bsets, opts, label: str = "benzene_2_water",
+             k: int | None = None,
+             qc: int | None = None) -> tuple[dict, dict, dict]:
+    """K2 at a system's packed shapes (``k2_block``): the f64 instance and
+    the f32 instance (FP32 FMA body), each held to the plain version on all
+    ``qc`` rows (1e-12 and 1e-5 relative), and the f32-B instance (f32 B,
+    f64 C and W) held bit for bit to the f64 instance on the upcast block.
+    Returns the kernel line entries of the f64, f32 and f32-B instances;
+    the f32 one carries the f64 instance's time on the same block.  The
+    recorded time of the FMA body the f32 instance replaced
+    (``K2_F32_RECORDED``) is printed on a line of its own."""
+    import torch
+
+    from juliachem_jl_tpu_torch.models.df_screened import (
+        df_gather_w, df_gather_w_plain)
+    from juliachem_jl_tpu_torch.ops import kernels
+
+    blk = k2_block(dev, bsets, opts, k, qc)
+    Bc, C, col_map, slabs = blk["Bc"], blk["C"], blk["col_map"], blk["slabs"]
+    qc, k, nbf = blk["qc"], blk["k"], blk["nbf"]
+    what = f"{label} {blk['what']}"
     res = {}
-    for dt, bound in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        if dt == torch.float32 and not f32:
-            continue
+    for dt, bound, name in ((torch.float64, 1e-12, "df_gather_w"),
+                            (torch.float32, 1e-5, "df_gather_w_f32")):
         B_, C_ = Bc.to(dt), C.to(dt)
-        n0 = kernels.launches["df_gather_w"]
+        n0 = kernels.launches[name]
         got = df_gather_w(B_, col_map, C_, slabs)
-        check(kernels.launches["df_gather_w"] == n0 + 1,
-              "K2 comparison did not launch the kernel")
+        check(kernels.launches[name] == n0 + 1,
+              f"K2 comparison did not launch {name}")
         ref = df_gather_w_plain(B_, col_map, C_)
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         del got, ref
-        check(rel <= bound, f"K2 {dt} at {label}: relative error {rel:.3e} "
+        check(rel <= bound, f"K2 {name} at {label}: relative error {rel:.3e} "
               f"> {bound}")
         ms = cuda_ms(lambda: df_gather_w(B_, col_map, C_, slabs))
         plain = cuda_ms(lambda: df_gather_w_plain(B_, col_map, C_))
-        res[dt] = (err, rel, ms, plain)
-        print(f"{tag} K2 df_gather_w {str(dt)[6:]}"
-              f"{' (FMA body)' if dt == torch.float32 else ''} {what}: max "
-              f"abs err {err:.3e}, rel {rel:.3e} (bound {bound}); kernel "
-              f"{ms:.3f} ms, plain torch (tile + einsum) {plain:.3f} ms",
-              flush=True)
+        res[name] = (err, rel, ms, plain)
+        print(f"{tag} K2 {name} {what}: max abs err {err:.3e}, rel "
+              f"{rel:.3e} (bound {bound}); kernel {ms:.3f} ms, plain torch "
+              f"(tile + einsum) {plain:.3f} ms", flush=True)
         del B_, C_
-    err, rel, ms, plain = res[torch.float64]
+    common = {"route": "cuda",
+              "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
+              "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
+              "at": label, "shapes": blk["shapes"],
+              "live_slabs": blk["live_slabs"], "slabs": blk["n_slabs"],
+              "library_ms": None}
     # bound (f64): B, col_map and C read once, W written once; one FMA per
-    # (q, i, surviving (m, n)) entry
+    # (q, i, live (m, n)) entry
     b = bound_of(8.0 * Bc.numel() + 4.0 * col_map.numel() + 8.0 * C.numel()
-                 + 8.0 * qc * k * nbf, 2.0 * qc * live * k)
-    print(f"{tag} K2 df_gather_w f64 {label} bound {b['bound_ms']:.3f} ms "
-          f"({b['bound_by']})", flush=True)
-    k2 = {"name": "df_gather_w", "route": "cuda",
-          "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
-          "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
-          "at": label, "shapes": [qc, screen.npq, nbf, k],
-          "live_slabs": len(idx), "slabs": n_slabs,
-          "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-          "plain_ms": plain, "library_ms": None, **b}
-    if f32:
-        # the f32 instance's bound: f32 words of B, C and W, FP32 operations
-        b_f32 = bound_of(4.0 * Bc.numel() + 4.0 * col_map.numel()
-                         + 4.0 * C.numel() + 4.0 * qc * k * nbf,
-                         2.0 * qc * live * k, PEAK_F32_OPS_S)
-        print(f"{tag} K2 df_gather_w f32 {label} bound "
-              f"{b_f32['bound_ms']:.3f} ms ({b_f32['bound_by']})", flush=True)
-        k2.update(f32_ms=res[torch.float32][2],
-                  f32_plain_ms=res[torch.float32][3],
-                  f32_bound_ms=b_f32["bound_ms"],
-                  f32_bound_by=b_f32["bound_by"])
+                 + 8.0 * qc * k * nbf, 2.0 * qc * blk["live"] * k)
+    err, rel, ms, plain = res["df_gather_w"]
+    k2 = {"name": "df_gather_w", **common, "max_abs_err": err,
+          "max_rel_err": rel, "ms": ms, "plain_ms": plain, **b}
+    b_f32 = k2_f32_bound(blk)
+    err, rel, ms32, plain = res["df_gather_w_f32"]
+    k2f = {"name": "df_gather_w_f32", **common, "max_abs_err": err,
+           "max_rel_err": rel, "ms": ms32, "plain_ms": plain, **b_f32,
+           "f64_ms": ms, "over_f64": ms32 / ms}
+    print(f"{tag} K2 {label}: f64 bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']}); f32 (FP32 FMA, {kernels.K2F_NQ} rows q x "
+          f"{kernels.K2F_KT} orbitals a block, {kernels.K2F_STAGES} stages) "
+          f"{ms32:.3f} ms, bound {b_f32['bound_ms']:.3f} ms "
+          f"({b_f32['bound_by']}): {ms32 / b_f32['bound_ms']:.2f}x it, "
+          f"{ms32 / ms:.3f}x the f64 instance's {ms:.3f} ms on the same "
+          f"block", flush=True)
+    if label in K2_F32_RECORDED:
+        print(f"{tag} K2 df_gather_w_f32 {label}: the FMA body it replaced, "
+              f"recorded, not measured in this run: "
+              f"{K2_F32_RECORDED[label]}", flush=True)
     # the f32-B instance (f64 iterations on an f32 B): bit for bit the f64
     # instance on the upcast block
     B32 = Bc.float()
@@ -1230,20 +1278,17 @@ def check_k2(tag: str, dev, bsets, opts, label: str = "benzene_2_water",
     ms32 = cuda_ms(lambda: df_gather_w(B32, col_map, C, slabs))
     plain32 = cuda_ms(lambda: df_gather_w_plain(B32, col_map, C))
     b32 = bound_of(4.0 * B32.numel() + 4.0 * col_map.numel()
-                   + 8.0 * C.numel() + 8.0 * qc * k * nbf, 2.0 * qc * live * k)
+                   + 8.0 * C.numel() + 8.0 * qc * k * nbf,
+                   2.0 * qc * blk["live"] * k)
     print(f"{tag} K2 df_gather_w_f32b (f32 B, f64 C and W) {what}: 0 "
           f"elements off the f64 instance on Bc.double() (bit for bit); max "
           f"abs err vs plain {err32:.3e}; kernel {ms32:.3f} ms, plain torch "
           f"{plain32:.3f} ms, bound {b32['bound_ms']:.3f} ms "
           f"({b32['bound_by']})", flush=True)
-    k2b = {"name": "df_gather_w_f32b", "route": "cuda",
-           "source": "juliachem_jl_tpu_torch/csrc/df_gather_w.cu",
-           "replaces": "juliachem_jl_tpu/models/df_screened.py:303",
-           "at": label, "shapes": [qc, screen.npq, nbf, k],
-           "live_slabs": len(idx), "slabs": n_slabs,
-           "max_abs_err": err32, "elements_off_f64": differ, "ms": ms32,
-           "plain_ms": plain32, "library_ms": None, **b32}
-    return k2, k2b
+    k2b = {"name": "df_gather_w_f32b", **common, "max_abs_err": err32,
+           "elements_off_f64": differ, "ms": ms32, "plain_ms": plain32,
+           **b32}
+    return k2, k2f, k2b
 
 
 # K2's and K7's DMMA instances (mangled-name fragments of csrc/'s
@@ -1255,13 +1300,56 @@ DMMA_INSTANCES = {
     "e2_ss": "mp2_e2_pair_kernelILi1EE",
     "e2_os": "mp2_e2_os_kernel",
 }
+# K2's f32 instance: FP32 FMA, no tensor-core instruction of any type (an
+# HMMA would be TF32, not the JAX package's f32 product)
+K2_F32_KERNEL = "df_gather_w_f32_kernel"
+
+
+def k2_f32_tile(registers: int | None, tile=None) -> dict:
+    """K2's f32 instance at ``tile`` (NQ, KT, stages; default
+    ops/kernels.py's K2F_*): threads and shared-memory bytes a block as
+    csrc/df_gather_w.cu computes them, and, at ``registers`` a thread
+    (ptxas), the blocks an SM of card 0 holds: the least that its register
+    file (allocated 256 a warp), its shared memory (1 KiB reserved a
+    block), its threads and 32 blocks allow."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import kernels
+
+    nq, kt, stages = tile or (kernels.K2F_NQ, kernels.K2F_KT,
+                              kernels.K2F_STAGES)
+    sm, tn = kernels.K2_SLAB_M, kernels.K2_TILE_N
+    threads = kt // 8 * (tn // 4)
+    smem = 4 * stages * (nq * sm * (tn + 4) + sm * (kt + 4))
+    out = {"NQ": nq, "KT": kt, "stages": stages, "threads": threads,
+           "smem_bytes": smem, "registers": registers, "blocks_per_sm": None}
+    if registers:
+        p = torch.cuda.get_device_properties(0)
+        regs = getattr(p, "regs_per_multiprocessor", 65536)
+        smem_sm = getattr(p, "shared_memory_per_multiprocessor", 233472)
+        max_threads = getattr(p, "max_threads_per_multi_processor", 2048)
+        warp_regs = -(-registers * 32 // 256) * 256
+        out["blocks_per_sm"] = min(
+            regs // warp_regs // (threads // 32), smem_sm // (smem + 1024),
+            max_threads // threads, 32)
+    return out
+
+
+def sass_opcode(line: str) -> str | None:
+    """The opcode of one instruction line of ``cuobjdump -sass`` (its
+    modifiers and predicate dropped: "HMMA", "DMMA", "FFMA", ...), or
+    None for any other line."""
+    m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                 line)
+    return m.group(1) if m else None
 
 
 def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     """DMMA instructions in the SASS of each K2/K7 tensor-core instance of
     the built library (``cuobjdump -sass``; fails if an instance is missing
-    or has none), and each instance's registers a thread as ptxas reported
-    them in the build."""
+    or has none), FFMA and no tensor-core instruction (an opcode ending in
+    MMA: HMMA, HGMMA, DMMA, IMMA, ...) in K2's f32 instance, and each
+    instance's registers a thread as ptxas reported them in the build."""
     from juliachem_jl_tpu_torch.ops import kernels
 
     out = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
@@ -1271,18 +1359,28 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     for ln in out.stdout.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :", 1)[1].strip()
-            per_fn[fn] = 0
-        elif fn is not None and "DMMA" in ln:
-            per_fn[fn] += 1
-    counts = {}
-    for inst, frag in DMMA_INSTANCES.items():
+            per_fn[fn] = {"DMMA": 0, "MMA": 0, "FFMA": 0}
+        elif fn is not None and (op := sass_opcode(ln)):
+            per_fn[fn]["DMMA"] += op == "DMMA"
+            per_fn[fn]["MMA"] += op.endswith("MMA")
+            per_fn[fn]["FFMA"] += op == "FFMA"
+
+    def one(inst, frag):
         fns = [f for f in per_fn if frag in f]
         check(len(fns) == 1, f"SASS: {len(fns)} functions match {inst}")
-        counts[inst] = per_fn[fns[0]]
+        return per_fn[fns[0]]
+
+    counts = {inst: one(inst, frag)["DMMA"]
+              for inst, frag in DMMA_INSTANCES.items()}
     print(f"{tag} SASS DMMA instructions per instance: " + ", ".join(
         f"{k} {v}" for k, v in counts.items()), flush=True)
     check(all(v > 0 for v in counts.values()),
           "SASS: a K2/K7 tensor-core instance has no DMMA instruction")
+    f32 = one("df_gather_w_f32", K2_F32_KERNEL)
+    print(f"{tag} SASS of K2's f32 instance: FFMA {f32['FFMA']}, tensor-core "
+          f"(*MMA) {f32['MMA']}", flush=True)
+    check(f32["FFMA"] > 0 and f32["MMA"] == 0, "SASS: K2's f32 instance "
+          "lacks FFMA or holds a tensor-core instruction")
     # registers a thread, from ptxas -v in this process's build log
     regs, fn = {}, None
     for ln in kernels.build_info.get("log", "").splitlines():
@@ -1290,12 +1388,19 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
             fn = ln.split("'")[1]
         elif fn is not None and "Used" in ln and "registers" in ln:
             regs[fn] = int(ln.split("Used", 1)[1].split()[0])
+    frags = {**DMMA_INSTANCES, "df_gather_w_f32": K2_F32_KERNEL}
     used = {inst: next((r for f, r in regs.items() if frag in f), None)
-            for inst, frag in DMMA_INSTANCES.items()}
+            for inst, frag in frags.items()}
     print(f"{tag} registers a thread (ptxas): " + ", ".join(
         f"{k} {'not in this build log' if v is None else v}"
         for k, v in used.items()), flush=True)
-    return {"dmma": counts, "registers": used}
+    tile = k2_f32_tile(used["df_gather_w_f32"])
+    print(f"{tag} K2's f32 instance: {tile['NQ']} rows q x {tile['KT']} "
+          f"orbitals a block, {tile['stages']} stages, {tile['threads']} "
+          f"threads, {tile['smem_bytes']} B of shared memory, "
+          f"{tile['blocks_per_sm'] or 'unknown'} blocks an SM", flush=True)
+    return {"dmma": counts, "df_gather_w_f32": {**f32, **tile},
+            "registers": used}
 
 
 def ptxas_instances(pat, nidx: int) -> dict:
@@ -2851,7 +2956,7 @@ def run_phase13(tag: str, jc, path, counts: dict, w32a: dict,
     import torch
 
     from juliachem_jl_tpu_torch.models.df_screened import (
-        STREAM, STREAM_B32, ScreenedDFFockBuilder)
+        STREAM, STREAM_B32, ScreenedDFFockBuilder, fitted_rows)
     from juliachem_jl_tpu_torch.models.df_screened_jk import ScreenedDFJKBuilder
     from juliachem_jl_tpu_torch.utils.options import create_scf_options
     from juliachem_jl_tpu_torch.utils.timings import Timings
@@ -2959,6 +3064,19 @@ def run_phase13(tag: str, jc, path, counts: dict, w32a: dict,
     check(counts["w64 f64 B defaults"].get("df_gather_w", 0) > 0
           and counts["w64 f64 B defaults"].get("eri3c", 0) > 0,
           "w64 defaults: K1 or K2 never launched")
+    # K2 at w64's Q-block for the occupied factor (the f32 phase of (e)
+    # sweeps B32 in such blocks): each instance against the plain version
+    spec64 = jc.io.parse_input(cluster_input("w64"))
+    bsets64 = jc.basis.run(jc.molecule.run(spec64), spec64.model)
+    opts64 = create_scf_options(spec64.scf_keywords)
+    k64 = bsets64.primary.nels // 2
+    qc64 = ScreenedDFFockBuilder.block_rows(
+        bsets64.primary.nbf, k64, fitted_rows(bsets64.auxiliary, opts64), dev)
+    torch.cuda.empty_cache()
+    out["k2_w64"] = dict(zip(("f64", "f32", "f32b"), check_k2(
+        tag, dev, bsets64, opts64, "w64 Q-block", k64, qc64)))
+    del bsets64
+    torch.cuda.empty_cache()
     # (g) one UHF build on a streamed B: the benzene_2_water cation's
     #     (Ca, Cb); Q-blocks at a W_FRACTION of 2e-4 (17 blocks on an 80 GB
     #     card), B over a 0.1 GB budget
@@ -3002,6 +3120,46 @@ def run_phase13(tag: str, jc, path, counts: dict, w32a: dict,
                seconds=time.perf_counter() - t13)
     print(f"{tag} phase 13 (host-streamed B) took {out['seconds']:.1f} s",
           flush=True)
+    return out
+
+
+def f32_phase_k2(tag: str, counts: dict, runs: dict) -> dict:
+    """K2's f32 instance on the mixed-precision phase of each packed run
+    (path label -> run_cluster summary): a run whose f32 phase swept B
+    (f32 iterations, or f32 sweeps in its K pass split) must have launched
+    ``df_gather_w_f32``.  Per run, the f32 phase's iterations and those
+    launches, and the K pass of its f32 builds (K2 and the sum of the
+    compute stream's phases, the side stream's H2D left out; ms by CUDA
+    events) beside its f64 builds', with the Fock s/iter of both."""
+    def total(v):
+        return (sum(x for key, x in v.items() if key not in ("sweeps", "H2D"))
+                if v else None)
+
+    def fmt(x, f=".3f"):
+        return "-" if x is None else format(x, f)
+
+    out = {}
+    for label, r in runs.items():
+        split = r["k_pass_split_ms"]
+        f32, f64 = split.get("float32", {}), split.get("float64", {})
+        n = counts[label].get("df_gather_w_f32", 0)
+        out[label] = {
+            "f32_phase_iters": r["f32_phase_iters"], "launches": n,
+            "fock_s_f32_phase": r["fock_s_per_iter_f32_phase"],
+            "fock_s_f64_steady": r["fock_s_per_iter_f64_steady"],
+            "K2_ms_f32_build": f32.get("K2"), "K_pass_ms_f32_build": total(f32),
+            "K2_ms_f64_build": f64.get("K2"), "K_pass_ms_f64_build": total(f64)}
+        v = out[label]
+        print(f"{tag} {label}: f32 phase {v['f32_phase_iters']} iterations, "
+              f"df_gather_w_f32 launched {n} times; an f32-phase build: K2 "
+              f"{fmt(v['K2_ms_f32_build'])} of a K pass of "
+              f"{fmt(v['K_pass_ms_f32_build'])} ms, Fock "
+              f"{fmt(v['fock_s_f32_phase'], '.4f')} s/iter; an f64 build: "
+              f"K2 {fmt(v['K2_ms_f64_build'])} of "
+              f"{fmt(v['K_pass_ms_f64_build'])} ms, Fock "
+              f"{fmt(v['fock_s_f64_steady'], '.4f')} s/iter", flush=True)
+        check(n > 0 or not (f32 or r["f32_phase_iters"]),
+              f"{label}: an f32 phase without K2's f32 instance")
     return out
 
 
@@ -3514,8 +3672,8 @@ def main() -> int:
     k1_geometry = {"benzene_2_water": k1_routes(tag, calls)}
     k1_f32 = check_k1_f32(tag, dev, bsets, calls)
     del calls
-    k2, k2_f32b = check_k2(tag, dev, bsets,
-                           create_scf_options(spec.scf_keywords))
+    k2, k2_f32, k2_f32b = check_k2(tag, dev, bsets,
+                                   create_scf_options(spec.scf_keywords))
     k3 = check_k3(tag, dev)
     # K8 at the fold shapes of the paths that launch it: the fitted rows of
     # the aux set of w32's first 8 waters and of w32
@@ -3533,9 +3691,9 @@ def main() -> int:
     k_w = bsets_w.primary.nels // 2
     qc_w = ScreenedDFFockBuilder.block_rows(bsets_w.primary.nbf, k_w, rows,
                                             dev)
-    k2_w, k2b_w = check_k2(tag, dev, bsets_w,
-                           create_scf_options(spec_w.scf_keywords),
-                           "w32 Q-block", k_w, qc_w, f32=False)
+    k2_w, k2f_w, k2b_w = check_k2(tag, dev, bsets_w,
+                                  create_scf_options(spec_w.scf_keywords),
+                                  "w32 Q-block", k_w, qc_w)
     k1_w32_products = k1_primitive_counts(
         tag, dev, bsets_w, create_scf_options(spec_w.scf_keywords), "w32")
     # K1 on every class of w32 (w8's are among them), its own contractions
@@ -4123,6 +4281,16 @@ def main() -> int:
     streamed = run_phase13(tag, jc, path, counts, w32a, cation)
     jc.finalize()
 
+    # K2's f32 instance on every mixed-precision phase of a packed run
+    f32_phase = f32_phase_k2(tag, counts, {
+        "w32 f64 B": w32a, "w32 f32 B": w32b, "w32 split fold": w32s,
+        "w32 stream B32": streamed["w32_stream_b32"],
+        "w32 stream B32 from the B cache": streamed["w32_from_cache"],
+        "w32 stream": streamed["w32_stream"],
+        "w64 f64 B defaults": streamed["w64_defaults"]})
+    check(f32_phase["w32 f64 B"]["launches"] > 0
+          and f32_phase["w64 f64 B defaults"]["launches"] > 0,
+          "K2's f32 instance never launched on w32 f64 B or w64 defaults")
     # each kernel's launches on its path
     main_path = {"eri3c": "benzene_2_water DF", "df_gather_w": "benzene_2_water DF",
                  "eri3c_f32": "w32 f32 B", "df_gather_w_f32b": "w32 f32 B",
@@ -4145,6 +4313,19 @@ def main() -> int:
         k["path"] = label
         k["name"] += "_w32"
     check(k2_w["launches"] > 0, "kernel df_gather_w never launched on w32 f64 B")
+    # K2's f32 instance at w32's Q-block on the f32 phase of w32 f64 B, its
+    # benzene_2_water and w64 Q-blocks beside
+    def shapes_only(v):
+        return {key: x for key, x in v.items()
+                if key not in ("name", "route", "source", "replaces")}
+
+    k2f = {**k2f_w, "launches": f32_phase["w32 f64 B"]["launches"],
+           "path": "w32 f64 B",
+           "at_w64_q_block": {
+               **shapes_only(streamed["k2_w64"]["f32"]),
+               "launches": f32_phase["w64 f64 B defaults"]["launches"],
+               "path": "w64 f64 B defaults"},
+           "at_benzene_2_water": shapes_only(k2_f32)}
     k8["at_w8_fold"]["launches"] = counts["w8 split fold"]["split_fold"]
     k8["at_w8_fold"]["path"] = "w8 split fold"
     k3["launches"] = counts["benzene_2_water DF"]["boys_probe"]
@@ -4235,7 +4416,7 @@ def main() -> int:
             "largest_class": v["largest_class"]})
     g_kernels[[k["name"] for k in g_kernels].index("digest_jk_g")].update(
         per_build=k6_build(builds_g))
-    kern_line = ([k1, k2] + new_kernels + list(k7.values())
+    kern_line = ([k1, k2, k2f] + new_kernels + list(k7.values())
                  + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels + g_kernels)
 
     systems = [ammonia, benzene, bz_f32, bz_split, *w8.values(),
@@ -4274,7 +4455,7 @@ def main() -> int:
             "g_shell": {"builds_at_w2_convergence": builds_g,
                         "seconds": g_s, "gg_gg_launches": gg},
             "correlated": correlated, "sharded": sharded,
-            "derivatives": derivatives,
+            "derivatives": derivatives, "f32_phase_k2": f32_phase,
             "host_streamed_B": {k: v for k, v in streamed.items()}}), indent=1,
             default=str))
     print(f"{tag} chip_smoke: all phases passed in {total_s:.1f} s", flush=True)

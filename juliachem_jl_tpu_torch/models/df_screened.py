@@ -504,14 +504,18 @@ def df_gather_w_plain(Bc, col_map, C) -> torch.Tensor:
 def df_gather_w(Bc, col_map, C, slabs) -> torch.Tensor:
     """Kernel K2: W[q, i, n] = sum_m Bc[q, col_map[m*nbf + n]] C[m, i].
 
-    Bc: [Qc, npq+1] rows of packed B (trash column npq, zero); col_map:
-    [nbf*nbf] int32; C: [nbf, k].  Bc and C both f64, both f32, or an f32
-    Bc with an f64 C (counted as ``df_gather_w_f32b``: the f64 iterations
-    on an f32 B).  ``slabs``: ``k2_slabs`` of col_map as int32 tensors on
-    Bc's device, the slabs the f64 and f32-B instances walk (the f32
-    instance and the plain version read all of col_map).  Returns [Qc, k,
-    nbf] in C's dtype.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    Bc: [Qc, npq+1] rows of packed B whose trash column npq is zero (the
+    DMMA instances gather it for the screened-out entries of a live slab
+    and rely on its zeros, as the plain version does; the FP32 instance
+    zero-fills those entries and never reads it); col_map: [nbf*nbf] int32;
+    C: [nbf, k].  Bc and C both f64 (counted as
+    ``df_gather_w``: the DMMA body), both f32 (``df_gather_w_f32``: the
+    FP32 FMA body of the mixed-precision phase), or an f32 Bc with an f64 C
+    (``df_gather_w_f32b``: the DMMA body for the f64 iterations on an f32
+    B).  ``slabs``: ``k2_slabs`` of col_map as int32 tensors on Bc's device,
+    the slabs every instance walks (the plain version reads all of col_map).
+    Returns [Qc, k, nbf] in C's dtype.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
     nbf, k = C.shape
     qc, ldb = Bc.shape
     pair = (Bc.dtype, C.dtype)
@@ -523,18 +527,13 @@ def df_gather_w(Bc, col_map, C, slabs) -> torch.Tensor:
         return df_gather_w_plain(Bc, col_map, C)
     if qc > 65535:
         raise ValueError("df_gather_w: blocks of at most 65535 rows")
-    W = torch.empty((qc, k, nbf), dtype=C.dtype, device=Bc.device)
-    if pair == (torch.float32, torch.float32):
-        _check_k2(Bc, col_map, C)
-        kernels.launch(_K2_SYMBOLS[pair], Bc.data_ptr(), ldb, ldb - 1,
-                       col_map.data_ptr(), C.data_ptr(), nbf, k, qc,
-                       W.data_ptr())
-        return W
-    slab_ptr, slab_idx = slabs
-    if slab_ptr.shape != (-(-nbf // kernels.K2_TILE_N) + 1,) \
+    slab_ptr, slab_idx = slabs or (None, None)
+    if slab_idx is None \
+            or slab_ptr.shape != (-(-nbf // kernels.K2_TILE_N) + 1,) \
             or slab_ptr.dtype != torch.int32 or slab_idx.dtype != torch.int32:
         raise ValueError("df_gather_w: slabs must be k2_slabs(col_map) as "
                          "int32 tensors")
+    W = torch.empty((qc, k, nbf), dtype=C.dtype, device=Bc.device)
     _check_k2(Bc, col_map, C, slab_ptr, slab_idx)
     kernels.launch(_K2_SYMBOLS[pair], Bc.data_ptr(), ldb, col_map.data_ptr(),
                    slab_ptr.data_ptr(), slab_idx.data_ptr(), C.data_ptr(),

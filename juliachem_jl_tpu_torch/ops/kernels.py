@@ -32,6 +32,11 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # built with them (csrc/df_gather_w.cu) and models/df_screened.py::k2_slabs
 # lists its live slabs on the same tiles
 K2_SLAB_M, K2_TILE_N = 16, 64
+# K2's f32 instance (csrc/df_gather_w.cu, FP32 FMA): rows q and orbitals a
+# block, and slabs in flight in its cp.async ring.  Chosen from the card's
+# times at the Q-blocks of benzene_2_water, w32 and w64
+# (tools/k2_f32_times.py, PERF.md §6).
+K2F_NQ, K2F_KT, K2F_STAGES = 2, 64, 3
 # K8's tile (csrc/split_fold.cu): output rows and columns per block and k
 # per shared-memory stage
 K8_TILE_M, K8_TILE_N, K8_SLAB = 128, 64, 16
@@ -80,7 +85,9 @@ ERI3C_LANE_MAX_L_WIDE = 4
 ERI3C_WIDE_NAB = 16
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DJC_K2_SLAB_M={K2_SLAB_M}",
-              f"-DJC_K2_TILE_N={K2_TILE_N}", f"-DJC_K8_TILE_M={K8_TILE_M}",
+              f"-DJC_K2_TILE_N={K2_TILE_N}", f"-DJC_K2F_NQ={K2F_NQ}",
+              f"-DJC_K2F_KT={K2F_KT}", f"-DJC_K2F_STAGES={K2F_STAGES}",
+              f"-DJC_K8_TILE_M={K8_TILE_M}",
               f"-DJC_K8_TILE_N={K8_TILE_N}", f"-DJC_K8_SLAB={K8_SLAB}",
               f"-DJC_DIGEST_LANE_MAX_N={DIGEST_LANE_MAX_N}")
 
@@ -149,8 +156,8 @@ _FUNCS = {
                            _I, _I, _P, _P, _P, _P, _I, _LL]),
     "jc_df_gather_w_f64": ("df_gather_w", [_P, _LL, _P, _P, _P, _P, _I, _I,
                                            _I, _P]),
-    "jc_df_gather_w_f32": ("df_gather_w", [_P, _LL, _LL, _P, _P, _I, _I,
-                                           _I, _P]),
+    "jc_df_gather_w_f32": ("df_gather_w_f32", [_P, _LL, _P, _P, _P, _P,
+                                               _I, _I, _I, _P]),
     "jc_df_gather_w_f32b": ("df_gather_w_f32b", [_P, _LL, _P, _P, _P, _P,
                                                  _I, _I, _I, _P]),
     "jc_split_fold": ("split_fold", [_P, _P, _LL, _P, _LL, _P, _LL, _I, _I,
@@ -169,8 +176,8 @@ _FUNCS = {
 }
 
 launches = {"eri3c": 0, "eri3c_f32": 0, "df_gather_w": 0,
-            "df_gather_w_f32b": 0, "boys_probe": 0, "boys_probe_recip": 0,
-            "eri4c": 0,
+            "df_gather_w_f32": 0, "df_gather_w_f32b": 0, "boys_probe": 0,
+            "boys_probe_recip": 0, "eri4c": 0,
             "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0,
             "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0, "split_fold": 0}
 

@@ -8,7 +8,8 @@ a machine that has only torch:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Bounds: K1 and K4 1e-12 x the output's max-abs, K2 1e-12 relative in f64
-(col_maps with whole dead tiles too) and 1e-5 in f32, K3 (both instances)
+(col_maps with whole dead tiles too) and 1e-5 in f32 (the FP32 FMA
+instance, counted apart), K3 (both instances)
 1e-14 relative; K4 and K5 on each route (lane, warp) in every mode, at
 quartet counts and t0 that are not multiples of 32; K5 (list and staircase modes) and K6:
 J and K within 1e-11 x max(|J|, |K|) of the plain versions (f64 atomics sum
@@ -262,12 +263,14 @@ def _k2_inputs(case, seed, dev):
 
 
 # (nbf, k, col_map kind, rows of B): k 47 of benzene_2_water, k over one
-# i-tile, an odd row count (the last block of rows holds one)
+# i-tile, an odd row count (the last block of rows holds one), w64's nbf
+# and k
 K2_CASES = {"random-137": (137, 21, "random", 300),
             "dead-137": (137, 47, "banded", 300),
             "dead-517": (517, 47, "banded", 300),
             "dead-517-k130": (517, 130, "banded", 300),
-            "dead-517-q301": (517, 47, "banded", 301)}
+            "dead-517-q301": (517, 47, "banded", 301),
+            "dead-1472-k320": (1472, 320, "banded", 130)}
 
 
 @pytest.mark.cuda
@@ -275,15 +278,38 @@ K2_CASES = {"random-137": (137, 21, "random", 300),
 @pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-12),
                                          (torch.float32, 1e-5)])
 def test_k2_df_gather_w(cuda_device, dtype, bound, case):
-    """K2 in f64 and f32 against its plain version, relative to the
-    output's max-abs; dead tiles of col_map skipped by the slab list."""
+    """K2 in f64 (the DMMA body) and f32 (the FP32 FMA body, counted as
+    ``df_gather_w_f32``, which never reads the trash column: NaN there)
+    against its plain version, relative to the output's max-abs; dead
+    tiles of col_map skipped by the slab list."""
     Bc, col_map, C, slabs = _k2_inputs(K2_CASES[case], 5, cuda_device)
     Bc, C = Bc.to(dtype), C.to(dtype)
-    n0 = kernels.launches["df_gather_w"]
-    got = df_screened.df_gather_w(Bc, col_map, C, slabs)
-    assert kernels.launches["df_gather_w"] == n0 + 1
+    name = "df_gather_w" if dtype == torch.float64 else "df_gather_w_f32"
+    Bk = Bc
+    if dtype == torch.float32:
+        Bk = Bc.clone()
+        Bk[:, -1] = float("nan")
+    n0 = dict(kernels.launches)
+    got = df_screened.df_gather_w(Bk, col_map, C, slabs)
+    assert {k: v - n0[k] for k, v in kernels.launches.items()
+            if v != n0[k]} == {name: 1}
     ref = df_screened.df_gather_w_plain(Bc, col_map, C)
     assert float((got - ref).abs().max() / ref.abs().max()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k2_wrapper_raises_without_slabs(cuda_device, dtype):
+    """Every instance on the card walks the slab list: a call without it,
+    or with a list of another n-tiling, raises before any launch."""
+    Bc, col_map, C, slabs = _k2_inputs(K2_CASES["dead-137"], 5, cuda_device)
+    Bc, C = Bc.to(dtype), C.to(dtype)
+    n0 = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        df_screened.df_gather_w(Bc, col_map, C, None)
+    with pytest.raises(ValueError):
+        df_screened.df_gather_w(Bc, col_map, C, (slabs[0][:-1], slabs[1]))
+    assert kernels.launches == n0
 
 
 @pytest.mark.cuda
@@ -342,11 +368,12 @@ def test_streamed_sweep_on_card_equals_resident(cuda_device, mode,
     split = df_screened.KPassSplit()
     for kw in ({"C_occ": C}, {"C_occ": C, "precision": "f32"}, {}):
         g0 = res.two_electron_fock(D, 1, Timings(), **kw)
-        n0 = kernels.launches["df_gather_w"]
+        k2 = "df_gather_w_f32" if "precision" in kw else "df_gather_w"
+        n0 = kernels.launches[k2]
         st.split = split
         g1 = st.two_electron_fock(D, 1, Timings(), **kw)
         st.split = None
-        assert kernels.launches["df_gather_w"] - n0 == 3
+        assert kernels.launches[k2] - n0 == 3
         assert float((g1 - g0).abs().max()) <= 1e-12 * float(g0.abs().max())
     streamed = [ph for dt, ph in split.sweeps
                 if dt == "float64" or mode == "stream"]

@@ -187,6 +187,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -244,6 +245,15 @@ K2_F32_RECORDED = {
                    "f32-phase build (PR 7 run 9, PERF.md §5)",
     "w64 Q-block": "1124.6 ms of K2 in an f32-phase build of 8 such blocks "
                    "on an f32 B (PR 13 run 1, PERF.md §5)"}
+# K4/K5's g class pairs before their block route (7 on the lane route, 58
+# on the warp route), as phase 3g recorded them on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md §6, the tree before the block route): printed on
+# a line of its own beside this run's times, never in the kernels line
+G_RECORDED = {"eri4c": "730.3 ms (gg|gg) alone 138.2 ms",
+              "eri4c_jk_list": "803.3 ms (gg|gg) alone 158.8 ms",
+              "eri4c_jk_stair": "819.5 ms (gg|gg) alone 159.2 ms",
+              "full g staircase build of benzene_2_water":
+                  "94.4 s in its 65 g class pairs"}
 E_RESTART_TOL = 1e-9   # restart from the caches vs the run that wrote them
 E_FDIFF_TOL = 1e-8     # incremental Fock vs the full build each iteration
 SUBSET = 4096  # quartets per class pair in the 4-center kernel checks
@@ -260,6 +270,13 @@ F_BASIS_SMALL = "6-31G(2df,p)"
 # through model.basis_file (tools/make_g_basis.py writes it)
 G_BASIS = "6-311++G(3df,3pd)+G"
 G_BASIS_FILE = "tests/data/6-311ppG_3df_3pd_G.gbs"
+# ... and long contractions, for the block route's rounds of primitive
+# pairs: cc-pVDZ plus a 12-primitive S and a 2-primitive G shell on O
+# (tools/make_g_basis.py --long), one water, SUBSET_LONG quartets a class
+# pair
+LONG_BASIS = "cc-pVDZ+S12G2"
+LONG_BASIS_FILE = "tests/data/long_s_2g.gbs"
+SUBSET_LONG = 256
 BOYS_TCRIT = 35.0  # csrc/boys.cuh: the series up to this T, asymptotic above
 # clock cycles of the kernel that holds the stream while one in-core
 # build's K6 launches are queued (~50 ms at the H100's clocks; queueing 55
@@ -1347,9 +1364,11 @@ def sass_opcode(line: str) -> str | None:
 def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     """DMMA instructions in the SASS of each K2/K7 tensor-core instance of
     the built library (``cuobjdump -sass``; fails if an instance is missing
-    or has none), FFMA and no tensor-core instruction (an opcode ending in
-    MMA: HMMA, HGMMA, DMMA, IMMA, ...) in K2's f32 instance, and each
-    instance's registers a thread as ptxas reported them in the build."""
+    or has none) and of each K4/K5 block-route instance (one a class pair
+    of the route table and kernel), FFMA and no tensor-core instruction
+    (an opcode ending in MMA: HMMA, HGMMA, DMMA, IMMA, ...) in K2's f32
+    instance, and each instance's registers a thread as ptxas reported
+    them in the build."""
     from juliachem_jl_tpu_torch.ops import kernels
 
     out = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
@@ -1376,6 +1395,23 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
         f"{k} {v}" for k, v in counts.items()), flush=True)
     check(all(v > 0 for v in counts.values()),
           "SASS: a K2/K7 tensor-core instance has no DMMA instruction")
+    # K4/K5's block-route instances: one a class pair of the route table
+    # and kernel, each with DMMA instructions
+    from juliachem_jl_tpu_torch.ops import eri
+
+    n_block = sum(kernels.eri4c_route(*bra, *ket) == "block"
+                  for i, bra in enumerate(eri.PAIR_CLASSES)
+                  for ket in eri.PAIR_CLASSES[i:])
+    block_fns = {f: v["DMMA"] for f, v in per_fn.items()
+                 if "eri4c_block_kernel" in f or "eri4c_jk_block_kernel" in f}
+    print(f"{tag} SASS of K4/K5's block route: {len(block_fns)} instances "
+          f"(the table has {n_block} class pairs), DMMA instructions "
+          f"{min(block_fns.values(), default=0)}-"
+          f"{max(block_fns.values(), default=0)} an instance", flush=True)
+    check(len(block_fns) == 2 * n_block, "SASS: K4/K5's block-route "
+          "instances are not one a class pair of the table and kernel")
+    check(all(v > 0 for v in block_fns.values()),
+          "SASS: a K4/K5 block-route instance has no DMMA instruction")
     f32 = one("df_gather_w_f32", K2_F32_KERNEL)
     print(f"{tag} SASS of K2's f32 instance: FFMA {f32['FFMA']}, tensor-core "
           f"(*MMA) {f32['MMA']}", flush=True)
@@ -1400,7 +1436,7 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
           f"threads, {tile['smem_bytes']} B of shared memory, "
           f"{tile['blocks_per_sm'] or 'unknown'} blocks an SM", flush=True)
     return {"dmma": counts, "df_gather_w_f32": {**f32, **tile},
-            "registers": used}
+            "registers": used, "eri4c_block_dmma": block_fns}
 
 
 def ptxas_instances(pat, nidx: int) -> dict:
@@ -1447,11 +1483,13 @@ def fmt_instances(out: dict) -> str:
 
 def eri4c_registers(tag: str) -> dict:
     """Per K4/K5/K6 instance, as ptxas reported it in this process's build:
-    registers a thread, stack frame and spill bytes, by kernel (the lane
-    and warp routes of K4, K5 and K6) and class."""
+    registers a thread, stack frame and spill bytes, by kernel (the lane,
+    warp and block routes of K4 and K5, the lane and warp routes of K6) and
+    class."""
     out = ptxas_instances(re.compile(
         r"\d+(eri4c_jk_lane_kernel|eri4c_lane_kernel|eri4c_jk_kernel|"
-        r"eri4c_kernel|digest_jk_lane_kernel|digest_jk_warp_kernel)"
+        r"eri4c_kernel|eri4c_jk_block_kernel|eri4c_block_kernel|"
+        r"digest_jk_lane_kernel|digest_jk_warp_kernel)"
         r"ILi(\d)ELi(\d)ELi(\d)ELi(\d)E"), 4)
     print(f"{tag} K4/K5/K6 instances (ptxas): " + fmt_instances(out),
           flush=True)
@@ -1577,6 +1615,63 @@ def fourc_runners(cases, I_ref, D) -> dict:
                 JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)),
             each(lambda JK, i, x: fock_stream.eri4c_jk_staircase_plain(
                 JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)))}
+
+
+def class_pair_times(cases, D, nbf: int, geometry: dict) -> list[dict]:
+    """K4, K5 list and K5 staircase class pair by class pair over the cases
+    of ``check_4c`` (each launch timed alone by CUDA events, the best of
+    five after the checks' warm launches), each beside its bound
+    (``fourc_bounds`` of the one case) and its route and blocks an SM
+    (``geometry``)."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import eri, fock, fock_stream
+
+    JK = torch.zeros((2, nbf, nbf), dtype=torch.float64, device=D.device)
+    launch = {
+        "eri4c": lambda x: eri.eri4c_class(x["bra"], x["ket"], x["r"],
+                                           x["c"]),
+        "eri4c_jk_list": lambda x: fock.eri4c_jk(JK, x["bra"], x["ket"],
+                                                 x["r"], x["c"], x["w"], D),
+        "eri4c_jk_stair": lambda x: fock_stream.eri4c_jk_staircase(
+            JK, x["bra"], x["ket"], x["cum"], x["m"], x["same"], D)}
+    rows = []
+    for x in cases:
+        cls = (x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb)
+        b = fourc_bounds([x], nbf)
+        row = {"cls": list(cls), "quartets": x["m"],
+               "route": geometry[cls]["route"],
+               "blocks_per_sm": geometry[cls]["blocks_per_sm"],
+               "warps_per_sm": geometry[cls]["warps_per_sm"]}
+        for label, fn in launch.items():
+            best = None
+            for _ in range(5):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                fn(x)
+                ev[1].record()
+                torch.cuda.synchronize()
+                t = ev[0].elapsed_time(ev[1])
+                best = t if best is None else min(best, t)
+            row[label] = {"ms": best, **bound_of(*b[label])}
+        rows.append(row)
+    return rows
+
+
+def fmt_class_row(v: dict, regs: dict) -> str:
+    """One class pair of ``class_pair_times`` with its instances' ptxas
+    report (``regs``: K4's and K5's kernel of its route)."""
+    c = v["cls"]
+    times = ", ".join(
+        f"{k} {v[k]['ms']:.3f} ms (bound {v[k]['bound_ms']:.4f})"
+        for k in ("eri4c", "eri4c_jk_list", "eri4c_jk_stair"))
+    inst = "".join(
+        f"; {k} {r.get('registers', '?')} registers, spills "
+        f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')} B"
+        for k, r in regs.items())
+    return (f"({c[0]}{c[1]}|{c[2]}{c[3]}) route {v['route']}, {v['quartets']} "
+            f"quartets: {times}{inst}; {v['blocks_per_sm']} blocks/SM "
+            f"({v['warps_per_sm']} warps)")
 
 
 def check_4c(tag: str, dev, name: str, bsets, seed: int,
@@ -1748,23 +1843,34 @@ def check_4c(tag: str, dev, name: str, bsets, seed: int,
         compiled_route(x["bra"], x["ket"])
         geometry[cls] = eri.eri4c_geometry(x["bra"], x["ket"])
     warp = {c: g for c, g in geometry.items() if g["route"] == "warp"}
+    block = {c: g for c, g in geometry.items() if g["route"] == "block"}
     tiled = {c: g for c, g in warp.items()
-             if g["CT"] < ncart(c[2]) * ncart(c[3])
-             or g["AT"] < ncart(c[0]) * ncart(c[1])}
-    print(f"{tag} K5 geometry {name}: {len(geometry) - len(warp)} class pairs "
-          f"on the lane route, {len(warp)} on the warp route (" + ", ".join(
-              f"{c} CT {g['CT']} AT {g['AT']} {g['warp_bytes'] / 1024:.1f} "
+             if g["CT"] < ncart(c[2]) * ncart(c[3])}
+    print(f"{tag} K5 geometry {name}: "
+          f"{len(geometry) - len(warp) - len(block)} class pairs on the lane "
+          f"route, {len(warp)} on the warp route (" + ", ".join(
+              f"{c} CT {g['CT']} {g['warp_bytes'] / 1024:.1f} "
               f"KiB {g['warps_per_sm']} warps/SM"
               for c, g in sorted(warp.items()))
-          + f"); in tiles: {sorted(tiled) or 'none'}", flush=True)
+          + f"); in tiles: {sorted(tiled) or 'none'}; {len(block)} on the "
+          "block route (" + ", ".join(
+              f"{c} CT {g['CT']} AT {g['AT']} rounds {g['RB']}x{g['RK']} "
+              f"{g['block_bytes'] / 1024:.1f} KiB {g['blocks_per_sm']} "
+              "blocks/SM" for c, g in sorted(block.items())) + ")",
+          flush=True)
     check(all(g["warps_per_sm"] >= 2 for g in tiled.values()),
           f"{name}: a tiled class pair holds fewer than 2 warps an SM")
+    check(all(g["blocks_per_sm"] >= 1 and g["block_bytes"] <= 232448
+              for g in block.values()),
+          f"{name}: a block-route class pair passes 227 KB or fits no SM")
     if largest is not None:
         check(geometry[tuple(largest)]["warps_per_sm"] >= 2,
               f"{name}: {tuple(largest)} holds "
               f"{geometry[tuple(largest)]['warps_per_sm']} warps an SM")
     if need_l is not None:
+        per_class = class_pair_times(cases, D, nbf, geometry)
         return {"system": name, "class_pairs": len(cases), "quartets": nq,
+                "per_class": per_class,
                 "primitive_quartets": n_prim,
                 "series_primitive_quartets": n_series,
                 "padded_primitive_quartets": padded, "jk_scale": scale,
@@ -3767,7 +3873,42 @@ def main() -> int:
     fourc[bz_g] = check_4c(tag, dev, bz_g, bsets_g, 4, largest=(4, 4, 4, 4),
                            need_l=4, subset=SUBSET_G)
     sass["g_instances"] = g_instances(tag, sass)
+    kern_of = {"lane": ("eri4c_lane_kernel", "eri4c_jk_lane_kernel"),
+               "warp": ("eri4c_kernel", "eri4c_jk_kernel"),
+               "block": ("eri4c_block_kernel", "eri4c_jk_block_kernel")}
+    for v in fourc[bz_g]["per_class"]:
+        key = "".join(map(str, v["cls"]))
+        v["ptxas"] = {k: sass["eri4c"].get(k, {}).get("classes", {}).get(
+            key, {}) for k in kern_of[v["route"]]}
+        print(f"{tag} phase 3g class pair " + fmt_class_row(v, v["ptxas"]),
+              flush=True)
+    print(f"{tag} phase 3g recorded before the block route (the lane and "
+          f"warp routes, PERF.md §6): " + "; ".join(
+              f"{k} {v}" for k, v in G_RECORDED.items()), flush=True)
     del bsets_g
+    # ... and long contractions: one water in the long-contraction g basis,
+    # the g class pairs that the block route takes in rounds of primitive
+    # pairs among them, K4, K6, K5 list and staircase against the plain
+    # versions under the same gates
+    long_label = f"water {LONG_BASIS}"
+    jc.basis.register_basis_file(str(ROOT / LONG_BASIS_FILE), LONG_BASIS)
+    prim_long = jc.basis.build(jc.molecule.from_input_dict(
+        {"symbols": ["O", "H", "H"],
+         "geometry": [0.0, 0.0, 0.116321, 0.0, 0.751155, -0.465285,
+                      0.0, -0.751155, -0.465285]}), LONG_BASIS)
+    fourc_long = check_4c(tag, dev, long_label,
+                          types.SimpleNamespace(primary=prim_long), 5,
+                          need_l=4, subset=SUBSET_LONG)
+    rounds = {c: g for c, g in fourc_long["geometry"].items()
+              if g["route"] == "block"
+              and (g["RB"] < g["Kab"] or g["RK"] < g["Kcd"])}
+    check(len(rounds) > 0, f"{long_label}: no class pair runs in rounds")
+    print(f"{tag} phase 3g {long_label}: {fourc_long['class_pairs']} class "
+          f"pairs, {fourc_long['quartets']} quartets, "
+          f"{len(rounds)} in rounds of primitive pairs; max abs err " +
+          ", ".join(f"{k} {v['max_abs_err']:.3e}"
+                    for k, v in fourc_long["kernels"].items()), flush=True)
+    del prim_long
     torch.cuda.empty_cache()
 
     counts = {}

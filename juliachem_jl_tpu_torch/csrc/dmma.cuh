@@ -1,6 +1,7 @@
 // f64 tensor-core (DMMA) and cp.async building blocks for Hopper, shared by
-// K2 (df_gather_w.cu) and K7 (mp2_e2.cu); K6 (eri4c.cuh) and K8
-// (split_fold.cu) take the cp.async helpers.
+// K2 (df_gather_w.cu), K7 (mp2_e2.cu), K1's block route (eri3c.cuh) and
+// K4/K5's block route (eri4c.cuh); K6 (eri4c.cuh) and K8 (split_fold.cu)
+// take the cp.async helpers.
 //
 // wgmma has no f64 form, so the route to the f64 tensor cores on sm_90 is
 // the warp-synchronous mma.sync: here mma.sync.aligned.m16n8k4.row.col.f64,
@@ -116,6 +117,17 @@ struct DmmaTile {
     return a;
   }
 
+  // One k-step of 4 with both operands' fragments in registers: b[v] is
+  // this lane's B[k0 + t][n0 + 8 v + g]
+  __device__ __forceinline__ void step_ab(const AFrag& a,
+                                          const double (&b)[FN]) {
+#pragma unroll
+    for (int u = 0; u < FM; ++u)
+#pragma unroll
+      for (int v = 0; v < FN; ++v)
+        dmma_16x8x4(c[u][v], a.v[u][0], a.v[u][1], b[v]);
+  }
+
   // One k-step of 4 with A's fragments loaded: c += A B[k0 .. k0 + 4,
   // n0 .. n0 + 8 FN], sB pointing at B[k0][n0] (row stride ldb).
   __device__ __forceinline__ void step_with(const AFrag& a, const double* sB,
@@ -124,11 +136,7 @@ struct DmmaTile {
     double b[FN];
 #pragma unroll
     for (int v = 0; v < FN; ++v) b[v] = sB[t * ldb + v * 8 + g];
-#pragma unroll
-    for (int u = 0; u < FM; ++u)
-#pragma unroll
-      for (int v = 0; v < FN; ++v)
-        dmma_16x8x4(c[u][v], a.v[u][0], a.v[u][1], b[v]);
+    step_ab(a, b);
   }
 
   // One k-step of 4: c += A[m0 .. m0 + 16 FM, k0 .. k0 + 4] B[k0 .., n0 ..],

@@ -389,7 +389,7 @@ eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
 
   // 1. product centres and E tables of the live bra primitive pairs
   for (int e = tid; e < 3 * k2; e += NT)
-    pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sE, sP);
+    pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sE, sP, e / 3);
   __syncthreads();
   // 2. A[kk][j] = Eab[k][ab0 + j][h] of the tile of components ab0 ..
   //    ab0 + 16 FMT - 1 with axial norms and contraction folded in, one

@@ -28,8 +28,9 @@
 // Most quartets of a real basis are low classes (L = la+lb+lc+ld <= 3: 82 %
 // of benzene_2_water's in 6-311++G(2d,2p)) whose blocks hold at most 27
 // integrals and which have few live primitive quartets (1 for every
-// diffuse and polarisation shell).  So two routes, chosen per class pair
-// at compile time (Eri4cClass::kLane, from -DJC_ERI4C_LANE_MASK_B<i>, which
+// diffuse and polarisation shell).  So three routes, chosen per class
+// pair at compile time (Eri4cClass::kLane, kBlock, from
+// -DJC_ERI4C_LANE_MASK_B<i> and -DJC_ERI4C_BLOCK_MASK_B<i>, which
 // ops/kernels.py passes from its route table):
 //
 // * lane route (the class pairs to L = 6 but (pd|pd)): one quartet per
@@ -49,12 +50,36 @@
 //   and I are built one tile of ket components cd at a time: each tile's
 //   block is written out (K4) or its share of every J/K output summed in
 //   shared memory (K5), so that two warps share an SM.  One round's R
-//   serves every tile; more rounds are recomputed per tile.  Where the bra
-//   expansion Eab alone would pass the cap (the g bras: 297 KiB at (gg|),
-//   144 KiB at (fg|)), the bra is tiled too: T1 of a ket tile does not
-//   depend on ab, so it is built once per ket tile, and the tiles of bra
-//   components ab loop inside it, each building its slice of Eab and its
-//   [ab tile][cd tile] block.
+//   serves every tile; more rounds are recomputed per tile.  (The g
+//   bras, whose expansion alone would pass the cap, left this route for
+//   the block route, and with them its bra tiles.)
+// * block route (56 of the 65 class pairs with a g shell): one quartet a
+//   block of 4 or 8 warps, both products on the f64 tensor cores, in
+//   tiles of ket and bra components and, where a contraction is long, in
+//   rounds of primitive pairs, so that a block stays within its cap
+//   whatever the contraction (the block route section below).  What
+//   bound the warp route there:
+//   latency.  One quartet a warp and 2 warps an SM (its slice capped at
+//   110 KiB), every element of T1 and I a chain of dependent FMAs on one
+//   lane behind runtime index arithmetic, Boys and R of a quartet with one
+//   live primitive quartet (most g quartets) on one lane while 31 wait:
+//   (gg|gg) took 138.2 ms for 1024 quartets against 0.447 ms of bound
+//   (~130 clock cycles an FMA).  The block route keeps one quartet's R in
+//   shared memory, built level by level by the whole block, and runs T1 =
+//   M Ecd (M gathered from R as the fragments load) and I = Eab^T T1 as
+//   m16n8k4 DMMA products over tiles of ket and bra components, the live
+//   primitive pairs stacked on both GEMM dimensions: (gg|gg) 3.54 ms,
+//   8.5 TFLOP/s (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).  What
+//   binds it now: 170-230 registers hold one block of 8 warps an SM, so
+//   the barriers between its phases (tables, Boys, the R levels, each
+//   tile) and each k-step's gather behind its DMMA are not hidden, ~20-30
+//   us a quartet; that fixed cost binds the low g class pairs with
+//   millions of quartets (the lane route keeps those of L <= 6).  Where
+//   the bra is tiled its expansion is rebuilt for each (ket tile, bra
+//   tile): 40 % of K4's (gg|gg) and 22 % of K5's, nearly all of the
+//   expansions' cost over the g class pairs (timed by building them twice);
+//   where the bra is one tile its expansion costs < 1 %, so a block that
+//   kept it over a run of one bra row's quartets would gain nothing.
 //
 // The Boys series multiplies by compile-time reciprocals (boys<L, true>):
 // no f64 divide in its 128 steps.  j_ab's targets are the same for every
@@ -76,8 +101,9 @@
 // lane_digest, the targets that lanes share summed before their atomics;
 // the in-core batches are bra-row-major,
 // ops/schwarz.py::screened_quartets), and a block a warp for the rest.
-// DMMA for the products, one persistent launch over all classes and the
-// warp route's slices sized by the live primitive counts are later work.
+// DMMA for the warp route's products (the d/f class pairs), one
+// persistent launch over all classes and the warp route's slices sized by
+// the live primitive counts are later work.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,8 +119,20 @@
 #ifndef JC_ERI4C_LANE_MASK_B14
 #error "build with -DJC_ERI4C_LANE_MASK_B0 .. _B14 (ops/kernels.py's table)"
 #endif
+#ifndef JC_ERI4C_BLOCK_MASK_B14
+#error "build with -DJC_ERI4C_BLOCK_MASK_B0 .. _B14 (ops/kernels.py's table)"
+#endif
+#ifndef JC_ERI4C_BLOCK4_MASK_B14
+#error "build with -DJC_ERI4C_BLOCK4_MASK_B0 .. _B14 (ops/kernels.py's table)"
+#endif
 #ifndef JC_DIGEST_LANE_MAX_N
 #error "build with -DJC_DIGEST_LANE_MAX_N (ops/kernels.py passes K6's table)"
+#endif
+// the block route's warps a block, bytes of shared memory a block before
+// its tiles shrink, and the same of its 4-warp blocks
+#if !defined(JC_ERI4C_BLOCK_WARPS) || !defined(JC_ERI4C_BLOCK_CAP) || \
+    !defined(JC_ERI4C_BLOCK4_CAP)
+#error "build with -DJC_ERI4C_BLOCK_WARPS, _CAP, 4_CAP (ops/kernels.py)"
 #endif
 
 namespace jc {
@@ -127,6 +165,22 @@ constexpr unsigned kEri4cLaneMasks[15] = {
     JC_ERI4C_LANE_MASK_B6, JC_ERI4C_LANE_MASK_B7, JC_ERI4C_LANE_MASK_B8,
     JC_ERI4C_LANE_MASK_B9, JC_ERI4C_LANE_MASK_B10, JC_ERI4C_LANE_MASK_B11,
     JC_ERI4C_LANE_MASK_B12, JC_ERI4C_LANE_MASK_B13, JC_ERI4C_LANE_MASK_B14};
+// the block route, in the same form: bit j of JC_ERI4C_BLOCK_MASK_B<i> is
+// the class pair (bra i | ket j) on the block route
+constexpr unsigned kEri4cBlockMasks[15] = {
+    JC_ERI4C_BLOCK_MASK_B0, JC_ERI4C_BLOCK_MASK_B1, JC_ERI4C_BLOCK_MASK_B2,
+    JC_ERI4C_BLOCK_MASK_B3, JC_ERI4C_BLOCK_MASK_B4, JC_ERI4C_BLOCK_MASK_B5,
+    JC_ERI4C_BLOCK_MASK_B6, JC_ERI4C_BLOCK_MASK_B7, JC_ERI4C_BLOCK_MASK_B8,
+    JC_ERI4C_BLOCK_MASK_B9, JC_ERI4C_BLOCK_MASK_B10, JC_ERI4C_BLOCK_MASK_B11,
+    JC_ERI4C_BLOCK_MASK_B12, JC_ERI4C_BLOCK_MASK_B13, JC_ERI4C_BLOCK_MASK_B14};
+// ... and the block route's class pairs that run 4 warps a block
+constexpr unsigned kEri4cBlock4Masks[15] = {
+    JC_ERI4C_BLOCK4_MASK_B0, JC_ERI4C_BLOCK4_MASK_B1, JC_ERI4C_BLOCK4_MASK_B2,
+    JC_ERI4C_BLOCK4_MASK_B3, JC_ERI4C_BLOCK4_MASK_B4, JC_ERI4C_BLOCK4_MASK_B5,
+    JC_ERI4C_BLOCK4_MASK_B6, JC_ERI4C_BLOCK4_MASK_B7, JC_ERI4C_BLOCK4_MASK_B8,
+    JC_ERI4C_BLOCK4_MASK_B9, JC_ERI4C_BLOCK4_MASK_B10,
+    JC_ERI4C_BLOCK4_MASK_B11, JC_ERI4C_BLOCK4_MASK_B12,
+    JC_ERI4C_BLOCK4_MASK_B13, JC_ERI4C_BLOCK4_MASK_B14};
 
 template <int LA, int LB, int LC, int LD>
 struct Eri4cClass {
@@ -141,9 +195,16 @@ struct Eri4cClass {
   static constexpr int NDG = NC * ND + NA * NB + NB * ND + NB * NC + NA * ND + NA * NC;
   // J/K outputs of one quartet: j_ab, j_cd, k_ac, k_ad, k_bc, k_bd
   static constexpr int NOUT = NAB + NCD + NA * NC + NA * ND + NB * NC + NB * ND;
-  // the route: one quartet per lane, or one per warp
+  // the route: one quartet per lane, one per block (kBlock), or one per
+  // warp (neither)
   static constexpr bool kLane =
       (kEri4cLaneMasks[pair_class(LA, LB)] >> pair_class(LC, LD)) & 1;
+  static constexpr bool kBlock =
+      !kLane &&
+      ((kEri4cBlockMasks[pair_class(LA, LB)] >> pair_class(LC, LD)) & 1);
+  static constexpr bool kBlock4 =
+      kBlock &&
+      ((kEri4cBlock4Masks[pair_class(LA, LB)] >> pair_class(LC, LD)) & 1);
 };
 
 // ---------------------------------------------------------------- helpers
@@ -573,31 +634,30 @@ __device__ __forceinline__ bool group_sums(double* v, int64_t key, int lane) {
 // ------------------------------------------------------------- warp route
 
 // Shared memory of one warp of the warp route (one quartet), in doubles,
-// for ket tiles of CT components cd and bra tiles of AT components ab.
-// Kab, Kcd: padded primitive-pair counts of the class (sizes); RS:
-// primitive quartets per R round.  Regions whose lifetimes do not meet
-// share space.  With one tile (CT = NCD, AT = NAB): the E tables (steps
-// 1-3a) lie where the R round (step 3b) goes, and the block I (step 4
-// on), the D blocks and the output sums of the digestion lie over Ecd and
-// the R round.  With several tiles the ket E tables, the D blocks and the
-// output sums live through every tile, and each tile's I lies over its
-// Ecd; the bra E tables lie where the R round goes, unless the bra is
-// tiled too (AT < NAB): then they live through every tile beside it.
+// for ket tiles of CT components cd.  Kab, Kcd: padded primitive-pair
+// counts of the class (sizes); RS: primitive quartets per R round.
+// Regions whose lifetimes do not meet share space.  With one tile (CT =
+// NCD): the E tables (steps 1-3a) lie where the R round (step 3b) goes,
+// and the block I (step 4 on), the D blocks and the output sums of the
+// digestion lie over Ecd and the R round.  With several tiles the ket E
+// tables, the D blocks and the output sums live through every tile, and
+// each tile's I lies over its Ecd; the bra E tables lie where the R round
+// goes.
 template <int LA, int LB, int LC, int LD>
 struct Eri4cSmem {
   using C = Eri4cClass<LA, LB, LC, LD>;
-  int CT, AT, Pb, Pk, Eab, T1, Ecd, I, Eb, Ek, R, Dg, Acc, total;
-  __host__ __device__ Eri4cSmem(int Kab, int Kcd, int RS, int CT_, int AT_)
-      : CT(CT_), AT(AT_) {
+  int CT, Pb, Pk, Eab, T1, Ecd, I, Eb, Ek, R, Dg, Acc, total;
+  __host__ __device__ Eri4cSmem(int Kab, int Kcd, int RS, int CT_)
+      : CT(CT_) {
     const int eb = Kab * 3 * C::NEB, ek = Kcd * 3 * C::NEK;
-    const int ecd = Kcd * CT * C::NHK, i = AT * CT, r = RS * C::NH;
+    const int ecd = Kcd * CT * C::NHK, i = C::NAB * CT, r = RS * C::NH;
     Pb = 0;                              // [Kab][4]: p, Px, Py, Pz
     Pk = Pb + 4 * Kab;                   // [Kcd][4]: q, Qx, Qy, Qz
-    Eab = Pk + 4 * Kcd;                  // [Kab][AT][NHB]
-    T1 = Eab + Kab * AT * C::NHB;        // [Kab][NHB][CT]
+    Eab = Pk + 4 * Kcd;                  // [Kab][NAB][NHB]
+    T1 = Eab + Kab * C::NAB * C::NHB;    // [Kab][NHB][CT]
     Ecd = T1 + Kab * C::NHB * CT;        // [Kcd][CT][NHK]  step 3
-    I = Ecd;                             // [AT][CT]        step 4 on
-    if (CT >= C::NCD && AT >= C::NAB) {
+    I = Ecd;                             // [NAB][CT]       step 4 on
+    if (CT >= C::NCD) {
       Eb = Ecd + (ecd > i ? ecd : i);    // [Kab][3][NEB]   steps 1-2
       Ek = Eb + eb;                      // [Kcd][3][NEK]   steps 1-3a
       R = Eb;                            // [RS][NH]        step 3b
@@ -611,25 +671,18 @@ struct Eri4cSmem {
       Dg = Ek + ek;
       Acc = Dg + C::NDG;
       Eb = Acc + C::NOUT;
-      if (AT < C::NAB) {
-        R = Eb + eb;
-        total = R + r;
-      } else {
-        R = Eb;
-        total = Eb + (eb > r ? eb : r);
-      }
+      R = Eb;
+      total = Eb + (eb > r ? eb : r);
     }
   }
 };
 
 // Launch geometry of the warp route: ket tile (CT: NCD, or the widest tile
 // that keeps the warp's slice within kEri4cWarpCap, so that two warps
-// share an SM), bra tile (AT: NAB, or where even one ket component a tile
-// passes the cap, bra and ket tiles shrunk together, the wider first),
-// primitive quartets a round (RS), warps a block (W, eri4c_warps) and
-// bytes of shared memory a warp.
+// share an SM; one component where none does), primitive quartets a round
+// (RS), warps a block (W, eri4c_warps) and bytes of shared memory a warp.
 struct Eri4cGeometry {
-  int CT, AT, RS, W;
+  int CT, RS, W;
   size_t warp_bytes;
 };
 
@@ -643,43 +696,29 @@ __host__ __device__ inline int eri4c_warps(size_t warp_bytes) {
 template <int LA, int LB, int LC, int LD>
 __host__ __device__ Eri4cGeometry eri4c_geometry(int Ka, int Kb, int Kc,
                                                  int Kd) {
-  constexpr int NAB = Eri4cClass<LA, LB, LC, LD>::NAB;
   constexpr int NCD = Eri4cClass<LA, LB, LC, LD>::NCD;
   const int Kab = Ka * Kb, Kcd = Kc * Kd, n = Kab * Kcd;
   Eri4cGeometry g;
   g.RS = n < 32 ? n : 32;
-  auto bytes = [&](int CT, int AT) {
+  auto bytes = [&](int CT) {
     return sizeof(double) *
-           (size_t)Eri4cSmem<LA, LB, LC, LD>(Kab, Kcd, g.RS, CT, AT).total;
+           (size_t)Eri4cSmem<LA, LB, LC, LD>(Kab, Kcd, g.RS, CT).total;
   };
-  g.AT = NAB;
   g.CT = NCD;
-  for (int nt = 2; g.CT > 1 && bytes(g.CT, NAB) > kEri4cWarpCap; ++nt)
+  for (int nt = 2; g.CT > 1 && bytes(g.CT) > kEri4cWarpCap; ++nt)
     g.CT = (NCD + nt - 1) / nt;
-  if (bytes(g.CT, g.AT) > kEri4cWarpCap) {
-    g.CT = NCD;
-    for (int na = 1, nc = 1;
-         (g.AT > 1 || g.CT > 1) && bytes(g.CT, g.AT) > kEri4cWarpCap;) {
-      if (g.AT >= g.CT) {
-        ++na;
-        g.AT = (NAB + na - 1) / na;
-      } else {
-        ++nc;
-        g.CT = (NCD + nc - 1) / nc;
-      }
-    }
-  }
-  g.warp_bytes = bytes(g.CT, g.AT);
+  g.warp_bytes = bytes(g.CT);
   g.W = eri4c_warps(g.warp_bytes);
   return g;
 }
 
 // Product centre and per-dimension E table of primitive pair k = i*kb + j
-// (real primitives i of the first shell, j of the second), dimension d.
+// (real primitives i of the first shell, j of the second), dimension d,
+// into slot s of sE and sP.
 template <int L1, int L2>
 __device__ __forceinline__ void pair_prim(const double* row, int K1, int K2,
                                           int kb, int k, int d, double* sE,
-                                          double* sP) {
+                                          double* sP, int s) {
   constexpr int NE = (L1 + 1) * (L2 + 1) * (L1 + L2 + 1);
   const int i = k / kb, j = k % kb;
   const double a = row[i], b = row[2 * K1 + j];
@@ -687,10 +726,10 @@ __device__ __forceinline__ void pair_prim(const double* row, int K1, int K2,
   const double* cB = cA + 3;
   const double p = a + b, mu = a * b / p;
   const double Pd = (a * cA[d] + b * cB[d]) / p;
-  if (d == 0) sP[4 * k] = p;
-  sP[4 * k + 1 + d] = Pd;
+  if (d == 0) sP[4 * s] = p;
+  sP[4 * s + 1 + d] = Pd;
   hermite_E<L1, L2>(p, mu, Pd - cA[d], Pd - cB[d], cA[d] - cB[d],
-                    sE + (k * 3 + d) * NE);
+                    sE + (s * 3 + d) * NE);
 }
 
 // Element e = (k, ab, h) of the Hermite expansion with axial norms and the
@@ -742,13 +781,11 @@ __device__ __forceinline__ void decode_quartet(
 
 // The (ab|cd) block of one quartet, computed by the 32 lanes of one warp
 // one tile at a time: rb, rk its pair rows, mb, mk their meta rows.  For
-// each ket tile of components cd0 .. cd0 + ct - 1 and, inside it, each bra
-// tile of components ab0 .. ab0 + at - 1, the tile's block lies in
-// w[lay.I] ([at][ct], row-major) when emit(ab0, at, cd0, ct) is called,
-// which reads it (every lane calls it).  kTiles: lay.CT < NCD or lay.AT <
-// NAB; without tiles every index divides by compile-time constants (a
-// division by a runtime ct costs ~12 % of the class's time).  With bra
-// tiles each one's slice of Eab is built per ket tile.
+// each ket tile of components cd0 .. cd0 + ct - 1 the tile's block lies in
+// w[lay.I] ([NAB][ct], row-major) when emit(0, NAB, cd0, ct) is called,
+// which reads it (every lane calls it).  kTiles: lay.CT < NCD; without
+// tiles every index divides by compile-time constants (a division by a
+// runtime ct costs ~12 % of the class's time).
 template <int LA, int LB, int LC, int LD, bool kTiles, class Emit>
 __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
                            const double* rk, int Kc, int Kd, const int* mk,
@@ -759,8 +796,6 @@ __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
   constexpr int NAB = C::NAB, NCD = C::NCD, NHB = C::NHB, NHK = C::NHK;
   constexpr int NH = C::NH, L = C::L, LKET = C::LKET;
   const int CT = kTiles ? lay.CT : NCD;
-  const int AT = kTiles ? lay.AT : NAB;
-  const bool bra_tiles = kTiles && AT < NAB;
   double* sEb = w + lay.Eb;
   double* sEk = w + lay.Ek;
   double* sPb = w + lay.Pb;
@@ -776,19 +811,18 @@ __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
   // 1. product centres and per-dimension E tables of the real primitive
   //    pairs, bra then ket
   for (int e = lane; e < 3 * (K2b + K2k); e += 32) {
-    if (e < 3 * K2b)
-      pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sEb, sPb);
-    else
-      pair_prim<LC, LD>(rk, Kc, Kd, kd, (e - 3 * K2b) / 3, (e - 3 * K2b) % 3,
-                        sEk, sPk);
+    if (e < 3 * K2b) {
+      pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sEb, sPb, e / 3);
+    } else {
+      const int k = (e - 3 * K2b) / 3;
+      pair_prim<LC, LD>(rk, Kc, Kd, kd, k, (e - 3 * K2b) % 3, sEk, sPk, k);
+    }
   }
   __syncwarp();
-  // 2. the bra Hermite expansions, whole where the bra is one tile
-  if (!bra_tiles) {
-    for (int e = lane; e < K2b * NAB * NHB; e += 32)
-      sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb, e);
-    __syncwarp();
-  }
+  // 2. the bra Hermite expansions
+  for (int e = lane; e < K2b * NAB * NHB; e += 32)
+    sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb, e);
+  __syncwarp();
   // the primitive quartets f = k*K2k + l; in one round their R serves
   // every tile
   const int nprim = K2b * K2k;
@@ -844,32 +878,20 @@ __device__ void eri4c_warp(const double* rb, int Ka, int Kb, const int* mb,
       }
       __syncwarp();
     }
-    for (int ab0 = 0; ab0 < NAB; ab0 += AT) {
-      const int at = !bra_tiles ? NAB : NAB - ab0 < AT ? NAB - ab0 : AT;
-      if (bra_tiles) {
-        // 2'. the bra tile's expansions Eab[k][abt][h]
-        for (int e = lane; e < K2b * at * NHB; e += 32) {
-          const int k = e / (at * NHB), abt = (e / NHB) % at, h = e % NHB;
-          sEab[e] = pair_expansion<LA, LB>(rb, Ka, Kb, kb, sEb,
-                                           (k * NAB + ab0 + abt) * NHB + h);
-        }
-        __syncwarp();
+    // 4. I[ab][cdt] = sum_k sum_h Eab[k][ab][h] T1[k][h][cdt]
+    for (int e = lane; e < NAB * ct; e += 32) {
+      const int ab = e / ct, cdt = e % ct;
+      double acc = 0.0;
+      for (int k = 0; k < K2b; ++k) {
+        const double* Ek = sEab + (k * NAB + ab) * NHB;
+        const double* Tk = sT1 + k * NHB * ct + cdt;
+        for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * ct];
       }
-      // 4. I[abt][cdt] = sum_k sum_h Eab[k][abt][h] T1[k][h][cdt]
-      for (int e = lane; e < at * ct; e += 32) {
-        const int abt = e / ct, cdt = e % ct;
-        double acc = 0.0;
-        for (int k = 0; k < K2b; ++k) {
-          const double* Ek = sEab + (k * at + abt) * NHB;
-          const double* Tk = sT1 + k * NHB * ct + cdt;
-          for (int h = 0; h < NHB; ++h) acc += Ek[h] * Tk[h * ct];
-        }
-        sI[e] = acc;
-      }
-      __syncwarp();
-      emit(ab0, at, cd0, ct);
-      __syncwarp();
+      sI[e] = acc;
     }
+    __syncwarp();
+    emit(0, NAB, cd0, ct);
+    __syncwarp();
   }
 }
 
@@ -1082,6 +1104,505 @@ __device__ void digest_end(const Eri4cSmem<LA, LB, LC, LD>& lay,
               wt * w[lay.Acc + e]);
 }
 
+// ------------------------------------------------------------ block route
+
+// One quartet a block of Eri4cBlockClass::kThreads threads (8 warps, or 4
+// for the class pairs of the 4-warp masks), both products on the f64
+// tensor cores (dmma.cuh, mma.sync m16n8k4).  Per quartet, with K2b,
+// K2k its live bra and ket primitive pairs:
+//   R_kl          Boys + the Hermite recursion of each live primitive
+//                 quartet (k, l), once, kept for every tile;
+//   T1 = M Ecd    T1[(k,h)][cd] = sum_{(l,g)} M[(k,h)][(l,g)] Ecd[(l,g)][cd],
+//                 M[(k,h)][(l,g)] = (-1)^|g| R_kl[h+g] gathered from R as
+//                 the fragments are loaded (never stored), the primitive
+//                 pairs stacked on both GEMM dimensions;
+//   I = Eab^T T1  I[ab][cd] = sum_{(k,h)} Eab[(k,h)][ab] T1[(k,h)][cd];
+// both in tiles of CT ket and AT bra components, and in rounds of at most
+// RB live bra and RK live ket primitive pairs (Eri4cBlockSmem), so that
+// the shared memory of a block does not grow with the contraction: a
+// round's R, E tables and expansions are those of its pairs, and each
+// round adds its share of every tile (K4 writes the first round's tiles
+// and adds the others', K5 digests each).  Where the bra is one tile its
+// expansion is built once a round, else once a (ket tile, bra tile).
+
+constexpr int kEri4cBlockThreads = 32 * JC_ERI4C_BLOCK_WARPS;
+constexpr size_t kEri4cBlockCap = JC_ERI4C_BLOCK_CAP;
+constexpr size_t kEri4cBlock4Cap = JC_ERI4C_BLOCK4_CAP;
+// widest tile of ket or bra components (64, not varied on the card)
+constexpr int kEri4cBlockTile = 64;
+
+__host__ __device__ constexpr int pad_to(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// A warp's unit of each product: one m16 fragment by FN n8 fragments.
+// Product 1 takes two, so that each gathered M fragment feeds two DMMAs;
+// product 2 one where its n side is a tile of 32 components or fewer, so
+// that a 32 x 32 tile still gives each of 8 warps a unit.
+template <int LA, int LB, int LC, int LD>
+struct Eri4cBlockClass {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  // threads a block and its shared-memory cap: 4 warps within
+  // kEri4cBlock4Cap (two blocks an SM where the tiles allow) for the
+  // class pairs of the 4-warp masks, else kEri4cBlockThreads within
+  // kEri4cBlockCap
+  static constexpr int kThreads = C::kBlock4 ? 128 : kEri4cBlockThreads;
+  static constexpr size_t kCap =
+      C::kBlock4 ? kEri4cBlock4Cap : kEri4cBlockCap;
+  // product 1: the bra Hermite rows (k, h) on the fragments' 16-row side
+  // where the bra has 16 Hermite indices or more, else the ket components
+  static constexpr bool kP1Rows = C::NHB >= 16;
+  static constexpr int FN1 = 2;
+  // product 2: the wider of ab and cd on the 16-row side
+  static constexpr bool kP2AbRows = C::NAB >= C::NCD;
+  static constexpr int W2 = kP2AbRows ? C::NCD : C::NAB;
+  static constexpr int FN2 = W2 > 32 && kEri4cBlockTile > 32 ? 2 : 1;
+};
+
+// Shared memory of one block-route block, in doubles, for rounds of RB
+// bra and RK ket primitive pairs, tiles of CT ket and AT bra components,
+// and (jk) K5's D blocks and output sums.  The operands are k-major with row
+// strides of (a multiple of 16) + 4 doubles (dmma.cuh: no bank
+// conflicts); a fragment unit may read up to 28 doubles past a row's
+// columns (its results there are dropped), so 32 doubles close the
+// layout.  The Boys values and the R recursion's odd levels lie at first
+// where the tiles go.
+template <int LA, int LB, int LC, int LD>
+struct Eri4cBlockSmem {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  int CT, AT, RB, RK, ldE, ldA, ldT, Pb, Pk, Cb, Ck, Eb, Ek, R, X1, X2, T1,
+      Dg, Acc, Ax, Tab, total;
+  __host__ __device__ Eri4cBlockSmem(int RB_, int RK_, int CT_, int AT_,
+                                     bool jk)
+      : CT(CT_), AT(AT_), RB(RB_), RK(RK_) {
+    const int Kab = RB, Kcd = RK, nprim = Kab * Kcd;
+    const int K4b = pad_to(Kab * C::NHB, 4), K4k = pad_to(Kcd * C::NHK, 4);
+    ldE = pad_to(CT, 16) + 4;
+    ldA = pad_to(AT, 16) + 4;
+    ldT = ldE;
+    Pb = 4;                            // [0, 4): the quartet (r, c, weight)
+    Pk = Pb + 4 * Kab;                 // [Kab][4], [Kcd][4]: p, Px, Py, Pz
+    Cb = Pk + 4 * Kcd;                 // [Kab], [Kcd]: contraction products
+    Ck = Cb + Kab;
+    Eb = Ck + Kcd;                     // [Kab][3][NEB] per-dimension E
+    Ek = Eb + 3 * Kab * C::NEB;        // [Kcd][3][NEK]
+    R = Ek + 3 * Kcd * C::NEK;         // [Kab Kcd][NH]
+    X1 = R + nprim * C::NH;            // Ecd tile [K4k][ldE]; I tile [AT][CT]
+    const int x1 = K4k * ldE > AT * CT ? K4k * ldE : AT * CT;
+    X2 = X1 + x1;                      // Eab tile [K4b][ldA]
+    T1 = X2 + K4b * ldA;               // T1 tile [K4b][ldT]
+    int end = T1 + K4b * ldT;
+    // from X1 before the first tile: R's odd levels [nprim][nherm(L-1)],
+    // the Boys values [nprim][L+1] and X, Y, Z [nprim][4]
+    const int scratch = nprim * (nherm(C::L - 1) + C::L + 5);
+    if (X1 + scratch > end) end = X1 + scratch;
+    Dg = end;                          // [NDG] K5's D blocks
+    Acc = Dg + (jk ? C::NDG : 0);      // [NOUT] K5's output sums
+    Ax = Acc + (jk ? C::NOUT : 0);     // [NAB + NCD] axial factors
+    Tab = Ax + C::NAB + C::NCD;        // ints: Hermite triples [NH], the ab
+                                       // and cd E offsets [NAB + NCD],
+                                       // product 1's k index [2 K4k]
+    total = Tab + (C::NH + C::NAB + C::NCD + 2 * K4k + 1) / 2 + 32;
+  }
+};
+
+struct Eri4cBlockGeometry {
+  int CT, AT, RB, RK;
+  size_t bytes;
+};
+
+// Tiles and rounds of the block route: every primitive pair of the class
+// (Ka Kb, Kc Kd) in one round, CT = NCD and AT = NAB up to
+// kEri4cBlockTile, the wider tile shrunk by 16 (not below 8) while the
+// block would pass its cap (Eri4cBlockClass::kCap); where tiles of 8 still
+// pass it, the larger round halves and the tiles start again from their
+// widest.  One pair a round and tiles of 8 take at most 129 KiB (K5 at
+// (gg|gg)), so a class of any contraction fits the card's 227 KB.
+template <int LA, int LB, int LC, int LD>
+__host__ __device__ Eri4cBlockGeometry eri4c_block_geometry(int Ka, int Kb,
+                                                            int Kc, int Kd,
+                                                            bool jk) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr size_t cap = Eri4cBlockClass<LA, LB, LC, LD>::kCap;
+  Eri4cBlockGeometry g;
+  g.RB = Ka * Kb;
+  g.RK = Kc * Kd;
+  auto bytes = [&] {
+    return sizeof(double) *
+           (size_t)Eri4cBlockSmem<LA, LB, LC, LD>(g.RB, g.RK, g.CT, g.AT,
+                                                  jk).total;
+  };
+  for (;;) {
+    g.CT = C::NCD < kEri4cBlockTile ? C::NCD : kEri4cBlockTile;
+    g.AT = C::NAB < kEri4cBlockTile ? C::NAB : kEri4cBlockTile;
+    while (bytes() > cap && (g.CT > 8 || g.AT > 8)) {
+      int& t = g.CT >= g.AT ? g.CT : g.AT;
+      t = t - 16 >= 8 ? t - 16 : 8;
+    }
+    if (bytes() <= cap || (g.RB == 1 && g.RK == 1)) break;
+    int& r = g.RB >= g.RK ? g.RB : g.RK;
+    r = (r + 1) / 2;
+  }
+  g.bytes = bytes();
+  return g;
+}
+
+// An operand in shared memory, k-major: X[k][i] at s[k * ld + i].
+struct SmemOperand {
+  const double* s;
+  int ld;
+  struct Idx {
+    int i;
+  };
+  __device__ __forceinline__ Idx at(int i) const { return {i}; }
+  __device__ __forceinline__ double get(const Idx& x, int k) const {
+    return s[k * ld + x.i];
+  }
+};
+
+// Product 1's M, gathered from R: index i = (k, h) (k = i / NHB, h = i %
+// NHB), k-index kk = (l, g): (-1)^|g| R_kl[h + g], R_kl at R + (k K2k +
+// l) NH.  tab[2 kk] = l NH; tab[2 kk + 1]: g's order s, u + v and v (bits
+// 0-7, 8-15, 16-23), its sign (bit 24), and whether kk is past the live
+// (l, g) (bit 25: zero).  Rows i past the live ones are zero.
+template <int NHB, int NH>
+struct MGather {
+  const double* R;
+  const int* htab;
+  const int* tab;
+  int K2k, rows;
+  struct Idx {
+    int base, s, d, v;
+    double scale;
+  };
+  __device__ __forceinline__ Idx at(int i) const {
+    const int k = i / NHB, p = htab[i - k * NHB];
+    const int t = p & 255, u = (p >> 8) & 255, v = p >> 16;
+    const bool ok = i < rows;
+    return {ok ? k * K2k * NH : 0, t + u + v, u + v, v, ok ? 1.0 : 0.0};
+  }
+  __device__ __forceinline__ double get(const Idx& x, int kk) const {
+    const int off = tab[2 * kk], p = tab[2 * kk + 1];
+    const int s = x.s + (p & 255), d = x.d + ((p >> 8) & 255);
+    const int v = x.v + ((p >> 16) & 255);
+    double m =
+        R[x.base + off + s * (s + 1) * (s + 2) / 6 + d * (d + 1) / 2 + v];
+    if (p >> 25) m = 0.0;
+    else if ((p >> 24) & 1) m = -m;
+    return m * x.scale;
+  }
+};
+
+// C[m][n] = sum_k A(k, m) B(k, n) for m < M, n < N, k < K4 (a multiple of
+// 4, both operands zero past the live k) on the NT / 32 warps of a block:
+// a warp's unit is FM x FN fragments (16 FM rows, 8 FN columns), warp w
+// takes the units w, w + NW, ...; store(m, n, value) for every element of
+// a unit (past M and N too: store drops those).
+template <int NT, int FM, int FN, class OA, class OB, class Store>
+__device__ __forceinline__ void block_mma(const OA& A, const OB& B, int M,
+                                          int N, int K4, int warp, int lane,
+                                          Store&& store) {
+  constexpr int NW = NT / 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int um = (M + 16 * FM - 1) / (16 * FM);
+  const int un = (N + 8 * FN - 1) / (8 * FN);
+  for (int unit = warp; unit < um * un; unit += NW) {
+    const int m0 = (unit / un) * 16 * FM, n0 = (unit % un) * 8 * FN;
+    typename OA::Idx ia[FM][2];
+    typename OB::Idx ib[FN];
+#pragma unroll
+    for (int u = 0; u < FM; ++u) {
+      ia[u][0] = A.at(m0 + 16 * u + g);
+      ia[u][1] = A.at(m0 + 16 * u + 8 + g);
+    }
+#pragma unroll
+    for (int v = 0; v < FN; ++v) ib[v] = B.at(n0 + 8 * v + g);
+    DmmaTile<FM, FN> acc;
+    acc.zero();
+    // unrolled so that the loads (and M's gathers) of the next k-steps
+    // issue while a step's DMMAs wait on the accumulators
+#pragma unroll 4
+    for (int k0 = 0; k0 < K4; k0 += 4) {
+      typename DmmaTile<FM, FN>::AFrag a;
+      double b[FN];
+#pragma unroll
+      for (int u = 0; u < FM; ++u) {
+        a.v[u][0] = A.get(ia[u][0], k0 + t);
+        a.v[u][1] = A.get(ia[u][1], k0 + t);
+      }
+#pragma unroll
+      for (int v = 0; v < FN; ++v) b[v] = B.get(ib[v], k0 + t);
+      acc.step_ab(a, b);
+    }
+#pragma unroll
+    for (int u = 0; u < FM; ++u)
+#pragma unroll
+      for (int v = 0; v < FN; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          store(m0 + DmmaTile<FM, FN>::row(u, e, lane),
+                n0 + DmmaTile<FM, FN>::col(v, e, lane), acc.c[u][v][e]);
+  }
+}
+
+// The (ab|cd) block of one quartet by the threads of one block, round by
+// round and tile by tile: rb, rk its pair rows, mb, mk their meta rows, sm
+// the block's shared memory (lay).  For each round of live primitive
+// pairs (bra pairs b0 .. b0 + nb - 1, ket pairs k0 .. k0 + nk - 1), each
+// ket tile of components cd0 .. cd0 + ct - 1 and, inside it, each bra tile
+// of components ab0 .. ab0 + at - 1, the round's share of the tile's block
+// lies in sm[lay.X1] ([at][ct], row-major) when emit(ab0, at, cd0, ct,
+// first) is called, which reads it (every thread calls it); first: the
+// first round.
+template <int LA, int LB, int LC, int LD, class Emit>
+__device__ void eri4c_block(const double* rb, int Ka, int Kb, const int* mb,
+                            const double* rk, int Kc, int Kd, const int* mk,
+                            double* sm,
+                            const Eri4cBlockSmem<LA, LB, LC, LD>& lay,
+                            Emit&& emit) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  using BC = Eri4cBlockClass<LA, LB, LC, LD>;
+  constexpr int NB = C::NB, ND = C::ND, NAB = C::NAB, NCD = C::NCD;
+  constexpr int NHB = C::NHB, NHK = C::NHK, NH = C::NH, L = C::L;
+  constexpr int NEB = C::NEB, NEK = C::NEK, NHS = nherm(L - 1);
+  constexpr int NT = BC::kThreads;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kb = mb[3], kd = mk[3];
+  const int K2b = mb[2] * kb, K2k = mk[2] * kd;
+  const int CT = lay.CT, AT = lay.AT;
+  double* sPb = sm + lay.Pb;
+  double* sPk = sm + lay.Pk;
+  double* sCb = sm + lay.Cb;
+  double* sCk = sm + lay.Ck;
+  double* sEb = sm + lay.Eb;
+  double* sEk = sm + lay.Ek;
+  double* sR = sm + lay.R;
+  double* sEcd = sm + lay.X1;
+  double* sI = sm + lay.X1;
+  double* sEab = sm + lay.X2;
+  double* sT1 = sm + lay.T1;
+  double* sAx = sm + lay.Ax;
+  int* htab = reinterpret_cast<int*>(sm + lay.Tab);
+  int* eoff = htab + NH;  // [NAB] then [NCD]
+  int* gtab = eoff + NAB + NCD;
+
+  // 0. tables of every round: Hermite triples, and each component's
+  //    offsets into the per-dimension E tables and its axial norms
+  for (int e = tid; e < NH; e += NT) {
+    int t, u, v;
+    herm_triple(e, t, u, v);
+    htab[e] = t | (u << 8) | (v << 16);
+  }
+  for (int e = tid; e < NAB + NCD; e += NT) {
+    const bool bra = e < NAB;
+    const int l1 = bra ? LA : LC, l2 = bra ? LB : LD, n2 = bra ? NB : ND;
+    const int x = bra ? e : e - NAB, nt = l1 + l2 + 1;
+    int ax, ay, az, bx, by, bz;
+    cart_comp(l1, x / n2, ax, ay, az);
+    cart_comp(l2, x % n2, bx, by, bz);
+    eoff[e] = ((ax * (l2 + 1) + bx) * nt) |
+              (((ay * (l2 + 1) + by) * nt) << 8) |
+              (((az * (l2 + 1) + bz) * nt) << 16);
+    sAx[e] = axial(l1, ax, ay, az) * axial(l2, bx, by, bz);
+  }
+  // the rounds stay a loop (one iteration for a contraction that fits)
+#pragma unroll 1
+  for (int b0 = 0; b0 < K2b; b0 += lay.RB)
+#pragma unroll 1
+    for (int k0 = 0; k0 < K2k; k0 += lay.RK) {
+      const int nb = K2b - b0 < lay.RB ? K2b - b0 : lay.RB;
+      const int nk = K2k - k0 < lay.RK ? K2k - k0 : lay.RK;
+      const int nprim = nb * nk;
+      const int Mb = nb * NHB, Mk = nk * NHK;  // live Hermite rows
+      const int K4b = pad_to(Mb, 4), K4k = pad_to(Mk, 4);
+      const bool first = b0 == 0 && k0 == 0;
+      // 1. the round's pairs (local k = b - b0, l = c - k0): product 1's k
+      //    index, product centres, per-dimension E tables and contraction
+      //    products
+      for (int e = tid; e < K4k; e += NT) {
+        if (e < Mk) {
+          const int l = e / NHK;
+          int t, u, v;
+          herm_triple(e - l * NHK, t, u, v);
+          const int s = t + u + v;
+          gtab[2 * e] = l * NH;
+          gtab[2 * e + 1] = s | ((u + v) << 8) | (v << 16) | ((s & 1) << 24);
+        } else {
+          gtab[2 * e] = 0;
+          gtab[2 * e + 1] = 1 << 25;
+        }
+      }
+      for (int e = tid; e < 3 * (nb + nk); e += NT) {
+        if (e < 3 * nb) {
+          pair_prim<LA, LB>(rb, Ka, Kb, kb, b0 + e / 3, e % 3, sEb, sPb,
+                            e / 3);
+        } else {
+          const int l = (e - 3 * nb) / 3;
+          pair_prim<LC, LD>(rk, Kc, Kd, kd, k0 + l, (e - 3 * nb) % 3, sEk,
+                            sPk, l);
+        }
+      }
+      for (int e = tid; e < nb + nk; e += NT) {
+        if (e < nb) {
+          const int b = b0 + e;
+          sCb[e] = rb[Ka + b / kb] * rb[2 * Ka + Kb + b % kb];
+        } else {
+          const int c = k0 + e - nb;
+          sCk[e - nb] = rk[Kc + c / kd] * rk[2 * Kc + Kd + c % kd];
+        }
+      }
+      __syncthreads();
+      // 2. Boys per primitive quartet f = k nk + l of the round, a thread
+      //    each: G[n] = (-2 alpha)^n F_n(T) pref, the one entry of level n
+      //    of the recursion that it does not derive, and X, Y, Z
+      double* sRs = sm + lay.X1;           // R's odd levels [nprim][NHS]
+      double* sG = sRs + nprim * NHS;      // [nprim][L + 1]
+      double* sQ = sG + nprim * (L + 1);   // [nprim][4]
+      for (int f = tid; f < nprim; f += NT) {
+        const int k = f / nk, l = f - k * nk;
+        const double p = sPb[4 * k], q = sPk[4 * l];
+        const double X = sPb[4 * k + 1] - sPk[4 * l + 1];
+        const double Y = sPb[4 * k + 2] - sPk[4 * l + 2];
+        const double Z = sPb[4 * k + 3] - sPk[4 * l + 3];
+        const double psum = p + q, alpha = p * q / psum;
+        const double T = alpha * (X * X + Y * Y + Z * Z);
+        const double pref = kTwoPiPow2_5 / (p * q * sqrt(psum));
+        double F[L + 1];
+        boys<L, true>(T, F);
+        double pw = 1.0;
+        for (int m = 0; m <= L; ++m) {
+          sG[f * (L + 1) + m] = pw * (F[m] * pref);
+          pw = pw * (-2.0 * alpha);
+        }
+        sQ[4 * f + 1] = X;
+        sQ[4 * f + 2] = Y;
+        sQ[4 * f + 3] = Z;
+      }
+      __syncthreads();
+      // 3. R by hermite_R's downward recursion, one level n = L .. 0 at a
+      //    time over the round's primitive quartets and one barrier a
+      //    level: the nherm(L - n) entries of level n from level n + 1, the
+      //    even levels in R, the odd ones in sRs, so that level 0 lands in
+      //    R
+      for (int n = L; n >= 0; --n) {
+        const bool even = (n & 1) == 0;
+        double* dst = even ? sR : sRs;
+        const double* src = even ? sRs : sR;
+        const int sd = even ? NH : NHS, ss = even ? NHS : NH;
+        const int nl = nherm(L - n);
+        for (int it = tid; it < nprim * nl; it += NT) {
+          const int f = it / nl, h = it - f * nl;
+          double val;
+          if (h == 0) {
+            val = sG[f * (L + 1) + n];
+          } else {
+            const int p = htab[h];
+            const int t = p & 255, u = (p >> 8) & 255, v = p >> 16;
+            const double* Rs = src + f * ss;
+            if (t > 0) {
+              const double hi = Rs[herm_index(t - 1, u, v)];
+              val = t >= 2 ? (t - 1) * Rs[herm_index(t - 2, u, v)] +
+                                 sQ[4 * f + 1] * hi
+                           : sQ[4 * f + 1] * hi;
+            } else if (u > 0) {
+              const double hi = Rs[herm_index(t, u - 1, v)];
+              val = u >= 2 ? (u - 1) * Rs[herm_index(t, u - 2, v)] +
+                                 sQ[4 * f + 2] * hi
+                           : sQ[4 * f + 2] * hi;
+            } else {
+              const double hi = Rs[herm_index(t, u, v - 1)];
+              val = v >= 2 ? (v - 1) * Rs[herm_index(t, u, v - 2)] +
+                                 sQ[4 * f + 3] * hi
+                           : sQ[4 * f + 3] * hi;
+            }
+          }
+          dst[f * sd + h] = val;
+        }
+        __syncthreads();
+      }
+      // 4. the tiles.  A tile's expansion Eab[(k,h)][j] (Ecd[(l,g)][j]): the
+      //    three per-dimension E factors, the axial norms and the
+      //    contraction product of component j, zero past the live rows
+      auto build_eab = [&](int ab0, int at) {
+        for (int e = tid; e < K4b * at; e += NT) {
+          const int kk = e / at, j = e - kk * at;
+          double val = 0.0;
+          if (kk < Mb) {
+            const int k = kk / NHB, p = htab[kk - k * NHB], o = eoff[ab0 + j];
+            const double* E = sEb + k * 3 * NEB;
+            val = E[(o & 255) + (p & 255)] *
+                  E[NEB + ((o >> 8) & 255) + ((p >> 8) & 255)] *
+                  E[2 * NEB + (o >> 16) + (p >> 16)] * sAx[ab0 + j] * sCb[k];
+          }
+          sEab[kk * lay.ldA + j] = val;
+        }
+      };
+      auto build_ecd = [&](int cd0, int ct) {
+        for (int e = tid; e < K4k * ct; e += NT) {
+          const int kk = e / ct, j = e - kk * ct;
+          double val = 0.0;
+          if (kk < Mk) {
+            const int l = kk / NHK, p = htab[kk - l * NHK];
+            const int o = eoff[NAB + cd0 + j];
+            const double* E = sEk + l * 3 * NEK;
+            val = E[(o & 255) + (p & 255)] *
+                  E[NEK + ((o >> 8) & 255) + ((p >> 8) & 255)] *
+                  E[2 * NEK + (o >> 16) + (p >> 16)] * sAx[NAB + cd0 + j] *
+                  sCk[l];
+          }
+          sEcd[kk * lay.ldE + j] = val;
+        }
+      };
+      const bool bra_tiles = AT < NAB;
+      if (!bra_tiles) build_eab(0, NAB);
+      const MGather<NHB, NH> Mg{sR, htab, gtab, nk, Mb};
+      for (int cd0 = 0; cd0 < NCD; cd0 += CT) {
+        const int ct = NCD - cd0 < CT ? NCD - cd0 : CT;
+        build_ecd(cd0, ct);
+        __syncthreads();
+        // T1[(k,h)][cdt] = sum_{(l,g)} M[(k,h)][(l,g)] Ecd[(l,g)][cdt]
+        const SmemOperand Ecd{sEcd, lay.ldE};
+        if constexpr (BC::kP1Rows)
+          block_mma<NT, 1, BC::FN1>(
+              Mg, Ecd, Mb, ct, K4k, warp, lane, [&](int m, int n, double x) {
+                if (m < K4b && n < ct) sT1[m * lay.ldT + n] = x;
+              });
+        else
+          block_mma<NT, 1, BC::FN1>(
+              Ecd, Mg, ct, Mb, K4k, warp, lane, [&](int m, int n, double x) {
+                if (m < ct && n < K4b) sT1[n * lay.ldT + m] = x;
+              });
+        __syncthreads();
+        for (int ab0 = 0; ab0 < NAB; ab0 += AT) {
+          const int at = NAB - ab0 < AT ? NAB - ab0 : AT;
+          if (bra_tiles) {
+            build_eab(ab0, at);
+            __syncthreads();
+          }
+          // I[abt][cdt] = sum_{(k,h)} Eab[(k,h)][abt] T1[(k,h)][cdt] into
+          // sI, over the ket tile's Ecd (read by product 1 before the
+          // barrier)
+          const SmemOperand Eab{sEab, lay.ldA}, T1{sT1, lay.ldT};
+          if constexpr (BC::kP2AbRows)
+            block_mma<NT, 1, BC::FN2>(
+                Eab, T1, at, ct, K4b, warp, lane,
+                [&](int m, int n, double x) {
+                  if (m < at && n < ct) sI[m * ct + n] = x;
+                });
+          else
+            block_mma<NT, 1, BC::FN2>(
+                T1, Eab, ct, at, K4b, warp, lane,
+                [&](int m, int n, double x) {
+                  if (m < ct && n < at) sI[n * ct + m] = x;
+                });
+          __syncthreads();
+          emit(ab0, at, cd0, ct, first);
+          __syncthreads();
+        }
+      }
+    }
+}
+
 // ---------------------------------------------------------------- kernels
 
 // K4, lane route: out[q][ab*NCD + cd] = (ab|cd) of quartet (sel_bra[q],
@@ -1162,15 +1683,15 @@ eri4c_kernel(const double* __restrict__ pb, int Ka, int Kb,
              const int* __restrict__ mb, const double* __restrict__ pk,
              int Kc, int Kd, const int* __restrict__ mk,
              const int64_t* __restrict__ sel_bra,
-             const int64_t* __restrict__ sel_ket, int64_t n, int CT, int AT,
-             int RS, double* __restrict__ out) {
+             const int64_t* __restrict__ sel_ket, int64_t n, int CT, int RS,
+             double* __restrict__ out) {
   using C = Eri4cClass<LA, LB, LC, LD>;
   constexpr int NAB = C::NAB, NCD = C::NCD;
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (q >= n) return;  // the whole warp
-  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT, AT);
+  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT);
   double* w = sm + (int64_t)warp * lay.total;
   const int64_t r = sel_bra[q], c = sel_ket[q];
   auto emit = [&](int ab0, int at, int cd0, int ct) {
@@ -1180,7 +1701,7 @@ eri4c_kernel(const double* __restrict__ pb, int Ka, int Kb,
   };
   const double* rb = pb + r * (2 * Ka + 2 * Kb + 6);
   const double* rk = pk + c * (2 * Kc + 2 * Kd + 6);
-  if (CT < NCD || AT < NAB)
+  if (CT < NCD)
     eri4c_warp<LA, LB, LC, LD, true>(rb, Ka, Kb, mb + r * kMeta, rk, Kc, Kd,
                                      mk + c * kMeta, RS, w, lay, lane, emit);
   else
@@ -1198,14 +1719,14 @@ eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
                 const int64_t* __restrict__ sel_ket,
                 const double* __restrict__ weight,
                 const int64_t* __restrict__ cum, int64_t n_bra,
-                int same_block, int64_t n, int64_t t0, int CT, int AT, int RS,
+                int same_block, int64_t n, int64_t t0, int CT, int RS,
                 const double* __restrict__ D, int64_t nbf, double* JK) {
   using C = Eri4cClass<LA, LB, LC, LD>;
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (q >= n) return;  // the whole warp: nothing to add
-  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT, AT);
+  const Eri4cSmem<LA, LB, LC, LD> lay(Ka * Kb, Kc * Kd, RS, CT);
   double* w = sm + (int64_t)warp * lay.total;
   int64_t r, c;
   double wt;
@@ -1222,13 +1743,152 @@ eri4c_jk_kernel(const double* __restrict__ pb, int Ka, int Kb,
   };
   const double* rb = pb + r * (2 * Ka + 2 * Kb + 6);
   const double* rk = pk + c * (2 * Kc + 2 * Kd + 6);
-  if (CT < C::NCD || AT < C::NAB)
+  if (CT < C::NCD)
     eri4c_warp<LA, LB, LC, LD, true>(rb, Ka, Kb, mr, rk, Kc, Kd, mc, RS, w,
                                      lay, lane, emit);
   else
     eri4c_warp<LA, LB, LC, LD, false>(rb, Ka, Kb, mr, rk, Kc, Kd, mc, RS, w,
                                       lay, lane, emit);
   digest_end(lay, w, wt, mr, mc, nbf, JK, lane);
+}
+
+// K5's share of one block-route tile [ab0, ab0 + at) x [cd0, cd0 + ct) of
+// the block sI, into the output sums sAcc (the order of jk_partial), by the
+// block's threads: only the outputs that the tile reaches, each once (j_ab
+// of its ab, j_cd of its cd; k_ac, k_ad, k_bc, k_bd of the a and b its ab
+// hold and the c and d its cd hold), so that a (gg|gg) tile of 32 x 32
+// visits ~390 of the 1350 outputs.
+template <int LA, int LB, int LC, int LD>
+__device__ __forceinline__ void block_digest_tile(const double* sI,
+                                                  const double* sDg,
+                                                  double* sAcc, int ab0,
+                                                  int at, int cd0, int ct) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  constexpr int NAB = C::NAB, NCD = C::NCD;
+  const int a0 = ab0 / NB, a1 = (ab0 + at - 1) / NB;
+  const int c0 = cd0 / ND, c1 = (cd0 + ct - 1) / ND;
+  // b (d) over a whole row where the tile spans two rows a (c)
+  const int b0 = a1 > a0 ? 0 : ab0 % NB;
+  const int b1 = a1 > a0 ? NB - 1 : (ab0 + at - 1) % NB;
+  const int d0 = c1 > c0 ? 0 : cd0 % ND;
+  const int d1 = c1 > c0 ? ND - 1 : (cd0 + ct - 1) % ND;
+  const int na = a1 - a0 + 1, nb = b1 - b0 + 1, nc = c1 - c0 + 1;
+  const int nd = d1 - d0 + 1;
+  const int n0 = at, n1 = n0 + ct, n2 = n1 + na * nc, n3 = n2 + na * nd;
+  const int n4 = n3 + nb * nc, n5 = n4 + nb * nd;
+  for (int e = threadIdx.x; e < n5;
+       e += Eri4cBlockClass<LA, LB, LC, LD>::kThreads) {
+    int x;
+    if (e < n0) {
+      x = ab0 + e;
+    } else if (e < n1) {
+      x = NAB + cd0 + e - n0;
+    } else if (e < n2) {
+      const int i = e - n1, a = a0 + i / nc, c = c0 + i % nc;
+      x = NAB + NCD + a * NC + c;
+    } else if (e < n3) {
+      const int i = e - n2, a = a0 + i / nd, d = d0 + i % nd;
+      x = NAB + NCD + NA * NC + a * ND + d;
+    } else if (e < n4) {
+      const int i = e - n3, b = b0 + i / nc, c = c0 + i % nc;
+      x = NAB + NCD + NA * NC + NA * ND + b * NC + c;
+    } else {
+      const int i = e - n4, b = b0 + i / nd, d = d0 + i % nd;
+      x = NAB + NCD + NA * NC + NA * ND + NB * NC + b * ND + d;
+    }
+    sAcc[x] += jk_partial<LA, LB, LC, LD>(sI, sDg, x, ab0, at, cd0, ct);
+  }
+}
+
+// K4, block route: the block of quartet q of a block, written out tile by
+// tile (each tile's rows of cd contiguous), the first round's tiles
+// written and the others' added.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(Eri4cBlockClass<LA, LB, LC, LD>::kThreads,
+                                  1)
+eri4c_block_kernel(const double* __restrict__ pb, int Ka, int Kb,
+                   const int* __restrict__ mb, const double* __restrict__ pk,
+                   int Kc, int Kd, const int* __restrict__ mk,
+                   const int64_t* __restrict__ sel_bra,
+                   const int64_t* __restrict__ sel_ket, int CT, int AT,
+                   int RB, int RK, double* __restrict__ out) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NAB = C::NAB, NCD = C::NCD;
+  extern __shared__ double sm[];
+  const int64_t q = blockIdx.x;
+  const Eri4cBlockSmem<LA, LB, LC, LD> lay(RB, RK, CT, AT, false);
+  const int64_t r = sel_bra[q], c = sel_ket[q];
+  double* o = out + q * (NAB * NCD);
+  const double* sI = sm + lay.X1;
+  // a thread writes the same elements of a tile in every round
+  auto emit = [&](int ab0, int at, int cd0, int ct, bool first) {
+    for (int e = threadIdx.x; e < at * ct;
+         e += Eri4cBlockClass<LA, LB, LC, LD>::kThreads) {
+      double* x = o + (ab0 + e / ct) * NCD + cd0 + e % ct;
+      *x = first ? sI[e] : *x + sI[e];
+    }
+  };
+  eri4c_block<LA, LB, LC, LD>(pb + r * (2 * Ka + 2 * Kb + 6), Ka, Kb,
+                              mb + r * kMeta, pk + c * (2 * Kc + 2 * Kd + 6),
+                              Kc, Kd, mk + c * kMeta, sm, lay, emit);
+}
+
+// K5, block route: quartet t0 + q of block q (decoded once by thread 0),
+// each tile's share of its six J/K outputs, round by round, summed in
+// shared memory by the block's threads (block_digest_tile), one f64
+// atomic an output at the end.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(Eri4cBlockClass<LA, LB, LC, LD>::kThreads,
+                                  1)
+eri4c_jk_block_kernel(const double* __restrict__ pb, int Ka, int Kb,
+                      const int* __restrict__ mb,
+                      const double* __restrict__ pk, int Kc, int Kd,
+                      const int* __restrict__ mk,
+                      const int64_t* __restrict__ sel_bra,
+                      const int64_t* __restrict__ sel_ket,
+                      const double* __restrict__ weight,
+                      const int64_t* __restrict__ cum, int64_t n_bra,
+                      int same_block, int64_t t0, int CT, int AT, int RB,
+                      int RK, const double* __restrict__ D, int64_t nbf,
+                      double* JK) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  constexpr int NT = Eri4cBlockClass<LA, LB, LC, LD>::kThreads;
+  extern __shared__ double sm[];
+  const int tid = threadIdx.x;
+  const Eri4cBlockSmem<LA, LB, LC, LD> lay(RB, RK, CT, AT, true);
+  int64_t* sq = reinterpret_cast<int64_t*>(sm);  // r, c, then the weight
+  if (tid == 0) {
+    int64_t r, c;
+    double wt;
+    decode_quartet(t0 + blockIdx.x, sel_bra, sel_ket, weight, cum, n_bra,
+                   same_block, mb, mk, r, c, wt);
+    sq[0] = r;
+    sq[1] = c;
+    sm[2] = wt;
+  }
+  __syncthreads();
+  const int64_t r = sq[0], c = sq[1];
+  const double wt = sm[2];
+  const int* mr = mb + r * kMeta;
+  const int* mc = mk + c * kMeta;
+  double* sDg = sm + lay.Dg;
+  double* sAcc = sm + lay.Acc;
+  for (int e = tid; e < C::NDG; e += NT)
+    sDg[e] = dg_element<LA, LB, LC, LD>(e, mr[0], mr[1], mc[0], mc[1], D,
+                                        nbf);
+  for (int e = tid; e < C::NOUT; e += NT) sAcc[e] = 0.0;
+  const double* sI = sm + lay.X1;
+  auto emit = [&](int ab0, int at, int cd0, int ct, bool) {
+    block_digest_tile<LA, LB, LC, LD>(sI, sDg, sAcc, ab0, at, cd0, ct);
+  };
+  eri4c_block<LA, LB, LC, LD>(pb + r * (2 * Ka + 2 * Kb + 6), Ka, Kb, mr,
+                              pk + c * (2 * Kc + 2 * Kd + 6), Kc, Kd, mc, sm,
+                              lay, emit);
+  for (int e = tid; e < C::NOUT; e += NT)
+    atomicAdd(jk_target<LA, LB, LC, LD>(e, mr[0], mr[1], mc[0], mc[1], nbf,
+                                        JK, JK + nbf * nbf),
+              wt * sAcc[e]);
 }
 
 // ------------------------------------------------------------------- K6

@@ -3,10 +3,10 @@
 // them for every ket class (lc, ld) that the i <= j walk over the pair
 // classes (0,0) (0,1) .. (0,4) (1,1) .. (1,4) (2,2) .. (4,4) reaches from
 // its bra class, so nvcc builds the bra classes in parallel.
-// K4/K5 instantiate only the route of their class pair (lane or warp,
-// JC_ERI4C_LANE_MASK_B<i>), K6 the route of its class pair (lane or warp,
-// DigestClass::kLane).  Each function returns the CUDA error of its launch
-// (0 on success).
+// K4/K5 instantiate only the route of their class pair (lane, block or
+// warp: JC_ERI4C_LANE_MASK_B<i>, JC_ERI4C_BLOCK_MASK_B<i>), K6 the route
+// of its class pair (lane or warp, DigestClass::kLane).  Each function
+// returns the CUDA error of its launch (0 on success).
 #pragma once
 
 #include "eri4c.cuh"
@@ -26,8 +26,8 @@ inline cudaError_t eri4c_prepare(Kern kern, size_t bytes) {
 // SM; the other class pairs leave the split to the CUDA runtime.
 template <typename Kern>
 inline cudaError_t eri4c_prepare_warp(Kern kern, const Eri4cGeometry& g,
-                                      int nab, int ncd) {
-  if (g.CT < ncd || g.AT < nab) {
+                                      int ncd) {
+  if (g.CT < ncd) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
@@ -36,13 +36,27 @@ inline cudaError_t eri4c_prepare_warp(Kern kern, const Eri4cGeometry& g,
   return eri4c_prepare(kern, g.W * g.warp_bytes);
 }
 
+// K4/K5's block route: the dynamic shared memory of a block and the whole
+// of the SM's unified memory as shared memory.
+template <typename Kern>
+inline cudaError_t eri4c_prepare_block(Kern kern, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return eri4c_prepare(kern, bytes);
+}
+
 inline unsigned lane_blocks(long long n) {
   return (unsigned)((n + kEri4cLaneBlock - 1) / kEri4cLaneBlock);
 }
 
-// K4 and K5 launch the route of their class (Eri4cClass::kLane): the lane
-// route one quartet a thread, 128 a block, no shared memory; the warp route
-// one quartet a warp, W warps a block (eri4c_geometry).
+// K4 and K5 launch the route of their class (Eri4cClass::kLane, kBlock):
+// the lane route one quartet a thread, 128 a block, no shared memory; the
+// block route one quartet a block of Eri4cBlockClass::kThreads threads
+// (eri4c_block_geometry: tiles and rounds; a launch takes fewer than 2^31
+// quartets); the warp route one quartet a warp, W warps a block
+// (eri4c_geometry).
 template <int LA, int LB, int LC, int LD>
 int eri4c_launch(const double* pb, int Ka, int Kb, const int* mb,
                  const double* pk, int Kc, int Kd, const int* mk,
@@ -55,16 +69,25 @@ int eri4c_launch(const double* pb, int Ka, int Kb, const int* mb,
     eri4c_lane_kernel<LA, LB, LC, LD><<<lane_blocks(n), kEri4cLaneBlock, 0,
                                         stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd,
                                                   mk, sb, sk, n, out);
+  } else if constexpr (Eri4cClass<LA, LB, LC, LD>::kBlock) {
+    if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const Eri4cBlockGeometry g =
+        eri4c_block_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd, false);
+    auto kern = eri4c_block_kernel<LA, LB, LC, LD>;
+    cudaError_t err = eri4c_prepare_block(kern, g.bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned)n, Eri4cBlockClass<LA, LB, LC, LD>::kThreads,
+           g.bytes, stream>>>(
+        pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, g.CT, g.AT, g.RB, g.RK, out);
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     auto kern = eri4c_kernel<LA, LB, LC, LD>;
-    cudaError_t err = eri4c_prepare_warp(
-        kern, g, Eri4cClass<LA, LB, LC, LD>::NAB,
-        Eri4cClass<LA, LB, LC, LD>::NCD);
+    cudaError_t err =
+        eri4c_prepare_warp(kern, g, Eri4cClass<LA, LB, LC, LD>::NCD);
     if (err != cudaSuccess) return (int)err;
     kern<<<(unsigned)((n + g.W - 1) / g.W), 32 * g.W, g.W * g.warp_bytes,
-           stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n, g.CT, g.AT,
-                     g.RS, out);
+           stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n, g.CT, g.RS,
+                     out);
   }
   return (int)cudaGetLastError();
 }
@@ -86,24 +109,35 @@ int eri4c_jk_launch(const double* pb, int Ka, int Kb, const int* mb,
                                            stream>>>(
         pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, weight, cm, n_bra, same_block,
         n, t0, D, nbf, JK);
+  } else if constexpr (Eri4cClass<LA, LB, LC, LD>::kBlock) {
+    if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    const Eri4cBlockGeometry g =
+        eri4c_block_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd, true);
+    auto kern = eri4c_jk_block_kernel<LA, LB, LC, LD>;
+    cudaError_t err = eri4c_prepare_block(kern, g.bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned)n, Eri4cBlockClass<LA, LB, LC, LD>::kThreads,
+           g.bytes, stream>>>(
+        pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, weight, cm, n_bra, same_block,
+        t0, g.CT, g.AT, g.RB, g.RK, D, nbf, JK);
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     auto kern = eri4c_jk_kernel<LA, LB, LC, LD>;
-    cudaError_t err = eri4c_prepare_warp(
-        kern, g, Eri4cClass<LA, LB, LC, LD>::NAB,
-        Eri4cClass<LA, LB, LC, LD>::NCD);
+    cudaError_t err =
+        eri4c_prepare_warp(kern, g, Eri4cClass<LA, LB, LC, LD>::NCD);
     if (err != cudaSuccess) return (int)err;
     kern<<<(unsigned)((n + g.W - 1) / g.W), 32 * g.W, g.W * g.warp_bytes,
            stream>>>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, weight, cm,
-                     n_bra, same_block, n, t0, g.CT, g.AT, g.RS, D, nbf,
-                     JK);
+                     n_bra, same_block, n, t0, g.CT, g.RS, D, nbf, JK);
   }
   return (int)cudaGetLastError();
 }
 
 // K5's launch geometry for one class pair, for the smoke and the tools:
-// out = {lane route (1) or warp route (0), CT, RS, warps a block, bytes of
-// shared memory a warp, blocks an SM holds, AT}; nothing is launched.
+// out = {lane route (1), warp route (0) or block route (2), CT, RS
+// (primitive quartets a round), warps a block, bytes of shared memory a
+// warp (the block route: a block), blocks an SM holds, AT, RB, RK (bra and
+// ket primitive pairs a round)}; nothing is launched.
 template <int LA, int LB, int LC, int LD>
 int eri4c_geometry_query(int Ka, int Kb, int Kc, int Kd, long long* out) {
   using C = Eri4cClass<LA, LB, LC, LD>;
@@ -112,19 +146,32 @@ int eri4c_geometry_query(int Ka, int Kb, int Kc, int Kd, long long* out) {
   if constexpr (C::kLane) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, eri4c_jk_lane_kernel<LA, LB, LC, LD>, kEri4cLaneBlock, 0);
-    const long long v[7] = {1, C::NCD, 0, kEri4cLaneBlock / 32, 0, blocks,
-                            C::NAB};
-    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    const long long v[9] = {1, C::NCD, 0, kEri4cLaneBlock / 32, 0, blocks,
+                            C::NAB, Ka * Kb, Kc * Kd};
+    for (int i = 0; i < 9; ++i) out[i] = v[i];
+  } else if constexpr (C::kBlock) {
+    const Eri4cBlockGeometry g =
+        eri4c_block_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd, true);
+    auto kern = eri4c_jk_block_kernel<LA, LB, LC, LD>;
+    err = eri4c_prepare_block(kern, g.bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, Eri4cBlockClass<LA, LB, LC, LD>::kThreads,
+          g.bytes);
+    const long long v[9] = {2, g.CT, (long long)g.RB * g.RK,
+                            Eri4cBlockClass<LA, LB, LC, LD>::kThreads / 32,
+                            (long long)g.bytes, blocks, g.AT, g.RB, g.RK};
+    for (int i = 0; i < 9; ++i) out[i] = v[i];
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     auto kern = eri4c_jk_kernel<LA, LB, LC, LD>;
-    err = eri4c_prepare_warp(kern, g, C::NAB, C::NCD);
+    err = eri4c_prepare_warp(kern, g, C::NCD);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, kern, 32 * g.W, g.W * g.warp_bytes);
-    const long long v[7] = {0, g.CT, g.RS, g.W, (long long)g.warp_bytes,
-                            blocks, g.AT};
-    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    const long long v[9] = {0, g.CT, g.RS, g.W, (long long)g.warp_bytes,
+                            blocks, C::NAB, Ka * Kb, Kc * Kd};
+    for (int i = 0; i < 9; ++i) out[i] = v[i];
   }
   return (int)err;
 }

@@ -222,24 +222,30 @@ def eri4c_class(bra: PairTable, ket: PairTable, sel_bra: torch.Tensor,
 
 def eri4c_geometry(bra: PairTable, ket: PairTable) -> dict:
     """K5's launch geometry for the class pair of two CUDA pair tables, as
-    csrc/eri4c_launch.cuh computes it: the route it was built with, ket
-    tile (CT of NCD components), bra tile (AT of NAB components), primitive
-    quartets a round (RS), warps a block, shared-memory bytes a warp and
-    the blocks an SM holds (CUDA's occupancy calculator).  Nothing is
-    launched."""
+    csrc/eri4c_launch.cuh computes it: the route it was built with ("lane",
+    "warp" or "block"), ket tile (CT of NCD components), bra tile (AT of
+    NAB components), primitive quartets a round (RS), bra and ket
+    primitive pairs a round (RB, RK: the block route's rounds; the class's
+    padded pairs Kab, Kcd elsewhere), warps a block, shared-memory bytes a
+    block and a warp, and the blocks an SM holds (CUDA's occupancy
+    calculator).  Nothing is launched."""
     import ctypes
 
     check_kernel_class("eri4c_geometry", bra.la, bra.lb, ket.la, ket.lb)
-    out = (ctypes.c_longlong * 7)()
+    out = (ctypes.c_longlong * 9)()
     lib = kernels.library()
     rc = lib.jc_eri4c_geometry(bra.la, bra.lb, ket.la, ket.lb, bra.Ka, bra.Kb,
                                ket.Ka, ket.Kb, out)
     if rc != 0:
         raise RuntimeError(f"jc_eri4c_geometry failed: CUDA error {rc} "
                            f"({lib.jc_error_string(rc).decode()})")
-    lane, CT, RS, W, nbytes, blocks, AT = list(out)
-    return {"route": "lane" if lane else "warp", "CT": CT, "AT": AT, "RS": RS,
-            "warps_per_block": W, "warp_bytes": nbytes,
+    route, CT, RS, W, nbytes, blocks, AT, RB, RK = list(out)
+    # the block route reports a block's bytes, the others a warp's
+    block_bytes = nbytes if route == 2 else nbytes * W
+    return {"route": ("warp", "lane", "block")[route], "CT": CT, "AT": AT,
+            "RS": RS, "RB": RB, "RK": RK, "Kab": bra.Ka * bra.Kb,
+            "Kcd": ket.Ka * ket.Kb, "warps_per_block": W,
+            "warp_bytes": block_bytes // W, "block_bytes": block_bytes,
             "blocks_per_sm": blocks, "warps_per_sm": blocks * W}
 
 

@@ -50,6 +50,54 @@ K8_TILE_M, K8_TILE_N, K8_SLAB = 128, 64, 16
 # memory).  The kernels are built with it (route_flags).
 ERI4C_LANE_MAX_L = 6
 ERI4C_LANE_EXCLUDE = frozenset({(1, 2, 1, 2)})
+# K4/K5's block route (csrc/eri4c.cuh): one quartet a block of
+# ERI4C_BLOCK_WARPS warps, its R once a primitive quartet in shared memory,
+# both products on the f64 tensor cores, tiles of at most 64 components
+# (csrc/eri4c.cuh kEri4cBlockTile) shrunk, and past them rounds of
+# primitive pairs halved, while a block would pass ERI4C_BLOCK_CAP bytes.  The
+# class pairs of ERI4C_BLOCK take it in place of the lane or warp route,
+# those of ERI4C_LANE_INCLUDE the lane route above ERI4C_LANE_MAX_L.
+# Chosen class pair by class pair from the card's times of one full
+# staircase build of benzene_2_water in 6-311++G(3df,3pd)+G (the real
+# path), no class pair slower than its route before on the smoke's phase
+# 3g subsets (PERF.md §6; ms of the full build, the earlier route
+# first): the block route on every g class pair from L = 8 ((gg|gg) 279.0
+# warp -> 12.3, (ss|gg) 2580.8 -> 165.4) and on four of L = 7 ((ss|fg)
+# 2190.9 warp, 150.9 lane at a cut of 7 but 2x the warp route's K5 time on
+# the subsets, 190.4 block; (sd|pg) 3676.5, 677.8, 656.7; (sg|pd) 2018.1,
+# 826.7, 590.8; (pp|pg) 2903.3, 505.6, 439.7); the lane route on the other
+# two of L = 7 ((sp|dg) 7187.4 warp, 578.5 lane, 911.7 block; (sf|sg)
+# 597.1, 26.2, 199.9; on the subsets, K4 / K5 list / K5 staircase ms, the
+# earlier warp route then the lane route, the mean of two readings each in
+# one call: (sp|dg) 2.194 / 2.276 / 2.321 -> 0.307 / 1.656 / 1.705, (sf|sg)
+# 1.029 / 1.081 / 1.094 -> 0.383 / 0.391 / 0.416) and on the 7 of L <= 6 as
+# before (8.5-169.9 ms
+# against 498.8-1225.3 on the block route: its fixed cost a quartet, ~30
+# us, binds the low classes' millions of quartets).  8 warps a block
+# within ERI4C_BLOCK_CAP, but 4 within ERI4C_BLOCK4_CAP (two blocks an SM
+# where the tiles allow) for the class pairs of ERI4C_BLOCK4: those where
+# 4 warps took the full build's class pair 10 % or more faster (ms, 8 warps
+# then 4, k loop unrolled): (ss|fg) 211.9, 177.1; (sp|fg)
+# 332.1, 287.7; (sd|pg) 666.1, 519.8; (sd|dg) 572.4, 363.8; (sd|fg) 203.3,
+# 152.0; (sf|dg) 154.4, 118.3; (sg|dg) 185.7, 166.2; (sg|ff) 27.6, 24.2;
+# (pp|dg) 353.1, 233.6; (pp|fg) 128.8, 107.2; (pd|pg) 533.1, 413.9;
+# (pd|dg) 416.7, 301.4; (pd|fg) 153.3, 134.8; (pf|dg) 124.5, 98.3; (dd|dg)
+# 132.8, 103.2; (dd|fg) 49.4, 44.4; (df|dg) 73.1, 59.0.  4 warps for all
+# took 11.49 s against 9.89 (K5 on the subsets 110.2 ms against 55.2).
+ERI4C_BLOCK_WARPS, ERI4C_BLOCK_CAP = 8, 200 * 1024
+ERI4C_BLOCK4_CAP = 110 * 1024
+_PAIRS = tuple((a, b) for a in range(5) for b in range(a, 5))
+ERI4C_LANE_INCLUDE = frozenset({(0, 1, 2, 4), (0, 3, 0, 4)})
+ERI4C_BLOCK = frozenset(
+    {(*_PAIRS[i], *_PAIRS[j]) for i in range(15) for j in range(i, 15)
+     if 4 in (*_PAIRS[i], *_PAIRS[j])
+     and sum((*_PAIRS[i], *_PAIRS[j])) >= 8}
+    | {(0, 0, 3, 4), (0, 2, 1, 4), (0, 4, 1, 2), (1, 1, 1, 4)})
+ERI4C_BLOCK4 = frozenset({
+    (0, 0, 3, 4), (0, 1, 3, 4), (0, 2, 1, 4), (0, 2, 2, 4), (0, 2, 3, 4),
+    (0, 3, 2, 4), (0, 4, 2, 4), (0, 4, 3, 3), (1, 1, 2, 4), (1, 1, 3, 4),
+    (1, 2, 1, 4), (1, 2, 2, 4), (1, 2, 3, 4), (1, 3, 2, 4), (2, 2, 2, 4),
+    (2, 2, 3, 4), (2, 3, 2, 4)})
 # K6's route table (csrc/eri4c.cuh DigestClass): the class pairs of K4/K5's
 # lane route whose blocks hold at most DIGEST_LANE_MAX_N integrals digest
 # one cached block a thread (lane); the rest one block a warp (warp).
@@ -93,9 +141,12 @@ NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
 
 
 def eri4c_route(la: int, lb: int, lc: int, ld: int) -> str:
-    """The route K4/K5 take for a class pair: "lane" or "warp"."""
-    lane = (la + lb + lc + ld <= ERI4C_LANE_MAX_L
-            and (la, lb, lc, ld) not in ERI4C_LANE_EXCLUDE)
+    """The route K4/K5 take for a class pair: "lane", "block" or "warp"."""
+    if (la, lb, lc, ld) in ERI4C_BLOCK:
+        return "block"
+    lane = ((la + lb + lc + ld <= ERI4C_LANE_MAX_L
+             and (la, lb, lc, ld) not in ERI4C_LANE_EXCLUDE)
+            or (la, lb, lc, ld) in ERI4C_LANE_INCLUDE)
     return "lane" if lane else "warp"
 
 
@@ -123,6 +174,40 @@ def route_flags() -> tuple:
         masks.append(m)
     return tuple(f"-DJC_ERI4C_LANE_MASK_B{i}={m:#x}"
                  for i, m in enumerate(masks))
+
+
+def eri4c_block_warps(la: int, lb: int, lc: int, ld: int) -> int:
+    """Warps a block of a block-route class pair (0 off the route)."""
+    if eri4c_route(la, lb, lc, ld) != "block":
+        return 0
+    return 4 if (la, lb, lc, ld) in ERI4C_BLOCK4 else ERI4C_BLOCK_WARPS
+
+
+def block_route_flags() -> tuple:
+    """The block route as the sources take it: JC_ERI4C_BLOCK_MASK_B<i>,
+    bit j the class pair (bra i | ket j) on the block route (the masks of
+    ``route_flags``), JC_ERI4C_BLOCK4_MASK_B<i> those of them with 4 warps
+    a block (``eri4c_block_warps``), then the warps and shared-memory cap
+    of the others and the 4-warp blocks' cap."""
+    def masks(pick):
+        out = []
+        for i, bra in enumerate(_PAIRS):
+            m = 0
+            for j in range(i, len(_PAIRS)):
+                if pick(*bra, *_PAIRS[j]):
+                    m |= 1 << j
+            out.append(m)
+        return out
+
+    block = masks(lambda *c: eri4c_route(*c) == "block")
+    block4 = masks(lambda *c: eri4c_block_warps(*c) == 4)
+    return (*(f"-DJC_ERI4C_BLOCK_MASK_B{i}={m:#x}"
+              for i, m in enumerate(block)),
+            *(f"-DJC_ERI4C_BLOCK4_MASK_B{i}={m:#x}"
+              for i, m in enumerate(block4)),
+            f"-DJC_ERI4C_BLOCK_WARPS={ERI4C_BLOCK_WARPS}",
+            f"-DJC_ERI4C_BLOCK_CAP={ERI4C_BLOCK_CAP}",
+            f"-DJC_ERI4C_BLOCK4_CAP={ERI4C_BLOCK4_CAP}")
 
 
 def eri3c_route(la: int, lb: int, lq: int) -> str:
@@ -213,6 +298,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *route_flags(),
+                                 *block_route_flags(),
                                  *eri3c_route_flags())).encode())
     for f in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(f.name.encode())
@@ -237,7 +323,7 @@ def build() -> Path:
         for src in _sources():
             obj = tmp / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, *route_flags(), *eri3c_route_flags(),
-                   "-I", str(CSRC_DIR),
+                   *block_route_flags(), "-I", str(CSRC_DIR),
                    "-c", str(src), "-o", str(obj)]
             # compiler output to a file: a pipe could fill while the build
             # polls the processes

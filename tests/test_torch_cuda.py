@@ -1226,9 +1226,8 @@ def test_k1_eri3c_g_classes(cuda_device, dtype):
 @pytest.mark.cuda
 def test_k4_eri4c_g_classes(cuda_device):
     """Every class pair with a g shell (65), all its quartets, within
-    1e-12 x the largest integral, and each class launched; the class
-    pairs whose bra expansion passes the warp cap run in bra tiles (one
-    water)."""
+    1e-12 x the largest integral, and each class launched; (gg|gg) and
+    (fg|gg) run in bra tiles on the block route (one water)."""
     from juliachem_jl_tpu_torch.basis.structs import ncart
 
     prim, _ = _waters_g(1)
@@ -1250,7 +1249,7 @@ def test_k4_eri4c_g_classes(cuda_device):
                                      eri.pair_table(ket, cuda_device))
             assert geo["route"] == kernels.eri4c_route(*cls), cls
             assert geo["blocks_per_sm"] >= 1, cls
-            if geo["route"] == "warp" and geo["AT"] < ncart(bra.la) * \
+            if geo["route"] != "lane" and geo["AT"] < ncart(bra.la) * \
                     ncart(bra.lb):
                 bra_tiled.add(cls)
     assert len(pairs) == 65
@@ -1259,6 +1258,127 @@ def test_k4_eri4c_g_classes(cuda_device):
     scale = max(float(ref.abs().max()) for _, _, ref in pairs)
     for cls, got, ref in pairs:
         assert float((got - ref).abs().max()) <= 1e-12 * scale, cls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k4", "list", "stair"])
+def test_k4_k5_each_g_class_pair_on_its_route(cuda_device, mode):
+    """One water in 6-311++G(3df,3pd)+G: each of the 65 class pairs with a
+    g shell on the route it was built with (``eri.eri4c_geometry``, held to
+    ``kernels.eri4c_route``; the block route's shared memory within 227
+    KB), its first 1 and N - 3 staircase quartets and all N: K4 against
+    ``eri4c_plain`` (1e-12 x max |I|), K5 list and staircase mode against
+    their plain versions (1e-11 x max(|J|, |K|)), class pair by class
+    pair."""
+    prim, _ = _waters_g(1)
+    sdf = fock_stream.StreamingDirectFock(prim, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(37)
+    X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
+                    device=cuda_device, generator=g)
+    D = (X + X.T).contiguous()
+    kernels.reset_launches()
+    routes = {}
+    for cp in sdf.pairs:
+        bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+        cls = (bra.la, bra.lb, ket.la, ket.lb)
+        if 4 not in cls:
+            continue
+        geo = eri.eri4c_geometry(bra, ket)
+        assert geo["route"] == kernels.eri4c_route(*cls), cls
+        assert geo["route"] != "block" or (geo["block_bytes"] <= 232448
+                                           and geo["blocks_per_sm"] >= 1)
+        routes[cls] = geo["route"]
+        got, ref = (torch.zeros((2, prim.nbf, prim.nbf), dtype=torch.float64,
+                                device=cuda_device) for _ in range(2))
+        err = scale = 0.0
+        for m in sorted({1, max(1, cp.N - 3), cp.N}):
+            t = torch.arange(m, dtype=torch.int64, device=cuda_device)
+            r, c, w = fock_stream.decode_staircase(cp.cum, t, bra, ket,
+                                                   cp.same)
+            if mode == "k4":
+                I = eri.eri4c_plain(bra, ket, r, c)
+                err = max(err, float((eri.eri4c_class(bra, ket, r, c)
+                                      - I).abs().max()))
+                scale = max(scale, float(I.abs().max()))
+            elif mode == "list":
+                fock.eri4c_jk(got, bra, ket, r, c, w, D)
+                fock.eri4c_jk_plain(ref, bra, ket, r, c, w, D)
+            else:
+                fock_stream.eri4c_jk_staircase(got, bra, ket, cp.cum, m,
+                                               cp.same, D)
+                fock_stream.eri4c_jk_staircase_plain(ref, bra, ket, cp.cum, m,
+                                                     cp.same, D)
+        if mode != "k4":
+            err = float((got - ref).abs().max())
+            scale = 1e1 * float(ref.abs().max())   # 1e-11 x max(|J|, |K|)
+        # a one-centre class pair of odd total momentum vanishes: held to
+        # the card's rounding of zero then
+        assert err <= 1e-12 * max(scale, 1e-3), (cls, err, scale)
+    assert len(routes) == 65
+    assert "block" in routes.values()
+    name = {"k4": "eri4c", "list": "eri4c_jk_list"}.get(mode, "eri4c_jk_stair")
+    assert set(kernels.class_launches[name]) == set(routes)
+
+
+LONG_BASIS = "cc-pVDZ+S12G2"
+LONG_FILE = pathlib.Path(__file__).parent / "data" / "long_s_2g.gbs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k4", "list", "stair"])
+def test_k4_k5_long_contractions_in_rounds(cuda_device, mode):
+    """One water in cc-pVDZ+S12G2 (a 12-primitive S and a 2-primitive G
+    shell on O): the g class pairs that the block route takes in rounds of
+    primitive pairs ((ss|gg): 144 x 4 padded primitive quartets), all
+    their staircase quartets, K4 against ``eri4c_plain`` (1e-12 x max |I|)
+    and K5 list and staircase mode against their plain versions (1e-11 x
+    max(|J|, |K|)), within 227 KB a block."""
+    jc.basis.register_basis_file(str(LONG_FILE), LONG_BASIS)
+    mol = jc.molecule.from_input_dict(
+        {"symbols": ["O", "H", "H"],
+         "geometry": [0.0, 0.0, 0.116321, 0.0, 0.751155, -0.465285,
+                      0.0, -0.751155, -0.465285]})
+    prim = jc.basis.build(mol, LONG_BASIS)
+    sdf = fock_stream.StreamingDirectFock(prim, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
+                    device=cuda_device, generator=g)
+    D = (X + X.T).contiguous()
+    kernels.reset_launches()
+    rounds = set()
+    for cp in sdf.pairs:
+        bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+        cls = (bra.la, bra.lb, ket.la, ket.lb)
+        geo = eri.eri4c_geometry(bra, ket)
+        if geo["route"] != "block" or (geo["RB"], geo["RK"]) == (
+                geo["Kab"], geo["Kcd"]):
+            continue
+        assert geo["block_bytes"] <= 232448 and geo["blocks_per_sm"] >= 1
+        rounds.add(cls)
+        t = torch.arange(cp.N, dtype=torch.int64, device=cuda_device)
+        r, c, w = fock_stream.decode_staircase(cp.cum, t, bra, ket, cp.same)
+        if mode == "k4":
+            I = eri.eri4c_plain(bra, ket, r, c)
+            err = float((eri.eri4c_class(bra, ket, r, c) - I).abs().max())
+            scale = float(I.abs().max())
+        else:
+            got, ref = (torch.zeros((2, prim.nbf, prim.nbf),
+                                    dtype=torch.float64, device=cuda_device)
+                        for _ in range(2))
+            if mode == "list":
+                fock.eri4c_jk(got, bra, ket, r, c, w, D)
+                fock.eri4c_jk_plain(ref, bra, ket, r, c, w, D)
+            else:
+                fock_stream.eri4c_jk_staircase(got, bra, ket, cp.cum, cp.N,
+                                               cp.same, D)
+                fock_stream.eri4c_jk_staircase_plain(ref, bra, ket, cp.cum,
+                                                     cp.N, cp.same, D)
+            err = float((got - ref).abs().max())
+            scale = 1e1 * float(ref.abs().max())   # 1e-11 x max(|J|, |K|)
+        assert err <= 1e-12 * max(scale, 1e-3), (cls, err, scale)
+    assert (0, 0, 4, 4) in rounds and (4, 4, 4, 4) in rounds
+    name = {"k4": "eri4c", "list": "eri4c_jk_list"}.get(mode, "eri4c_jk_stair")
+    assert rounds <= set(kernels.class_launches[name])
 
 
 @pytest.mark.cuda

@@ -8,10 +8,12 @@ runs that a plain version can mirror.
   T in [0, 35] and on the asymptotic branch to T = 60 (the reciprocals
   are rounded once, so the forms differ in the last bits: 3.1e-15 at
   most on this grid).
-- The lane/warp route table of ``ops/kernels.py`` against the ``-D``
-  flag the build passes (one bit mask a bra pair class, bit j the ket pair
-  class j, over the 120 class pairs to (gg|gg)) and the macros of csrc/
-  that read it.
+- The lane route of the route table of ``ops/kernels.py`` against the
+  ``-D`` flag the build passes (one bit mask a bra pair class, bit j the
+  ket pair class j, over the 120 class pairs to (gg|gg)) and the macros
+  of csrc/ that read it; a class pair of ``ERI4C_BLOCK`` takes the block
+  route, the rest the warp route (the block route's flags:
+  tests/test_torch_k4_block_design.py).
 - A plain walk of K5's j_ab reduction: the quartets t0 .. t0 + n - 1 of
   a staircase cut into 32-lane windows from t0, the runs of one bra row
   in a window taken from cum, one sum per run added to J; held to
@@ -106,9 +108,12 @@ def test_route_table_matches_the_build_and_csrc():
     for i, j in itertools.combinations_with_replacement(range(len(pcs)), 2):
         cls = (*pcs[i], *pcs[j])
         seen.add((i, j))
-        lane = (sum(cls) <= kernels.ERI4C_LANE_MAX_L
-                and cls not in kernels.ERI4C_LANE_EXCLUDE)
-        assert kernels.eri4c_route(*cls) == ("lane" if lane else "warp"), cls
+        block = cls in kernels.ERI4C_BLOCK
+        lane = ((sum(cls) <= kernels.ERI4C_LANE_MAX_L
+                 and cls not in kernels.ERI4C_LANE_EXCLUDE)
+                or cls in kernels.ERI4C_LANE_INCLUDE) and not block
+        assert kernels.eri4c_route(*cls) == (
+            "lane" if lane else "block" if block else "warp"), cls
         assert (masks[i] >> j) & 1 == lane, cls
     assert len(seen) == 120 and len(masks) == 15
     assert all(m < 1 << 15 and m & ((1 << i) - 1) == 0

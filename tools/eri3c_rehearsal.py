@@ -60,6 +60,7 @@ def build(cut: int, with_f: bool, with_g: bool = False) -> ctypes.CDLL:
     subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
                     "-pthread", *kernels.route_flags(),
                     *kernels.eri3c_route_flags(),
+                    *kernels.block_route_flags(),
                     f"-DJC_DIGEST_LANE_MAX_N={kernels.DIGEST_LANE_MAX_N}",
                     *(["-DRH_WITH_F"] if with_f else []),
                     *(["-DRH_WITH_G"] if with_g else []),

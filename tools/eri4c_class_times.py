@@ -2,9 +2,11 @@
 """Time K5 (staircase mode) or K6 (in-core digestion) class pair by class
 pair over full conventional builds on one NVIDIA GPU.
 
-    python3 tools/eri4c_class_times.py [--mode stair|digest_jk] [--root DIR]
+    python3 tools/eri4c_class_times.py [--mode stair|digest_jk|subsets]
+                                       [--root DIR] [--set NAME=EXPR ...]
                                        [--basis-file FILE --basis NAME]
-                                       [--only-l L] [--out result.json]
+                                       [--only-l L] [--no-warm]
+                                       [--out result.json]
 
 Builds the kernels of the package under ``--root`` (default: this
 checkout; another checkout, such as a parent commit unpacked beside it,
@@ -20,15 +22,24 @@ launch timed by CUDA events after a warm-up build:
   that GAMESS-US basis (registered under that name: the g basis of
   tests/data/6-311ppG_3df_3pd_G.gbs as "6-311++G(3df,3pd)+G"), and with
   ``--only-l``, only the class pairs that hold a shell of that angular
-  momentum;
+  momentum (``--no-warm``: no warm-up build first);
+- ``--mode subsets``: phase 3g of chip_smoke.py without its plain
+  references: K4, K5 list and K5 staircase on the first SUBSET_G quartets
+  of each class pair of benzene_2_water that holds a shell of
+  ``--only-l`` (default 4) in the basis of ``--basis-file``/``--basis``,
+  each class pair timed alone (``chip_smoke.class_pair_times``);
 - ``--mode digest_jk``: one in-core ScreenedDirectFock build (K4 fills the
   blocks, K6 digests them) of ammonia_trimer in its S22x3 basis
   (6-311++G(2d,2p), 5.83e6 quartets) and in 6-31G(2df,p) (1.21e6),
   ``chip_smoke.incore_k6_times`` (each class pair's K6 route is
   ``kernels.digest_route``'s, fixed when the package is built).
 
-Every line names the card and its power limit.  Needs CUDA; exits 2
-without it.
+``--set NAME=EXPR`` sets an attribute of the package's ops/kernels.py
+before the build, EXPR evaluated in that module (another route table or
+tile: ``--set ERI4C_LANE_MAX_L=7``, ``--set 'ERI4C_BLOCK=frozenset()'``,
+``--set ERI4C_BLOCK_CAP=110*1024``; the build hashes the flags).  Every
+line names the card and its power limit.  Needs CUDA; exits 2 without
+it.
 """
 
 from __future__ import annotations
@@ -44,7 +55,11 @@ HERE = Path(__file__).resolve().parents[1]
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("stair", "digest_jk"), default="stair")
+    ap.add_argument("--mode", choices=("stair", "digest_jk", "subsets"),
+                    default="stair")
+    ap.add_argument("--set", action="append", default=[],
+                    help="NAME=EXPR: an attribute of ops/kernels.py")
+    ap.add_argument("--no-warm", action="store_true")
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--basis-file")
     ap.add_argument("--basis")
@@ -75,6 +90,10 @@ def main() -> int:
     smi = smoke.sh("nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader").splitlines()[0]
     tag = f"[{smi}] [{root.name}]"
+    for item in args.set:
+        key, expr = item.split("=", 1)
+        setattr(kernels, key, eval(expr, vars(kernels)))
+        tag += f" [{key}={expr}]"
     dev = jc.initialize("cuda")
     kernels.library()
     print(f"{tag} build {kernels.build_info.get('seconds', 0.0):.1f} s",
@@ -116,6 +135,17 @@ def main() -> int:
     sp = jc.io.parse_input(inp)
     bsets = jc.basis.run(jc.molecule.run(sp), sp.model)
     nbf = bsets.primary.nbf
+    if args.mode == "subsets":
+        out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+               "root": str(root), "ptxas": regs,
+               "subsets": subset_times(smoke, tag, dev, bsets.primary,
+                                       4 if args.only_l is None
+                                       else args.only_l)}
+        jc.finalize()
+        if args.out:
+            Path(args.out).write_text(json.dumps(smoke.str_keys(out),
+                                                 indent=1, default=str))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(5)
     X = torch.randn((nbf, nbf), dtype=torch.float64, device=dev,
                     generator=gen)
@@ -124,12 +154,56 @@ def main() -> int:
            "full_build": smoke.stair_class_times(
                tag, dev, bsets.primary, X + X.T,
                f"benzene_2_water {golden['basis']}", route,
-               only_l=args.only_l)}
+               warm=not args.no_warm, only_l=args.only_l)}
     jc.finalize()
     if args.out:
         Path(args.out).write_text(json.dumps(smoke.str_keys(out), indent=1,
                                              default=str))
     return 0
+
+
+def subset_times(smoke, tag: str, dev, prim, need_l: int) -> list:
+    """chip_smoke's phase 3g cases (the first SUBSET_G quartets of each
+    class pair with a shell of angular momentum need_l, a seeded D), each
+    class pair's K4, K5 list and K5 staircase launch timed alone, after one
+    warm launch of each."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import eri, fock_stream
+
+    sdf = fock_stream.StreamingDirectFock(prim, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64, device=dev,
+                    generator=gen)
+    D = (X + X.T).contiguous()
+    cases, geometry = [], {}
+    for cp in sdf.pairs:
+        bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+        cls = (bra.la, bra.lb, ket.la, ket.lb)
+        if need_l not in cls:
+            continue
+        m = min(cp.N, smoke.SUBSET_G)
+        t = torch.arange(m, dtype=torch.int64, device=dev)
+        r, c, w = fock_stream.decode_staircase(cp.cum, t, bra, ket, cp.same)
+        n_prim, n_series = smoke.quartet_prims(bra, ket, r, c)
+        kb = (bra.meta[r, 2] * bra.meta[r, 3]).double()
+        kk = (ket.meta[c, 2] * ket.meta[c, 3]).double()
+        cases.append(dict(bra=bra, ket=ket, r=r, c=c, w=w, m=m, cum=cp.cum,
+                          same=cp.same, n_prim=n_prim, n_series=n_series,
+                          kb=float(kb.sum()), kk=float(kk.sum())))
+        geometry[cls] = (eri.eri4c_geometry(bra, ket)
+                         if hasattr(eri, "eri4c_geometry") else
+                         {"route": "warp", "blocks_per_sm": 0,
+                          "warps_per_sm": 0})
+    rows = smoke.class_pair_times(cases, D, prim.nbf, geometry)
+    for v in rows:
+        print(f"{tag} subsets class pair " + smoke.fmt_class_row(v, {}),
+              flush=True)
+    for k in ("eri4c", "eri4c_jk_list", "eri4c_jk_stair"):
+        print(f"{tag} subsets {k}: {sum(v[k]['ms'] for v in rows):.3f} ms "
+              f"over {len(rows)} class pairs, bound "
+              f"{sum(v[k]['bound_ms'] for v in rows):.4f} ms", flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 """Rehearse K4/K5/K6 (csrc/eri4c.cuh) on the CPU before a chip call.
 
     python3 tools/eri4c_rehearsal.py [--cut 3 6] [--basis 6-311++G(2d,2p)]
-                                     [--warp-cap BYTES]
+                                     [--warp-cap BYTES] [--quartets N]
+                                     [--only-l L]
 
 Compiles the device code with g++ (C++20) against a CPU stand-in for the
 CUDA builtins (tools/eri4c_rehearsal/: one std::thread per CUDA thread,
@@ -22,7 +23,13 @@ bytes off a 16-byte boundary) and on its first 45 blocks.  Bounds: K4
 one is over its bound.  Classes up to (dd|dd), and the f class pairs when
 the basis has f shells (harness.cpp's lists); ``--warp-cap`` builds the
 warp route with a smaller tile cap, so that its ket tiles run on classes
-the basis has.  The numbers say nothing of the card's speed.
+the basis has.  The block route (one quartet a block, its products on
+the emulated DMMA step) runs where the route table of ops/kernels.py puts
+it, its shared memory held to the card's 227 KB; ``--quartets N`` takes
+the first N quartets of each class pair's staircase and of each list
+batch (a block of 256 threads a quartet is slow to emulate), ``--only-l``
+only the class pairs that hold a shell of that angular momentum.  The
+numbers say nothing of the card's speed.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ def build(cut: int, warp_cap: int | None, with_f: bool,
         (["-DRH_WITH_G"] if with_g else [])
     subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
                     "-pthread", *kernels.route_flags(),
+                    *kernels.block_route_flags(),
                     f"-DJC_DIGEST_LANE_MAX_N={kernels.DIGEST_LANE_MAX_N}",
                     *extra,
                     "-I", str(HERE / "shim"), "-I", str(CSRC),
@@ -73,6 +81,9 @@ def build(cut: int, warp_cap: int | None, with_f: bool,
     lib = ctypes.CDLL(str(so))
     lib.rh_lane_mask.restype = ctypes.c_ulonglong
     lib.rh_lane_mask.argtypes = [_I]
+    lib.rh_block_mask.restype = ctypes.c_ulonglong
+    lib.rh_block_mask.argtypes = [_I]
+    lib.rh_block_geometry.argtypes = [_I] * 8 + [_P]
     lib.rh_eri4c.argtypes = [_I] * 4 + [_P, _I, _I, _P, _P, _I, _I, _P, _P,
                                         _P, _LL, _P]
     lib.rh_eri4c_jk.argtypes = [_I] * 4 + [_P, _I, _I, _P, _P, _I, _I, _P,
@@ -130,6 +141,10 @@ def main() -> int:
     ap.add_argument("--basis-file", default=None,
                     help="a GAMESS-US basis file, registered as --basis "
                          "(tests/data/6-311ppG_3df_3pd_G.gbs: the g classes)")
+    ap.add_argument("--quartets", type=int, default=None,
+                    help="the first N quartets of each class pair")
+    ap.add_argument("--only-l", type=int, default=None,
+                    help="only the class pairs with a shell of this l")
     ap.add_argument("--warp-cap", type=int, default=None,
                     help="bytes a warp-route quartet may take before its "
                          "kets are tiled (JC_ERI4C_WARP_CAP; small values "
@@ -148,6 +163,21 @@ def main() -> int:
     sdirect = fock.ScreenedDirectFock(prim, incore=False, device="cpu")
     with_f = any(3 in (b.table.la, b.table.lb) for b in sdf.blocks)
     with_g = any(4 in (b.table.la, b.table.lb) for b in sdf.blocks)
+    if args.only_l is not None:
+        # the harness's class lists of that momentum only (g++ minutes)
+        with_f, with_g = with_f and args.only_l == 3, with_g and \
+            args.only_l == 4
+        def has_l(bra, ket):
+            return args.only_l in (bra.la, bra.lb, ket.la, ket.lb)
+        sdf.pairs = [cp for cp in sdf.pairs
+                     if has_l(sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table)]
+        sdirect.groups = [g for g in sdirect.groups if has_l(g.bra, g.ket)]
+    if args.quartets is not None:
+        for cp in sdf.pairs:
+            cp.N = min(cp.N, args.quartets)
+        for g in sdirect.groups:
+            for k in ("sel_bra", "sel_ket", "weight"):
+                setattr(g, k, getattr(g, k)[:args.quartets].contiguous())
     bad = 0
 
     def report(what, err, bound):
@@ -164,9 +194,21 @@ def main() -> int:
         lib = build(cut, args.warp_cap, with_f, with_g)
         masks = ",".join(f"{lib.rh_lane_mask(i):#x}"
                          for i in range(len(eri.PAIR_CLASSES)))
-        print(f"lane cut {cut} (route masks {masks}), warp "
-              f"cap {args.warp_cap or 'as built'}, water {args.basis}, nbf "
-              f"{nbf}", flush=True)
+        bmasks = ",".join(f"{lib.rh_block_mask(i):#x}"
+                          for i in range(len(eri.PAIR_CLASSES)))
+        print(f"lane cut {cut} (route masks {masks}; block route masks "
+              f"{bmasks}), warp cap {args.warp_cap or 'as built'}, water "
+              f"{args.basis}, nbf {nbf}", flush=True)
+        geo = (ctypes.c_longlong * 5)()
+        for cp in sdf.pairs:
+            bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
+            lib.rh_block_geometry(bra.la, bra.lb, ket.la, ket.lb, bra.Ka,
+                                  bra.Kb, ket.Ka, ket.Kb, geo)
+            if geo[2]:
+                print(f"  block route ({bra.la}{bra.lb}|{ket.la}{ket.lb}): "
+                      f"CT {geo[0]}, AT {geo[1]}, rounds of {geo[3]} x "
+                      f"{geo[4]} primitive pairs, {geo[2]} B a block",
+                      flush=True)
         # K4 on the staircase's quartets, each class pair
         worst, scale = 0.0, 0.0
         for cp in sdf.pairs:

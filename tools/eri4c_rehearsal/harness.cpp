@@ -2,7 +2,9 @@
 // compiled as C++20 against shim/cuda_runtime.h, each launch emulated block
 // by block with one std::thread per CUDA thread and the grid, block size
 // and shared memory of eri4c_launch.cuh (the route of each class pair from
-// -DJC_ERI4C_LANE_MASK_B<i>, the warp route's geometry from eri4c_geometry).
+// -DJC_ERI4C_LANE_MASK_B<i> and -DJC_ERI4C_BLOCK_MASK_B<i>, the warp
+// route's geometry from eri4c_geometry, the block route's from
+// eri4c_block_geometry, its block held to the card's 227 KB).
 // The C entry points take the arguments of jc_eri4c / jc_eri4c_jk /
 // jc_digest_jk without the stream.  Classes up to (dd|dd), with
 // -DRH_WITH_F the f class pairs, to (ff|ff), and with -DRH_WITH_G the g
@@ -16,6 +18,7 @@
 
 thread_local dim3 threadIdx, blockIdx, blockDim;
 thread_local WarpCtx* tl_warp;
+thread_local std::barrier<>* tl_block;
 
 namespace jc {
 // the dynamic shared memory of the block that runs
@@ -34,6 +37,7 @@ void run_grid(long long blocks, int threads, F body) {
       bars.emplace_back(new std::barrier<>(32));
       warps[w].bar = bars.back().get();
     }
+    std::barrier<> block(threads);
     std::vector<std::thread> th;
     for (int t = 0; t < threads; ++t)
       th.emplace_back([&, t, b] {
@@ -41,6 +45,7 @@ void run_grid(long long blocks, int threads, F body) {
         blockIdx.x = (unsigned)b;
         blockDim.x = threads;
         tl_warp = &warps[t / 32];
+        tl_block = &block;
         body();
       });
     for (auto& x : th) x.join();
@@ -60,12 +65,20 @@ int eri4c(const double* pb, int Ka, int Kb, const int* mb, const double* pk,
       eri4c_lane_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb,
                                         sk, n, out);
     });
+  } else if constexpr (Eri4cClass<LA, LB, LC, LD>::kBlock) {
+    const Eri4cBlockGeometry g =
+        eri4c_block_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd, false);
+    if (g.bytes > sizeof(sm) || g.bytes > 232448) return 1;
+    run_grid(n, Eri4cBlockClass<LA, LB, LC, LD>::kThreads, [&] {
+      eri4c_block_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb,
+                                         sk, g.CT, g.AT, g.RB, g.RK, out);
+    });
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     if (g.W * g.warp_bytes > sizeof(sm)) return 1;
     run_grid(cdiv(n, g.W), 32 * g.W, [&] {
       eri4c_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk, n,
-                                   g.CT, g.AT, g.RS, out);
+                                   g.CT, g.RS, out);
     });
   }
   return 0;
@@ -85,13 +98,23 @@ int eri4c_jk(const double* pb, int Ka, int Kb, const int* mb,
                                            sk, weight, cum, n_bra, same_block,
                                            n, t0, D, nbf, JK);
     });
+  } else if constexpr (Eri4cClass<LA, LB, LC, LD>::kBlock) {
+    const Eri4cBlockGeometry g =
+        eri4c_block_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd, true);
+    if (g.bytes > sizeof(sm) || g.bytes > 232448) return 1;
+    run_grid(n, Eri4cBlockClass<LA, LB, LC, LD>::kThreads, [&] {
+      eri4c_jk_block_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk,
+                                            sb, sk, weight, cum, n_bra,
+                                            same_block, t0, g.CT, g.AT, g.RB,
+                                            g.RK, D, nbf, JK);
+    });
   } else {
     const Eri4cGeometry g = eri4c_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd);
     if (g.W * g.warp_bytes > sizeof(sm)) return 1;
     run_grid(cdiv(n, g.W), 32 * g.W, [&] {
       eri4c_jk_kernel<LA, LB, LC, LD>(pb, Ka, Kb, mb, pk, Kc, Kd, mk, sb, sk,
                                       weight, cum, n_bra, same_block, n, t0,
-                                      g.CT, g.AT, g.RS, D, nbf, JK);
+                                      g.CT, g.RS, D, nbf, JK);
     });
   }
   return 0;
@@ -280,10 +303,29 @@ int digest_jk(const int* mb, const int* mk, const int64_t* sb,
                                      D, nbf, JK);
 
 // the route mask of bra pair class i (bit j: ket pair class j on the lane
-// route)
+// route), and of the block route
 extern "C" unsigned long long rh_lane_mask(int i) {
   return jc::kEri4cLaneMasks[i];
 }
+extern "C" unsigned long long rh_block_mask(int i) {
+  return jc::kEri4cBlockMasks[i];
+}
+
+// K5's block-route geometry of a class pair: {CT, AT, bytes, RB, RK},
+// zeros off the block route
+#define RH_BLOCK_GEO(LA, LB, LC, LD)                                          \
+  if (la == LA && lb == LB && lc == LC && ld == LD) {                         \
+    if constexpr (jc::Eri4cClass<LA, LB, LC, LD>::kBlock) {                   \
+      const jc::Eri4cBlockGeometry g =                                        \
+          jc::eri4c_block_geometry<LA, LB, LC, LD>(Ka, Kb, Kc, Kd, true);     \
+      out[0] = g.CT;                                                          \
+      out[1] = g.AT;                                                          \
+      out[2] = (long long)g.bytes;                                            \
+      out[3] = g.RB;                                                          \
+      out[4] = g.RK;                                                          \
+    }                                                                         \
+    return 0;                                                                 \
+  }
 
 // K6's route of a class pair as built: lane (1) or warp (0)
 #define RH_K6_ROUTE(LA, LB, LC, LD)                                           \
@@ -294,6 +336,15 @@ extern "C" int rh_digest_lane(int la, int lb, int lc, int ld) {
   RH_CLASSES(RH_K6_ROUTE)
   RH_F_CLASSES(RH_K6_ROUTE)
   RH_G_CLASSES(RH_K6_ROUTE)
+  return 2;
+}
+
+extern "C" int rh_block_geometry(int la, int lb, int lc, int ld, int Ka,
+                                 int Kb, int Kc, int Kd, long long* out) {
+  out[0] = out[1] = out[2] = out[3] = out[4] = 0;
+  RH_CLASSES(RH_BLOCK_GEO)
+  RH_F_CLASSES(RH_BLOCK_GEO)
+  RH_G_CLASSES(RH_BLOCK_GEO)
   return 2;
 }
 

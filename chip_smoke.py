@@ -254,6 +254,20 @@ G_RECORDED = {"eri4c": "730.3 ms (gg|gg) alone 138.2 ms",
               "eri4c_jk_stair": "819.5 ms (gg|gg) alone 159.2 ms",
               "full g staircase build of benzene_2_water":
                   "94.4 s in its 65 g class pairs"}
+# K6's g class pairs and K1's g classes before their redesign (K6's warp
+# route, blocks past 110 KiB read where they lie; K1's block route with R
+# and T1 a thread an item), as the smoke and tools/eri*_class_times.py
+# recorded them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): printed
+# on a line of its own beside this run's times, never in the kernels line
+G_K6_K1_RECORDED = {
+    "digest_jk phase 3g": "12.962 ms over the 65 g class pairs, (gg|gg) "
+                          "alone 3.234 ms",
+    "digest_jk in-core build of w2": "7.517, 7.455, 7.442 ms",
+    "eri3c phase 3g": "6.593 ms over the 25 g classes, (gg|g) alone 0.498 "
+                      "ms",
+    "eri3c 3-center build": "20.091, 20.072 ms in the 25 g classes of "
+                            "benzene_2_water's, the largest (pg|d) 3.016 "
+                            "ms"}
 E_RESTART_TOL = 1e-9   # restart from the caches vs the run that wrote them
 E_FDIFF_TOL = 1e-8     # incremental Fock vs the full build each iteration
 SUBSET = 4096  # quartets per class pair in the 4-center kernel checks
@@ -878,9 +892,15 @@ def k1_routes(tag: str, calls) -> dict:
         check(g["route"] == want, f"K1 class {c['cls']} compiled on the "
               f"{g['route']} route, the table says {want}")
         if g["route"] != "lane":
+            check(g["body"] == kernels.eri3c_body(*c["cls"]),
+                  f"K1 class {c['cls']} compiled with the {g['body']} body, "
+                  f"the table says {kernels.eri3c_body(*c['cls'])}")
             check(g["smem_bytes"] <= 232448, f"K1 class {c['cls']}: "
                   f"{g['smem_bytes']} bytes of shared memory a block")
-            check(g["blocks_per_sm"] >= 2 or g["QT"] == 1,
+            # the thread body: two blocks of 4 warps an SM; the T1 body's
+            # blocks of 8 warps at least one
+            check(g["blocks_per_sm"] >= 2 or g["QT"] == 1
+                  or (g["body"] == "t1" and g["blocks_per_sm"] >= 1),
                   f"K1 class {c['cls']}: {g['blocks_per_sm']} blocks an SM")
         out[str(c["cls"])] = g
     routes = {}
@@ -889,7 +909,8 @@ def k1_routes(tag: str, calls) -> dict:
     print(f"{tag} K1 routes as compiled: " + "; ".join(
         f"{r} {len(v)} classes" for r, v in routes.items())
         + "; block route " + ", ".join(
-            f"{cls} QT {g['QT']} {g['smem_bytes']} B {g['blocks_per_sm']}/SM"
+            f"{cls} {g['body']} QT {g['QT']} {g['threads']} threads "
+            f"{g['smem_bytes']} B {g['blocks_per_sm']}/SM"
             for cls, g in out.items() if g["route"] != "lane"), flush=True)
     return out
 
@@ -1078,6 +1099,18 @@ class K1Times:
                 res.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
             out[ph] = res
         return out
+
+
+def k1_class_sum(phase: dict, pick) -> dict:
+    """K1's launches, ms and bound (summed class by class) over the classes
+    of one ``K1Times`` phase that ``pick(cls)`` selects, and the slowest."""
+    rows = {c: v for c, v in phase["classes"].items() if pick(c)}
+    big = max(rows, key=lambda c: rows[c]["ms"]) if rows else None
+    return {"classes": len(rows),
+            "launches": sum(v["launches"] for v in rows.values()),
+            "ms": sum(v["ms"] for v in rows.values()),
+            "bound_ms": sum(v.get("bound_ms", 0.0) for v in rows.values()),
+            "largest": big, "largest_ms": rows[big]["ms"] if big else 0.0}
 
 
 def fmt_k1_times(res: dict) -> str:
@@ -1364,8 +1397,11 @@ def sass_opcode(line: str) -> str | None:
 def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     """DMMA instructions in the SASS of each K2/K7 tensor-core instance of
     the built library (``cuobjdump -sass``; fails if an instance is missing
-    or has none) and of each K4/K5 block-route instance (one a class pair
-    of the route table and kernel), FFMA and no tensor-core instruction
+    or has none), of each K4/K5 block-route instance (one a class pair
+    of the route table and kernel) and of each instance of K1's T1 body
+    (one a class of its table); cp.async copies (LDGSTS) in each instance
+    of K6's block route (one a class pair of its table); FFMA and no
+    tensor-core instruction
     (an opcode ending in MMA: HMMA, HGMMA, DMMA, IMMA, ...) in K2's f32
     instance, and each instance's registers a thread as ptxas reported
     them in the build."""
@@ -1378,11 +1414,12 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     for ln in out.stdout.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :", 1)[1].strip()
-            per_fn[fn] = {"DMMA": 0, "MMA": 0, "FFMA": 0}
+            per_fn[fn] = {"DMMA": 0, "MMA": 0, "FFMA": 0, "LDGSTS": 0}
         elif fn is not None and (op := sass_opcode(ln)):
             per_fn[fn]["DMMA"] += op == "DMMA"
             per_fn[fn]["MMA"] += op.endswith("MMA")
             per_fn[fn]["FFMA"] += op == "FFMA"
+            per_fn[fn]["LDGSTS"] += op == "LDGSTS"
 
     def one(inst, frag):
         fns = [f for f in per_fn if frag in f]
@@ -1412,6 +1449,32 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
           "instances are not one a class pair of the table and kernel")
     check(all(v > 0 for v in block_fns.values()),
           "SASS: a K4/K5 block-route instance has no DMMA instruction")
+    # K1's T1 body, one instance a class of its table, each with DMMA (both
+    # products); K6's block route, one a class pair of its table, each
+    # copying its slabs by cp.async (LDGSTS)
+    t1_fns = {}
+    for f, v in per_fn.items():
+        m = re.search(r"eri3c_block_kernelILi(\d)ELi(\d)ELi(\d)E", f)
+        if m and tuple(map(int, m.groups())) in kernels.ERI3C_T1:
+            t1_fns[f] = v["DMMA"]
+    k6_fns = {f: v["LDGSTS"] for f, v in per_fn.items()
+              if "digest_jk_block_kernel" in f}
+    print(f"{tag} SASS of K1's T1 body: {len(t1_fns)} instances (the table "
+          f"has {len(kernels.ERI3C_T1)}), DMMA "
+          f"{min(t1_fns.values(), default=0)}-"
+          f"{max(t1_fns.values(), default=0)} an instance; K6's block route: "
+          f"{len(k6_fns)} instances (the table has "
+          f"{len(kernels.DIGEST_BLOCK)}), LDGSTS "
+          f"{min(k6_fns.values(), default=0)}-"
+          f"{max(k6_fns.values(), default=0)} an instance", flush=True)
+    check(len(t1_fns) == len(kernels.ERI3C_T1)
+          and all(v > 0 for v in t1_fns.values()),
+          "SASS: K1's T1-body instances are not one a class of the table, "
+          "each with DMMA")
+    check(len(k6_fns) == len(kernels.DIGEST_BLOCK)
+          and all(v > 0 for v in k6_fns.values()),
+          "SASS: K6's block-route instances are not one a class pair of the "
+          "table, each with cp.async copies")
     f32 = one("df_gather_w_f32", K2_F32_KERNEL)
     print(f"{tag} SASS of K2's f32 instance: FFMA {f32['FFMA']}, tensor-core "
           f"(*MMA) {f32['MMA']}", flush=True)
@@ -1484,12 +1547,11 @@ def fmt_instances(out: dict) -> str:
 def eri4c_registers(tag: str) -> dict:
     """Per K4/K5/K6 instance, as ptxas reported it in this process's build:
     registers a thread, stack frame and spill bytes, by kernel (the lane,
-    warp and block routes of K4 and K5, the lane and warp routes of K6) and
-    class."""
+    warp and block routes of K4, K5 and K6) and class."""
     out = ptxas_instances(re.compile(
         r"\d+(eri4c_jk_lane_kernel|eri4c_lane_kernel|eri4c_jk_kernel|"
         r"eri4c_kernel|eri4c_jk_block_kernel|eri4c_block_kernel|"
-        r"digest_jk_lane_kernel|digest_jk_warp_kernel)"
+        r"digest_jk_lane_kernel|digest_jk_warp_kernel|digest_jk_block_kernel)"
         r"ILi(\d)ELi(\d)ELi(\d)ELi(\d)E"), 4)
     print(f"{tag} K4/K5/K6 instances (ptxas): " + fmt_instances(out),
           flush=True)
@@ -1618,11 +1680,12 @@ def fourc_runners(cases, I_ref, D) -> dict:
 
 
 def class_pair_times(cases, D, nbf: int, geometry: dict) -> list[dict]:
-    """K4, K5 list and K5 staircase class pair by class pair over the cases
-    of ``check_4c`` (each launch timed alone by CUDA events, the best of
-    five after the checks' warm launches), each beside its bound
-    (``fourc_bounds`` of the one case) and its route and blocks an SM
-    (``geometry``)."""
+    """K4, K6 (on the case's K4 blocks), K5 list and K5 staircase class
+    pair by class pair over the cases of ``check_4c`` (each launch timed
+    alone by CUDA events, the best of five after the checks' warm
+    launches), each beside its bound (``fourc_bounds`` of the one case) and
+    its route and blocks an SM (``geometry``; K6's from
+    ``fock.digest_geometry``)."""
     import torch
 
     from juliachem_jl_tpu_torch.ops import eri, fock, fock_stream
@@ -1631,6 +1694,8 @@ def class_pair_times(cases, D, nbf: int, geometry: dict) -> list[dict]:
     launch = {
         "eri4c": lambda x: eri.eri4c_class(x["bra"], x["ket"], x["r"],
                                            x["c"]),
+        "digest_jk": lambda x: fock.digest_jk(JK, x["I"], x["bra"], x["ket"],
+                                              x["r"], x["c"], x["w"], D),
         "eri4c_jk_list": lambda x: fock.eri4c_jk(JK, x["bra"], x["ket"],
                                                  x["r"], x["c"], x["w"], D),
         "eri4c_jk_stair": lambda x: fock_stream.eri4c_jk_staircase(
@@ -1639,10 +1704,14 @@ def class_pair_times(cases, D, nbf: int, geometry: dict) -> list[dict]:
     for x in cases:
         cls = (x["bra"].la, x["bra"].lb, x["ket"].la, x["ket"].lb)
         b = fourc_bounds([x], nbf)
+        k6 = fock.digest_geometry(x["bra"], x["ket"])
         row = {"cls": list(cls), "quartets": x["m"],
                "route": geometry[cls]["route"],
                "blocks_per_sm": geometry[cls]["blocks_per_sm"],
-               "warps_per_sm": geometry[cls]["warps_per_sm"]}
+               "warps_per_sm": geometry[cls]["warps_per_sm"],
+               "k6_route": k6["route"], "k6_blocks_per_sm": k6["blocks_per_sm"],
+               "k6_warps_per_sm": k6["warps_per_sm"]}
+        x = {**x, "I": eri.eri4c_class(x["bra"], x["ket"], x["r"], x["c"])}
         for label, fn in launch.items():
             best = None
             for _ in range(5):
@@ -1654,6 +1723,7 @@ def class_pair_times(cases, D, nbf: int, geometry: dict) -> list[dict]:
                 t = ev[0].elapsed_time(ev[1])
                 best = t if best is None else min(best, t)
             row[label] = {"ms": best, **bound_of(*b[label])}
+        del x
         rows.append(row)
     return rows
 
@@ -1664,14 +1734,17 @@ def fmt_class_row(v: dict, regs: dict) -> str:
     c = v["cls"]
     times = ", ".join(
         f"{k} {v[k]['ms']:.3f} ms (bound {v[k]['bound_ms']:.4f})"
-        for k in ("eri4c", "eri4c_jk_list", "eri4c_jk_stair"))
+        for k in ("eri4c", "digest_jk", "eri4c_jk_list", "eri4c_jk_stair")
+        if k in v)
     inst = "".join(
         f"; {k} {r.get('registers', '?')} registers, spills "
         f"{r.get('spill_stores', '?')}/{r.get('spill_loads', '?')} B"
         for k, r in regs.items())
+    k6 = (f"; K6 route {v['k6_route']}, {v['k6_blocks_per_sm']} blocks/SM "
+          f"({v['k6_warps_per_sm']} warps)" if "k6_route" in v else "")
     return (f"({c[0]}{c[1]}|{c[2]}{c[3]}) route {v['route']}, {v['quartets']} "
             f"quartets: {times}{inst}; {v['blocks_per_sm']} blocks/SM "
-            f"({v['warps_per_sm']} warps)")
+            f"({v['warps_per_sm']} warps){k6}")
 
 
 def check_4c(tag: str, dev, name: str, bsets, seed: int,
@@ -2308,6 +2381,22 @@ def g_input(name: str, golden: dict, extra: dict | None = None,
     inp = system_input(name, {**golden, "basis": G_BASIS}, extra, scf, aux)
     inp["model"]["basis_file"] = str(ROOT / G_BASIS_FILE)
     return inp
+
+
+def w2_input(basis: str, basis_file: str | None = None) -> dict:
+    """The first 2 waters of w32, conventional RHF from SAD (CONV_SCF), in
+    ``basis`` (read from ``basis_file`` where given)."""
+    w32 = json.loads((ROOT / "juliachem_jl_tpu_torch" / "data" /
+                      "water_clusters.json").read_text())["w32"]
+    model = {"method": "RHF", "basis": basis}
+    if basis_file:
+        model["basis_file"] = str(ROOT / basis_file)
+    return {"molecule": {"symbols": w32["symbols"][:6],
+                         "geometry": w32["geometry"][:18],
+                         "molecular_charge": 0},
+            "driver": "energy", "model": model,
+            "keywords": {"scf": {**CONV_SCF, "guess": "sad"},
+                         "prop": PROPS}}
 
 
 def g_instances(tag: str, sass: dict) -> dict:
@@ -3879,12 +3968,34 @@ def main() -> int:
     for v in fourc[bz_g]["per_class"]:
         key = "".join(map(str, v["cls"]))
         v["ptxas"] = {k: sass["eri4c"].get(k, {}).get("classes", {}).get(
-            key, {}) for k in kern_of[v["route"]]}
+            key, {}) for k in (*kern_of[v["route"]],
+                               f"digest_jk_{v['k6_route']}_kernel")}
         print(f"{tag} phase 3g class pair " + fmt_class_row(v, v["ptxas"]),
               flush=True)
     print(f"{tag} phase 3g recorded before the block route (the lane and "
           f"warp routes, PERF.md §6): " + "; ".join(
               f"{k} {v}" for k, v in G_RECORDED.items()), flush=True)
+    k6_g = fourc[bz_g]["kernels"]["digest_jk"]
+    k6_gg = k6_g["largest_class"]
+    k6_routes = {}
+    for v in fourc[bz_g]["per_class"]:
+        r = k6_routes.setdefault(v["k6_route"], [0, 0.0, 0.0])
+        r[0] += 1
+        r[1] += v["digest_jk"]["ms"]
+        r[2] += v["digest_jk"]["bound_ms"]
+    print(f"{tag} phase 3g K6 on the g class pairs: {k6_g['ms']:.3f} ms "
+          f"(bound {k6_g['bound_ms']:.4f} ms, {k6_g['bound_by']}), (gg|gg) "
+          f"alone {k6_gg['ms']:.3f} ms (bound {k6_gg['bound_ms']:.4f} ms); "
+          "by K6 route (class pairs, best-of-5 ms, bound ms): " + ", ".join(
+              f"{k} {n} {ms:.3f} {b:.4f}"
+              for k, (n, ms, b) in sorted(k6_routes.items()))
+          + f". K1 on the g classes: {k1_g['ms']:.3f} ms (bound "
+          f"{k1_g['bound_ms']:.4f} ms, {k1_g['bound_by']}), (gg|g) alone "
+          f"{k1_g['largest_class']['ms']:.3f} ms (bound "
+          f"{k1_g['largest_class']['bound_ms']:.4f} ms)", flush=True)
+    print(f"{tag} phase 3g recorded before K6's block route and K1's T1 "
+          f"body (PERF.md §6): " + "; ".join(
+              f"{k} {v}" for k, v in G_K6_K1_RECORDED.items()), flush=True)
     del bsets_g
     # ... and long contractions: one water in the long-contraction g basis,
     # the g class pairs that the block route takes in rounds of primitive
@@ -4315,18 +4426,10 @@ def main() -> int:
     for k in ("direct", "streaming"):
         counts[f"{label_fc} {k} build"] = builds_f[k]["launches"]
         class_counts[f"{label_fc} {k} build"] = builds_f[k]["class_launches"]
-    w32 = json.loads((ROOT / "juliachem_jl_tpu_torch" / "data" /
-                      "water_clusters.json").read_text())["w32"]
     f_d = path(label_fd, lambda: run_system(
         tag, jc, f"w2 {F_BASIS_SMALL}", None,
         refs_fs[f"w2 {F_BASIS_SMALL} RHF"], "ScreenedDirectFock",
-        inp={"molecule": {"symbols": w32["symbols"][:6],
-                          "geometry": w32["geometry"][:18],
-                          "molecular_charge": 0},
-             "driver": "energy",
-             "model": {"method": "RHF", "basis": F_BASIS_SMALL},
-             "keywords": {"scf": {**CONV_SCF, "guess": "sad"},
-                          "prop": PROPS}}))
+        inp=w2_input(F_BASIS_SMALL)))
 
     def f_launches(label, name):   # launches of a kernel's f classes
         return sum(n for c, n in class_counts[label].get(name, {}).items()
@@ -4363,7 +4466,15 @@ def main() -> int:
     g_a = path(label_ga, lambda: run_system(
         tag, jc, bz_g, None, refs_gs.get(f"{bz_g} DF"),
         "ScreenedDFFockBuilder",
-        inp=g_input("benzene_2_water", g_bz, df_nomp)))
+        inp=g_input("benzene_2_water", g_bz, df_nomp), k1_times=True))
+    k1_g_build = k1_class_sum(g_a["k1_times"]["three_center"],
+                              lambda c: c[1] == 4)
+    print(f"{tag} {label_ga}: K1's g classes in its 3-center build(s) "
+          f"{k1_g_build['ms']:.3f} ms in {k1_g_build['launches']} launches "
+          f"(bound {k1_g_build['bound_ms']:.4f} ms), the largest "
+          f"{k1_g_build['largest']} {k1_g_build['largest_ms']:.3f} ms; "
+          "recorded before the T1 body: "
+          f"{G_K6_K1_RECORDED['eri3c 3-center build']}", flush=True)
     check(g_a["energy"] < f_a["energy"],
           f"{bz_g}: E = {g_a['energy']:.8f} is not below the 3df basis's "
           f"{f_a['energy']:.8f}")
@@ -4375,19 +4486,20 @@ def main() -> int:
     g_b = path(label_gb, lambda: run_system(
         tag, jc, f"w2 {G_BASIS}", None, refs_gs[f"w2 {G_BASIS} RHF"],
         "ScreenedDirectFock",
-        inp={"molecule": {"symbols": w32["symbols"][:6],
-                          "geometry": w32["geometry"][:18],
-                          "molecular_charge": 0},
-             "driver": "energy",
-             "model": {"method": "RHF", "basis": G_BASIS,
-                       "basis_file": str(ROOT / G_BASIS_FILE)},
-             "keywords": {"scf": {**CONV_SCF, "guess": "sad"},
-                          "prop": PROPS}}))
+        inp=w2_input(G_BASIS, G_BASIS_FILE)))
     check(g_b["incore"] == "True", f"{label_gb} did not run in-core")
     D_g = g_b["density"]
     builds_g = builds_at(tag, dev, g_b["basis"].primary, D_g, 0.5 * D_g,
                          0.5 * D_g, name=f"w2 {G_BASIS}",
                          scf_fock_s=g_b["fock_s_per_iter_f64_steady"])
+    k6_w2 = builds_g["incore"]["k6"]
+    print(f"{tag} w2 {G_BASIS}: K6 {k6_w2['ms']:.3f} ms an in-core build "
+          f"(bound {k6_w2['bound_ms']:.4f} ms, {k6_w2['bound_by']}), by K6 "
+          "route (class pairs, ms, bound ms): " + ", ".join(
+              f"{k} {v['class_pairs']} {v['ms']:.3f} {v['bound_ms']:.4f}"
+              for k, v in sorted(k6_w2["by_route"].items()))
+          + "; recorded before the block route: "
+          f"{G_K6_K1_RECORDED['digest_jk in-core build of w2']}", flush=True)
     for k in ("direct", "streaming"):
         counts[f"{label_gb} {k} build"] = builds_g[k]["launches"]
         class_counts[f"{label_gb} {k} build"] = builds_g[k]["class_launches"]

@@ -48,7 +48,12 @@
 //     kEri3cATileCap (the (fg) and (gg) bras: 157 and 328 KB; the block
 //     may hold 227 KB), A is built one tile of 16 FMT components ab at a
 //     time, each tile's product run and stored before the next; B = T1
-//     is built once per block.
+//     is built once per block.  That body keeps one item's R and one T1
+//     row (k, qi, h) a thread; for the g classes of kEri3cT1Masks
+//     (JC_ERI3C_T1_MASK_B<i>, ops/kernels.py's ERI3C_T1, chosen from the
+//     card's times) the block's body is K4/K5's block machinery instead
+//     (eri3c_block_t1: 8 warps, R level by level across the block, T1 on
+//     DMMA with M gathered from R, its aux tile within kEri3cT1Cap).
 // * the Boys series multiplies by compile-time reciprocals (boys<L, true>,
 //   boys.cuh): no f64 divide in its 128 steps;
 // * stores: the wrapper sorts each class's bra pairs by their first output
@@ -82,6 +87,9 @@
 #ifndef JC_ERI3C_LANE_MASK_B14
 #error "build with -DJC_ERI3C_LANE_MASK_B0 .. _B14 (ops/kernels.py's table)"
 #endif
+#ifndef JC_ERI3C_T1_MASK_B14
+#error "build with -DJC_ERI3C_T1_MASK_B0 .. _B14 (ops/kernels.py's table)"
+#endif
 
 namespace jc {
 
@@ -110,6 +118,19 @@ constexpr unsigned kEri3cLaneMasks[15] = {
     JC_ERI3C_LANE_MASK_B6, JC_ERI3C_LANE_MASK_B7, JC_ERI3C_LANE_MASK_B8,
     JC_ERI3C_LANE_MASK_B9, JC_ERI3C_LANE_MASK_B10, JC_ERI3C_LANE_MASK_B11,
     JC_ERI3C_LANE_MASK_B12, JC_ERI3C_LANE_MASK_B13, JC_ERI3C_LANE_MASK_B14};
+// the block route's classes whose R is built across the block and whose
+// T1 runs on DMMA (the T1 body below), in the same form: bit lq of
+// JC_ERI3C_T1_MASK_B<i>
+constexpr unsigned kEri3cT1Masks[15] = {
+    JC_ERI3C_T1_MASK_B0, JC_ERI3C_T1_MASK_B1, JC_ERI3C_T1_MASK_B2,
+    JC_ERI3C_T1_MASK_B3, JC_ERI3C_T1_MASK_B4, JC_ERI3C_T1_MASK_B5,
+    JC_ERI3C_T1_MASK_B6, JC_ERI3C_T1_MASK_B7, JC_ERI3C_T1_MASK_B8,
+    JC_ERI3C_T1_MASK_B9, JC_ERI3C_T1_MASK_B10, JC_ERI3C_T1_MASK_B11,
+    JC_ERI3C_T1_MASK_B12, JC_ERI3C_T1_MASK_B13, JC_ERI3C_T1_MASK_B14};
+// threads of a T1-body block (8 warps), and the shared memory of one
+// before its aux tile shrinks (one such block an SM)
+constexpr int kEri3cT1Threads = 256;
+constexpr size_t kEri3cT1Cap = 110 * 1024;
 
 // m16 fragments over ab of one A tile of the block route: all FM where the
 // A of one primitive pair fits kEri3cATileCap, else the most within
@@ -135,6 +156,11 @@ struct Eri3cClass {
   // the route: one (pair, aux shell) per thread, or a block per (pair,
   // aux tile) whose product runs on DMMA
   static constexpr bool kLane = (kEri3cLaneMasks[eri3c_bra(LA, LB)] >> LQ) & 1;
+  // block route: R across the block and T1 on DMMA (kT1), or R and T1 a
+  // thread an item; the threads of a block
+  static constexpr bool kT1 =
+      !kLane && ((kEri3cT1Masks[eri3c_bra(LA, LB)] >> LQ) & 1);
+  static constexpr int kThreads = kT1 ? kEri3cT1Threads : kEri3cThreads;
 };
 
 // one store into B: double, or rounded once to float
@@ -341,34 +367,116 @@ struct Eri3cSmem {
   }
 };
 
+// Shared memory of one T1-body block (Eri3cClass::kT1), in doubles: A
+// and B = T1 as in Eri3cSmem; the nprim = K2 QT Kq primitive products
+// (bra pair k, aux shell qi, aux primitive r) of the tile, each with its R
+// [NH]; the aux expansion of each aux shell of the tile as T1's B operand
+// Ec [K4q][ldE] (rows kk = r NHQ + g, columns c); and the Hermite triples
+// and product 1's k index (ints).  R's odd levels, the Boys values and X,
+// Y, Z lie at first where T1 goes, A where R and Ec were.
+template <int LA, int LB, int LQ>
+struct Eri3cT1Smem {
+  using K = Eri3cClass<LA, LB, LQ>;
+  int K4, lda, Np, ldb, K4q, ldE, nprim, P, E, B, R, Ec, A, Tab, total;
+  __host__ __device__ Eri3cT1Smem(int K2, int Kq, int QT) {
+    K4 = (K2 * K::NHB + 3) / 4 * 4;
+    lda = 16 * K::FMT + 4;
+    Np = (QT * K::NCQ + 7) / 8 * 8;
+    ldb = Np + 4;
+    K4q = (Kq * K::NHQ + 3) / 4 * 4;
+    ldE = (K::NCQ + 15) / 16 * 16 + 4;
+    nprim = K2 * QT * Kq;
+    P = 0;                             // [K2][4]: p, Px, Py, Pz
+    E = P + 4 * K2;                    // [K2][3][NE] bra E tables
+    B = E + 3 * K2 * K::NE;            // [K4][ldb]; at first R's odd
+                                       // levels, G [L + 1] and X, Y, Z [4]
+    const int scratch = nprim * (nherm(K::L - 1) + K::L + 5);
+    R = B + (K4 * ldb > scratch ? K4 * ldb : scratch);  // [nprim][NH]
+    Ec = R + nprim * K::NH;            // [QT][K4q][ldE]
+    A = R;                             // [K4][lda], once T1 is built
+    int end = Ec + QT * K4q * ldE;
+    if (A + K4 * lda > end) end = A + K4 * lda;
+    Tab = end;                         // ints: Hermite triples [NH],
+                                       // product 1's k index [2 K4q]
+    total = Tab + (K::NH + 2 * K4q + 1) / 2;
+  }
+};
+
+// bytes of shared memory of one block-route block of QT aux shells
+template <int LA, int LB, int LQ>
+__host__ __device__ inline size_t eri3c_block_bytes(int K2, int Kq, int QT) {
+  if constexpr (Eri3cClass<LA, LB, LQ>::kT1)
+    return sizeof(double) * (size_t)Eri3cT1Smem<LA, LB, LQ>(K2, Kq, QT).total;
+  else
+    return sizeof(double) * (size_t)Eri3cSmem<LA, LB, LQ>(K2, Kq, QT).total;
+}
+
 // aux shells a block-route block: the largest of 8, 4, 2, 1 whose shared
-// memory stays within kEri3cBlockCap (1 past it)
+// memory stays within kEri3cBlockCap (kEri3cT1Cap for the T1 body; 1 past
+// it)
 template <int LA, int LB, int LQ>
 __host__ __device__ inline int eri3c_tile(int K2, int Kq) {
+  constexpr size_t cap =
+      Eri3cClass<LA, LB, LQ>::kT1 ? kEri3cT1Cap : kEri3cBlockCap;
   int qt = 8;
-  while (qt > 1 && sizeof(double) * (size_t)Eri3cSmem<LA, LB, LQ>(K2, Kq, qt).total >
-                       kEri3cBlockCap)
-    qt /= 2;
+  while (qt > 1 && eri3c_block_bytes<LA, LB, LQ>(K2, Kq, qt) > cap) qt /= 2;
   return qt;
 }
 
-// ecd: [nq][Kq][NCQ][NHQ] aux expansion (ops/eri3c.py::aux_table).  Block
-// b takes bra pair b / nqt against aux shells q0 .. q0 + QT - 1, q0 = (b %
-// nqt) QT.
+// A[kk][j] = Eab[k][ab0 + j][h] of A tile TILE (components ab0 .. ab0 + 16
+// FMT - 1) with axial norms and contraction folded in, one row kk = k NHB
+// + h a thread of NT (the components at compile time); zero past the live
+// rows KL (to K4) and the components (to lda).  sE: the bra E tables of the
+// live primitive pairs, rb the pair's row, kb its live b primitives.
+template <int LA, int LB, int LQ, int TILE, int NT>
+__device__ __forceinline__ void eri3c_build_a(double* sA, int lda,
+                                              const double* sE,
+                                              const double* rb, int Ka,
+                                              int Kb, int kb, int KL, int K4,
+                                              int tid) {
+  using K = Eri3cClass<LA, LB, LQ>;
+  constexpr int NAB = K::NAB, NHB = K::NHB, NE = K::NE;
+  constexpr int AB0 = 16 * K::FMT * TILE;
+  constexpr int ABN = NAB - AB0 < 16 * K::FMT ? NAB - AB0 : 16 * K::FMT;
+  for (int kk = tid; kk < KL; kk += NT) {
+    const int k = kk / NHB;
+    int t, u, v;
+    herm_triple(kk % NHB, t, u, v);
+    const double* Ek = sE + k * 3 * NE;
+    const double cc = rb[Ka + k / kb] * rb[2 * Ka + Kb + k % kb];
+    double* arow = sA + kk * lda;
+    static_for<ABN>([&](auto j_) {
+      constexpr int j = decltype(j_)::value, ab = AB0 + j;
+      constexpr int ai = ab / K::NB, bi = ab % K::NB;
+      constexpr int ax = cart_x(LA, ai), ay = cart_y(LA, ai), az = cart_z(LA, ai);
+      constexpr int bx = cart_x(LB, bi), by = cart_y(LB, bi), bz = cart_z(LB, bi);
+      constexpr int NT1 = LA + LB + 1;
+      constexpr double f = caxial(LA, ai) * caxial(LB, bi);
+      arow[j] = Ek[(ax * (LB + 1) + bx) * NT1 + t] *
+                Ek[NE + (ay * (LB + 1) + by) * NT1 + u] *
+                Ek[2 * NE + (az * (LB + 1) + bz) * NT1 + v] * f * cc;
+    });
+    for (int j = ABN; j < lda; ++j) arow[j] = 0.0;
+  }
+  for (int e = KL * lda + tid; e < K4 * lda; e += NT) sA[e] = 0.0;
+}
+
+// The block route's body of the classes off the T1 body: R of each item
+// on one thread, T1 one (k, qi, h) a thread.  ecd: [nq][Kq][NCQ][NHQ] aux
+// expansion (ops/eri3c.py::aux_table).  Block b takes bra pair b / nqt
+// against aux shells q0 .. q0 + QT - 1, q0 = (b % nqt) QT.
 template <int LA, int LB, int LQ>
-__global__ void __launch_bounds__(kEri3cThreads)
-eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
-                   const int* __restrict__ meta,
-                   const double* __restrict__ aux, const int* __restrict__ auxk,
-                   const int64_t* __restrict__ qrow,
-                   const double* __restrict__ ecd, int nq, int Kq, int QT,
-                   const int64_t* __restrict__ cols,
-                   const int64_t* __restrict__ cols_t,
-                   const uint8_t* __restrict__ mirror, void* __restrict__ out,
-                   int f32, int64_t ld) {
+__device__ __forceinline__ void eri3c_block_thread(
+    const double* __restrict__ pair, int Ka, int Kb,
+    const int* __restrict__ meta, const double* __restrict__ aux,
+    const int* __restrict__ auxk, const int64_t* __restrict__ qrow,
+    const double* __restrict__ ecd, int nq, int Kq, int QT,
+    const int64_t* __restrict__ cols, const int64_t* __restrict__ cols_t,
+    const uint8_t* __restrict__ mirror, void* __restrict__ out, int f32,
+    int64_t ld) {
   using K = Eri3cClass<LA, LB, LQ>;
   constexpr int NAB = K::NAB, NCQ = K::NCQ, NHB = K::NHB, NHQ = K::NHQ;
-  constexpr int NH = K::NH, L = K::L, NE = K::NE;
+  constexpr int NH = K::NH, L = K::L;
   extern __shared__ double sm[];
   const Eri3cSmem<LA, LB, LQ> lay(Ka * Kb, Kq, QT);
   const int lda = lay.lda, ldb = lay.ldb;
@@ -391,35 +499,11 @@ eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
   for (int e = tid; e < 3 * k2; e += NT)
     pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sE, sP, e / 3);
   __syncthreads();
-  // 2. A[kk][j] = Eab[k][ab0 + j][h] of the tile of components ab0 ..
-  //    ab0 + 16 FMT - 1 with axial norms and contraction folded in, one
-  //    row kk = k NHB + h a thread (the components at compile time); zero
-  //    past the live rows and the components.  Tile 0 here, the others
-  //    after the product of the one before (step 5)
+  // 2. A tile 0 (eri3c_build_a), the others after the product of the one
+  //    before (step 5)
   auto build_a = [&](auto tile_) {
-    constexpr int AB0 = 16 * K::FMT * decltype(tile_)::value;
-    constexpr int ABN = NAB - AB0 < 16 * K::FMT ? NAB - AB0 : 16 * K::FMT;
-    for (int kk = tid; kk < KL; kk += NT) {
-      const int k = kk / NHB;
-      int t, u, v;
-      herm_triple(kk % NHB, t, u, v);
-      const double* Ek = sE + k * 3 * NE;
-      const double cc = rb[Ka + k / kb] * rb[2 * Ka + Kb + k % kb];
-      double* arow = sA + kk * lda;
-      static_for<ABN>([&](auto j_) {
-        constexpr int j = decltype(j_)::value, ab = AB0 + j;
-        constexpr int ai = ab / K::NB, bi = ab % K::NB;
-        constexpr int ax = cart_x(LA, ai), ay = cart_y(LA, ai), az = cart_z(LA, ai);
-        constexpr int bx = cart_x(LB, bi), by = cart_y(LB, bi), bz = cart_z(LB, bi);
-        constexpr int NT1 = LA + LB + 1;
-        constexpr double f = caxial(LA, ai) * caxial(LB, bi);
-        arow[j] = Ek[(ax * (LB + 1) + bx) * NT1 + t] *
-                  Ek[NE + (ay * (LB + 1) + by) * NT1 + u] *
-                  Ek[2 * NE + (az * (LB + 1) + bz) * NT1 + v] * f * cc;
-      });
-      for (int j = ABN; j < lda; ++j) arow[j] = 0.0;
-    }
-    for (int e = KL * lda + tid; e < K4 * lda; e += NT) sA[e] = 0.0;
+    eri3c_build_a<LA, LB, LQ, decltype(tile_)::value, NT>(
+        sA, lda, sE, rb, Ka, Kb, kb, KL, K4, tid);
   };
   build_a(std::integral_constant<int, 0>{});
   // 3. R of every (live primitive pair k, aux shell qi of the tile, live
@@ -519,6 +603,191 @@ eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
         }
     }
   });
+}
+
+
+// The T1 body of the block route (Eri3cClass::kT1: the g classes of
+// kEri3cT1Masks), K4/K5's block machinery (eri4c.cuh) in K1's block: per
+// (bra pair p, tile of QT aux shells), with the nprim = k2 QT Kq primitive
+// products f = (k QT + qi) Kq + r (live bra pair k, aux shell qi, aux
+// primitive r; zero where qi is past the class or r past the shell's live
+// primitives):
+//   Boys        a thread a product (block_boys);
+//   R           level by level across the block (block_r_levels);
+//   T1          per aux shell qi, T1[(k,h)][c] = sum_{(r,g)} M[(k,h)][(r,g)]
+//               Ec[(r,g)][c] on DMMA, M = R_{k,qi,r}[h + g] gathered from R
+//               as the fragments load (MGather; the sign (-1)^|g| is in
+//               the aux expansion), Ec the shell's aux expansion (ecd)
+//               staged in shared memory; the (qi, fragment unit) jobs
+//               spread over the warps;
+//   out         per A tile, out[ab][(qi,c)] = sum_{(k,h)} A[(k,h)][ab]
+//               T1[(k,h)][(qi,c)] on DMMA (block_mma, a unit a warp), A
+//               built once per tile (eri3c_build_a), stored as the thread
+//               body stores.
+// What it removes: the thread body ran each product's Boys and L <= 12 R
+// in one thread's registers (at QT <= 8 and Kq = 1, 8 of 128 threads
+// worked while the rest waited at the barrier) and T1 one (k, qi, h) a
+// thread in scalar FMAs, and its product gave each warp whole columns of
+// n8 fragments (2 of 4 warps busy at QT = 1).
+template <int LA, int LB, int LQ>
+__device__ __forceinline__ void eri3c_block_t1(
+    const double* __restrict__ pair, int Ka, int Kb,
+    const int* __restrict__ meta, const double* __restrict__ aux,
+    const int* __restrict__ auxk, const int64_t* __restrict__ qrow,
+    const double* __restrict__ ecd, int nq, int Kq, int QT,
+    const int64_t* __restrict__ cols, const int64_t* __restrict__ cols_t,
+    const uint8_t* __restrict__ mirror, void* __restrict__ out, int f32,
+    int64_t ld) {
+  using K = Eri3cClass<LA, LB, LQ>;
+  constexpr int NAB = K::NAB, NCQ = K::NCQ, NHB = K::NHB, NHQ = K::NHQ;
+  constexpr int NH = K::NH, L = K::L, NT = K::kThreads, NW = NT / 32;
+  constexpr int FN1 = NCQ > 8 ? 2 : 1;  // T1's n8 fragments a unit
+  static_assert(NHB >= 16, "the T1 body puts the bra Hermite rows on m16");
+  extern __shared__ double sm[];
+  const Eri3cT1Smem<LA, LB, LQ> lay(Ka * Kb, Kq, QT);
+  const int lda = lay.lda, ldb = lay.ldb, K4q = lay.K4q, ldE = lay.ldE;
+  double* sP = sm + lay.P;
+  double* sE = sm + lay.E;
+  double* sB = sm + lay.B;
+  double* sR = sm + lay.R;
+  double* sEc = sm + lay.Ec;
+  double* sA = sm + lay.A;
+  int* htab = reinterpret_cast<int*>(sm + lay.Tab);
+  int* gtab = htab + NH;
+  const int nqt = (nq + QT - 1) / QT;
+  const int64_t p = blockIdx.x / nqt;
+  const int q0 = (int)(blockIdx.x % nqt) * QT;
+  const double* rb = pair + p * (2 * Ka + 2 * Kb + 6);
+  const int* mb = meta + p * kMeta;
+  const int kb = mb[3], k2 = mb[2] * kb;
+  const int KL = k2 * NHB, K4 = (KL + 3) / 4 * 4;
+  const int nprim = k2 * QT * Kq;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // 0. the Hermite triples; product 1's k index kk = (r, g): r's offset
+  //    in a shell's R and g's order, u + v and v (MGather's table, no
+  //    sign: the aux expansion holds it), zero past the Kq NHQ rows
+  for (int e = tid; e < NH; e += NT) {
+    int t, u, v;
+    herm_triple(e, t, u, v);
+    htab[e] = t | (u << 8) | (v << 16);
+  }
+  for (int e = tid; e < K4q; e += NT) {
+    if (e < Kq * NHQ) {
+      const int r = e / NHQ;
+      int t, u, v;
+      herm_triple(e - r * NHQ, t, u, v);
+      gtab[2 * e] = r * NH;
+      gtab[2 * e + 1] = (t + u + v) | ((u + v) << 8) | (v << 16);
+    } else {
+      gtab[2 * e] = 0;
+      gtab[2 * e + 1] = 1 << 25;
+    }
+  }
+  // 1. product centres and E tables of the live bra primitive pairs; each
+  //    aux shell's expansion Ec[qi][kk][c] (zero past the class's shells,
+  //    the rows and the components)
+  for (int e = tid; e < 3 * k2; e += NT)
+    pair_prim<LA, LB>(rb, Ka, Kb, kb, e / 3, e % 3, sE, sP, e / 3);
+  for (int e = tid; e < QT * K4q * ldE; e += NT) {
+    const int qi = e / (K4q * ldE), x = e - qi * K4q * ldE;
+    const int kk = x / ldE, c = x - kk * ldE, q = q0 + qi;
+    double val = 0.0;
+    if (q < nq && kk < Kq * NHQ && c < NCQ) {
+      const int r = kk / NHQ;
+      val = ecd[(((int64_t)q * Kq + r) * NCQ + c) * NHQ + kk - r * NHQ];
+    }
+    sEc[e] = val;
+  }
+  __syncthreads();
+  // 2. Boys per product f, a thread each (G and X, Y, Z where T1 goes)
+  double* sRs = sB;                       // R's odd levels
+  double* sG = sRs + nprim * nherm(L - 1);  // [nprim][L + 1]
+  double* sQ = sG + nprim * (L + 1);        // [nprim][4]
+  for (int f = tid; f < nprim; f += NT) {
+    const int r = f % Kq, qi = (f / Kq) % QT, k = f / (Kq * QT);
+    const int q = q0 + qi;
+    if (q < nq && r < auxk[q]) {
+      const double* qa = aux + (int64_t)q * (2 * Kq + 3);
+      block_boys<L>(sP[4 * k], qa[r], sP[4 * k + 1] - qa[2 * Kq],
+                    sP[4 * k + 2] - qa[2 * Kq + 1],
+                    sP[4 * k + 3] - qa[2 * Kq + 2], sG + f * (L + 1),
+                    sQ + 4 * f);
+    } else {
+      for (int m = 0; m <= L; ++m) sG[f * (L + 1) + m] = 0.0;
+      sQ[4 * f + 1] = sQ[4 * f + 2] = sQ[4 * f + 3] = 0.0;
+    }
+  }
+  __syncthreads();
+  // 3. R level by level across the block (its last barrier ends the step)
+  block_r_levels<L, NT>(sR, sRs, sG, sQ, htab, nprim, tid);
+  // 4. T1 of each aux shell qi into B's columns qi NCQ .. + NCQ - 1, rows
+  //    to K4 (zero past the live KL: MGather's rows); B's columns past the
+  //    tile's zeroed
+  {
+    const int um = (K4 + 15) / 16, un = (NCQ + 8 * FN1 - 1) / (8 * FN1);
+    for (int job = warp; job < QT * um * un; job += NW) {
+      const int qi = job / (um * un), u = job - qi * um * un;
+      const MGather<NHB, NH> Mg{sR + qi * Kq * NH, htab, gtab, QT * Kq, KL};
+      const SmemOperand Ec{sEc + qi * K4q * ldE, ldE};
+      mma_unit<1, FN1>(Mg, Ec, (u / un) * 16, (u % un) * 8 * FN1, K4q, lane,
+                       [&](int m, int n, double x) {
+                         if (m < K4 && n < NCQ)
+                           sB[m * ldb + qi * NCQ + n] = x;
+                       });
+    }
+    const int w = ldb - QT * NCQ;
+    for (int e = tid; e < K4 * w; e += NT)
+      sB[(e / w) * ldb + QT * NCQ + e % w] = 0.0;
+  }
+  __syncthreads();
+  // 5. per A tile (A over R and Ec, which T1 has read): out[ab][qi, c] on
+  //    DMMA, a unit of one m16 by one n8 fragment a warp, stored into B
+  const uint8_t mir = mirror[p];
+  const int64_t* cp = cols + p * NAB;
+  const int64_t* ct = cols_t + p * NAB;
+  const int nout = QT * NCQ;
+  static_for<K::NTILE>([&](auto tile_) {
+    constexpr int tile = decltype(tile_)::value, AB0 = 16 * K::FMT * tile;
+    constexpr int ABN = NAB - AB0 < 16 * K::FMT ? NAB - AB0 : 16 * K::FMT;
+    if constexpr (tile > 0) __syncthreads();  // the tile before is read
+    eri3c_build_a<LA, LB, LQ, tile, NT>(sA, lda, sE, rb, Ka, Kb, kb, KL, K4,
+                                        tid);
+    __syncthreads();
+    block_mma<NT, 1, 1>(
+        SmemOperand{sA, lda}, SmemOperand{sB, ldb}, ABN, nout, K4, warp,
+        lane, [&](int m, int nn, double x) {
+          const int qi = nn / NCQ, q = q0 + qi;
+          if (m < ABN && nn < nout && q < nq) {
+            const int64_t o = (qrow[q] + nn % NCQ) * ld;
+            eri3c_store(out, f32, o + cp[AB0 + m], x);
+            if (mir) eri3c_store(out, f32, o + ct[AB0 + m], x);
+          }
+        });
+  });
+}
+
+// K1, block route: one block of Eri3cClass::kThreads threads per (bra pair,
+// tile of QT aux shells), the body of the class (kT1: eri3c_block_t1,
+// else eri3c_block_thread).
+template <int LA, int LB, int LQ>
+__global__ void __launch_bounds__(Eri3cClass<LA, LB, LQ>::kThreads)
+eri3c_block_kernel(const double* __restrict__ pair, int Ka, int Kb,
+                   const int* __restrict__ meta,
+                   const double* __restrict__ aux, const int* __restrict__ auxk,
+                   const int64_t* __restrict__ qrow,
+                   const double* __restrict__ ecd, int nq, int Kq, int QT,
+                   const int64_t* __restrict__ cols,
+                   const int64_t* __restrict__ cols_t,
+                   const uint8_t* __restrict__ mirror, void* __restrict__ out,
+                   int f32, int64_t ld) {
+  if constexpr (Eri3cClass<LA, LB, LQ>::kT1)
+    eri3c_block_t1<LA, LB, LQ>(pair, Ka, Kb, meta, aux, auxk, qrow, ecd, nq,
+                               Kq, QT, cols, cols_t, mirror, out, f32, ld);
+  else
+    eri3c_block_thread<LA, LB, LQ>(pair, Ka, Kb, meta, aux, auxk, qrow, ecd,
+                                   nq, Kq, QT, cols, cols_t, mirror, out, f32,
+                                   ld);
 }
 
 }  // namespace jc

@@ -21,8 +21,9 @@ inline cudaError_t eri3c_block_prepare(size_t bytes) {
 
 // K1 launches the route of its class (Eri3cClass::kLane): the lane route
 // 128 threads a block, four warps of 32 pairs x one aux shell each, no
-// shared memory; the block route one block of 128 threads per (pair, aux
-// tile), QT = eri3c_tile.
+// shared memory; the block route one block of Eri3cClass::kThreads
+// threads (128, or kEri3cT1Threads for the T1 body) per (pair, aux tile),
+// QT = eri3c_tile.
 template <int LA, int LB, int LQ>
 int eri3c_launch(const double* pair, const int* meta, long long n, int Ka,
                  int Kb, const double* aux, const int* auxk,
@@ -45,13 +46,13 @@ int eri3c_launch(const double* pair, const int* meta, long long n, int Ka,
                                               ld);
   } else {
     const int QT = eri3c_tile<LA, LB, LQ>(Ka * Kb, Kq);
-    const size_t bytes =
-        sizeof(double) * (size_t)Eri3cSmem<LA, LB, LQ>(Ka * Kb, Kq, QT).total;
+    const size_t bytes = eri3c_block_bytes<LA, LB, LQ>(Ka * Kb, Kq, QT);
     const cudaError_t err = eri3c_block_prepare<LA, LB, LQ>(bytes);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = n * ((nq + QT - 1) / QT);
     if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
-    eri3c_block_kernel<LA, LB, LQ><<<(unsigned)blocks, kEri3cThreads, bytes,
+    eri3c_block_kernel<LA, LB, LQ><<<(unsigned)blocks,
+                                     Eri3cClass<LA, LB, LQ>::kThreads, bytes,
                                      stream>>>(pair, Ka, Kb, meta, aux, auxk,
                                                qr, ecd, nq, Kq, QT, cs, ct, mi,
                                                out, f32, ld);
@@ -60,8 +61,8 @@ int eri3c_launch(const double* pair, const int* meta, long long n, int Ka,
 }
 
 // The geometry of a class as eri3c_launch takes it: out = route (0 lane, 1
-// block), QT, threads, shared-memory bytes a block, blocks an SM
-// (CUDA's occupancy calculator).
+// block, 2 block with the T1 body), QT, threads, shared-memory bytes a
+// block, blocks an SM (CUDA's occupancy calculator).
 template <int LA, int LB, int LQ>
 int eri3c_geometry(int Ka, int Kb, int Kq, long long* out) {
   using K = Eri3cClass<LA, LB, LQ>;
@@ -75,17 +76,16 @@ int eri3c_geometry(int Ka, int Kb, int Kq, long long* out) {
         &blocks, eri3c_lane_kernel<LA, LB, LQ>, kEri3cThreads, 0);
   } else {
     const int QT = eri3c_tile<LA, LB, LQ>(Ka * Kb, Kq);
-    const size_t bytes =
-        sizeof(double) * (size_t)Eri3cSmem<LA, LB, LQ>(Ka * Kb, Kq, QT).total;
-    out[0] = 1;
+    const size_t bytes = eri3c_block_bytes<LA, LB, LQ>(Ka * Kb, Kq, QT);
+    out[0] = K::kT1 ? 2 : 1;
     out[1] = QT;
     out[3] = (long long)bytes;
     err = eri3c_block_prepare<LA, LB, LQ>(bytes);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, eri3c_block_kernel<LA, LB, LQ>, kEri3cThreads, bytes);
+          &blocks, eri3c_block_kernel<LA, LB, LQ>, K::kThreads, bytes);
   }
-  out[2] = kEri3cThreads;
+  out[2] = K::kThreads;
   out[4] = blocks;
   return (int)err;
 }

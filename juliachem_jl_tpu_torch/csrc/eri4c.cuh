@@ -95,15 +95,17 @@
 // atomicAdd (native on sm_90), so J/K change in the last bits from run to
 // run.
 //
-// K6 digests cached blocks on two routes (the K6 section below): a block
-// a thread for the small blocks of K4/K5's lane class pairs (a warp's 32
-// blocks, contiguous in I, staged by 16-byte cp.async copies, K5's
-// lane_digest, the targets that lanes share summed before their atomics;
-// the in-core batches are bra-row-major,
-// ops/schwarz.py::screened_quartets), and a block a warp for the rest.
-// DMMA for the warp route's products (the d/f class pairs), one
-// persistent launch over all classes and the warp route's slices sized by
-// the live primitive counts are later work.
+// K6 digests cached blocks on three routes (the K6 section below): a
+// block a thread for the small blocks of K4/K5's lane class pairs (a
+// warp's 32 blocks, contiguous in I, staged by 16-byte cp.async copies,
+// K5's lane_digest, the targets that lanes share summed before their
+// atomics; the in-core batches are bra-row-major,
+// ops/schwarz.py::screened_quartets), a block a CTA for the large g blocks
+// (read once through shared memory in slabs of one a, by a ring of
+// cp.async stages, each slab digested as it lands), and a block a warp
+// for the rest.  DMMA for the warp route's products (the d/f class
+// pairs), one persistent launch over all classes and the warp route's
+// slices sized by the live primitive counts are later work.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -1247,6 +1249,80 @@ __host__ __device__ Eri4cBlockGeometry eri4c_block_geometry(int Ka, int Kb,
   return g;
 }
 
+// Boys of one primitive product (exponents p, q, centres P - Q = (X, Y,
+// Z)), for the block routes of K4/K5 and K1, a thread each: G[n] =
+// (-2 alpha)^n F_n(T) pref (n = 0..L), the one entry of level n of the R
+// recursion that it does not derive, and X, Y, Z into Q[1..3].
+template <int L>
+__device__ __forceinline__ void block_boys(double p, double q, double X,
+                                           double Y, double Z, double* G,
+                                           double* Q) {
+  const double psum = p + q, alpha = p * q / psum;
+  const double T = alpha * (X * X + Y * Y + Z * Z);
+  const double pref = kTwoPiPow2_5 / (p * q * sqrt(psum));
+  double F[L + 1];
+  boys<L, true>(T, F);
+  double pw = 1.0;
+  for (int m = 0; m <= L; ++m) {
+    G[m] = pw * (F[m] * pref);
+    pw = pw * (-2.0 * alpha);
+  }
+  Q[1] = X;
+  Q[2] = Y;
+  Q[3] = Z;
+}
+
+// R of nprim primitive products by hermite_R's downward recursion, by the
+// NT threads of a block, one level n = L .. 0 at a time and one barrier a
+// level: the nherm(L - n) entries of level n from level n + 1, the even
+// levels in sR ([nprim][nherm(L)]), the odd ones in sRs ([nprim][nherm(L -
+// 1)]), so that level 0 lands in sR.  sG [nprim][L + 1] and sQ [nprim][4]
+// from block_boys, htab the Hermite triples (t | u << 8 | v << 16).
+template <int L, int NT>
+__device__ __forceinline__ void block_r_levels(double* sR, double* sRs,
+                                               const double* sG,
+                                               const double* sQ,
+                                               const int* htab, int nprim,
+                                               int tid) {
+  constexpr int NH = nherm(L), NHS = nherm(L - 1);
+  for (int n = L; n >= 0; --n) {
+    const bool even = (n & 1) == 0;
+    double* dst = even ? sR : sRs;
+    const double* src = even ? sRs : sR;
+    const int sd = even ? NH : NHS, ss = even ? NHS : NH;
+    const int nl = nherm(L - n);
+    for (int it = tid; it < nprim * nl; it += NT) {
+      const int f = it / nl, h = it - f * nl;
+      double val;
+      if (h == 0) {
+        val = sG[f * (L + 1) + n];
+      } else {
+        const int p = htab[h];
+        const int t = p & 255, u = (p >> 8) & 255, v = p >> 16;
+        const double* Rs = src + f * ss;
+        if (t > 0) {
+          const double hi = Rs[herm_index(t - 1, u, v)];
+          val = t >= 2 ? (t - 1) * Rs[herm_index(t - 2, u, v)] +
+                             sQ[4 * f + 1] * hi
+                       : sQ[4 * f + 1] * hi;
+        } else if (u > 0) {
+          const double hi = Rs[herm_index(t, u - 1, v)];
+          val = u >= 2 ? (u - 1) * Rs[herm_index(t, u - 2, v)] +
+                             sQ[4 * f + 2] * hi
+                       : sQ[4 * f + 2] * hi;
+        } else {
+          const double hi = Rs[herm_index(t, u, v - 1)];
+          val = v >= 2 ? (v - 1) * Rs[herm_index(t, u, v - 2)] +
+                             sQ[4 * f + 3] * hi
+                       : sQ[4 * f + 3] * hi;
+        }
+      }
+      dst[f * sd + h] = val;
+    }
+    __syncthreads();
+  }
+}
+
 // An operand in shared memory, k-major: X[k][i] at s[k * ld + i].
 struct SmemOperand {
   const double* s;
@@ -1293,56 +1369,65 @@ struct MGather {
   }
 };
 
-// C[m][n] = sum_k A(k, m) B(k, n) for m < M, n < N, k < K4 (a multiple of
-// 4, both operands zero past the live k) on the NT / 32 warps of a block:
-// a warp's unit is FM x FN fragments (16 FM rows, 8 FN columns), warp w
-// takes the units w, w + NW, ...; store(m, n, value) for every element of
-// a unit (past M and N too: store drops those).
+// One warp's unit of C[m][n] = sum_k A(k, m) B(k, n): the FM x FN
+// fragments (16 FM rows, 8 FN columns) from (m0, n0), over k < K4 (a
+// multiple of 4, both operands zero past the live k); store(m, n, value)
+// for every element of the unit (past the caller's M and N too: store
+// drops those).
+template <int FM, int FN, class OA, class OB, class Store>
+__device__ __forceinline__ void mma_unit(const OA& A, const OB& B, int m0,
+                                         int n0, int K4, int lane,
+                                         Store&& store) {
+  const int g = lane >> 2, t = lane & 3;
+  typename OA::Idx ia[FM][2];
+  typename OB::Idx ib[FN];
+#pragma unroll
+  for (int u = 0; u < FM; ++u) {
+    ia[u][0] = A.at(m0 + 16 * u + g);
+    ia[u][1] = A.at(m0 + 16 * u + 8 + g);
+  }
+#pragma unroll
+  for (int v = 0; v < FN; ++v) ib[v] = B.at(n0 + 8 * v + g);
+  DmmaTile<FM, FN> acc;
+  acc.zero();
+  // unrolled so that the loads (and M's gathers) of the next k-steps
+  // are in flight while a step's DMMAs wait on the accumulators
+#pragma unroll 4
+  for (int k0 = 0; k0 < K4; k0 += 4) {
+    typename DmmaTile<FM, FN>::AFrag a;
+    double b[FN];
+#pragma unroll
+    for (int u = 0; u < FM; ++u) {
+      a.v[u][0] = A.get(ia[u][0], k0 + t);
+      a.v[u][1] = A.get(ia[u][1], k0 + t);
+    }
+#pragma unroll
+    for (int v = 0; v < FN; ++v) b[v] = B.get(ib[v], k0 + t);
+    acc.step_ab(a, b);
+  }
+#pragma unroll
+  for (int u = 0; u < FM; ++u)
+#pragma unroll
+    for (int v = 0; v < FN; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store(m0 + DmmaTile<FM, FN>::row(u, e, lane),
+              n0 + DmmaTile<FM, FN>::col(v, e, lane), acc.c[u][v][e]);
+}
+
+// C[m][n] = sum_k A(k, m) B(k, n) for m < M, n < N, k < K4 on the NT / 32
+// warps of a block: a warp's unit is FM x FN fragments (mma_unit), warp w
+// takes the units w, w + NW, ...
 template <int NT, int FM, int FN, class OA, class OB, class Store>
 __device__ __forceinline__ void block_mma(const OA& A, const OB& B, int M,
                                           int N, int K4, int warp, int lane,
                                           Store&& store) {
   constexpr int NW = NT / 32;
-  const int g = lane >> 2, t = lane & 3;
   const int um = (M + 16 * FM - 1) / (16 * FM);
   const int un = (N + 8 * FN - 1) / (8 * FN);
-  for (int unit = warp; unit < um * un; unit += NW) {
-    const int m0 = (unit / un) * 16 * FM, n0 = (unit % un) * 8 * FN;
-    typename OA::Idx ia[FM][2];
-    typename OB::Idx ib[FN];
-#pragma unroll
-    for (int u = 0; u < FM; ++u) {
-      ia[u][0] = A.at(m0 + 16 * u + g);
-      ia[u][1] = A.at(m0 + 16 * u + 8 + g);
-    }
-#pragma unroll
-    for (int v = 0; v < FN; ++v) ib[v] = B.at(n0 + 8 * v + g);
-    DmmaTile<FM, FN> acc;
-    acc.zero();
-    // unrolled so that the loads (and M's gathers) of the next k-steps
-    // issue while a step's DMMAs wait on the accumulators
-#pragma unroll 4
-    for (int k0 = 0; k0 < K4; k0 += 4) {
-      typename DmmaTile<FM, FN>::AFrag a;
-      double b[FN];
-#pragma unroll
-      for (int u = 0; u < FM; ++u) {
-        a.v[u][0] = A.get(ia[u][0], k0 + t);
-        a.v[u][1] = A.get(ia[u][1], k0 + t);
-      }
-#pragma unroll
-      for (int v = 0; v < FN; ++v) b[v] = B.get(ib[v], k0 + t);
-      acc.step_ab(a, b);
-    }
-#pragma unroll
-    for (int u = 0; u < FM; ++u)
-#pragma unroll
-      for (int v = 0; v < FN; ++v)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          store(m0 + DmmaTile<FM, FN>::row(u, e, lane),
-                n0 + DmmaTile<FM, FN>::col(v, e, lane), acc.c[u][v][e]);
-  }
+  for (int unit = warp; unit < um * un; unit += NW)
+    mma_unit<FM, FN>(A, B, (unit / un) * 16 * FM, (unit % un) * 8 * FN, K4,
+                     lane, store);
 }
 
 // The (ab|cd) block of one quartet by the threads of one block, round by
@@ -1460,66 +1545,14 @@ __device__ void eri4c_block(const double* rb, int Ka, int Kb, const int* mb,
       double* sQ = sG + nprim * (L + 1);   // [nprim][4]
       for (int f = tid; f < nprim; f += NT) {
         const int k = f / nk, l = f - k * nk;
-        const double p = sPb[4 * k], q = sPk[4 * l];
-        const double X = sPb[4 * k + 1] - sPk[4 * l + 1];
-        const double Y = sPb[4 * k + 2] - sPk[4 * l + 2];
-        const double Z = sPb[4 * k + 3] - sPk[4 * l + 3];
-        const double psum = p + q, alpha = p * q / psum;
-        const double T = alpha * (X * X + Y * Y + Z * Z);
-        const double pref = kTwoPiPow2_5 / (p * q * sqrt(psum));
-        double F[L + 1];
-        boys<L, true>(T, F);
-        double pw = 1.0;
-        for (int m = 0; m <= L; ++m) {
-          sG[f * (L + 1) + m] = pw * (F[m] * pref);
-          pw = pw * (-2.0 * alpha);
-        }
-        sQ[4 * f + 1] = X;
-        sQ[4 * f + 2] = Y;
-        sQ[4 * f + 3] = Z;
+        block_boys<L>(sPb[4 * k], sPk[4 * l], sPb[4 * k + 1] - sPk[4 * l + 1],
+                      sPb[4 * k + 2] - sPk[4 * l + 2],
+                      sPb[4 * k + 3] - sPk[4 * l + 3], sG + f * (L + 1),
+                      sQ + 4 * f);
       }
       __syncthreads();
-      // 3. R by hermite_R's downward recursion, one level n = L .. 0 at a
-      //    time over the round's primitive quartets and one barrier a
-      //    level: the nherm(L - n) entries of level n from level n + 1, the
-      //    even levels in R, the odd ones in sRs, so that level 0 lands in
-      //    R
-      for (int n = L; n >= 0; --n) {
-        const bool even = (n & 1) == 0;
-        double* dst = even ? sR : sRs;
-        const double* src = even ? sRs : sR;
-        const int sd = even ? NH : NHS, ss = even ? NHS : NH;
-        const int nl = nherm(L - n);
-        for (int it = tid; it < nprim * nl; it += NT) {
-          const int f = it / nl, h = it - f * nl;
-          double val;
-          if (h == 0) {
-            val = sG[f * (L + 1) + n];
-          } else {
-            const int p = htab[h];
-            const int t = p & 255, u = (p >> 8) & 255, v = p >> 16;
-            const double* Rs = src + f * ss;
-            if (t > 0) {
-              const double hi = Rs[herm_index(t - 1, u, v)];
-              val = t >= 2 ? (t - 1) * Rs[herm_index(t - 2, u, v)] +
-                                 sQ[4 * f + 1] * hi
-                           : sQ[4 * f + 1] * hi;
-            } else if (u > 0) {
-              const double hi = Rs[herm_index(t, u - 1, v)];
-              val = u >= 2 ? (u - 1) * Rs[herm_index(t, u - 2, v)] +
-                                 sQ[4 * f + 2] * hi
-                           : sQ[4 * f + 2] * hi;
-            } else {
-              const double hi = Rs[herm_index(t, u, v - 1)];
-              val = v >= 2 ? (v - 1) * Rs[herm_index(t, u, v - 2)] +
-                                 sQ[4 * f + 3] * hi
-                           : sQ[4 * f + 3] * hi;
-            }
-          }
-          dst[f * sd + h] = val;
-        }
-        __syncthreads();
-      }
+      // 3. R level by level over the round's primitive quartets
+      block_r_levels<L, NT>(sR, sRs, sG, sQ, htab, nprim, tid);
       // 4. the tiles.  A tile's expansion Eab[(k,h)][j] (Ecd[(l,g)][j]): the
       //    three per-dimension E factors, the axial norms and the
       //    contraction product of component j, zero past the live rows
@@ -1894,26 +1927,28 @@ eri4c_jk_block_kernel(const double* __restrict__ pb, int Ka, int Kb,
 // ------------------------------------------------------------------- K6
 
 // Copies cnt doubles from src (8-byte aligned) to dst (16-byte aligned) by
-// this lane's share of 16-byte cp.async copies (one 8-byte copy first
-// when src is not 16-byte aligned), and returns where src[0] lands
-// (dst or dst + 1): the copies of a warp read src in whole sectors.  The
+// thread t's share (of NTH threads: a warp's lanes, or a block's threads)
+// of 16-byte cp.async copies (one 8-byte copy first when src is not
+// 16-byte aligned), and returns where src[0] lands (dst or dst + 1;
+// dst holds cnt + 2 doubles): the copies read src in whole sectors.  The
 // caller commits and waits.
+template <int NTH = 32>
 __device__ __forceinline__ const double* stage_doubles(double* dst,
                                                        const double* src,
-                                                       int64_t cnt, int lane) {
+                                                       int64_t cnt, int t) {
   const int off = (int)((reinterpret_cast<uintptr_t>(src) >> 3) & 1);
-  if (off && lane == 0 && cnt > 0) cp_async8(dst + 1, src, true);
+  if (off && t == 0 && cnt > 0) cp_async8(dst + 1, src, true);
   const double* s2 = src + off;
   double* d2 = dst + 2 * off;
   const int64_t m = cnt - off;
-  for (int64_t p = 2 * lane; p < m; p += 64)
+  for (int64_t p = 2 * t; p < m; p += 2 * NTH)
     cp_async16(d2 + p, s2 + p, p + 1 < m ? 16 : 8);
   return dst + off;
 }
 
-// K6's routes, each class pair's fixed at compile time by DigestClass::kLane
-// (ops/kernels.py's digest_route mirrors it), chosen class by class from
-// the card's times at the full in-core size:
+// K6's routes, each class pair's fixed at compile time by DigestClass
+// (kLane, kBlock; ops/kernels.py's digest_route mirrors it), chosen class
+// by class from the card's times at the full in-core size:
 // * lane route, for the class pairs of K4/K5's lane route
 //   (Eri4cClass::kLane) whose blocks hold at most JC_DIGEST_LANE_MAX_N
 //   integrals: one cached block a thread, kDigestLaneBlock threads a block;
@@ -1924,15 +1959,42 @@ __device__ __forceinline__ const double* stage_doubles(double* dst,
 //   shell c (run_sums: a row's kets come sorted by their first shell), and
 //   k_ad, k_bd over those of one bra row and ket shell d, wherever they lie
 //   (group_sums), before their atomics;
+// * block route, for the large g blocks of JC_DIGEST_BLOCK_MASK_B<i>: one
+//   cached block a CTA of kDigestBlockThreads threads, streamed through
+//   shared memory once in slabs of one a (NB NCD doubles, contiguous in
+//   I) by a ring of kDigestBlockStages slabs of 16-byte cp.async copies,
+//   each slab digested as it lands (digest_jk_block_kernel).  What bound
+//   the warp route there: bytes.  A block past the stage cap (405 KB at
+//   (gg|gg)) was read where it lies by one warp, each of its 6 images
+//   walking the block at its own stride, five of them one 32-byte sector
+//   per 8-byte value (~20x the block's bytes), with one warp a block in
+//   flight: (gg|gg) 3.234 ms against 0.132 of bound (NVIDIA H100 80GB
+//   HBM3, 700 W; PERF.md §6).  Now each block is read once, in whole
+//   sectors, and the digestion (6 FMAs a value, no reuse) runs from
+//   shared memory;
 // * warp route, for the rest: one block a warp, as many warps as blocks,
-//   the block and its D blocks loaded and digested at once (its outputs
-//   spread over the lanes, so that the atomics of one block's contiguous
-//   outputs share sectors), one atomic an output.  The block is staged in
-//   shared memory while block and D blocks take at most kEri4cWarpCap (to
-//   (ff|ff), 85 KB); a larger block (the g class pairs from (dg|ff): 405
-//   KB at (gg|gg)) stays in global memory, each output reading its row or
-//   column of it there, and only the D blocks are staged.
+//   the block and its D blocks staged in the warp's shared memory and
+//   digested at once (its outputs spread over the lanes, so that the
+//   atomics of one block's contiguous outputs share sectors), one atomic
+//   an output.  Block and D blocks take at most kDigestWarpCap (85 KB at
+//   (ff|ff)): a larger block takes the block route.
 constexpr int kDigestLaneBlock = 128;
+constexpr size_t kDigestWarpCap = 110 * 1024;
+// the block route's CTA (8 warps) and the slabs in flight in its ring
+constexpr int kDigestBlockThreads = 256;
+constexpr int kDigestBlockStages = 2;
+#ifndef JC_DIGEST_BLOCK_MASK_B14
+#error "build with -DJC_DIGEST_BLOCK_MASK_B0 .. _B14 (ops/kernels.py's table)"
+#endif
+// K6's block route, in the form of K4/K5's masks: bit j of
+// JC_DIGEST_BLOCK_MASK_B<i> is the class pair (bra i | ket j) on it
+constexpr unsigned kDigestBlockMasks[15] = {
+    JC_DIGEST_BLOCK_MASK_B0, JC_DIGEST_BLOCK_MASK_B1, JC_DIGEST_BLOCK_MASK_B2,
+    JC_DIGEST_BLOCK_MASK_B3, JC_DIGEST_BLOCK_MASK_B4, JC_DIGEST_BLOCK_MASK_B5,
+    JC_DIGEST_BLOCK_MASK_B6, JC_DIGEST_BLOCK_MASK_B7, JC_DIGEST_BLOCK_MASK_B8,
+    JC_DIGEST_BLOCK_MASK_B9, JC_DIGEST_BLOCK_MASK_B10,
+    JC_DIGEST_BLOCK_MASK_B11, JC_DIGEST_BLOCK_MASK_B12,
+    JC_DIGEST_BLOCK_MASK_B13, JC_DIGEST_BLOCK_MASK_B14};
 
 template <int LA, int LB, int LC, int LD>
 struct DigestClass {
@@ -1941,16 +2003,32 @@ struct DigestClass {
   // the lane route: K4/K5's lane class pairs whose blocks hold at most
   // JC_DIGEST_LANE_MAX_N integrals
   static constexpr bool kLane = C::kLane && N <= JC_DIGEST_LANE_MAX_N;
+  // the block route: the class pairs of the block masks (off the lane
+  // route)
+  static constexpr bool kBlock =
+      !kLane &&
+      ((kDigestBlockMasks[pair_class(LA, LB)] >> pair_class(LC, LD)) & 1);
   // lane route: doubles a warp stages (its 32 blocks and one to realign)
   static constexpr int kWarpStage = 32 * N + 2;
-  // warp route: whether the block is staged beside its D blocks
+  // warp route: a warp's block and D blocks, and whether they fit its
+  // stage (the route takes only those that do)
+  static constexpr int kWarpDoubles = N + C::NDG;
   static constexpr bool kStage =
-      sizeof(double) * (size_t)(N + C::NDG) <= kEri4cWarpCap;
-  // warp route: a warp's D blocks and, staged, its block
-  static constexpr int kWarpDoubles = kStage ? N + C::NDG : C::NDG;
-  // bytes of dynamic shared memory a warp takes on its route
+      sizeof(double) * (size_t)kWarpDoubles <= kDigestWarpCap;
+  // block route: one slab (one a: NB NCD doubles) and its stage in the
+  // ring (two more to realign, even: each stage 16-byte aligned); the
+  // ring, then the D blocks and the slab's partial sums of k_ac, j_ab
+  // ([NB][NC] each) and k_ad ([NB][ND])
+  static constexpr int kSlab = C::NB * C::NCD;
+  static constexpr int kSlabStage = (kSlab + 3) / 2 * 2;
+  static constexpr int kBlockDoubles =
+      kDigestBlockStages * kSlabStage + C::NDG + 2 * C::NB * C::NC +
+      C::NB * C::ND;
+  // bytes of dynamic shared memory a warp takes on the lane and warp
+  // routes, a CTA on the block route
   static constexpr size_t warp_bytes() {
-    return sizeof(double) * (kLane ? kWarpStage : kWarpDoubles);
+    return sizeof(double) *
+           (kLane ? kWarpStage : kBlock ? kBlockDoubles : kWarpDoubles);
   }
 };
 
@@ -2032,8 +2110,8 @@ digest_jk_lane_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
 }
 
 // K6, warp route: cached block q of warp q, copied into the warp's shared
-// memory with its D blocks (or, past the stage cap, read where it lies)
-// and digested at once (jk_element, one f64 atomic an output).
+// memory with its D blocks and digested at once (jk_element, one f64
+// atomic an output).
 template <int LA, int LB, int LC, int LD>
 __global__ void __launch_bounds__(32 * kEri4cMaxWarps)
 digest_jk_warp_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
@@ -2044,20 +2122,20 @@ digest_jk_warp_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
                       const double* __restrict__ D, int64_t nbf, double* JK) {
   using C = Eri4cClass<LA, LB, LC, LD>;
   using G = DigestClass<LA, LB, LC, LD>;
+  static_assert(G::kStage, "a block past the warp's stage takes the block "
+                           "route (ops/kernels.py DIGEST_BLOCK)");
   constexpr int N = C::NAB * C::NCD;
   extern __shared__ double sm[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
   if (q >= n) return;
-  double* sw = sm + (int64_t)warp * G::kWarpDoubles;
-  double* sDg = G::kStage ? sw + N : sw;
+  double* sI = sm + (int64_t)warp * G::kWarpDoubles;
+  double* sDg = sI + N;
   const double* Iq = I + q * N;
-  const double* sI = G::kStage ? sw : Iq;
   const int64_t r = sel_bra[q], c = sel_ket[q];
   const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
   const int64_t oc = mk[c * kMeta], od = mk[c * kMeta + 1];
-  if constexpr (G::kStage)
-    for (int e = lane; e < N; e += 32) sw[e] = Iq[e];
+  for (int e = lane; e < N; e += 32) sI[e] = Iq[e];
   for (int e = lane; e < C::NDG; e += 32)
     sDg[e] = dg_element<LA, LB, LC, LD>(e, oa, ob, oc, od, D, nbf);
   __syncwarp();
@@ -2067,6 +2145,177 @@ digest_jk_warp_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
     const double s = jk_element<LA, LB, LC, LD>(sI, sDg, e, oa, ob, oc, od,
                                                 nbf, JK, JK + nbf * nbf, dst);
     atomicAdd(dst, w * s);
+  }
+}
+
+
+// K6, block route: cached block q of CTA q, streamed through shared
+// memory in slabs of one a (S[b][c][d] = I[a b][c d]), digested slab by
+// slab as the ring brings them (the next slabs' copies in flight).  Per
+// slab, every thread's owners (fixed across slabs):
+//   (b, c), over d: k_bc[b][c] += S Dad[a][d] (a register sum across
+//                   slabs); the slab's k_ac share S Dbd[b][d] and j_ab
+//                   share S Dcd[c][d] into Xac[b][c], Xab[b][c];
+//   (b, d), over c: k_bd[b][d] += S Dac[a][c] (registers); the slab's k_ad
+//                   share S Dbc[b][c] into Xad[b][d];
+//   (c d),  over b: j_cd[c d] += S Dab[a][b] (registers);
+// then k_ac[a][.], k_ad[a][.] and j_ab[a][.], complete with the slab, are
+// summed from X over b (c) and added to J/K; k_bc, k_bd and j_cd at the
+// end.  One f64 atomic an output, times the weight (2 w for J), as the
+// warp route.  A thread's loads: its own row of the slab (odd NC, ND:
+// no bank conflicts) and D values its warp shares.
+template <int LA, int LB, int LC, int LD>
+__global__ void __launch_bounds__(kDigestBlockThreads)
+digest_jk_block_kernel(const int* __restrict__ mb, const int* __restrict__ mk,
+                       const int64_t* __restrict__ sel_bra,
+                       const int64_t* __restrict__ sel_ket,
+                       const double* __restrict__ weight,
+                       const double* __restrict__ I,
+                       const double* __restrict__ D, int64_t nbf,
+                       double* JK) {
+  using C = Eri4cClass<LA, LB, LC, LD>;
+  using G = DigestClass<LA, LB, LC, LD>;
+  constexpr int NA = C::NA, NB = C::NB, NC = C::NC, ND = C::ND;
+  constexpr int NCD = C::NCD, N = G::N, S = G::kSlab;
+  constexpr int NT = kDigestBlockThreads, ST = kDigestBlockStages;
+  constexpr int OBC = (NB * NC + NT - 1) / NT, OBD = (NB * ND + NT - 1) / NT;
+  constexpr int OCD = (NCD + NT - 1) / NT;
+  extern __shared__ double sm[];
+  double* sDg = sm + ST * G::kSlabStage;
+  double* sXac = sDg + C::NDG;
+  double* sXab = sXac + NB * NC;
+  double* sXad = sXab + NB * NC;
+  const double* Dcd = sDg;
+  const double* Dab = Dcd + NC * ND;
+  const double* Dbd = Dab + NA * NB;
+  const double* Dbc = Dbd + NB * ND;
+  const double* Dad = Dbc + NB * NC;
+  const double* Dac = Dad + NA * ND;
+  const int tid = threadIdx.x;
+  const int64_t q = blockIdx.x;
+  const int64_t r = sel_bra[q], c = sel_ket[q];
+  const int64_t oa = mb[r * kMeta], ob = mb[r * kMeta + 1];
+  const int64_t oc = mk[c * kMeta], od = mk[c * kMeta + 1];
+  const double* Iq = I + q * N;
+  double* J = JK;
+  double* K = JK + nbf * nbf;
+  // where slab a lands in its stage
+  auto slab = [&](int a) -> const double* {
+    const int off = (int)((reinterpret_cast<uintptr_t>(Iq + a * S) >> 3) & 1);
+    return sm + (a % ST) * G::kSlabStage + off;
+  };
+  // the first ST - 1 slabs in flight (one group each, empty past NA)
+#pragma unroll
+  for (int a = 0; a < ST - 1; ++a) {
+    if (a < NA)
+      stage_doubles<NT>(sm + a * G::kSlabStage, Iq + a * S, S, tid);
+    cp_async_commit();
+  }
+  for (int e = tid; e < C::NDG; e += NT)
+    sDg[e] = dg_element<LA, LB, LC, LD>(e, oa, ob, oc, od, D, nbf);
+  double kbc[OBC], kbd[OBD], jcd[OCD];
+#pragma unroll
+  for (int o = 0; o < OBC; ++o) kbc[o] = 0.0;
+#pragma unroll
+  for (int o = 0; o < OBD; ++o) kbd[o] = 0.0;
+#pragma unroll
+  for (int o = 0; o < OCD; ++o) jcd[o] = 0.0;
+  const double w = weight[q];
+#pragma unroll 1
+  for (int a = 0; a < NA; ++a) {
+    // slab a + ST - 1 into the stage that slab a - 1 left (read before the
+    // barrier that ended its digestion)
+    if (a + ST - 1 < NA)
+      stage_doubles<NT>(sm + ((a + ST - 1) % ST) * G::kSlabStage,
+                        Iq + (a + ST - 1) * S, S, tid);
+    cp_async_commit();
+    cp_async_wait<ST - 1>();
+    __syncthreads();
+    const double* Sa = slab(a);
+#pragma unroll
+    for (int o = 0; o < OBC; ++o) {
+      const int e = tid + o * NT;
+      if (e < NB * NC) {
+        const int b = e / NC, cc = e - b * NC;
+        const double* row = Sa + e * ND;
+        double xbc = 0.0, xac = 0.0, xab = 0.0;
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          const double v = row[d];
+          xbc += v * Dad[a * ND + d];
+          xac += v * Dbd[b * ND + d];
+          xab += v * Dcd[cc * ND + d];
+        }
+        kbc[o] += xbc;
+        sXac[e] = xac;
+        sXab[e] = xab;
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < OBD; ++o) {
+      const int e = tid + o * NT;
+      if (e < NB * ND) {
+        const int b = e / ND, d = e - b * ND;
+        const double* col = Sa + b * NCD + d;
+        double xbd = 0.0, xad = 0.0;
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          const double v = col[cc * ND];
+          xbd += v * Dac[a * NC + cc];
+          xad += v * Dbc[b * NC + cc];
+        }
+        kbd[o] += xbd;
+        sXad[e] = xad;
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < OCD; ++o) {
+      const int e = tid + o * NT;
+      if (e < NCD) {
+        double x = 0.0;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) x += Sa[b * NCD + e] * Dab[a * NB + b];
+        jcd[o] += x;
+      }
+    }
+    __syncthreads();
+    // k_ac[a][c], k_ad[a][d], j_ab[a][b]: complete with this slab
+    for (int e = tid; e < NC + ND + NB; e += NT) {
+      double s = 0.0;
+      double* dst;
+      if (e < NC) {
+        for (int b = 0; b < NB; ++b) s += sXac[b * NC + e];
+        dst = K + (oa + a) * nbf + oc + e;
+      } else if (e < NC + ND) {
+        const int d = e - NC;
+        for (int b = 0; b < NB; ++b) s += sXad[b * ND + d];
+        dst = K + (oa + a) * nbf + od + d;
+      } else {
+        const int b = e - NC - ND;
+        for (int cc = 0; cc < NC; ++cc) s += sXab[b * NC + cc];
+        s *= 2.0;
+        dst = J + (oa + a) * nbf + ob + b;
+      }
+      atomicAdd(dst, w * s);
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < OBC; ++o) {
+    const int e = tid + o * NT;
+    if (e < NB * NC)
+      atomicAdd(K + (ob + e / NC) * nbf + oc + e % NC, w * kbc[o]);
+  }
+#pragma unroll
+  for (int o = 0; o < OBD; ++o) {
+    const int e = tid + o * NT;
+    if (e < NB * ND)
+      atomicAdd(K + (ob + e / ND) * nbf + od + e % ND, w * kbd[o]);
+  }
+#pragma unroll
+  for (int o = 0; o < OCD; ++o) {
+    const int e = tid + o * NT;
+    if (e < NCD)
+      atomicAdd(J + (oc + e / ND) * nbf + od + e % ND, 2.0 * w * jcd[o]);
   }
 }
 

@@ -5,7 +5,8 @@
 // its bra class, so nvcc builds the bra classes in parallel.
 // K4/K5 instantiate only the route of their class pair (lane, block or
 // warp: JC_ERI4C_LANE_MASK_B<i>, JC_ERI4C_BLOCK_MASK_B<i>), K6 the route
-// of its class pair (lane or warp, DigestClass::kLane).  Each function
+// of its class pair (lane, block or warp: DigestClass::kLane, kBlock from
+// JC_DIGEST_BLOCK_MASK_B<i>).  Each function
 // returns the CUDA error of its launch (0 on success).
 #pragma once
 
@@ -176,9 +177,12 @@ int eri4c_geometry_query(int Ka, int Kb, int Kc, int Kd, long long* out) {
   return (int)err;
 }
 
-// K6 launches the route of its class pair (DigestClass::kLane): the lane
-// route one block a thread, kDigestLaneBlock threads a block; the warp
-// route one block a warp, warps a block from the footprint.
+// K6 launches the route of its class pair (DigestClass::kLane, kBlock):
+// the lane route one block a thread, kDigestLaneBlock threads a block; the
+// block route one block a CTA of kDigestBlockThreads threads (its shared
+// memory, a ring of slabs, above the 48 KB default; a launch takes fewer
+// than 2^31 blocks); the warp route one block a warp, warps a block from
+// the footprint.
 template <int LA, int LB, int LC, int LD>
 struct DigestLaunch {
   using G = DigestClass<LA, LB, LC, LD>;
@@ -187,7 +191,13 @@ struct DigestLaunch {
     else return digest_jk_warp_kernel<LA, LB, LC, LD>;
   }
   static int warps() {
-    return G::kLane ? kDigestLaneBlock / 32 : eri4c_warps(G::warp_bytes());
+    return G::kBlock  ? kDigestBlockThreads / 32
+           : G::kLane ? kDigestLaneBlock / 32
+                      : eri4c_warps(G::warp_bytes());
+  }
+  // dynamic shared memory a CTA
+  static size_t bytes() {
+    return G::kBlock ? G::warp_bytes() : warps() * G::warp_bytes();
   }
 };
 
@@ -198,34 +208,53 @@ int digest_jk_launch(const int* mb, const int* mk, const long long* sel_bra,
                      long long nbf, double* JK, cudaStream_t stream) {
   if (n <= 0) return 0;
   using L = DigestLaunch<LA, LB, LC, LD>;
-  auto kern = L::kern();
-  const int W = L::warps();
-  const size_t bytes = W * L::G::warp_bytes();
-  cudaError_t err = eri4c_prepare(kern, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const long long per = L::G::kLane ? kDigestLaneBlock : W;
-  kern<<<(unsigned)((n + per - 1) / per), 32 * W, bytes, stream>>>(
-      mb, mk, reinterpret_cast<const int64_t*>(sel_bra),
-      reinterpret_cast<const int64_t*>(sel_ket), weight, n, I, D, nbf, JK);
+  const int64_t* sb = reinterpret_cast<const int64_t*>(sel_bra);
+  const int64_t* sk = reinterpret_cast<const int64_t*>(sel_ket);
+  const size_t bytes = L::bytes();
+  if constexpr (L::G::kBlock) {
+    if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    auto kern = digest_jk_block_kernel<LA, LB, LC, LD>;
+    cudaError_t err = eri4c_prepare(kern, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned)n, kDigestBlockThreads, bytes, stream>>>(
+        mb, mk, sb, sk, weight, I, D, nbf, JK);
+  } else {
+    auto kern = L::kern();
+    const int W = L::warps();
+    cudaError_t err = eri4c_prepare(kern, bytes);
+    if (err != cudaSuccess) return (int)err;
+    const long long per = L::G::kLane ? kDigestLaneBlock : W;
+    kern<<<(unsigned)((n + per - 1) / per), 32 * W, bytes, stream>>>(
+        mb, mk, sb, sk, weight, n, I, D, nbf, JK);
+  }
   return (int)cudaGetLastError();
 }
 
 // K6's launch geometry for one class pair, as built, for the smoke and the
-// tools: out = {lane route (1) or warp route (0), warps a block, bytes of
-// shared memory a warp, blocks an SM holds (CUDA's occupancy
-// calculator)}; nothing is launched.
+// tools: out = {lane route (1), warp route (0) or block route (2), warps
+// a block, bytes of shared memory a warp (the block route: a CTA), blocks
+// an SM holds (CUDA's occupancy calculator)}; nothing is launched.
 template <int LA, int LB, int LC, int LD>
 int digest_geometry_query(long long* out) {
   using L = DigestLaunch<LA, LB, LC, LD>;
-  auto kern = L::kern();
   const int W = L::warps();
-  const size_t bytes = W * L::G::warp_bytes();
+  const size_t bytes = L::bytes();
   int blocks = 0;
-  cudaError_t err = eri4c_prepare(kern, bytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, 32 * W,
-                                                        bytes);
-  const long long v[4] = {L::G::kLane ? 1 : 0, W,
+  cudaError_t err;
+  if constexpr (L::G::kBlock) {
+    auto kern = digest_jk_block_kernel<LA, LB, LC, LD>;
+    err = eri4c_prepare(kern, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, kDigestBlockThreads, bytes);
+  } else {
+    auto kern = L::kern();
+    err = eri4c_prepare(kern, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                          32 * W, bytes);
+  }
+  const long long v[4] = {L::G::kLane ? 1 : L::G::kBlock ? 2 : 0, W,
                           (long long)L::G::warp_bytes(), blocks};
   for (int i = 0; i < 4; ++i) out[i] = v[i];
   return (int)err;

@@ -241,10 +241,11 @@ def eri3c_class(out, bra: PairTable, aux: AuxTable, cols, cols_t, mirror):
 def eri3c_geometry(la: int, lb: int, lq: int, Ka: int, Kb: int,
                    Kq: int) -> dict:
     """K1's launch geometry for a class, as csrc/eri3c.cuh computes it: the
-    route it was built with ("lane" or "block"), aux shells a block
-    (QT; 1 on the lane route), threads and shared-memory bytes a block and
-    the blocks an SM holds (CUDA's occupancy calculator).  Nothing is
-    launched."""
+    route it was built with ("lane" or "block") and the block route's body
+    ("t1": R across the block and T1 on DMMA; "thread"; None on the lane
+    route), aux shells a block (QT; 1 on the lane route), threads and
+    shared-memory bytes a block and the blocks an SM holds (CUDA's
+    occupancy calculator).  Nothing is launched."""
     import ctypes
 
     if (la, lb, lq) not in KERNEL_CLASSES:
@@ -256,7 +257,8 @@ def eri3c_geometry(la: int, lb: int, lq: int, Ka: int, Kb: int,
         raise RuntimeError(f"jc_eri3c_geometry failed: CUDA error {rc} "
                            f"({lib.jc_error_string(rc).decode()})")
     route, QT, threads, nbytes, blocks = list(out)
-    return {"route": ("lane", "block")[route], "QT": QT,
+    return {"route": ("lane", "block", "block")[route],
+            "body": (None, "thread", "t1")[route], "QT": QT,
             "threads": threads, "smem_bytes": nbytes,
             "blocks_per_sm": blocks}
 

@@ -240,9 +240,10 @@ def digest_jk(JK, I, bra: PairTable, ket: PairTable, sel_bra, sel_ket,
 
 def digest_geometry(bra: PairTable, ket: PairTable) -> dict:
     """K6's launch geometry for the class pair of two CUDA pair tables, as
-    csrc/eri4c_launch.cuh built it: the route ("lane" or "warp"), warps a
-    block, shared-memory bytes a warp and the blocks an SM holds (CUDA's
-    occupancy calculator).  Nothing is launched."""
+    csrc/eri4c_launch.cuh built it: the route ("lane", "block" or "warp"),
+    warps a block, shared-memory bytes a warp (the block route: a block,
+    also as ``block_bytes``) and the blocks an SM holds (CUDA's occupancy
+    calculator).  Nothing is launched."""
     import ctypes
 
     cls = (bra.la, bra.lb, ket.la, ket.lb)
@@ -253,10 +254,12 @@ def digest_geometry(bra: PairTable, ket: PairTable) -> dict:
     if rc != 0:
         raise RuntimeError(f"jc_digest_jk_geometry failed: CUDA error {rc} "
                            f"({lib.jc_error_string(rc).decode()})")
-    lane, W, nbytes, blocks = list(out)
-    return {"route": "lane" if lane else "warp", "warps_per_block": W,
-            "warp_bytes": nbytes, "blocks_per_sm": blocks,
-            "warps_per_sm": blocks * W}
+    route, W, nbytes, blocks = list(out)
+    route = {0: "warp", 1: "lane", 2: "block"}[route]
+    return {"route": route, "warps_per_block": W,
+            "warp_bytes": nbytes // W if route == "block" else nbytes,
+            "block_bytes": nbytes if route == "block" else nbytes * W,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * W}
 
 
 def launch_eri4c_jk(JK, D, bra: PairTable, ket: PairTable, n: int, *,

@@ -41,9 +41,11 @@ K2F_NQ, K2F_KT, K2F_STAGES = 2, 64, 3
 # per shared-memory stage
 K8_TILE_M, K8_TILE_N, K8_SLAB = 128, 64, 16
 # K4/K5's route table (csrc/eri4c.cuh): the class pairs (la lb | lc ld)
-# that run one quartet per thread, everything in registers; every other
-# class pair runs quartets per warp in shared memory.  Chosen class by class
-# from the card's timings (PERF.md §6): every class pair up to
+# that run one quartet per thread, everything in registers (lane); those
+# of ERI4C_BLOCK (below: 56 g class pairs) one quartet a block on DMMA
+# (block); every other class pair one quartet a warp in shared memory
+# (warp).  The lane cut was chosen class by class from the card's timings
+# (PERF.md §6): every class pair up to
 # la+lb+lc+ld = ERI4C_LANE_MAX_L but those of ERI4C_LANE_EXCLUDE ((pd|pd):
 # its K5 lane instance spills to a 28 KB stack at 32 registers, slower than
 # its warp route in 6-311++G(3df,3pd) and reserving ~7.6 GB of local
@@ -100,13 +102,41 @@ ERI4C_BLOCK4 = frozenset({
     (2, 2, 3, 4), (2, 3, 2, 4)})
 # K6's route table (csrc/eri4c.cuh DigestClass): the class pairs of K4/K5's
 # lane route whose blocks hold at most DIGEST_LANE_MAX_N integrals digest
-# one cached block a thread (lane); the rest one block a warp (warp).
-# Chosen class by class from the card's times of both routes over one
-# in-core build of ammonia_trimer in 6-311++G(2d,2p) and 6-31G(2df,p)
-# (PERF.md §6): the lane route wins to N = 27 (1.1-8.8x), loses from N =
-# 36.  The kernels are built with it (NVCC_FLAGS), each class pair on its
-# route only.
+# one cached block a thread (lane); those of DIGEST_BLOCK one block a CTA
+# of 8 warps, streamed through shared memory in slabs by a ring of 2
+# (block: csrc/eri4c.cuh kDigestBlockThreads, kDigestBlockStages); the
+# rest one block a warp (warp).
+# The lane cut was chosen class by class from the card's times of both
+# routes over one in-core build of ammonia_trimer in 6-311++G(2d,2p) and
+# 6-31G(2df,p) (PERF.md §6): the lane route wins to N = 27 (1.1-8.8x),
+# loses from N = 36.  The block route was chosen class pair by class pair
+# from the card's times of one in-core build of two waters in
+# 6-311++G(3df,3pd)+G (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): every g
+# class pair off the lane route takes it but the 9 whose blocks of 45-810
+# doubles were slower there than on the warp route, which stages a warp's
+# blocks together, in each of four readings a route, taken in turn in one
+# call (tools/eri4c_class_times.py --mode digest_jk; ms, the warp route's
+# then the block route's, lowest to highest): (ss|pg) 0.0190-0.0198,
+# 0.0343-0.0347; (ss|dg) 0.0188-0.0195, 0.0204-0.0212; (sp|sg)
+# 0.0336-0.0344, 0.0589-0.0597; (sp|pg) 0.0414-0.0425, 0.0492-0.0497;
+# (sd|sg) 0.0277-0.0287, 0.0444-0.0452; (sd|pg) 0.0328-0.0332,
+# 0.0338-0.0343; (sg|pp) 0.0264-0.0269, 0.0294-0.0296; (pp|pg)
+# 0.0384-0.0398, 0.0540-0.0544; (pp|dg) 0.0361-0.0363, 0.0378-0.0382.
+# (pd|pg) read 0.0550-0.0568 on the warp route and 0.0563-0.0565 on the
+# block route, the warp route not faster in every reading: block.  The 54
+# class pairs first on the block route took 5.266 ms on the warp route and
+# 0.915 on the block route, (gg|gg) 1.2647 and 0.0331.  A block past the
+# warp route's stage (kDigestWarpCap: the 8 class pairs (df|gg) ..
+# (gg|gg)) must take the block route (a static_assert of the warp route).
+# (ss|sg) is on the lane route.  The kernels are built with it
+# (NVCC_FLAGS, digest_route_flags), each class pair on its route only.
 DIGEST_LANE_MAX_N = 27
+DIGEST_BLOCK = frozenset(
+    {(*_PAIRS[i], *_PAIRS[j]) for i in range(15) for j in range(i, 15)
+     if 4 in (*_PAIRS[i], *_PAIRS[j])} - {
+        (0, 0, 0, 4), (0, 0, 1, 4), (0, 0, 2, 4), (0, 1, 0, 4),
+        (0, 1, 1, 4), (0, 2, 0, 4), (0, 2, 1, 4), (0, 4, 1, 1),
+        (1, 1, 1, 4), (1, 1, 2, 4)})
 # K1's bra classes (la, lb), in the order of its route masks (csrc/eri3c.cuh
 # eri3c_bra: mask index, bit lq): the primary pairs to (ff), then the g
 # pairs (sg) .. (gg); (sg) is also the (0, 4) unit bra of the 2-center
@@ -131,6 +161,29 @@ ERI3C_LANE_MAX_L = 5
 ERI3C_LANE_EXCLUDE = frozenset({(0, 2, 3), (1, 1, 3)})
 ERI3C_LANE_MAX_L_WIDE = 4
 ERI3C_WIDE_NAB = 16
+# K1's block-route body (csrc/eri3c.cuh): the classes of ERI3C_T1 build the
+# R of their primitive products level by level across a block of 8 warps
+# and T1 on DMMA (M gathered from R, K4/K5's block machinery), their aux
+# tile within 110 KB (csrc/eri3c.cuh kEri3cT1Threads, kEri3cT1Cap); the
+# other block classes keep one product's R and one T1 row a thread.
+# Chosen class by class from the card's times of the full 3-center build of
+# benzene_2_water in 6-311++G(3df,3pd)+G (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md §6): the T1 body where it was faster in both calls, by 13-48 %
+# (ms, the thread body then the T1 body, the mean of two readings in one
+# call): (pg|p) 2.2002, 1.1454; (pg|d) 3.0157, 1.5755; (fg|p..g)
+# 0.2887-0.6783, 0.2418-0.5045; (gg|s..g) 0.3251-0.6011, 0.2158-0.5092;
+# the thread body on the other 12 of the block route, where the T1 body's
+# fixed cost a block (its barriers, the Boys and R levels of few
+# products) made it up to 1.5x slower ((sg|d) 0.9884, 1.4710; (pg|f)
+# 1.4915, 1.8435), no faster ((dg|p) 0.9211, 0.9105) or faster in one call
+# and slower in the other ((fg|s) 0.3527, 0.3202; 0.3030, 0.3289).  A cap
+# of 200 KB (wider aux tiles, so A is built once for up to 8 aux shells;
+# one block an SM) was faster on 4 of the 23 block classes and slower on
+# 14 (against the body each took in the same call).  The kernels are
+# built with it (eri3c_t1_flags).
+ERI3C_T1 = frozenset({(1, 4, 1), (1, 4, 2)}
+                     | {(3, 4, lq) for lq in range(1, 5)}
+                     | {(4, 4, lq) for lq in range(5)})
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DJC_K2_SLAB_M={K2_SLAB_M}",
               f"-DJC_K2_TILE_N={K2_TILE_N}", f"-DJC_K2F_NQ={K2F_NQ}",
@@ -151,11 +204,27 @@ def eri4c_route(la: int, lb: int, lc: int, ld: int) -> str:
 
 
 def digest_route(la: int, lb: int, lc: int, ld: int) -> str:
-    """The route K6 takes for a class pair: "lane" or "warp"."""
+    """The route K6 takes for a class pair: "lane", "block" or "warp"."""
     n = ((la + 1) * (la + 2) * (lb + 1) * (lb + 2) * (lc + 1) * (lc + 2)
          * (ld + 1) * (ld + 2)) // 16
-    lane = eri4c_route(la, lb, lc, ld) == "lane" and n <= DIGEST_LANE_MAX_N
-    return "lane" if lane else "warp"
+    if eri4c_route(la, lb, lc, ld) == "lane" and n <= DIGEST_LANE_MAX_N:
+        return "lane"
+    return "block" if (la, lb, lc, ld) in DIGEST_BLOCK else "warp"
+
+
+def digest_route_flags() -> tuple:
+    """K6's block route as the sources take it (its lane cut is
+    NVCC_FLAGS'): JC_DIGEST_BLOCK_MASK_B<i>, bit j the class pair (bra i |
+    ket j) on the block route (the masks of ``route_flags``)."""
+    masks = []
+    for i, bra in enumerate(_PAIRS):
+        m = 0
+        for j in range(i, len(_PAIRS)):
+            if digest_route(*bra, *_PAIRS[j]) == "block":
+                m |= 1 << j
+        masks.append(m)
+    return tuple(f"-DJC_DIGEST_BLOCK_MASK_B{i}={m:#x}"
+                 for i, m in enumerate(masks))
 
 
 def route_flags() -> tuple:
@@ -234,6 +303,29 @@ def eri3c_route_flags() -> tuple:
                  for i, m in enumerate(masks))
 
 
+def eri3c_body(la: int, lb: int, lq: int) -> str | None:
+    """The body K1's block route runs for a class: "t1" (R across the
+    block, T1 on DMMA), "thread", or None on the lane route."""
+    if eri3c_route(la, lb, lq) != "block":
+        return None
+    return "t1" if (la, lb, lq) in ERI3C_T1 else "thread"
+
+
+def eri3c_t1_flags() -> tuple:
+    """K1's body table as the sources take it: JC_ERI3C_T1_MASK_B<i>, bit
+    lq the class (ERI3C_BRAS[i] | lq) on the T1 body (the masks of
+    ``eri3c_route_flags``)."""
+    masks = []
+    for la, lb in ERI3C_BRAS:
+        m = 0
+        for lq in range(5):
+            if eri3c_body(la, lb, lq) == "t1":
+                m |= 1 << lq
+        masks.append(m)
+    return tuple(f"-DJC_ERI3C_T1_MASK_B{i}={m:#x}"
+                 for i, m in enumerate(masks))
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C symbol -> (kernel it launches, argument types before the stream)
 _FUNCS = {
@@ -298,6 +390,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *route_flags(),
+                                 *digest_route_flags(), *eri3c_t1_flags(),
                                  *block_route_flags(),
                                  *eri3c_route_flags())).encode())
     for f in sorted(CSRC_DIR.glob("*.cu*")):
@@ -323,6 +416,7 @@ def build() -> Path:
         for src in _sources():
             obj = tmp / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, *route_flags(), *eri3c_route_flags(),
+                   *digest_route_flags(), *eri3c_t1_flags(),
                    *block_route_flags(), "-I", str(CSRC_DIR),
                    "-c", str(src), "-o", str(obj)]
             # compiler output to a file: a pipe could fill while the build

@@ -208,22 +208,27 @@ def _largest_contractions() -> dict:
 
 @pytest.mark.cuda
 def test_k1_routes_of_all_classes_match_the_table(cuda_device):
-    """K1's 55 classes as compiled (``eri3c_geometry``) take the route of
-    the table of ops/kernels.py; every block-route class, at one primitive
-    a shell and at the largest contractions of the basis library (s 8, p
-    3: (pp) 9 primitive pairs), takes an aux tile of 8, 4, 2 or 1 shells,
-    within ``kEri3cBlockCap`` (100 KB) unless it is one shell, no wider
-    than at one primitive, fits a block's 227 KB ((ff|g) among them), and
-    holds two blocks an SM where its tile is wider than one shell."""
-    cap, kmax = 100 * 1024, _largest_contractions()
+    """K1's 55 classes as compiled (``eri3c_geometry``) take the route and
+    body of the tables of ops/kernels.py; every block-route class, at one
+    primitive a shell and at the largest contractions of the basis library
+    (s 8, p 3: (pp) 9 primitive pairs), takes an aux tile of 8, 4, 2 or 1
+    shells, within its body's cap (``kEri3cBlockCap``, 100 KB; the T1
+    body's ``kEri3cT1Cap``, 110 KB) unless it is one shell, no wider than
+    at one primitive, fits a block's 227 KB ((ff|g) among them), and holds
+    two blocks of 4 warps an SM (the thread body) or one of 8 (the T1
+    body) where its tile is wider than one shell."""
+    kmax = _largest_contractions()
     for cls in sorted(eri3c.KERNEL_CLASSES):
         la, lb, lq = cls
         geo = eri3c.eri3c_geometry(*cls, 1, 1, 1)
         assert geo["route"] == kernels.eri3c_route(*cls), cls
+        assert geo["body"] == kernels.eri3c_body(*cls), cls
         assert geo["blocks_per_sm"] >= 1, cls
         if geo["route"] == "lane":
             assert geo["QT"] == 1 and geo["smem_bytes"] == 0
             continue
+        t1 = geo["body"] == "t1"
+        cap = (110 if t1 else 100) * 1024
         # the metric's unit bra (0, lP) is one primitive pair
         Ka, Kb = (1, 1) if (la, lb) == (0, 4) else (kmax[la], kmax[lb])
         for g in (geo, eri3c.eri3c_geometry(*cls, Ka, Kb, kmax[lq])):
@@ -231,7 +236,9 @@ def test_k1_routes_of_all_classes_match_the_table(cuda_device):
             assert g["QT"] in (1, 2, 4, 8), cls
             assert g["smem_bytes"] <= cap or g["QT"] == 1, cls
             assert g["smem_bytes"] <= 232448, cls
-            assert g["blocks_per_sm"] >= (2 if g["QT"] > 1 else 1), cls
+            assert g["threads"] == (256 if t1 else 128), cls
+            assert g["blocks_per_sm"] >= (2 if g["QT"] > 1 and not t1
+                                          else 1), cls
 
 
 def _k2_inputs(case, seed, dev):
@@ -1083,7 +1090,7 @@ def _k6_each_route(cuda_device, prim, seed):
     X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
                     device=cuda_device, generator=g)
     D = (X + X.T).contiguous()
-    seen, geos = {"lane": set(), "warp": set()}, {}
+    seen, geos = {"lane": set(), "warp": set(), "block": set()}, {}
     crossing = 0
     for grp in fb.groups:   # bra runs that cross a warp's 32 blocks
         sb = grp.sel_bra.cpu().numpy()
@@ -1221,6 +1228,58 @@ def test_k1_eri3c_g_classes(cuda_device, dtype):
     else:
         ref = eri3c.three_center_tensor(prim, aux, cuda_device).cpu()
         assert torch.equal(got, ref.float())
+
+
+@pytest.mark.cuda
+def test_k1_each_g_class_on_its_body_matches_plain(cuda_device):
+    """Every g class (la, 4 | lq) of two waters in the g basis against
+    cc-pVTZ-JKFIT, class by class: built with the body of
+    ``kernels.eri3c_body`` (the T1 body, R across the block and T1 on
+    DMMA, for ``ERI3C_T1``), within 1e-12 x the class's max-abs of K1's
+    plain version (a class zero by symmetry within 1e-15), every target
+    written; the f32 store the f64 output rounded, bit for bit."""
+    prim, aux = _waters_g()
+    nbf, A = prim.nbf, aux.nbf
+    auxs = eri3c.aux_tables(aux, cuda_device)
+    auxs_cpu = eri3c.aux_tables(aux, CPU)
+    bodies = {}
+    for blk in unique_pair_blocks(prim):
+        if blk.lb != 4:
+            continue
+        kp = eri3c.k1_pairs(blk, lambda ia, ib: ia * nbf + ib, cuda_device)
+        kpc = eri3c.k1_pairs(blk, lambda ia, ib: ia * nbf + ib, CPU)
+        for at, atc in zip(auxs, auxs_cpu):
+            cls = (blk.la, blk.lb, at.lq)
+            geo = eri3c.eri3c_geometry(*cls, kp.table.Ka, kp.table.Kb, at.Kq)
+            bodies[cls] = geo["body"]
+            assert geo["route"] == kernels.eri3c_route(*cls), cls
+            assert geo["body"] == kernels.eri3c_body(*cls), cls
+            got = torch.full((A, nbf * nbf), float("nan"),
+                             dtype=torch.float64, device=cuda_device)
+            eri3c.eri3c_class(got, kp.table, at, kp.cols, kp.cols_t,
+                              kp.mirror)
+            got32 = torch.full((A, nbf * nbf), float("nan"),
+                               dtype=torch.float32, device=cuda_device)
+            eri3c.eri3c_class(got32, kp.table, at, kp.cols, kp.cols_t,
+                              kp.mirror)
+            ref = torch.zeros((A, nbf * nbf), dtype=torch.float64)
+            eri3c.eri3c_class_plain(ref, kpc.table, atc, kpc.cols,
+                                    kpc.cols_t, kpc.mirror)
+            got, got32 = got.cpu(), got32.cpu()
+            hit = ~torch.isnan(got)
+            rows = (atc.qrow[:, None]
+                    + torch.arange(at.ecd.shape[2])[None]).reshape(-1)
+            written = torch.zeros_like(hit)
+            for c, m in ((kpc.cols, None), (kpc.cols_t, kpc.mirror)):
+                cc = c if m is None else c[m.bool()]
+                written[rows[:, None], cc.reshape(1, -1)] = True
+            assert torch.equal(hit, written), cls
+            scale = float(ref.abs().max())
+            bound = 1e-12 * scale if scale > 1e-8 else 1e-15
+            assert float((got.nan_to_num(0.0) - ref).abs().max()) <= bound, \
+                cls
+            assert torch.equal(got32[written], got[written].float()), cls
+    assert {c for c, b in bodies.items() if b == "t1"} == kernels.ERI3C_T1
 
 
 @pytest.mark.cuda
@@ -1438,13 +1497,20 @@ def test_k5_k6_jk_match_plain_g_classes(cuda_device, builder, kernel):
 def test_k6_each_g_class_pair_on_its_route_matches_plain(cuda_device):
     """Two waters in 6-311++G(3df,3pd)+G, all 120 class pairs to (gg|gg):
     K6, each class pair on its route, within 1e-11 x max(|J|, |K|) of
-    ``digest_plain``; (gg|gg) on the warp route, its block read where it
-    lies (405 KB: past the stage cap)."""
+    ``digest_plain``; the block route on exactly the table's class pairs
+    ((gg|gg) among them: its 405 KB block streamed through a ring of slabs
+    within the card's 227 KB), each holding a block an SM."""
     prim, _ = _waters_g()
     seen, geos = _k6_each_route(cuda_device, prim, 31)
-    assert len(seen["lane"]) + len(seen["warp"]) == 120
-    assert geos[(4, 4, 4, 4)]["route"] == "warp"
-    assert geos[(4, 4, 4, 4)]["warp_bytes"] < 110 * 1024
+    assert sum(len(v) for v in seen.values()) == 120
+    assert seen["block"] == kernels.DIGEST_BLOCK
+    assert (4, 4, 4, 4) in seen["block"]
+    for cls in seen["block"]:
+        g = geos[cls]
+        assert g["block_bytes"] <= 232448 and g["blocks_per_sm"] >= 1, cls
+        assert g["warps_per_block"] == 8, cls
+    for cls in seen["warp"]:
+        assert geos[cls]["warp_bytes"] <= 110 * 1024, cls
 
 
 @pytest.mark.cuda

@@ -237,9 +237,10 @@ def test_k6_takes_the_route_table_of_k4_k5():
         for l in cls:
             nblk *= ncart(l)
         # K6's lane route: K4/K5's lane class pairs of small blocks; its
-        # warp route: the rest
+        # block route: the g class pairs of its table; its warp route: the
+        # rest
         want = ("lane" if built and nblk <= kernels.DIGEST_LANE_MAX_N else
-                "warp")
+                "block" if cls in kernels.DIGEST_BLOCK else "warp")
         assert kernels.digest_route(*cls) == want, cls
         lanes += want == "lane"
     assert 0 < lanes < 120

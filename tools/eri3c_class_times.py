@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K1 class by class over full 3-center builds on one NVIDIA GPU.
 
-    python3 tools/eri3c_class_times.py [--root DIR]
+    python3 tools/eri3c_class_times.py [--root DIR] [--set NAME=EXPR ...]
                                        [--systems benzene_2_water w32 w32f32
-                                                  benzene_2_water_3df w64f32]
+                                                  benzene_2_water_3df
+                                                  benzene_2_water_g w64f32]
                                        [--out result.json]
 
 Builds the kernels of the package under ``--root`` (default: this checkout;
@@ -18,10 +19,16 @@ over the launch's inputs and its route as this tree's table gives it; each
 build is synchronised at both ends, so that its host wall holds its kernels
 and K1's share of it is the kernels' part.  Systems: ``benzene_2_water``
 (6-311++G(2d,2p) / cc-pVTZ-JKFIT), ``benzene_2_water_3df`` (the same in
-6-311++G(3df,3pd): the f classes), ``w32`` (the generated 32-water cluster,
+6-311++G(3df,3pd): the f classes), ``benzene_2_water_g`` (the same in
+6-311++G(3df,3pd)+G, read from tests/data/6-311ppG_3df_3pd_G.gbs: the g
+classes, whose launches are also summed on a line of their own),
+``w32`` (the generated 32-water cluster,
 6-31+G* / cc-pVTZ-JKFIT, f64 B), ``w32f32`` (the same into an f32 B),
-``w64f32`` (the 64-water cluster into an f32 B, 22 GB).  Every line names
-the card and its power limit.  Needs CUDA; exits 2 without it.
+``w64f32`` (the 64-water cluster into an f32 B, 22 GB).  ``--set
+NAME=EXPR`` sets an attribute of the package's ops/kernels.py before the
+build, EXPR evaluated in that module (another body table:
+``--set 'ERI3C_T1=frozenset()'``; the build hashes the flags).  Every line names the card and its power
+limit.  Needs CUDA; exits 2 without it.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--systems", nargs="+",
                     default=["benzene_2_water", "w32", "w32f32"])
+    ap.add_argument("--set", action="append", default=[],
+                    help="NAME=EXPR: an attribute of ops/kernels.py")
     ap.add_argument("--out")
     args = ap.parse_args()
     import torch
@@ -65,6 +74,10 @@ def main() -> int:
     smi = smoke.sh("nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader").splitlines()[0]
     tag = f"[{smi}] [{root.name}]"
+    for item in args.set:
+        key, expr = item.split("=", 1)
+        setattr(kernels, key, eval(expr, vars(kernels)))
+        tag += f" [{key}={expr}]"
     dev = jc.initialize("cuda")
     kernels.library()
     print(f"{tag} build {kernels.build_info.get('seconds', 0.0):.1f} s",
@@ -75,7 +88,10 @@ def main() -> int:
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "root": str(root), "ptxas": ptxas, "systems": {}}
     for name in args.systems:
-        if name.startswith("benzene_2_water"):
+        if name == "benzene_2_water_g":
+            inp = smoke.g_input("benzene_2_water", goldens["benzene_2_water"],
+                                {"mixed_precision": False})
+        elif name.startswith("benzene_2_water"):
             golden = goldens["benzene_2_water"]
             if name.endswith("3df"):
                 golden = {**golden, "basis": smoke.F_BASIS}
@@ -110,11 +126,21 @@ def main() -> int:
         print(f"{tag} {name} ({dtype}): nbf {prim.nbf}, naux {aux.nbf}; "
               + smoke.fmt_k1_times(res) + f"; |P3| sum {checksum!r}",
               flush=True)
+        body = getattr(kernels, "eri3c_body", lambda *c: None)
         for ph, v in res.items():
             for cls, c in v["classes"].items():
-                print(f"{tag} {name} {ph} {cls} {kernels.eri3c_route(*cls)}: "
-                      f"{c['launches']} launches, {c['ms']:.4f} ms, bound "
+                b = body(*cls)
+                print(f"{tag} {name} {ph} {cls} {kernels.eri3c_route(*cls)}"
+                      + (f" ({b})" if b else "") + f": {c['launches']} "
+                      f"launches, {c['ms']:.4f} ms, bound "
                       f"{c['bound_ms']:.5f} ms ({c['bound_by']})", flush=True)
+        if name == "benzene_2_water_g":
+            g = smoke.k1_class_sum(res["three_center"], lambda c: c[1] == 4)
+            print(f"{tag} {name}: the g classes of the 3-center build, "
+                  f"{g['classes']} classes, {g['launches']} launches, "
+                  f"{g['ms']:.3f} ms (bound {g['bound_ms']:.4f} ms), the "
+                  f"largest {g['largest']} {g['largest_ms']:.3f} ms",
+                  flush=True)
         out["systems"][name] = {"dtype": str(dtype), "nbf": prim.nbf,
                                 "naux": aux.nbf, "checksum": checksum,
                                 "k1": res}

@@ -62,6 +62,7 @@ def build(cut: int, with_f: bool, with_g: bool = False) -> ctypes.CDLL:
                     *kernels.eri3c_route_flags(),
                     *kernels.block_route_flags(),
                     f"-DJC_DIGEST_LANE_MAX_N={kernels.DIGEST_LANE_MAX_N}",
+                    *kernels.digest_route_flags(), *kernels.eri3c_t1_flags(),
                     *(["-DRH_WITH_F"] if with_f else []),
                     *(["-DRH_WITH_G"] if with_g else []),
                     "-I", str(HERE / "shim"), "-I", str(CSRC),
@@ -164,6 +165,8 @@ def main() -> int:
                     tile = lib.rh_eri3c_tile(bra.la, bra.lb, at.lq,
                                              bra.Ka, bra.Kb, at.Kq)
                     route = kernels.eri3c_route(bra.la, bra.lb, at.lq)
+                    body = kernels.eri3c_body(bra.la, bra.lb, at.lq)
+                    route += f" ({body})" if body else ""
                     scale = float(ref.abs().max())
                     err = float((got.nan_to_num(0.0) - ref).abs().max())
                     # a class zero by symmetry (every pair and aux

@@ -24,15 +24,19 @@ launch timed by CUDA events after a warm-up build:
   ``--only-l``, only the class pairs that hold a shell of that angular
   momentum (``--no-warm``: no warm-up build first);
 - ``--mode subsets``: phase 3g of chip_smoke.py without its plain
-  references: K4, K5 list and K5 staircase on the first SUBSET_G quartets
+  references: K4, K6 (on K4's blocks), K5 list and K5 staircase on the
+  first SUBSET_G quartets
   of each class pair of benzene_2_water that holds a shell of
   ``--only-l`` (default 4) in the basis of ``--basis-file``/``--basis``,
   each class pair timed alone (``chip_smoke.class_pair_times``);
 - ``--mode digest_jk``: one in-core ScreenedDirectFock build (K4 fills the
   blocks, K6 digests them) of ammonia_trimer in its S22x3 basis
-  (6-311++G(2d,2p), 5.83e6 quartets) and in 6-31G(2df,p) (1.21e6),
-  ``chip_smoke.incore_k6_times`` (each class pair's K6 route is
-  ``kernels.digest_route``'s, fixed when the package is built).
+  (6-311++G(2d,2p), 5.83e6 quartets) and in 6-31G(2df,p) (1.21e6), or,
+  with ``--basis-file`` and ``--basis``, of the first 2 waters of the
+  generated w32 cluster in that basis (chip_smoke.py phase 11's in-core
+  system in the g basis), ``chip_smoke.incore_k6_times`` (each class
+  pair's K6 route is ``kernels.digest_route``'s, fixed when the package is
+  built), summed by route (``chip_smoke.k6_by_route``).
 
 ``--set NAME=EXPR`` sets an attribute of the package's ops/kernels.py
 before the build, EXPR evaluated in that module (another route table or
@@ -107,18 +111,33 @@ def main() -> int:
         golden = goldens["ammonia_trimer"]
         out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                "root": str(root), "ptxas": regs, "builds": {}}
-        for basis in (golden["basis"], smoke.F_BASIS_SMALL):
-            sp = jc.io.parse_input(smoke.system_input(
-                "ammonia_trimer", {**golden, "basis": basis}, aux=False))
-            prim = jc.basis.run(jc.molecule.run(sp), sp.model).primary
+        if args.basis_file:
+            jc.basis.register_basis_file(args.basis_file, args.basis)
+            w32 = json.loads((HERE / "juliachem_jl_tpu_torch" / "data" /
+                              "water_clusters.json").read_text())["w32"]
+            mol = jc.molecule.from_input_dict(
+                {"symbols": w32["symbols"][:6],
+                 "geometry": w32["geometry"][:18]})
+            systems = [(f"w2 {args.basis}",
+                        lambda: jc.basis.build(mol, args.basis))]
+        else:
+            def trimer(basis):
+                sp = jc.io.parse_input(smoke.system_input(
+                    "ammonia_trimer", {**golden, "basis": basis}, aux=False))
+                return jc.basis.run(jc.molecule.run(sp), sp.model).primary
+
+            systems = [(f"ammonia_trimer {b}", lambda b=b: trimer(b))
+                       for b in (golden["basis"], smoke.F_BASIS_SMALL)]
+        for name, make in systems:
+            prim = make()
             gen = torch.Generator(device=dev).manual_seed(5)
             X = torch.randn((prim.nbf, prim.nbf), dtype=torch.float64,
                             device=dev, generator=gen)
             fb = fock.ScreenedDirectFock(prim, incore=True, device=dev)
             fb.jk_halves(X + X.T)   # K4 fills the blocks; the warm-up build
-            name = f"ammonia_trimer {basis}"
             out["builds"][name] = smoke.incore_k6_times(
                 tag, fb, X + X.T, name)
+            smoke.k6_by_route(tag, fb, out["builds"][name])
             fb.finalize()
             del fb
             torch.cuda.empty_cache()
@@ -165,8 +184,8 @@ def main() -> int:
 def subset_times(smoke, tag: str, dev, prim, need_l: int) -> list:
     """chip_smoke's phase 3g cases (the first SUBSET_G quartets of each
     class pair with a shell of angular momentum need_l, a seeded D), each
-    class pair's K4, K5 list and K5 staircase launch timed alone, after one
-    warm launch of each."""
+    class pair's K4, K6, K5 list and K5 staircase launch timed alone, after
+    one warm launch of each."""
     import torch
 
     from juliachem_jl_tpu_torch.ops import eri, fock_stream
@@ -199,7 +218,7 @@ def subset_times(smoke, tag: str, dev, prim, need_l: int) -> list:
     for v in rows:
         print(f"{tag} subsets class pair " + smoke.fmt_class_row(v, {}),
               flush=True)
-    for k in ("eri4c", "eri4c_jk_list", "eri4c_jk_stair"):
+    for k in ("eri4c", "digest_jk", "eri4c_jk_list", "eri4c_jk_stair"):
         print(f"{tag} subsets {k}: {sum(v[k]['ms'] for v in rows):.3f} ms "
               f"over {len(rows)} class pairs, bound "
               f"{sum(v[k]['bound_ms'] for v in rows):.4f} ms", flush=True)

@@ -3,7 +3,7 @@
 
     python3 tools/eri4c_rehearsal.py [--cut 3 6] [--basis 6-311++G(2d,2p)]
                                      [--warp-cap BYTES] [--quartets N]
-                                     [--only-l L]
+                                     [--only-l L] [--k6-only]
 
 Compiles the device code with g++ (C++20) against a CPU stand-in for the
 CUDA builtins (tools/eri4c_rehearsal/: one std::thread per CUDA thread,
@@ -16,8 +16,9 @@ against ``eri4c_plain``; K5 in staircase mode over the whole range and
 over three ranges whose starts are not multiples of 32, and in list mode
 over ScreenedDirectFock's batches, against the plain versions; K6 on the
 list batches against ``digest_plain``, each class pair on its route as
-built (lane or warp), then from the second block of each batch (blocks 8
-bytes off a 16-byte boundary) and on its first 45 blocks.  Bounds: K4
+built (lane, block or warp), then from the second block of each batch
+(blocks 8 bytes off a 16-byte boundary) and on its first 45 blocks.
+Bounds: K4
 1e-12 x max |I|, J/K
 1e-11 x max(|J|, |K|), the card's gates.  Prints each error, exits 1 if
 one is over its bound.  Classes up to (dd|dd), and the f class pairs when
@@ -28,14 +29,17 @@ the emulated DMMA step) runs where the route table of ops/kernels.py puts
 it, its shared memory held to the card's 227 KB; ``--quartets N`` takes
 the first N quartets of each class pair's staircase and of each list
 batch (a block of 256 threads a quartet is slow to emulate), ``--only-l``
-only the class pairs that hold a shell of that angular momentum.  The
-numbers say nothing of the card's speed.
+only the class pairs that hold a shell of that angular momentum,
+``--k6-only`` K6 alone, ``--k6-block-all`` K6's block route on every
+class pair off its lane route.  The numbers say nothing of the card's
+speed.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import subprocess
 import sys
 from pathlib import Path
@@ -65,6 +69,7 @@ def build(cut: int, warp_cap: int | None, with_f: bool,
     out = ROOT / "juliachem_jl_tpu_torch" / "_build" / "rehearsal"
     out.mkdir(parents=True, exist_ok=True)
     tag = f"cut{cut}" + (f"_cap{warp_cap}" if warp_cap else "") + \
+        f"_k6b{len(kernels.DIGEST_BLOCK)}" + \
         ("_f" if with_f else "") + ("_g" if with_g else "")
     so = out / f"eri4c_rehearsal_{tag}.so"
     kernels.ERI4C_LANE_MAX_L = cut
@@ -75,7 +80,7 @@ def build(cut: int, warp_cap: int | None, with_f: bool,
                     "-pthread", *kernels.route_flags(),
                     *kernels.block_route_flags(),
                     f"-DJC_DIGEST_LANE_MAX_N={kernels.DIGEST_LANE_MAX_N}",
-                    *extra,
+                    *kernels.digest_route_flags(), *extra,
                     "-I", str(HERE / "shim"), "-I", str(CSRC),
                     str(HERE / "harness.cpp"), "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
@@ -145,12 +150,21 @@ def main() -> int:
                     help="the first N quartets of each class pair")
     ap.add_argument("--only-l", type=int, default=None,
                     help="only the class pairs with a shell of this l")
+    ap.add_argument("--k6-only", action="store_true",
+                    help="K6 alone (K4 and K5 not run)")
+    ap.add_argument("--k6-block-all", action="store_true",
+                    help="K6's block route on every class pair off its "
+                         "lane route (kernels.DIGEST_BLOCK)")
     ap.add_argument("--warp-cap", type=int, default=None,
                     help="bytes a warp-route quartet may take before its "
                          "kets are tiled (JC_ERI4C_WARP_CAP; small values "
                          "tile every warp-route class)")
     args = ap.parse_args()
     torch.set_num_threads(1)
+    if args.k6_block_all:
+        kernels.DIGEST_BLOCK = frozenset(
+            (*a, *b) for a, b in itertools.combinations_with_replacement(
+                eri.PAIR_CLASSES, 2))
     if args.basis_file:
         basis.register_basis_file(args.basis_file, args.basis)
     mol = molecule.from_input_dict(WATER)
@@ -211,7 +225,7 @@ def main() -> int:
                       flush=True)
         # K4 on the staircase's quartets, each class pair
         worst, scale = 0.0, 0.0
-        for cp in sdf.pairs:
+        for cp in [] if args.k6_only else sdf.pairs:
             bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
             t = torch.arange(cp.N, dtype=torch.int64)
             r, c, _ = fock_stream.decode_staircase(cp.cum, t, bra, ket,
@@ -223,7 +237,7 @@ def main() -> int:
         report(f"K4, {len(sdf.pairs)} class pairs", worst, 1e-12 * scale)
         # K5 staircase: whole ranges, then ranges from t0 % 32 != 0
         ref, got, split, plain_split = zeros(), zeros(), zeros(), zeros()
-        for cp in sdf.pairs:
+        for cp in [] if args.k6_only else sdf.pairs:
             bra, ket = sdf.blocks[cp.bi].table, sdf.blocks[cp.ki].table
             fock_stream.eri4c_jk_staircase_plain(ref, bra, ket, cp.cum, cp.N,
                                                  cp.same, D)
@@ -249,18 +263,20 @@ def main() -> int:
             I = eri.eri4c_plain(g.bra, g.ket, g.sel_bra, g.sel_ket)
             fock.digest_plain(ref, I, g.weight, D, g.bra, g.ket, g.sel_bra,
                               g.sel_ket)
-            k5(lib, got, D, g.bra, g.ket, n, sel_bra=g.sel_bra,
-               sel_ket=g.sel_ket, weight=g.weight)
+            if not args.k6_only:
+                k5(lib, got, D, g.bra, g.ket, n, sel_bra=g.sel_bra,
+                   sel_ket=g.sel_ket, weight=g.weight)
             k6(lib, got6, D, g, I.contiguous(), slice(None))
             cls = (g.bra.la, g.bra.lb, g.ket.la, g.ket.lb)
-            routes[cls] = ("warp", "lane")[lib.rh_digest_lane(*cls)]
+            routes[cls] = ("warp", "lane", "block")[lib.rh_digest_lane(*cls)]
             if routes[cls] != kernels.digest_route(*cls):
                 bad += 1
                 print(f"  K6 {cls}: built {routes[cls]}, table "
                       f"{kernels.digest_route(*cls)}  FAIL", flush=True)
         s = float(ref.abs().max())
-        report(f"K5 list, {len(sdirect.groups)} batches",
-               float((got - ref).abs().max()), 1e-11 * s)
+        if not args.k6_only:
+            report(f"K5 list, {len(sdirect.groups)} batches",
+                   float((got - ref).abs().max()), 1e-11 * s)
         report("K6, each class pair on its route",
                float((got6 - ref).abs().max()), 1e-11 * s)
         print("  K6 routes built: " + ", ".join(

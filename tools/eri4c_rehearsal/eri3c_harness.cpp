@@ -2,7 +2,8 @@
 // as C++20 against shim/cuda_runtime.h, each launch emulated block by block
 // with one std::thread per CUDA thread and the grid, block size and shared
 // memory of eri3c_launch.cuh (the route of each class from
-// -DJC_ERI3C_LANE_MASK_B<i>, the block route's aux tile from eri3c_tile).
+// -DJC_ERI3C_LANE_MASK_B<i>, the block route's body from
+// -DJC_ERI3C_T1_MASK_B<i>, its aux tile from eri3c_tile).
 // rh_eri3c takes the arguments of jc_eri3c without the
 // stream; rh_eri3c_tile returns a block-route class's tile (0 on the lane
 // route).  Classes to (dd|g) and the metric's (0,3), (0,4) bras, and with
@@ -19,7 +20,8 @@ thread_local WarpCtx* tl_warp;
 thread_local std::barrier<>* tl_block;
 
 namespace jc {
-double sm[1 << 17];  // the dynamic shared memory of the block that runs
+// the dynamic shared memory of the block that runs
+alignas(16) double sm[1 << 17];
 }
 
 namespace {
@@ -66,10 +68,9 @@ int eri3c(const double* pair, const int* meta, long long n, int Ka, int Kb,
     });
   } else {
     const int QT = eri3c_tile<LA, LB, LQ>(Ka * Kb, Kq);
-    if (sizeof(double) * (size_t)Eri3cSmem<LA, LB, LQ>(Ka * Kb, Kq, QT).total >
-        sizeof(sm))
-      return 1;
-    run_grid(n * ((nq + QT - 1) / QT), kEri3cThreads, [&] {
+    const size_t bytes = eri3c_block_bytes<LA, LB, LQ>(Ka * Kb, Kq, QT);
+    if (bytes > sizeof(sm) || bytes > 232448) return 1;
+    run_grid(n * ((nq + QT - 1) / QT), Eri3cClass<LA, LB, LQ>::kThreads, [&] {
       eri3c_block_kernel<LA, LB, LQ>(pair, Ka, Kb, meta, aux, auxk, qrow, ecd,
                                      nq, Kq, QT, cols, cols_t, mirror, out,
                                      f32, ld);

@@ -120,9 +120,11 @@ int eri4c_jk(const double* pb, int Ka, int Kb, const int* mb,
   return 0;
 }
 
-// K6 on the route of its class pair (DigestClass::kLane): the lane
-// route's blocks of kDigestLaneBlock threads, the warp route's warps of
-// one block each, warps a block from the footprint
+// K6 on the route of its class pair (DigestClass::kLane, kBlock): the
+// lane route's blocks of kDigestLaneBlock threads, the block route's one
+// block a CTA of kDigestBlockThreads (its ring held to the card's 227 KB),
+// the warp route's warps of one block each, warps a block from the
+// footprint
 template <int LA, int LB, int LC, int LD>
 int digest_jk(const int* mb, const int* mk, const int64_t* sb,
               const int64_t* sk, const double* weight, long long n,
@@ -135,6 +137,12 @@ int digest_jk(const int* mb, const int* mk, const int64_t* sb,
     run_grid(cdiv(n, kDigestLaneBlock), kDigestLaneBlock, [&] {
       digest_jk_lane_kernel<LA, LB, LC, LD>(mb, mk, sb, sk, weight, n, I, D,
                                             nbf, JK);
+    });
+  } else if constexpr (G::kBlock) {
+    if (G::warp_bytes() > sizeof(sm) || G::warp_bytes() > 232448) return 1;
+    run_grid(n, kDigestBlockThreads, [&] {
+      digest_jk_block_kernel<LA, LB, LC, LD>(mb, mk, sb, sk, weight, I, D,
+                                             nbf, JK);
     });
   } else {
     const int W = eri4c_warps(G::warp_bytes());
@@ -327,10 +335,12 @@ extern "C" unsigned long long rh_block_mask(int i) {
     return 0;                                                                 \
   }
 
-// K6's route of a class pair as built: lane (1) or warp (0)
+// K6's route of a class pair as built: lane (1), block (2) or warp (0)
 #define RH_K6_ROUTE(LA, LB, LC, LD)                                           \
   if (la == LA && lb == LB && lc == LC && ld == LD)                           \
-    return jc::DigestClass<LA, LB, LC, LD>::kLane ? 1 : 0;
+    return jc::DigestClass<LA, LB, LC, LD>::kLane    ? 1                      \
+           : jc::DigestClass<LA, LB, LC, LD>::kBlock ? 2                      \
+                                                     : 0;
 
 extern "C" int rh_digest_lane(int la, int lb, int lc, int ld) {
   RH_CLASSES(RH_K6_ROUTE)

@@ -12,8 +12,9 @@ card's name and power limit):
    process per source, in parallel); 2a. ``cuobjdump -sass`` of the built
    library: every f64 tensor-core instance of K2 and K7 holds DMMA
    instructions, K2's f32 instance FFMA and no tensor-core instruction
-   (no TF32); ptxas's registers, stack and spills of every K4/K5/K6
-   and K1 instance, and the build wall of K1's sources;
+   (no TF32), each K9 instance DFMA and SHFL; ptxas's registers, stack
+   and spills of every K4/K5/K6, K1 and K9 instance, and the build wall
+   of K1's sources;
 3. each kernel against its plain torch version on the card, times from CUDA
    events beside the least time the card could take (``bound_ms``):
    K1 (3-center integrals, every class of benzene_2_water / cc-pVTZ-JKFIT,
@@ -27,7 +28,11 @@ card's name and power limit):
    the f64 instance's time and the replaced f32 body's recorded one; also
    at w32's Q-block, whose col_map has whole dead tiles, and in phase 13
    at w64's), the
-   probe K3 (device Boys function), and at the class shapes of
+   probe K3 (device Boys function), K9 (S, T and V, the nuclear sum in
+   the kernel: every class of benzene_2_water in its DF basis, in
+   6-311++G(3df,3pd) and in the g basis, each class's elements within
+   1e-12 x max |M| of ``overlap_kinetic_nuclear_plain``; phase 3s), and
+   at the class shapes of
    ammonia_trimer and benzene_2_water (6-311++G(2d,2p)), the first quartets
    of every class pair of the Schwarz staircase: K4 (4-center integrals),
    K6 (digestion of cached blocks), K5 in list and in staircase mode (the
@@ -82,11 +87,14 @@ card's name and power limit):
    its route as compiled: every class pair of L <= 3 that the path
    launched must be on K5's lane route;
 8. the large-system chain on the generated 32-water cluster (6-31+G* /
-   cc-pVTZ-JKFIT, nbf 736): f64 B; f32 B with the B, raw-3c and
-   one-electron caches and checkpoints (within 3e-4 Eh of f64, half the B
-   bytes, at most half the build's peak memory); again from those caches
-   and the checkpoint (no 3-center build, the same B, at most 2
-   iterations, within 1e-9 Eh), in a temporary directory removed after;
+   cc-pVTZ-JKFIT, nbf 736): f64 B (with K9 held to its plain version at
+   w32's 96 nuclei, every element within 1e-12 x max |M|, its time over
+   w32's classes beside its bound, and the dipole integrals' wall); f32 B with the B,
+   raw-3c and one-electron caches and checkpoints (within 3e-4 Eh of
+   f64, half the B bytes, at most half the build's peak memory); again
+   from those caches and the checkpoint (no 3-center build, the same B,
+   at most 2 iterations, within 1e-9 Eh), in a temporary directory
+   removed after;
    the split fold (K8) on the f32 B, recorded beside the f64 fold, not
    gated: at this size it lies outside the DF gate;
 9. the sharded programs (``num_devices``), as process groups of ranks
@@ -147,7 +155,8 @@ card's name and power limit):
    build); (c) w32 from (b)'s B cache (no 3-center build, the same B
    checksum); (d) w32 with nothing resident (the f32 phase on streamed
    blocks cast on the card), within 1e-9 Eh of (b); (e) w64 at the
-   defaults (f64 B, mixed precision), which must choose the stream with
+   defaults (f64 B, mixed precision; K9 held to its plain version, its
+   time over w64's classes and the dipole integrals' wall as at w32), which must choose the stream with
    B32 resident on its own, its build's device peak below B's bytes; (f)
    w64 resident on an f64 B without the mixed-precision phase, within
    1e-8 Eh of (e), whose f64 build time (e)'s is printed beside; (g) the
@@ -764,6 +773,220 @@ def check_k3(tag: str, dev) -> dict:
             "library_ms": None,
             **bound_of(8.0 * n * (1 + 9), n_series * 3 * 128
                        + (n - n_series) * 3 + n * 3 * 8)}
+
+
+# ------------------------------------------------------------------ K9
+
+def stv_counts(tables, atoms) -> dict:
+    """Per class of K9's packing (``oei.stv_tables``): shell pairs, live
+    primitive pairs, the (live primitive pair, nucleus) items of the
+    nuclear sum and those of them on the Boys series (T <= 35), and the
+    S/T/V elements the class stores (its blocks and their transposes)."""
+    import torch
+
+    C = atoms[:, :3]
+    rows = max(1, (1 << 24) // max(atoms.shape[0], 1))
+    out = {}
+    for tab in tables:
+        meta = tab.meta.long()
+        seg = torch.repeat_interleave(
+            torch.arange(tab.n, device=meta.device), meta[:, 4])
+        series = 0
+        for s0 in range(0, tab.prim.shape[0], rows):
+            a, b = tab.prim[s0:s0 + rows, 0], tab.prim[s0:s0 + rows, 1]
+            cen = tab.pair[seg[s0:s0 + rows]]
+            p = a + b
+            P = (a[:, None] * cen[:, :3] + b[:, None] * cen[:, 3:]) / p[:, None]
+            T = p[:, None] * ((P[:, None, :] - C[None]) ** 2).sum(-1)
+            series += int((T <= BOYS_TCRIT).sum())
+        nab = ncart(tab.la) * ncart(tab.lb)
+        diag = int((meta[:, 2] != 0).sum())
+        out[(tab.la, tab.lb)] = {
+            "pairs": tab.n, "live_prim_pairs": int(tab.prim.shape[0]),
+            "items": int(tab.prim.shape[0]) * atoms.shape[0],
+            "series_items": series, "stores": nab * (2 * tab.n - diag)}
+    return out
+
+
+def stv_ops(la: int, lb: int, c: dict) -> float:
+    """K9's operations for one class's counts (``stv_counts``): per item
+    Boys and R (``boys_r_ops``), the distance, the charge scaling of the
+    L + 1 Boys values and the nherm(L) adds of the sum; per live primitive
+    pair its three E tables to lb + 2 (five operations an entry) and the
+    contraction of each component pair (S 4, T 25, V 3 a Hermite term)."""
+    L = la + lb
+    ne = (la + 1) * (lb + 3) * (L + 3)
+    per_prim = 15 * ne + ncart(la) * ncart(lb) * (29 + 3 * nherm(L))
+    return (boys_r_ops(L, c["items"], c["series_items"])
+            + c["items"] * (8 + (L + 1) + nherm(L))
+            + c["live_prim_pairs"] * per_prim)
+
+
+def stv_bound(counts: dict, natom: int) -> dict:
+    """``bound_of`` K9's launches of ``counts``: each packed row read once
+    (24 B a live primitive pair, 68 B a shell pair, 32 B a nucleus), each
+    stored element written once."""
+    nbytes = (sum(24 * c["live_prim_pairs"] + 68 * c["pairs"]
+                  + 24 * c["stores"] for c in counts.values())
+              + 32 * natom)
+    ops = sum(stv_ops(*cls, c) for cls, c in counts.items())
+    return bound_of(nbytes, ops)
+
+
+def stv_launch_ms(tables, atoms, nbf: int, dev, reps: int = 3,
+                  group: int | None = None) -> dict:
+    """K9's CUDA-event time over all of ``tables`` (one launch a class, a
+    mean of ``reps`` after a warm-up), and each class's alone."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import oei
+
+    M = [torch.empty((nbf, nbf), dtype=torch.float64, device=dev)
+         for _ in range(3)]
+
+    def run(tabs):
+        return lambda: [oei.stv_class(t, atoms, *M, group=group) for t in tabs]
+
+    return {"ms": cuda_ms(run(tables), reps),
+            "per_class": {(t.la, t.lb): cuda_ms(run([t]), reps)
+                          for t in tables}}
+
+
+def stv_registers(tag: str) -> dict:
+    """K9's instances (one a class), as ptxas reported them in this
+    process's build: registers, stack frame, spills."""
+    out = ptxas_instances(re.compile(
+        r"\d+(stv_kernel)ILi(\d)ELi(\d)E"), 2).get("stv_kernel")
+    check(out is not None and out["instances"] == 15,
+          "ptxas: K9's instances are not one a class")
+    print(f"{tag} K9 instances (ptxas): " + fmt_instances(
+        {"stv_kernel": out}), flush=True)
+    return out
+
+
+def check_k9(tag: str, dev, label: str, prim, mol) -> dict:
+    """K9 against its plain version on one system: ``overlap_kinetic_
+    nuclear`` on the card (K9, one launch a class) and ``overlap_kinetic_
+    nuclear_plain`` there, every class's stored elements within 1e-12 x
+    each matrix's max-abs; K9's CUDA-event time (all classes, each class)
+    beside the bound of this system's counts, the wrapper's wall (packing
+    included) and the plain version's time."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import kernels, oei
+
+    nbf = prim.nbf
+    n0 = kernels.launches["stv"]
+    t0 = time.perf_counter()
+    got = oei.overlap_kinetic_nuclear(prim, mol, dev)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    tables = oei.stv_tables(prim, dev)
+    check(kernels.launches["stv"] - n0 == len(tables),
+          f"{label}: K9 launched {kernels.launches['stv'] - n0} times for "
+          f"{len(tables)} classes")
+    ref = oei.overlap_kinetic_nuclear_plain(prim, mol, dev)
+    scale = [float(r.abs().max()) for r in ref]
+    per_class, worst = {}, 0.0
+    for tab in tables:
+        idx = torch.as_tensor(oei.stv_targets(tab, nbf),
+                              device=dev).reshape(-1)
+        errs = [float((g.reshape(-1)[idx] - r.reshape(-1)[idx]).abs().max())
+                / s for g, r, s in zip(got, ref, scale)]
+        per_class[f"{tab.la}{tab.lb}"] = {"rel_err": errs}
+        worst = max(worst, *errs)
+    check(worst <= 1e-12, f"{label}: K9 off its plain version by "
+          f"{worst:.3e} x max |M| (bound 1e-12)")
+    atoms = oei.atom_table(mol, dev)
+    times = stv_launch_ms(tables, atoms, nbf, dev)
+    plain_ms = cuda_ms(lambda: oei.overlap_kinetic_nuclear_plain(
+        prim, mol, dev), reps=1)
+    counts = stv_counts(tables, atoms)
+    bound = stv_bound(counts, mol.natom)
+    for cls, c in counts.items():
+        per_class["".join(map(str, cls))].update(
+            c, ms=times["per_class"][cls], **bound_of(0.0, stv_ops(*cls, c)))
+    items = sum(c["items"] for c in counts.values())
+    series = sum(c["series_items"] for c in counts.values())
+    print(f"{tag} K9 {label}: nbf {nbf}, {mol.natom} atoms, "
+          f"{len(tables)} classes, {items} (live primitive pair, nucleus) "
+          f"items ({series} on the Boys series); max err / max |M| "
+          f"{worst:.3e} (bound 1e-12); K9 ({kernels.stv_group(mol.natom)} "
+          f"lanes a pair) {times['ms']:.4f} ms (bound "
+          f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}), the wrapper "
+          f"with its packing {call_ms:.1f} ms, plain {plain_ms:.2f} ms; by "
+          "class (ms, rel err S T V): " + "; ".join(
+              f"({cls}) {v['ms']:.4f} "
+              + " ".join(f"{e:.1e}" for e in v["rel_err"])
+              for cls, v in per_class.items()), flush=True)
+    return {"name": "stv", "route": "cuda",
+            "source": "juliachem_jl_tpu_torch/csrc/oei.cuh",
+            "replaces": "juliachem_jl_tpu/ops/oei.py:42",
+            "shapes": label, "max_abs_err": max(
+                float((g - r).abs().max()) for g, r in zip(got, ref)),
+            "rel_err": worst, "ms": times["ms"], "plain_ms": plain_ms,
+            "call_ms": call_ms, "library_ms": None, **bound,
+            "group": kernels.stv_group(mol.natom), "per_class": per_class}
+
+
+def stv_at(tag: str, label: str, prim, mol) -> dict:
+    """At a cluster on its SCF path: K9 (``overlap_kinetic_nuclear``) held
+    to its plain version on the card (every element within 1e-12 x each
+    matrix's max-abs, at the group ``kernels.stv_group`` picks for these
+    nuclei), K9's CUDA-event time over the classes beside its bound, the
+    walls of ``overlap_kinetic_nuclear`` (the pair blocks, K9's packing and
+    launches), of the plain version and of the dipole integrals (plain
+    torch, ``dipole_matrices``), each by the host clock to a synchronise.
+    Its launches are not the path's: the launch counts are restored."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import kernels, oei
+
+    saved = (dict(kernels.launches),
+             {k: dict(v) for k, v in kernels.class_launches.items()})
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = oei.overlap_kinetic_nuclear(prim, mol, dev)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    ref = oei.overlap_kinetic_nuclear_plain(prim, mol, dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0 - call_s
+    err = max(float((g - r).abs().max() / r.abs().max())
+              for g, r in zip(got, ref))
+    check(err <= 1e-12, f"{label}: K9 off its plain version by {err:.3e} x "
+          "max |M| (bound 1e-12)")
+    del got, ref
+    tables = oei.stv_tables(prim, dev)
+    atoms = oei.atom_table(mol, dev)
+    times = stv_launch_ms(tables, atoms, prim.nbf, dev)
+    counts = stv_counts(tables, atoms)
+    bound = stv_bound(counts, mol.natom)
+    oei.dipole_matrices(prim, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oei.dipole_matrices(prim, dev)
+    torch.cuda.synchronize()
+    dip_s = time.perf_counter() - t0
+    kernels.launches.update(saved[0])
+    kernels.class_launches.clear()
+    kernels.class_launches.update(saved[1])
+    items = sum(c["items"] for c in counts.values())
+    series = sum(c["series_items"] for c in counts.values())
+    print(f"{tag} {label}: S/T/V by K9 ({kernels.stv_group(mol.natom)} lanes "
+          f"a pair) {times['ms']:.4f} ms over {len(tables)} classes (bound "
+          f"{bound['bound_ms']:.4f} ms, {bound['bound_by']}; {items} items, "
+          f"{series} on the Boys series), max err / max |M| {err:.3e} "
+          f"against the plain version (bound 1e-12); overlap_kinetic_nuclear "
+          f"(pair blocks, packing, K9) {call_s:.4f} s, plain {plain_s:.4f} s; "
+          f"dipole integrals (plain torch) {dip_s:.4f} s", flush=True)
+    return {"ms": times["ms"], "call_s": call_s, "plain_ms": 1e3 * plain_s,
+            "rel_err": err, "group": kernels.stv_group(mol.natom),
+            "per_class_ms": {
+                f"{a}{b}": v for (a, b), v in times["per_class"].items()},
+            "dipole_s": dip_s, "items": items, "series_items": series,
+            **bound}
 
 
 def k1_calls(dev, bsets, n_pairs: int = 64) -> list:
@@ -1414,9 +1637,12 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     for ln in out.stdout.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :", 1)[1].strip()
-            per_fn[fn] = {"DMMA": 0, "MMA": 0, "FFMA": 0, "LDGSTS": 0}
+            per_fn[fn] = {"DMMA": 0, "MMA": 0, "FFMA": 0, "LDGSTS": 0,
+                          "DFMA": 0, "SHFL": 0}
         elif fn is not None and (op := sass_opcode(ln)):
             per_fn[fn]["DMMA"] += op == "DMMA"
+            per_fn[fn]["DFMA"] += op == "DFMA"
+            per_fn[fn]["SHFL"] += op == "SHFL"
             per_fn[fn]["MMA"] += op.endswith("MMA")
             per_fn[fn]["FFMA"] += op == "FFMA"
             per_fn[fn]["LDGSTS"] += op == "LDGSTS"
@@ -1475,6 +1701,19 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
           and all(v > 0 for v in k6_fns.values()),
           "SASS: K6's block-route instances are not one a class pair of the "
           "table, each with cp.async copies")
+    # K9: one instance a class, each with DFMA (Boys, R, the contraction)
+    # and the group's shuffles
+    stv_fns = {f: v for f, v in per_fn.items() if "stv_kernel" in f}
+    print(f"{tag} SASS of K9: {len(stv_fns)} instances (15 classes), DFMA "
+          f"{min((v['DFMA'] for v in stv_fns.values()), default=0)}-"
+          f"{max((v['DFMA'] for v in stv_fns.values()), default=0)}, SHFL "
+          f"{min((v['SHFL'] for v in stv_fns.values()), default=0)}-"
+          f"{max((v['SHFL'] for v in stv_fns.values()), default=0)} an "
+          "instance", flush=True)
+    check(len(stv_fns) == 15
+          and all(v["DFMA"] > 0 and v["SHFL"] > 0 for v in stv_fns.values()),
+          "SASS: K9's instances are not one a class, each with DFMA and "
+          "SHFL")
     f32 = one("df_gather_w_f32", K2_F32_KERNEL)
     print(f"{tag} SASS of K2's f32 instance: FFMA {f32['FFMA']}, tensor-core "
           f"(*MMA) {f32['MMA']}", flush=True)
@@ -1499,7 +1738,8 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
           f"threads, {tile['smem_bytes']} B of shared memory, "
           f"{tile['blocks_per_sm'] or 'unknown'} blocks an SM", flush=True)
     return {"dmma": counts, "df_gather_w_f32": {**f32, **tile},
-            "registers": used, "eri4c_block_dmma": block_fns}
+            "registers": used, "eri4c_block_dmma": block_fns,
+            "stv_kernel": stv_fns}
 
 
 def ptxas_instances(pat, nidx: int) -> dict:
@@ -2241,7 +2481,8 @@ def fmt_split(split: dict) -> str:
 def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
                 waters: int | None = None, measure_build: bool = False,
                 gated: bool = True, k1_times: bool = False,
-                checksum: bool = True, keep_density: bool = False) -> dict:
+                checksum: bool = True, keep_density: bool = False,
+                stv: bool = False) -> dict:
     """One DF-RHF run_spec of a water cluster on the card (peak device memory
     reset just before it); with ``measure_build``, first the peak of the
     packed builder's build alone (``build_peak``).  Returns the energy,
@@ -2258,7 +2499,10 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     bytes run_spec's builder build added at its peak (``build_peak_inline``:
     the peak reset just before it).  ``checksum`` False skips B's checksum
     (a host B's is summed on the CPU); ``keep_density`` keeps the converged
-    D as "density"."""
+    D as "density"; ``stv`` holds K9 to its plain version at the system's
+    nuclei and adds K9's time over its classes beside its bound and the
+    dipole integrals' wall (``stv_at``), none of it counted as the path's
+    launches."""
     import contextlib
     import io
 
@@ -2369,6 +2613,9 @@ def run_cluster(tag: str, jc, name: str, extra: dict, label: str,
     check(summary["route"] == "ScreenedDFFockBuilder",
           f"{label}: route {summary['route']}")
     check(summary["converged"] or not gated, f"{label}: SCF did not converge")
+    if stv:
+        summary["stv"] = stv_at(tag, label, out["Basis"].primary,
+                                out["Molecule"])
     if keep_density:
         summary["density"] = res["Density"]
     return summary
@@ -3224,7 +3471,7 @@ def run_phase13(tag: str, jc, path, counts: dict, w32a: dict,
         oei = os.path.join(tmp, "w64")
         e = path("w64 f64 B defaults", lambda: run_cluster(
             tag, jc, "w64", {"oei_cache": oei}, "w64 f64 B defaults",
-            checksum=False))
+            checksum=False, stv=True))
         torch.cuda.empty_cache()
         f = path("w64 f64 B resident", lambda: run_cluster(
             tag, jc, "w64", {"oei_cache": oei, "mixed_precision": False},
@@ -3848,6 +4095,7 @@ def main() -> int:
                       str(Path(kernels._nvcc()).parent / "cuobjdump"))
     sass["eri4c"] = eri4c_registers(tag)
     sass["eri3c"] = eri3c_registers(tag)
+    sass["stv"] = stv_registers(tag)
 
     goldens = json.loads((ROOT / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
@@ -3870,6 +4118,22 @@ def main() -> int:
     k2, k2_f32, k2_f32b = check_k2(tag, dev, bsets,
                                    create_scf_options(spec.scf_keywords))
     k3 = check_k3(tag, dev)
+    # 3s. K9 (S/T/V) against its plain version, every class, at
+    #     benzene_2_water in its DF basis, in the f basis and in the g basis
+    k9 = {}
+    for label, inp in (
+            ("benzene_2_water", system_input(
+                "benzene_2_water", goldens["benzene_2_water"])),
+            (f"benzene_2_water {F_BASIS}", system_input(
+                "benzene_2_water", {**goldens["benzene_2_water"],
+                                    "basis": F_BASIS})),
+            (f"benzene_2_water {G_BASIS}", g_input(
+                "benzene_2_water", goldens["benzene_2_water"]))):
+        spec_s = jc.io.parse_input(inp)
+        mol_s = jc.molecule.run(spec_s)
+        k9[label] = check_k9(tag, dev, label,
+                             jc.basis.run(mol_s, spec_s.model).primary, mol_s)
+    torch.cuda.empty_cache()
     # K8 at the fold shapes of the paths that launch it: the fitted rows of
     # the aux set of w32's first 8 waters and of w32
     from juliachem_jl_tpu_torch.models.df_screened import fitted_rows
@@ -4278,7 +4542,7 @@ def main() -> int:
         ckpt = os.path.join(tmp, "w32_ckpt.npz")
         w32a = path("w32 f64 B", lambda: run_cluster(
             tag, jc, "w32", {"bench_fock_reps": 4}, "w32 f64 B",
-            measure_build=True, k1_times=True, keep_density=True))
+            measure_build=True, k1_times=True, keep_density=True, stv=True))
         w32b = path("w32 f32 B", lambda: run_cluster(
             tag, jc, "w32", {"df_b_dtype": "f32", "df_b_cache": cache,
                              "oei_cache": cache, "checkpoint": ckpt,
@@ -4438,7 +4702,8 @@ def main() -> int:
     ff = class_counts[label_fa].get("eri4c", {}).get((3, 3, 3, 3), 0)
     check(ff > 0, f"K4 never launched (ff|ff) on {label_fa} (SAD atoms, "
           "Schwarz diagonal)")
-    f_main = {"eri3c": label_fa, "eri4c": label_fc, "digest_jk": label_fc,
+    f_main = {"eri3c": label_fa, "stv": label_fa, "eri4c": label_fc,
+              "digest_jk": label_fc,
               "eri4c_jk_list": f"{label_fc} direct build",
               "eri4c_jk_stair": f"{label_fc} streaming build"}
     for name, label in f_main.items():
@@ -4513,7 +4778,8 @@ def main() -> int:
           for lb in (label_ga, label_gb)}
     check(gg[label_ga] > 0, f"K4 never launched (gg|gg) on {label_ga} (SAD "
           "atoms, Schwarz diagonal)")
-    g_main = {"eri3c": label_ga, "eri4c": label_gb, "digest_jk": label_gb,
+    g_main = {"eri3c": label_ga, "stv": label_ga, "eri4c": label_gb,
+              "digest_jk": label_gb,
               "eri4c_jk_list": f"{label_gb} direct build",
               "eri4c_jk_stair": f"{label_gb} streaming build"}
     for name, label in g_main.items():
@@ -4553,7 +4819,7 @@ def main() -> int:
                  "eri4c_jk_list": "ammonia_trimer direct build",
                  "eri4c_jk_stair": "benzene_2_water conventional",
                  "e2_rmp2": "benzene_2_water RI-MP2", "e2_ss": label_cat,
-                 "e2_os": label_cat}
+                 "e2_os": label_cat, "stv": "benzene_2_water DF"}
     for name, label in (*main_path.items(), ("split_fold", "w8 split fold")):
         check(counts[label].get(name, 0) > 0,
               f"kernel {name} never launched on {label}")
@@ -4669,8 +4935,27 @@ def main() -> int:
             "largest_class": v["largest_class"]})
     g_kernels[[k["name"] for k in g_kernels].index("digest_jk_g")].update(
         per_build=k6_build(builds_g))
+    # K9 at benzene_2_water's shapes (phase 3s), launches on its DF path;
+    # at w32 and w64 on their SCF paths; the f and g classes on phase 10's
+    # and 11's DF paths
+    w64e = streamed["w64_defaults"]
+    k9_line = {**k9["benzene_2_water"],
+               "launches": counts["benzene_2_water DF"]["stv"],
+               "path": "benzene_2_water DF",
+               "at_w32": {**w32a["stv"], "launches": counts["w32 f64 B"]["stv"],
+                          "path": "w32 f64 B",
+                          "H_s": w32a["setup_s"]["H"]},
+               "at_w64": {**w64e["stv"],
+                          "launches": counts["w64 f64 B defaults"]["stv"],
+                          "path": "w64 f64 B defaults",
+                          "H_s": w64e["setup_s"]["H"]}}
+    k9_f = {**k9[bz_f], "name": "stv_f", "launches": f_launches(label_fa, "stv"),
+            "path": label_fa}
+    k9_g = {**k9[bz_g], "name": "stv_g", "launches": g_launches(label_ga, "stv"),
+            "path": label_ga}
     kern_line = ([k1, k2, k2f] + new_kernels + list(k7.values())
-                 + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels + g_kernels)
+                 + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels + g_kernels
+                 + [k9_line, k9_f, k9_g])
 
     systems = [ammonia, benzene, bz_f32, bz_split, *w8.values(),
                ammonia_conv, benzene_conv,

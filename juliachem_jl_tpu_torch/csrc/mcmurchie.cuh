@@ -1,7 +1,8 @@
 // McMurchie-Davidson device functions shared by the integral kernels K1
-// (eri3c.cuh) and K4/K5 (eri4c.cuh): Hermite index arithmetic, Cartesian
-// component order, axial normalisation, the Hermite expansion coefficients E
-// and the Hermite Coulomb integrals R.
+// (eri3c.cuh), K4/K5 (eri4c.cuh) and K9 (oei.cuh): Hermite index
+// arithmetic, Cartesian component order, axial normalisation, the Hermite
+// expansion coefficients E and the Hermite Coulomb integrals R (also with
+// compile-time indices, in registers).
 //
 // Replaces juliachem_jl_tpu/ops/mcmurchie.py::e_dense / hermite_expansion /
 // r_tensor (:58-192) and the static tables of ops/class_tables.py, which XLA
@@ -11,6 +12,9 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace jc {
 
@@ -116,6 +120,69 @@ __device__ void hermite_R(double alpha, double X, double Y, double Z,
     }
     R[0] = pw[n] * F[n];
   }
+}
+
+// ------------------------------------------------ compile-time forms
+
+// f(std::integral_constant<int, i>) for i = 0 .. N-1, unrolled
+template <class F, int... I>
+__device__ __forceinline__ void static_for_seq(F&& f,
+                                               std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_seq(f, std::make_integer_sequence<int, N>{});
+}
+
+// compile-time form of herm_index
+__host__ __device__ constexpr int hidx(int t, int u, int v) {
+  return nherm(t + u + v - 1) + (u + v) * (u + v + 1) / 2 + v;
+}
+
+// Hermite Coulomb integrals R^0_{tuv}, t+u+v <= L, in registers: the
+// in-place downward recursion of hermite_R with compile-time indices.
+template <int L>
+__device__ __forceinline__ void hermite_R_lane(double alpha, double X,
+                                               double Y, double Z,
+                                               const double* F, double* R) {
+  double pw[L + 1];
+  pw[0] = 1.0;
+  static_for<L>([&](auto n) {
+    pw[decltype(n)::value + 1] = pw[decltype(n)::value] * (-2.0 * alpha);
+  });
+  static_for<L + 1>([&](auto n_) {
+    constexpr int n = L - decltype(n_)::value;
+    static_for<L - n>([&](auto s_) {
+      constexpr int s = L - n - decltype(s_)::value;
+      static_for<s + 1>([&](auto d_) {
+        constexpr int d = decltype(d_)::value, t = s - d;
+        static_for<d + 1>([&](auto u_) {
+          constexpr int u = d - decltype(u_)::value, v = d - u;
+          if constexpr (t > 0) {
+            const double hi = R[hidx(t - 1, u, v)];
+            if constexpr (t >= 2)
+              R[hidx(t, u, v)] = (t - 1) * R[hidx(t - 2, u, v)] + X * hi;
+            else
+              R[hidx(t, u, v)] = X * hi;
+          } else if constexpr (u > 0) {
+            const double hi = R[hidx(t, u - 1, v)];
+            if constexpr (u >= 2)
+              R[hidx(t, u, v)] = (u - 1) * R[hidx(t, u - 2, v)] + Y * hi;
+            else
+              R[hidx(t, u, v)] = Y * hi;
+          } else {
+            const double hi = R[hidx(t, u, v - 1)];
+            if constexpr (v >= 2)
+              R[hidx(t, u, v)] = (v - 1) * R[hidx(t, u, v - 2)] + Z * hi;
+            else
+              R[hidx(t, u, v)] = Z * hi;
+          }
+        });
+      });
+    });
+    R[0] = pw[n] * F[n];
+  });
 }
 
 }  // namespace jc

@@ -184,6 +184,20 @@ ERI3C_WIDE_NAB = 16
 ERI3C_T1 = frozenset({(1, 4, 1), (1, 4, 2)}
                      | {(3, 4, lq) for lq in range(1, 5)}
                      | {(4, 4, lq) for lq in range(5)})
+# K9's group size (csrc/oei.cuh, a launch argument): the lanes that share
+# one shell pair, each taking every G-th nucleus of its sum; one of
+# STV_GROUPS, picked by the number of nuclei (``stv_group``): G up to each
+# count of STV_GROUP_NATOM, 8 above.  Few nuclei leave a group's lanes
+# idle and few pairs, so wide groups fill the card; many nuclei keep 8
+# lanes busy and narrow groups pay fewer shuffles and E-table builds a
+# primitive pair.  Chosen from the card's times of every class at each G
+# (tools/stv_times.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md §6; ms of
+# all classes, G = 8, 16, 32): benzene_2_water (27 nuclei) 0.481, 0.362,
+# 0.308, in 6-311++G(3df,3pd) 0.775, 0.564, 0.496, in the g basis 1.713,
+# 1.182, 0.930; w8 (24) 0.386, 0.332, 0.279; w32 (96) 0.680, 0.622,
+# 0.800; w64 (192) 2.414, 2.821, 3.804.
+STV_GROUPS = (8, 16, 32)
+STV_GROUP_NATOM = ((48, 32), (136, 16))
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", f"-DJC_K2_SLAB_M={K2_SLAB_M}",
               f"-DJC_K2_TILE_N={K2_TILE_N}", f"-DJC_K2F_NQ={K2F_NQ}",
@@ -191,6 +205,12 @@ NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC",
               f"-DJC_K8_TILE_M={K8_TILE_M}",
               f"-DJC_K8_TILE_N={K8_TILE_N}", f"-DJC_K8_SLAB={K8_SLAB}",
               f"-DJC_DIGEST_LANE_MAX_N={DIGEST_LANE_MAX_N}")
+
+
+def stv_group(natom: int) -> int:
+    """The lanes K9 gives a shell pair of a system of ``natom`` nuclei."""
+    return next((g for top, g in STV_GROUP_NATOM if natom <= top),
+                STV_GROUPS[0])
 
 
 def eri4c_route(la: int, lb: int, lc: int, ld: int) -> str:
@@ -348,6 +368,8 @@ _FUNCS = {
                                       _LL, _P, _LL, _P]),
     "jc_digest_jk": ("digest_jk", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _LL,
                                    _P, _P, _LL, _P]),
+    "jc_stv": ("stv", [_I, _I, _I, _P, _P, _P, _LL, _P, _I, _P, _P, _P,
+                       _LL]),
     "jc_mp2_e2": ("e2_rmp2", [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                               _P, _P, _LL, _P]),
 }
@@ -356,7 +378,8 @@ launches = {"eri3c": 0, "eri3c_f32": 0, "df_gather_w": 0,
             "df_gather_w_f32": 0, "df_gather_w_f32b": 0, "boys_probe": 0,
             "boys_probe_recip": 0, "eri4c": 0,
             "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0,
-            "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0, "split_fold": 0}
+            "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0, "split_fold": 0,
+            "stv": 0}
 
 # integral kernels: kernel name -> {angular-momentum class: launches}, kept
 # beside ``launches`` by the same calls

@@ -1,19 +1,28 @@
 """One-electron integrals: overlap, kinetic, nuclear attraction, dipole.
 
-Port of ``juliachem_jl_tpu/ops/oei.py``.  Every angular-momentum class pair
-is evaluated as one batched McMurchie-Davidson tensor program over the whole
-pair block, as plain torch on the calculation's device (the JAX package runs
-these on host numpy).
+Port of ``juliachem_jl_tpu/ops/oei.py``.  ``overlap_kinetic_nuclear`` is
+the wrapper of kernel K9 (csrc/oei*.cu): on the card it packs each
+angular-momentum class of unique shell pairs once (``stv_tables``: the live
+primitive pairs, both coefficients nonzero, of each pair and where its
+block lands) and launches K9 a class, which sums over the nuclei in its own
+body and stores S, T and V straight into the matrices.  On the CPU it runs
+``overlap_kinetic_nuclear_plain``, the JAX package's chunked McMurchie-
+Davidson tensor program over the padded pair blocks (which the JAX package
+runs on host numpy), K9's oracle.  ``stv_class`` is K9's wrapper for one
+class and takes CUDA tensors only.  ``dipole_matrices`` stays plain torch
+on the calculation's device.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..basis.structs import Basis, axial_normalization
+from ..basis.structs import Basis, axial_normalization, ncart
+from . import kernels
 from .boys import boys
 from .class_tables import nherm, pair_tables
 from .eri import as_f64
@@ -139,11 +148,10 @@ def _scatter_sym(M: torch.Tensor, block: PairBlock, vals: torch.Tensor) -> None:
                      vals[off].transpose(1, 2), accumulate=True)
 
 
-def overlap_kinetic_nuclear(basis: Basis, mol, device):
-    """Full S, T, V matrices (f64 tensors on ``device``).
-
-    Replaces EnergyHelpers.compute_overlap/ke/nah (EnergyHelpers.jl:25-140).
-    """
+def overlap_kinetic_nuclear_plain(basis: Basis, mol, device):
+    """Full S, T, V matrices (f64 tensors on ``device``), as the JAX
+    package computes them: each padded pair block in chunks bounding the
+    [N, K2, natom, nherm] R tensor, scattered with ``index_put_``."""
     nbf = basis.nbf
     S, T, V = (torch.zeros((nbf, nbf), dtype=torch.float64, device=device)
                for _ in range(3))
@@ -162,6 +170,152 @@ def overlap_kinetic_nuclear(basis: Basis, mol, device):
         _scatter_sym(S, blk, torch.cat(ss, dim=0))
         _scatter_sym(T, blk, torch.cat(ts, dim=0))
         _scatter_sym(V, blk, torch.cat(vs, dim=0))
+    return S, T, V
+
+
+# ------------------------------------------------------------------ K9
+
+# angular momenta K9 is instantiated for (JC_STV_CLASSES, csrc/oei.cu)
+STV_MAX_L = 4
+
+
+@dataclass
+class StvTable:
+    """One (la, lb) class of unique shell pairs as K9 reads it.
+
+    prim: [np, 3] f64, a, b and ca cb of each pair's live primitive pairs
+    (both coefficients nonzero; a pair's rows contiguous, in the padded
+    block's (i, j) order); pair: [n, 6] f64, the centres A, B; meta: [n, 5]
+    int32, off_a, off_b, ish == jsh, the pair's first row of ``prim`` and
+    its count.  The pairs are sorted by count, most first, so that the
+    groups of a warp walk similar counts."""
+
+    la: int
+    lb: int
+    prim: torch.Tensor
+    pair: torch.Tensor
+    meta: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.meta.shape[0]
+
+
+def check_stv_class(la: int, lb: int) -> None:
+    """Raise NotImplementedError for a class K9 is not instantiated for."""
+    if max(la, lb) > STV_MAX_L:
+        raise NotImplementedError(
+            f"K9 is not instantiated for class ({la}, {lb}): it stops at g "
+            "shells (l = 4)")
+
+
+def stv_table(blk: PairBlock, device) -> StvTable:
+    """Pack one unique pair block for K9 (``StvTable``), on ``device``."""
+    ka, kb = blk.aexp.shape[1], blk.bexp.shape[1]
+    aexp, bexp, acoef, bcoef = (as_f64(x, device) for x in (
+        blk.aexp, blk.bexp, blk.acoef, blk.bcoef))
+    live_a, live_b = acoef != 0.0, bcoef != 0.0
+    count = live_a.sum(1) * live_b.sum(1)
+    order = torch.sort(-count, stable=True).indices
+    live = live_a[order][:, :, None] & live_b[order][:, None, :]
+    flat = torch.nonzero(live.reshape(-1)).reshape(-1)
+    rows = order[flat // (ka * kb)]
+    ia = rows * ka + flat % (ka * kb) // kb
+    jb = rows * kb + flat % kb
+    prim = torch.stack([aexp.reshape(-1)[ia], bexp.reshape(-1)[jb],
+                        acoef.reshape(-1)[ia] * bcoef.reshape(-1)[jb]], dim=1)
+    count = count[order]
+    idx = order.cpu().numpy()
+    host = np.stack([blk.off_a[idx], blk.off_b[idx],
+                     blk.ish[idx] == blk.jsh[idx]], axis=1)
+    meta = torch.cat([torch.as_tensor(host.astype(np.int64), device=device),
+                      (torch.cumsum(count, 0) - count)[:, None],
+                      count[:, None]], dim=1).to(torch.int32)
+    pair = as_f64(np.concatenate([blk.A, blk.B], axis=1), device)[order]
+    return StvTable(la=blk.la, lb=blk.lb, prim=prim.contiguous(),
+                    pair=pair.contiguous(), meta=meta.contiguous())
+
+
+def stv_tables(basis: Basis, device) -> list[StvTable]:
+    """Every class of unique shell pairs of ``basis`` packed for K9, after
+    checking that K9 has them all (NotImplementedError before anything
+    reaches ``device``)."""
+    for la in basis.classes:
+        check_stv_class(la, la)
+    return [stv_table(blk, device) for blk in unique_pair_blocks(basis)]
+
+
+def atom_table(mol, device) -> torch.Tensor:
+    """[natom, 4] f64: each nucleus's x, y, z and charge."""
+    return as_f64(np.concatenate([np.asarray(mol.coords, dtype=np.float64),
+                                  np.asarray(mol.z, dtype=np.float64)[:, None]],
+                                 axis=1), device)
+
+
+def stv_targets(tab: StvTable, nbf: int) -> np.ndarray:
+    """[n, nab, 2] int64 flat indices i * nbf + j that each pair's block
+    element is stored at: the block, then its transpose, which is the block
+    itself on the diagonal (ish == jsh): the unique pairs cover nbf x nbf
+    once."""
+    meta = tab.meta.cpu().numpy().astype(np.int64)
+    i = meta[:, 0, None, None] + np.arange(ncart(tab.la))[None, :, None]
+    j = meta[:, 1, None, None] + np.arange(ncart(tab.lb))[None, None, :]
+    i, j = (np.broadcast_to(x, (tab.n, ncart(tab.la), ncart(tab.lb)))
+            .reshape(tab.n, -1) for x in (i, j))
+    diag = meta[:, 2, None] != 0
+    return np.stack([i * nbf + j, np.where(diag, i * nbf + j, j * nbf + i)],
+                    axis=-1)
+
+
+def stv_class(tab: StvTable, atoms: torch.Tensor, S, T, V,
+              group: int | None = None) -> None:
+    """Kernel K9: the (la, lb) class's elements of S, T and V ([nbf, nbf]
+    f64, row-major), stored (no accumulation) at ``stv_targets``.
+
+    It launches K9 with ``group`` lanes a shell pair (default
+    ``kernels.stv_group`` of the nuclei) and raises ValueError for tensors
+    that are not on the card."""
+    if not S.is_cuda:
+        raise ValueError(f"stv_class: K9 runs on CUDA tensors, got {S.device}")
+    if tab.n == 0:
+        return
+    check_stv_class(tab.la, tab.lb)
+    group = kernels.stv_group(atoms.shape[0]) if group is None else group
+    if group not in kernels.STV_GROUPS:
+        raise ValueError(f"stv_class: group {group} not in "
+                         f"{kernels.STV_GROUPS}")
+    nbf = S.shape[0]
+    for x, dt in ((S, torch.float64), (T, torch.float64), (V, torch.float64),
+                  (tab.prim, torch.float64), (tab.pair, torch.float64),
+                  (tab.meta, torch.int32), (atoms, torch.float64)):
+        if x.dtype != dt or x.device != S.device or not x.is_contiguous():
+            raise ValueError(f"stv_class: expected contiguous {dt} on "
+                             f"{S.device}, got {x.dtype} on {x.device}")
+    if S.shape != (nbf, nbf) or T.shape != S.shape or V.shape != S.shape:
+        raise ValueError("stv_class: S, T, V must be [nbf, nbf]")
+    kernels.launch("jc_stv", tab.la, tab.lb, group, tab.prim.data_ptr(),
+                   tab.pair.data_ptr(), tab.meta.data_ptr(), tab.n,
+                   atoms.data_ptr(), atoms.shape[0], S.data_ptr(),
+                   T.data_ptr(), V.data_ptr(), nbf, cls=(tab.la, tab.lb))
+
+
+def overlap_kinetic_nuclear(basis: Basis, mol, device):
+    """Full S, T, V matrices (f64 tensors on ``device``): K9 on the card,
+    one launch a class, into matrices it fills whole; the plain version
+    (``overlap_kinetic_nuclear_plain``) on the CPU.
+
+    Replaces EnergyHelpers.compute_overlap/ke/nah (EnergyHelpers.jl:25-140).
+    """
+    device = torch.device(device)
+    if device.type != "cuda":
+        return overlap_kinetic_nuclear_plain(basis, mol, device)
+    tables = stv_tables(basis, device)
+    atoms = atom_table(mol, device)
+    nbf = basis.nbf
+    S, T, V = (torch.empty((nbf, nbf), dtype=torch.float64, device=device)
+               for _ in range(3))
+    for tab in tables:
+        stv_class(tab, atoms, S, T, V)
     return S, T, V
 
 

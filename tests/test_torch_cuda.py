@@ -34,7 +34,12 @@ the same way on two waters in 6-31G(2df,p), and (ff|ff) on one C atom in
 SM.  The g classes (pair classes to (gg), 65 class pairs with a g shell,
 K1's bras (sg) .. (gg)) are held the same way on two waters in
 6-311++G(3df,3pd)+G (tests/data/6-311ppG_3df_3pd_G.gbs), and (gg|gg) on one
-O atom; a class above g (l = 5) raises.
+O atom; a class above g (l = 5) raises.  K9 (S, T and V) at each group
+size on every class of 8 waters in 6-31+G*, two waters in
+6-311++G(3df,3pd) and two in the g basis, into NaN-filled matrices, within
+1e-12 x each matrix's max-abs of the plain version; the card's
+``overlap_kinetic_nuclear`` launches K9 once a class and no chunk of the
+plain path; (hh) raises.
 """
 
 import pathlib
@@ -1563,3 +1568,84 @@ def test_g_basis_rhf_on_card_matches_cpu(cuda_device, scf_type, n):
     e_cpu = jc.run_spec(spec, device=CPU)["Energy"]
     assert e_card["Converged?"] and e_cpu["Converged?"]
     assert abs(e_card["Energy"] - e_cpu["Energy"]) <= 1e-9
+
+
+# ------------------------------------------------------------------ K9
+
+def _waters(n):
+    """The first n waters of w32 (a Molecule)."""
+    import json
+
+    c = json.loads((pathlib.Path(jc.__file__).resolve().parent / "data" /
+                    "water_clusters.json").read_text())["w32"]
+    return jc.molecule.from_input_dict({"symbols": c["symbols"][:3 * n],
+                                        "geometry": c["geometry"][:9 * n]})
+
+
+K9_SYSTEMS = {"w8 6-31+G*": (8, "6-31+G*"),
+              "2 waters 6-311++G(3df,3pd)": (2, "6-311++G(3df,3pd)"),
+              "2 waters g basis": (2, G_BASIS)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", kernels.STV_GROUPS)
+@pytest.mark.parametrize("system", list(K9_SYSTEMS))
+def test_k9_every_class_matches_plain(cuda_device, system, group):
+    """K9 at each group size on every class of the system's basis, into
+    matrices filled with NaN: every element stored, each class's within
+    1e-12 x the matrix's max-abs of the plain version on the card."""
+    from juliachem_jl_tpu_torch.ops import oei
+
+    n, name = K9_SYSTEMS[system]
+    jc.basis.register_basis_file(str(G_FILE), G_BASIS)
+    mol = _waters(n)
+    prim = jc.basis.build(mol, name)
+    ref = oei.overlap_kinetic_nuclear_plain(prim, mol, cuda_device)
+    tables = oei.stv_tables(prim, cuda_device)
+    atoms = oei.atom_table(mol, cuda_device)
+    got = [torch.full_like(ref[0], float("nan")) for _ in range(3)]
+    kernels.reset_launches()
+    for t in tables:
+        oei.stv_class(t, atoms, *got, group=group)
+    assert kernels.launches["stv"] == len(tables)
+    assert kernels.class_launches["stv"] == {(t.la, t.lb): 1 for t in tables}
+    for g, r in zip(got, ref):
+        assert not bool(torch.isnan(g).any())
+        assert float((g - r).abs().max()) <= 1e-12 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_k9_wrapper_launches_it_and_builds_no_plain_chunk(cuda_device,
+                                                          monkeypatch):
+    """``overlap_kinetic_nuclear`` on the card runs K9 once a class and
+    none of the plain path's chunks."""
+    from juliachem_jl_tpu_torch.ops import oei
+
+    mol = _waters(2)
+    prim = jc.basis.build(mol, "6-31+G*")
+    ref = oei.overlap_kinetic_nuclear_plain(prim, mol, cuda_device)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain path ran on the card")
+
+    monkeypatch.setattr(oei, "_stv_block", refuse)
+    kernels.reset_launches()
+    got = oei.overlap_kinetic_nuclear(prim, mol, cuda_device)
+    assert kernels.launches["stv"] == len(oei.stv_tables(prim, CPU)) == 6
+    for g, r in zip(got, ref):
+        assert g.is_cuda
+        assert float((g - r).abs().max()) <= 1e-12 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_k9_raises_for_a_class_it_lacks(cuda_device):
+    """(hh) is not instantiated (K9 stops at g shells, l = 4)."""
+    from juliachem_jl_tpu_torch.ops import oei
+
+    def zeros(*shape, dtype=torch.float64):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
+
+    tab = oei.StvTable(la=5, lb=5, prim=zeros(1, 3), pair=zeros(1, 6),
+                       meta=zeros(1, 5, dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        oei.stv_class(tab, zeros(1, 4), zeros(4, 4), zeros(4, 4), zeros(4, 4))

@@ -1,13 +1,14 @@
-// CPU stand-in for the parts of the CUDA runtime that csrc/eri4c.cuh and
-// csrc/eri3c.cuh use, so that their device code compiles with g++ (C++20):
-// each thread of a block is a std::thread, a warp's __syncwarp a
-// std::barrier of its 32 threads, __syncthreads one of the block's, a
-// shuffle an exchange through the warp's slots between two barrier waits,
-// atomicAdd an atomic_ref, and dmma.cuh's mma.sync m16n8k4 f64 step an
+// CPU stand-in for the parts of the CUDA runtime that csrc/eri4c.cuh,
+// csrc/eri3c.cuh and csrc/oei.cuh use, so that their device code compiles
+// with g++ (C++20): each thread of a block is a std::thread, a warp's
+// __syncwarp a std::barrier of its 32 threads, __syncthreads one of the
+// block's, a shuffle an exchange through the warp's slots between two
+// barrier waits, atomicAdd an atomic_ref, and dmma.cuh's mma.sync m16n8k4 f64 step an
 // exchange of the 32 lanes' fragments (the PTX ISA's fragment maps), and
 // dmma.cuh's cp.async copies queued per thread and done at the wait that
 // retires their group (zero-filled past the bytes read; the card's
-// alignment asserted).  Used by harness.cpp and eri3c_harness.cpp only.
+// alignment asserted).  Used by harness.cpp, eri3c_harness.cpp and
+// oei_harness.cpp only.
 #pragma once
 
 #include <algorithm>
@@ -161,6 +162,12 @@ inline bool __any_sync(unsigned, bool p) {
 template <class T>
 T __shfl_sync(unsigned, T v, int src) {
   return shfl_from(v, src & 31);
+}
+
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int m) {
+  const int lane = threadIdx.x & 31;
+  return shfl_from(v, (lane ^ m) & 31);
 }
 
 template <class T>

@@ -133,9 +133,17 @@ card's name and power limit):
 12. the spherical-harmonic AO basis and the nuclear derivatives:
    benzene_2_water DF-RHF in the spherical basis (nbf 517 -> 491, packed
    B; not below the Cartesian energy) and its analytic DF gradient (K1's
-   dense (A|pq), the derivative programs of ops/oei_grad.py and
-   ops/eri_grad.py), translationally invariant and held to central
-   differences of the card's own energy; the first 2 waters of w32 in
+   dense (A|pq), the fit, K10 for the one-electron part and K11 for the
+   3-center and metric derivatives), translationally invariant and held to
+   central differences of the card's own energy; K10 and K11's two
+   instances held to their plain versions on the card there and at the DF
+   gradient of the first 8 waters of w32 (each per-atom component within
+   1e-10 x max |g|), timed beside their bounds and the plain versions; the
+   DF-RHF gradient of w32 (6-31+G* / cc-pVTZ-JKFIT, 96 atoms) with its
+   parts beside their bounds, its peak device memory
+   below the card's, translationally invariant, and held to central
+   differences on one O z and one H x within 1e-6 Eh/bohr; the first 2
+   waters of w32 in
    cc-pVDZ spherical: conventional RHF gradients through the in-core,
    direct and streaming builders, the cation's UHF, ROHF and DF-UHF
    gradients, each held to the JAX package's recorded gradient within
@@ -240,6 +248,19 @@ E_F32_B_TOL = 3e-4
 # an NVIDIA H100 80GB HBM3 at 700 W): phase 13 prints the f32 storage's
 # shift against its own f64-B energy
 W64_F32B_ENERGY = -4865.1375295166
+# phase 12's water-cluster DF gradients (w8, w32), fitted in Cartesian aux
+# rows (5312 at w32; the SCF and the gradient both).  The analytic
+# gradient is linear in D, so D is converged to rmsd 1e-11 (the central
+# differences' energies, h = 5e-4 bohr, are second order in D's error; at
+# rmsd 1e-9 the w32 gradient missed them by 3.1e-6 Eh/bohr), and as it
+# differentiates the unscreened DF energy, the packed builder keeps every
+# pair above 1e-12 (the default sigma, 1e-5, drops pairs whose share of the
+# energy moves with the geometry) and screens no exchange.
+# tools/grad_fit_variants.py takes these settings apart (PERF.md §6)
+W_GRAD = {"df_spherical_aux": False, "mixed_precision": False,
+          "dele": 1e-10, "rmsd": 1e-11, "niter": 100, "df_sigma": 1e-12,
+          "df_exchange_screen": False}
+W_GRAD_FD_STEP, W_GRAD_FD_TOL = 5e-4, 1e-6
 # the first 8 waters of w32 as the JAX package's recorded runs have them
 W8_SCF = {"niter": 60, "dele": 1e-9, "rmsd": 1e-7,
           "contraction_mode": "screened", "mixed_precision": False}
@@ -929,6 +950,25 @@ def check_k9(tag: str, dev, label: str, prim, mol) -> dict:
             "group": kernels.stv_group(mol.natom), "per_class": per_class}
 
 
+def dipole_bound(prim) -> dict:
+    """``bound_of`` the dipole integrals (``oei.dipole_matrices``, plain
+    torch, B29) of a basis, from the code's I/O and operations: each unique
+    pair block's exponents, coefficients and centres read once, the three
+    nbf x nbf matrices written once; per padded primitive pair its three E
+    tables (bra to la, ket to lb + 1; five operations an entry) and per
+    component pair the three moment products and their contraction (18)."""
+    from juliachem_jl_tpu_torch.ops.pairs import unique_pair_blocks
+
+    nbytes, ops = 3 * prim.nbf * prim.nbf * 8, 0.0
+    for blk in unique_pair_blocks(prim):
+        ka, kb = blk.aexp.shape[1], blk.bexp.shape[1]
+        nbytes += blk.n * (16 * (ka + kb) + 48)
+        ops += blk.n * ka * kb * (
+            15 * (blk.la + 1) * (blk.lb + 2) * (blk.la + blk.lb + 2)
+            + 18 * ncart(blk.la) * ncart(blk.lb))
+    return bound_of(nbytes, ops)
+
+
 def stv_at(tag: str, label: str, prim, mol) -> dict:
     """At a cluster on its SCF path: K9 (``overlap_kinetic_nuclear``) held
     to its plain version on the card (every element within 1e-12 x each
@@ -969,6 +1009,7 @@ def stv_at(tag: str, label: str, prim, mol) -> dict:
     oei.dipole_matrices(prim, dev)
     torch.cuda.synchronize()
     dip_s = time.perf_counter() - t0
+    dip = dipole_bound(prim)
     kernels.launches.update(saved[0])
     kernels.class_launches.clear()
     kernels.class_launches.update(saved[1])
@@ -980,12 +1021,14 @@ def stv_at(tag: str, label: str, prim, mol) -> dict:
           f"{series} on the Boys series), max err / max |M| {err:.3e} "
           f"against the plain version (bound 1e-12); overlap_kinetic_nuclear "
           f"(pair blocks, packing, K9) {call_s:.4f} s, plain {plain_s:.4f} s; "
-          f"dipole integrals (plain torch) {dip_s:.4f} s", flush=True)
+          f"dipole integrals (plain torch) {dip_s:.4f} s (bound "
+          f"{dip['bound_ms']:.4f} ms, {dip['bound_by']})", flush=True)
     return {"ms": times["ms"], "call_s": call_s, "plain_ms": 1e3 * plain_s,
             "rel_err": err, "group": kernels.stv_group(mol.natom),
             "per_class_ms": {
                 f"{a}{b}": v for (a, b), v in times["per_class"].items()},
-            "dipole_s": dip_s, "items": items, "series_items": series,
+            "dipole_s": dip_s, "dipole_bound": dip, "items": items,
+            "series_items": series,
             **bound}
 
 
@@ -1617,6 +1660,69 @@ def sass_opcode(line: str) -> str | None:
     return m.group(1) if m else None
 
 
+def parse_sass(lines, checked, per_fn: dict) -> None:
+    """Count, into ``per_fn``, the DMMA, DFMA, SHFL, FFMA, LDGSTS and
+    tensor-core (*MMA) instructions of each function of a ``cuobjdump
+    -sass`` listing whose name holds one of the fragments ``checked``."""
+    fn = None
+    for ln in lines:
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            if not any(frag in fn for frag in checked):
+                fn = None
+                continue
+            per_fn[fn] = {"DMMA": 0, "MMA": 0, "FFMA": 0, "LDGSTS": 0,
+                          "DFMA": 0, "SHFL": 0}
+        elif fn is not None and (op := sass_opcode(ln)):
+            c = per_fn[fn]
+            c["DMMA"] += op == "DMMA"
+            c["DFMA"] += op == "DFMA"
+            c["SHFL"] += op == "SHFL"
+            c["MMA"] += op.endswith("MMA")
+            c["FFMA"] += op == "FFMA"
+            c["LDGSTS"] += op == "LDGSTS"
+
+
+def sass_listings(so: str, cuobjdump: str, tmp: Path) -> tuple[list, str]:
+    """``cuobjdump -sass`` of the library into files under ``tmp``: one
+    process a cubin of it (``-xelf all``: one a source with device code),
+    all at once, as one process over the whole library took ~160-205 s;
+    the whole library in one process where the extraction does not give
+    every cubin ``-lelf`` lists.  Returns the files and the route taken."""
+    listed = subprocess.run([cuobjdump, "-lelf", so], capture_output=True,
+                            text=True, timeout=300)
+    n_elf = sum("ELF file" in ln for ln in listed.stdout.splitlines())
+    ext = subprocess.run([cuobjdump, "-xelf", "all", so], cwd=tmp,
+                         capture_output=True, text=True, timeout=300)
+    cubins = sorted(tmp.glob("*.cubin"))
+    if ext.returncode != 0 or not cubins or len(cubins) != n_elf:
+        cubins = []   # every listed cubin on its own file, or none
+    how = (f"{len(cubins)} cubins in parallel" if cubins
+           else "the whole library in one process")
+    jobs = [(c, c.with_suffix(".sass")) for c in cubins] or [
+        (Path(so), tmp / "library.sass")]
+    procs = []
+    try:
+        for src, out in jobs:
+            fout, ferr = open(out, "w"), tempfile.TemporaryFile("w+")
+            procs.append((src, out, fout, ferr, subprocess.Popen(
+                [cuobjdump, "-sass", str(src)], stdout=fout, stderr=ferr,
+                text=True)))
+        for src, _, _, ferr, proc in procs:
+            rc = proc.wait(timeout=600)
+            ferr.seek(0)
+            check(rc == 0, f"cuobjdump -sass {src.name} failed: "
+                  f"{ferr.read()[-2000:]}")
+    finally:
+        for _, _, fout, ferr, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fout.close()
+            ferr.close()
+    return [out for _, out, *_ in procs], how
+
+
 def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     """DMMA instructions in the SASS of each K2/K7 tensor-core instance of
     the built library (``cuobjdump -sass``; fails if an instance is missing
@@ -1630,22 +1736,21 @@ def check_sass(tag: str, so: str, cuobjdump: str) -> dict:
     them in the build."""
     from juliachem_jl_tpu_torch.ops import kernels
 
-    out = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
-                         text=True, timeout=300)
-    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-2000:]}")
-    per_fn, fn = {}, None
-    for ln in out.stdout.splitlines():
-        if "Function :" in ln:
-            fn = ln.split("Function :", 1)[1].strip()
-            per_fn[fn] = {"DMMA": 0, "MMA": 0, "FFMA": 0, "LDGSTS": 0,
-                          "DFMA": 0, "SHFL": 0}
-        elif fn is not None and (op := sass_opcode(ln)):
-            per_fn[fn]["DMMA"] += op == "DMMA"
-            per_fn[fn]["DFMA"] += op == "DFMA"
-            per_fn[fn]["SHFL"] += op == "SHFL"
-            per_fn[fn]["MMA"] += op.endswith("MMA")
-            per_fn[fn]["FFMA"] += op == "FFMA"
-            per_fn[fn]["LDGSTS"] += op == "LDGSTS"
+    # only the functions checked below are parsed (the library holds ~500
+    # instances)
+    checked = (*DMMA_INSTANCES.values(), K2_F32_KERNEL, "eri4c_block_kernel",
+               "eri4c_jk_block_kernel", "eri3c_block_kernel",
+               "digest_jk_block_kernel", "stv_kernel")
+    t0 = time.perf_counter()
+    per_fn = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files, how = sass_listings(so, cuobjdump, Path(tmp))
+        for path in files:
+            with open(path) as f:
+                parse_sass(f, checked, per_fn)
+    print(f"{tag} SASS ({how}) read and parsed in "
+          f"{time.perf_counter() - t0:.1f} s ({len(per_fn)} functions "
+          "checked)", flush=True)
 
     def one(inst, frag):
         fns = [f for f in per_fn if frag in f]
@@ -2949,14 +3054,13 @@ def grad_bounds(tm: dict, primary, aux, natom: int) -> dict:
     the least time the card could take for the same work (``bound_of``):
     each input read once, each output written once, and the operations of
     the run's inputs: the Hermite R entries (one FMA each) of every
-    primitive product the derivative programs evaluated (the pairs and
-    quartets ``tm["work"]`` counts, or for the DF parts every (aux shell,
-    pair) and (aux, aux) product of the live primitives) and the FMAs of
-    their contractions."""
-    from juliachem_jl_tpu_torch.ops.eri_grad import (aux_unit_blocks,
-                                                     live_groups)
-    from juliachem_jl_tpu_torch.ops.pairs import unique_pair_blocks
-
+    primitive product the derivative programs evaluated (the items that
+    ``tm["work"]`` counts by class and live primitive counts, whether the
+    kernels or their plain versions ran) and the FMAs of their
+    contractions.  The one-electron part reads D, W (each pair's block),
+    its packed tables and writes [natom, 3]; the 3-center derivative reads
+    gamma's unique-pair blocks, the metric derivative Omega's blocks of the
+    pairs it sums."""
     nbf = primary.nbf
     out = {}
 
@@ -2966,14 +3070,17 @@ def grad_bounds(tm: dict, primary, aux, natom: int) -> dict:
 
     work = tm.get("work", {})
 
-    def counted(kind):
-        return [(key[1:], n) for key, n in work.items() if key[0] == kind]
+    def counted(kind, pred=lambda k: True):
+        return [(key[1:], n) for key, n in work.items()
+                if key[0] == kind and pred(key)]
 
+    stv = counted("stv")
     ops = sum(n * (2 * k2 * na * nherm(la + lb + 1)
                    + 4 * 3 * ncart(la) * ncart(lb) * (1 + na))
-              for (la, lb, k2, na), n in counted("stv"))
-    part("one_electron", 3 * natom * 3 * nbf * nbf * 8 + 2 * nbf * nbf * 8,
-         ops)
+              for (la, lb, k2, na), n in stv)
+    part("one_electron",
+         sum(n * (2 * 8 * ncart(la) * ncart(lb) + 76 + 24 * k2)
+             for (la, lb, k2, na), n in stv) + natom * (32 + 24), ops)
     if aux is None:
         ops = sum(n * (2 * k2b * k2k * nherm(la + lb + lc + ld + 1)
                        + 2 * 3 * 3 * ncart(la) * ncart(lb) * ncart(lc)
@@ -2982,25 +3089,24 @@ def grad_bounds(tm: dict, primary, aux, natom: int) -> dict:
         part("two_electron", 3 * nbf * nbf * 8, ops)
         return out
     A = aux.nbf
-    aux_g = [g for b in aux_unit_blocks(aux) for _, g in live_groups(b)]
-    pair_g = [g for b in unique_pair_blocks(primary) for _, g in live_groups(b)]
 
-    def k2(g):
-        return g.aexp.shape[1] * g.bexp.shape[1]
-
-    def triples(bras, kets):
-        return sum(a.n * p.n * (2 * k2(a) * k2(p)
-                                * nherm(a.la + p.la + p.lb + 1)
-                                + 2 * 2 * 3 * ncart(a.la) * ncart(p.la)
-                                * ncart(p.lb)) for a in bras for p in kets)
+    def df_part(metric):
+        rows = counted("eri", lambda k: k[2] == -1 and (k[4] == -1) == metric)
+        ops = nbytes = 0
+        for (la, _, lp, lq, ka, kp), n in rows:
+            lq = max(lq, 0)
+            ncd = ncart(lp) * ncart(lq)
+            ops += n * (2 * ka * kp * nherm(la + lp + lq + 1)
+                        + 2 * 2 * 3 * ncart(la) * ncd)
+            nbytes += n * ncart(la) * ncd * 8
+        return nbytes + 24 * natom, ops
 
     part("three_center", A * nbf * nbf * 8, 0.0)
     part("metric", A * A * 8, 0.0)
     part("fit", 4 * A * nbf * nbf * 8,
          4 * A * nbf ** 3 + 2.0 / 3.0 * A ** 3 + 6 * A * A * nbf * nbf)
-    part("three_center_derivative", A * nbf * nbf * 8,
-         triples(aux_g, pair_g))
-    part("metric_derivative", A * A * 8, triples(aux_g, aux_g))
+    part("three_center_derivative", *df_part(False))
+    part("metric_derivative", *df_part(True))
     return out
 
 
@@ -3044,7 +3150,8 @@ def run_gradient(tag: str, jc, label: str, inp: dict, ref: dict | None,
     parts = grad_bounds(tm, bsets.primary, aux, mol.natom)
     charges = properties.mulliken_charges(mol, bsets.primary, res)
     out = {"system": label, "energy": float(res["Energy"]),
-           "iterations": int(res["Iterations"]), "route": nt["fock_builder"],
+           "iterations": int(res["Iterations"]),
+           "stagnated": bool(res.get("Stagnated")), "route": nt["fock_builder"],
            "incore": nt.get("incore"), "gradient": g.tolist(),
            "sum_abs_max": float(abs(g.sum(axis=0)).max()),
            "scf_s": res["Timings"].run_time, "wall_s": wall, "parts": parts,
@@ -3055,7 +3162,9 @@ def run_gradient(tag: str, jc, label: str, inp: dict, ref: dict | None,
         out["minus_jax_gradient"] = float(abs(g - ref["gradient"]).max())
         out["minus_jax_energy"] = out["energy"] - ref["energy"]
     print(f"{tag} {label}: route {out['route']} (incore {out['incore']}), "
-          f"{out['iterations']} iterations, E = {out['energy']:.10f} Eh"
+          f"{out['iterations']} iterations"
+          + (" (the stagnation exit)" if out["stagnated"] else "")
+          + f", E = {out['energy']:.10f} Eh"
           + (f" (E - JAX {out['minus_jax_energy']:.3e}, |g - JAX| "
              f"{out['minus_jax_gradient']:.3e})" if ref else "")
           + f", |sum g| {out['sum_abs_max']:.2e}; SCF {out['scf_s']:.2f} s, "
@@ -3116,6 +3225,250 @@ def finite_differences(tag: str, jc, label: str, run: dict, coords,
     return out
 
 
+def grad_registers(tag: str) -> dict:
+    """K10's and K11's instances, as ptxas reported them in this process's
+    build: registers, stack frame, spills (K11 by (lA, lp, lq, metric))."""
+    out = {**ptxas_instances(re.compile(
+        r"\d+(stv_grad_kernel)ILi(\d)ELi(\d)E"), 2), **ptxas_instances(
+        re.compile(r"\d+(eri3c_grad_kernel)ILi(\d)ELi(\d)ELi(\d)ELb(\d)E"),
+        4)}
+    check(out.get("stv_grad_kernel", {}).get("instances") == 15
+          and out.get("eri3c_grad_kernel", {}).get("instances") == 90,
+          "ptxas: K10's instances are not 15 or K11's not 75 + 15")
+    print(f"{tag} K10, K11 instances (ptxas): " + fmt_instances(out),
+          flush=True)
+    return out
+
+
+def k10_bound(counts: dict, natom: int) -> dict:
+    """``bound_of`` K10's launches of ``counts`` (``stv_counts`` of its
+    tables): D's and W's block of each pair read once (16 B an element),
+    each packed row once (24 B a live primitive pair, 76 B a pair), the
+    nuclei and [natom, 3]; per (live primitive pair, nucleus) item Boys and
+    R to L + 1 (``boys_r_ops``), the charge scaling, the nuclear sum and
+    the Hellmann-Feynman dot (6 nherm(L)); per live primitive pair its E
+    tables (bra to la + 1, ket to lb + 2; five operations an entry), Hd (2
+    nab nherm(L)) and each component pair's S, T derivatives (60) and V
+    derivatives (4 x 3 nherm(L + 1))."""
+    nbytes = natom * (32 + 24)
+    ops = 0.0
+    for (la, lb), c in counts.items():
+        L, nab = la + lb, ncart(la) * ncart(lb)
+        ne = (la + 2) * (lb + 3) * (L + 4)
+        nbytes += 16 * nab * c["pairs"] + 24 * c["live_prim_pairs"] \
+            + 76 * c["pairs"]
+        ops += (boys_r_ops(L + 1, c["items"], c["series_items"])
+                + c["items"] * (8 + (L + 2) + nherm(L + 1) + 6 * nherm(L))
+                + c["live_prim_pairs"] * (15 * ne + 2 * nab * nherm(L)
+                                          + nab * (60 + 12 * nherm(L + 1))))
+    return bound_of(nbytes, ops)
+
+
+def k11_counts(ti, tj, metric: bool) -> dict:
+    """One class of K11 (``eri_grad.df_grad_tables``): its items (every aux
+    shell with every pair; the metric's unordered pairs on two atoms), the
+    gamma (or Omega) elements they read, their primitive products and those
+    on the Boys series (rho |A - P|^2 <= 35)."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import eri_grad
+
+    import numpy as np
+
+    lq = 0 if metric else tj.lb
+    ncd = ncart(tj.la) * ncart(lq)
+    if metric:
+        i, j = eri_grad._metric_pairs(ti, tj)
+    else:
+        i, j = (x.reshape(-1) for x in np.meshgrid(
+            np.arange(ti.n), np.arange(tj.n), indexing="ij"))
+    out = {"items": int(len(i)), "elements": int(len(i)) * ncart(ti.la) * ncd,
+           "products": 0, "series": 0}
+    if not len(i):
+        return out
+    ma, mp = ti.meta.long(), tj.meta.long()
+    dev = ti.prim.device
+    ii = torch.as_tensor(i, device=dev)
+    jj = torch.as_tensor(j, device=dev)
+    ka, kp = ma[ii, 4], mp[jj, 4]
+    out["products"] = int((ka * kp).sum())
+    # every (aux primitive, live primitive pair) of the items, in chunks
+    for s0 in range(0, len(i), 1 << 16):
+        sa, sp = ii[s0:s0 + (1 << 16)], jj[s0:s0 + (1 << 16)]
+        for x in range(int(ma[sa, 4].max())):
+            for y in range(int(mp[sp, 4].max())):
+                live = (ma[sa, 4] > x) & (mp[sp, 4] > y)
+                ra = (ma[sa, 3] + x)[live]
+                rp = (mp[sp, 3] + y)[live]
+                al, a, b = ti.prim[ra, 0], tj.prim[rp, 0], tj.prim[rp, 1]
+                cen = tj.pair[sp[live]]
+                p = a + b
+                P = (a[:, None] * cen[:, :3] + b[:, None] * cen[:, 3:]) \
+                    / p[:, None]
+                d2 = ((ti.pair[sa[live], :3] - P) ** 2).sum(1)
+                out["series"] += int((al * p / (al + p) * d2
+                                      <= BOYS_TCRIT).sum())
+    return out
+
+
+def k11_bound(per_class: dict, natom: int) -> dict:
+    """``bound_of`` K11's launches (``k11_counts`` by class (lA, lp, lq)):
+    the gamma or Omega elements of their items read once, [natom, 3]
+    written; per primitive product Boys and R to L + 1, the component's
+    Hermite sums V (2 nca ncd nherm(lp + lq)) and, 3-center, V_d (3 x 2 nca
+    ncd nherm(lp + lq + 1)), and their contractions against R (2 x 3 nca
+    nherm(lp + lq) nherm(lA + 1) for fA, as much again for fC)."""
+    nbytes = natom * 24
+    ops = 0.0
+    for (la, lp, lq, metric), c in per_class.items():
+        ncd = ncart(lp) * ncart(lq)
+        nca, lk = ncart(la), lp + lq
+        per = 2 * nca * ncd * nherm(lk) + 6 * nca * nherm(lk) * nherm(la + 1)
+        if not metric:
+            per += 6 * nca * ncd * nherm(lk + 1) \
+                + 6 * nca * nherm(lk + 1) * nherm(la)
+        nbytes += 8 * c["elements"]
+        ops += (boys_r_ops(la + lk + 1, c["products"], c["series"])
+                + c["products"] * per)
+    return bound_of(nbytes, ops)
+
+
+def check_grad_kernels(tag: str, label: str, run: dict) -> dict:
+    """K10 and K11's two instances against their plain versions on the
+    card, at the converged D and W of a ``run_gradient`` result and the
+    gamma and Omega its DF gradient forms (``eri_grad.df_gamma_omega``):
+    each per-atom component within 1e-10 x max |g| of the plain version
+    (the atomics sum in no fixed order), K10 at each of its group sizes
+    too; each kernel's CUDA-event time over its classes (a launch a class)
+    beside its bound (``k10_bound``, ``k11_bound``) and the plain version's
+    time.  Its launches are not the path's: the launch counts are
+    restored."""
+    import torch
+
+    from juliachem_jl_tpu_torch.ops import eri_grad, kernels, oei, oei_grad
+
+    saved = (dict(kernels.launches),
+             {k: dict(v) for k, v in kernels.class_launches.items()})
+    mol, bsets, res = run["molecule"], run["basis"], run["result"]
+    primary, aux = bsets.primary, bsets.auxiliary
+    T = res.get("Spherical Transform")
+    D, W = res["Density"], res["W"]
+    if T is not None:
+        D, W = T @ D @ T.T, T @ W @ T.T
+    D, W = D.contiguous(), W.contiguous()
+    dev = D.device
+    sph = bool(run["flags"].get("df_spherical_aux", True))
+    gamma, Omega = eri_grad.df_gamma_omega(primary, aux, D, sph_aux=sph)
+    natom = mol.natom
+    atoms = oei.atom_table(mol, dev)
+
+    def zeros():
+        return torch.zeros((natom, 3), dtype=torch.float64, device=dev)
+
+    def record(name, got, launch, plain, bound, extra):
+        # the plain version runs once: its result is the reference
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        ref = plain()
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1])
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= 1e-10 * scale, f"{label}: {name} off its plain version "
+              f"by {err:.3e} (bound 1e-10 x max |g| = {1e-10 * scale:.3e})")
+        ms = cuda_ms(launch)
+        return {"name": name, "route": "cuda", "shapes": label,
+                "max_abs_err": err, "rel_err": err / scale, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": None, **bound, **extra}
+
+    t10 = oei_grad.stv_grad_tables(primary, dev)
+    g = zeros()
+    k10 = record(
+        "stv_grad", oei_grad.one_electron_gradient(primary, mol, D, W),
+        lambda: [oei_grad.stv_grad_class(t, atoms, D, W, g) for t in t10],
+        lambda: oei_grad.stv_grad_plain(t10, atoms, D, W),
+        k10_bound(stv_counts(t10, atoms), natom),
+        {"source": "juliachem_jl_tpu_torch/csrc/oei_grad.cuh",
+         "replaces": "juliachem_jl_tpu/ops/oei_grad.py:66",
+         "group": kernels.stv_group(natom)})
+    # ... and at each group size K10 has (the path takes one by the number
+    # of nuclei: G = 8 only above 136 atoms)
+    ref10 = oei_grad.stv_grad_plain(t10, atoms, D, W)
+    k10["per_group"] = {}
+    for G in kernels.STV_GROUPS:
+        gG = zeros()
+        for t in t10:
+            oei_grad.stv_grad_class(t, atoms, D, W, gG, group=G)
+        errG = float((gG - ref10).abs().max())
+        check(errG <= 1e-10 * float(ref10.abs().max()),
+              f"{label}: K10 at G = {G} off its plain version by {errG:.3e}")
+        k10["per_group"][G] = {"max_abs_err": errG, "ms": cuda_ms(
+            lambda: [oei_grad.stv_grad_class(t, atoms, D, W, gG, group=G)
+                     for t in t10])}
+    aux_t, pair_t = eri_grad.df_grad_tables(primary, aux, dev)
+    metric_pairs = [(ti, tj) for a, ti in enumerate(aux_t)
+                    for tj in aux_t[a:]]
+
+    def k11_3c(out):
+        for ti in aux_t:
+            for tj in pair_t:
+                eri_grad.eri3c_grad_class(ti, tj, gamma, out)
+        return out
+
+    def k11_2c(out):
+        for ti, tj in metric_pairs:
+            eri_grad.metric_grad_class(ti, tj, Omega, out)
+        return out
+
+    def plain_3c():
+        out = zeros()
+        eri_grad.three_center_grad_plain(aux_t, pair_t, gamma, out)
+        return out
+
+    def plain_2c():
+        out = zeros()
+        eri_grad.metric_grad_plain(aux_t, Omega, out)
+        return out
+
+    c3 = {(ti.la, tj.la, tj.lb, False): k11_counts(ti, tj, False)
+          for ti in aux_t for tj in pair_t}
+    c2 = {(ti.la, tj.la, 0, True): k11_counts(ti, tj, True)
+          for ti, tj in metric_pairs}
+    k11 = record("eri3c_grad", k11_3c(zeros()),
+                 lambda: k11_3c(g), plain_3c, k11_bound(c3, natom),
+                 {"source": "juliachem_jl_tpu_torch/csrc/eri3c_grad.cuh",
+                  "replaces": "juliachem_jl_tpu/ops/eri_grad.py:52",
+                  "items": sum(c["items"] for c in c3.values()),
+                  "products": sum(c["products"] for c in c3.values())})
+    k11m = record("metric_grad", k11_2c(zeros()),
+                  lambda: k11_2c(g), plain_2c, k11_bound(c2, natom),
+                  {"source": "juliachem_jl_tpu_torch/csrc/eri3c_grad.cuh",
+                   "replaces": "juliachem_jl_tpu/ops/eri_grad.py:52",
+                   "items": sum(c["items"] for c in c2.values()),
+                   "products": sum(c["products"] for c in c2.values())})
+    kernels.launches.update(saved[0])
+    kernels.class_launches.clear()
+    kernels.class_launches.update(saved[1])
+    del gamma, Omega
+    torch.cuda.empty_cache()
+    out = {"stv_grad": k10, "eri3c_grad": k11, "metric_grad": k11m}
+    print(f"{tag} {label}: the gradient's kernels against their plain "
+          f"versions on the card ({natom} atoms, nbf {primary.nbf}, aux "
+          f"{aux.nbf}): " + "; ".join(
+              f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms, "
+              f"{v['bound_by']}; plain {v['plain_ms']:.1f} ms), max err "
+              f"{v['max_abs_err']:.2e} ({v['rel_err']:.2e} of max |g|)"
+              for k, v in out.items())
+          + f"; K11 items {k11['items']} 3-center ({k11['products']} "
+          f"primitive products), {k11m['items']} metric; K10 by group "
+          "size (G: ms, max err): " + ", ".join(
+              f"{G}: {v['ms']:.4f}, {v['max_abs_err']:.2e}"
+              for G, v in k10["per_group"].items()), flush=True)
+    return out
+
+
 def run_phase12(tag: str, jc, path, counts: dict, refs_d: dict, cart: dict,
                 inp_a: dict, expect_nsph: int) -> dict:
     """Phase 12 (module docstring): the spherical-harmonic AO basis and the
@@ -3168,7 +3521,33 @@ def run_phase12(tag: str, jc, path, counts: dict, refs_d: dict, cart: dict,
         tag, jc, label_sb, sph_b,
         [(next(i for i, x in enumerate(syms) if x != "H"), 2),
          (syms.index("H"), 0)])
+    grad_kernels = {label_sb: check_grad_kernels(tag, label_sb, sph_b)}
     grads = {label_sb: sph_b}
+    # (b') the DF gradient of the first 8 waters of w32 and of w32 itself
+    #     (6-31+G* / cc-pVTZ-JKFIT, ``W_GRAD``; nbf 736, 5312 Cartesian aux
+    #     functions, 96 atoms at w32): K10 and K11 against their plain
+    #     versions at w8; at w32 the parts beside their bounds, the peak
+    #     device memory, and central differences on one O z and one H x
+    label_w8 = "w8 DF gradient"
+    w8g = path(label_w8, lambda: run_gradient(
+        tag, jc, label_w8, cluster_input("w32", W_GRAD, waters=8), None,
+        "DFFockBuilder"))
+    grad_kernels[label_w8] = check_grad_kernels(tag, label_w8, w8g)
+    grads[label_w8] = w8g
+    label_w32 = "w32 DF gradient"
+    w32g = path(label_w32, lambda: run_gradient(
+        tag, jc, label_w32, cluster_input("w32", W_GRAD), None,
+        "ScreenedDFFockBuilder"))
+    import torch
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    check(w32g["peak_device_bytes"] < card, f"{label_w32}: peak "
+          f"{w32g['peak_device_bytes']} bytes, the card has {card}")
+    syms = w32g["molecule"].symbols
+    w32g["finite_differences"] = finite_differences(
+        tag, jc, label_w32, w32g, [(syms.index("O"), 2), (syms.index("H"), 0)],
+        h=W_GRAD_FD_STEP, tol=W_GRAD_FD_TOL)
+    grads[label_w32] = w32g
     for label, key, env, route, incore in (
             ("w2 spherical RHF gradient in-core", "w2 rhf", {},
              "ScreenedDirectFock", "True"),
@@ -3230,12 +3609,15 @@ def run_phase12(tag: str, jc, path, counts: dict, refs_d: dict, cart: dict,
     check(d_xo <= 1e-4, f"w1 run_file optimize: |x - JAX| = {d_xo:.3e}")
     check(d_f <= 0.5, f"w1 run_file frequencies: |f - JAX| = {d_f:.3e}")
     d_main = {"df_gather_w": label_sa, "eri3c": label_sb,
+              "stv_grad": label_sb, "eri3c_grad": label_sb,
+              "metric_grad": label_sb,
               "eri4c": "w2 spherical RHF gradient in-core",
               "digest_jk": "w2 spherical RHF gradient in-core",
               "eri4c_jk_list": "w2 spherical RHF gradient direct",
               "eri4c_jk_stair": "w2 spherical RHF gradient streaming",
               "e2_rmp2": label_mp}
-    for name, label in d_main.items():
+    for name, label in (*d_main.items(), ("stv_grad", label_w32),
+                        ("eri3c_grad", label_w32), ("metric_grad", label_w32)):
         check(counts[label].get(name, 0) > 0,
               f"kernel {name} never launched on {label}")
     d_s = time.perf_counter() - t_d
@@ -3251,6 +3633,7 @@ def run_phase12(tag: str, jc, path, counts: dict, refs_d: dict, cart: dict,
             "result", "basis", "molecule", "flags", "model")}
             for k, v in grads.items()},
         "w2 spherical RI-MP2 E2": m_w2["E2"],
+        "gradient_kernels": grad_kernels,
         "run_file": {"gradient_minus_jax": d_g,
                      "optimize": {"energy": r_o["Energy"],
                                   "minus_jax": d_eo, "coords_minus_jax": d_xo,
@@ -4096,6 +4479,7 @@ def main() -> int:
     sass["eri4c"] = eri4c_registers(tag)
     sass["eri3c"] = eri3c_registers(tag)
     sass["stv"] = stv_registers(tag)
+    sass["grad"] = grad_registers(tag)
 
     goldens = json.loads((ROOT / "tests" / "data" /
                           "s22x3_gamess_goldens.json").read_text())
@@ -4105,6 +4489,11 @@ def main() -> int:
     refs_corr = smoke_ref["correlated"]["systems"]
     refs_f32 = smoke_ref["f32_b"]["systems"]
 
+    def mark(what):
+        print(f"{tag} {what} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+    mark("build and SASS checks")
     # 3. kernels vs plain: K1/K2/K3 at benzene_2_water's DF shapes; K4, K5,
     #    K6 at ammonia_trimer's and benzene_2_water's 4-center shapes
     spec = jc.io.parse_input(system_input("benzene_2_water",
@@ -4118,6 +4507,7 @@ def main() -> int:
     k2, k2_f32, k2_f32b = check_k2(tag, dev, bsets,
                                    create_scf_options(spec.scf_keywords))
     k3 = check_k3(tag, dev)
+    mark("phase 3 K1, K2, K3")
     # 3s. K9 (S/T/V) against its plain version, every class, at
     #     benzene_2_water in its DF basis, in the f basis and in the g basis
     k9 = {}
@@ -4134,6 +4524,7 @@ def main() -> int:
         k9[label] = check_k9(tag, dev, label,
                              jc.basis.run(mol_s, spec_s.model).primary, mol_s)
     torch.cuda.empty_cache()
+    mark("phase 3s K9")
     # K8 at the fold shapes of the paths that launch it: the fitted rows of
     # the aux set of w32's first 8 waters and of w32
     from juliachem_jl_tpu_torch.models.df_screened import fitted_rows
@@ -4160,6 +4551,7 @@ def main() -> int:
                                 name="eri3c_w32")}
     del bsets_w
     torch.cuda.empty_cache()
+    mark("phase 3 K8, K2 and K1 at w32")
     k8 = {**k8_at["w32"], "at_w8_fold": {
         k: v for k, v in k8_at["w8"].items()
         if k not in ("name", "route", "source", "replaces", "library")}}
@@ -4172,6 +4564,7 @@ def main() -> int:
     bsets_a = jc.basis.run(jc.molecule.run(spec_a), spec_a.model)
     fourc = {"ammonia_trimer": check_4c(tag, dev, "ammonia_trimer", bsets_a, 1),
              "benzene_2_water": check_4c(tag, dev, "benzene_2_water", bsets, 2)}
+    mark("phase 3 K4, K5, K6")
     # 3f. the f classes (ROADMAP.md B17) at benzene_2_water's shapes in
     #     6-311++G(3df,3pd) / cc-pVTZ-JKFIT: K1 (f64 and the f32 store) on
     #     every (bra | aux) class, (ff|g) alone too; K4, K6, K5 list and K5
@@ -4205,6 +4598,7 @@ def main() -> int:
               f"coefficients ({f['series_primitive_quartets']} on the Boys "
               f"series), {f['padded_primitive_quartets']} with the class "
               f"padding", flush=True)
+    mark("phase 3f")
     # 3g. the g classes at benzene_2_water's shapes in 6-311++G(3df,3pd)+G,
     #     read through model.basis_file: K1 (f64 and the f32 store) on every
     #     g bra against every aux class, (gg|g) alone too; K4, K6, K5 list
@@ -4285,6 +4679,7 @@ def main() -> int:
                     for k, v in fourc_long["kernels"].items()), flush=True)
     del prim_long
     torch.cuda.empty_cache()
+    mark("phase 3g")
 
     counts = {}
     class_counts = {}
@@ -4295,7 +4690,8 @@ def main() -> int:
         counts[label] = dict(kernels.launches)
         class_counts[label] = {k: dict(v)
                                for k, v in kernels.class_launches.items()}
-        print(f"{tag} launches during {label}: "
+        print(f"{tag} launches during {label} (done at "
+              f"{time.perf_counter() - t_start:.1f} s): "
               f"{ {k: v for k, v in counts[label].items() if v} }", flush=True)
         return res
 
@@ -4953,9 +5349,31 @@ def main() -> int:
             "path": label_fa}
     k9_g = {**k9[bz_g], "name": "stv_g", "launches": g_launches(label_ga, "stv"),
             "path": label_ga}
+    # K10 and K11 at benzene_2_water's spherical DF gradient (phase 12),
+    # launches on its path; at w8 beside, at w32 the parts of its gradient
+    gk = derivatives["gradient_kernels"]
+    l_bz, l_w8, l_w32 = ("benzene_2_water spherical DF gradient",
+                         "w8 DF gradient", "w32 DF gradient")
+    part_of = {"stv_grad": "one_electron",
+               "eri3c_grad": "three_center_derivative",
+               "metric_grad": "metric_derivative"}
+    grad_line = []
+    for name, part in part_of.items():
+        w32_part = derivatives["gradients"][l_w32]["parts"][part]
+        grad_line.append({
+            **gk[l_bz][name], "launches": counts[l_bz][name], "path": l_bz,
+            "registers": sass["grad"][
+                "stv_grad_kernel" if name == "stv_grad"
+                else "eri3c_grad_kernel"],
+            "at_w8": {**shapes_only(gk[l_w8][name]),
+                      "launches": counts[l_w8][name], "path": l_w8},
+            "at_w32": {"launches": counts[l_w32][name], "path": l_w32,
+                       "part": part, "part_ms": w32_part["ms"],
+                       "part_bound_ms": w32_part["bound_ms"],
+                       "part_bound_by": w32_part["bound_by"]}})
     kern_line = ([k1, k2, k2f] + new_kernels + list(k7.values())
                  + [k8, k1_f32, k2_f32b, k2_w, k2b_w] + f_kernels + g_kernels
-                 + [k9_line, k9_f, k9_g])
+                 + [k9_line, k9_f, k9_g] + grad_line)
 
     systems = [ammonia, benzene, bz_f32, bz_split, *w8.values(),
                ammonia_conv, benzene_conv,

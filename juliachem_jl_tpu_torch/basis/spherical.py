@@ -277,26 +277,35 @@ def _shell_rows(basis: Basis):
             for l, (c, r) in out.items()}, col
 
 
-def lift_rows_sph(basis: Basis, X):
+def lift_rows_sph(basis: Basis, X, cols: int | None = None):
     """Port of ``lift_rows_sph``: lift the rows of the torch tensor X
     [nbf_sph, ...] back to Cartesian aux rows, T @ X with T the block-
     diagonal per-shell transform, without forming T: one batched product a
     shell class.  Because T is geometry-independent, quantities fitted in
     the projected space (the DF gradient's gamma and Omega) lift to
-    Cartesian rows exactly."""
+    Cartesian rows exactly.  With ``cols``, X's trailing dimensions are
+    lifted that many columns at a time, so that a class's temporaries hold
+    at most nbf_cart x cols elements beside X and the output (the DF
+    gradient's gamma is an A x nbf^2 tensor)."""
     import torch
 
     per_l, n_sph = _shell_rows(basis)
     if X.shape[0] != n_sph:
         raise ValueError(f"lift_rows_sph: {X.shape[0]} rows, expected {n_sph}")
     out = X.new_zeros((basis.nbf,) + tuple(X.shape[1:]))
-    for l, (T, c_rows, s_rows) in per_l.items():
-        Tt = torch.as_tensor(T, dtype=X.dtype, device=X.device)
-        s_idx = torch.as_tensor(s_rows, device=X.device)
-        c_idx = torch.as_tensor(c_rows, device=X.device)
-        Xs = X[s_idx.reshape(-1)].reshape(s_rows.shape + tuple(X.shape[1:]))
-        out[c_idx.reshape(-1)] = torch.tensordot(Tt, Xs, dims=([1], [1])) \
-            .transpose(0, 1).reshape((-1,) + tuple(X.shape[1:]))
+    Xf, of = X.reshape(n_sph, -1), out.view(basis.nbf, -1)
+    n = Xf.shape[1]
+    step = n if cols is None else max(1, int(cols))
+    classes = [(torch.as_tensor(T, dtype=X.dtype, device=X.device),
+                torch.as_tensor(s_rows.reshape(-1), device=X.device),
+                torch.as_tensor(c_rows.reshape(-1), device=X.device),
+                s_rows.shape) for T, c_rows, s_rows in per_l.values()]
+    for c0 in range(0, n, step):
+        w = min(step, n - c0)
+        for Tt, s_idx, c_idx, (nsh, ns) in classes:
+            Xs = Xf[s_idx, c0:c0 + w].reshape(nsh, ns, w)
+            of[c_idx, c0:c0 + w] = torch.einsum(
+                "cs,nsw->ncw", Tt, Xs).reshape(-1, w)
     return out
 
 

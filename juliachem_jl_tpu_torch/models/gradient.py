@@ -46,12 +46,12 @@ def one_electron_gradient(mol, basis, D: torch.Tensor, W: torch.Tensor,
                           work: Counter | None = None) -> torch.Tensor:
     """grad[k] = sum_pq D_pq (dT + dV)_pq/dR_k - sum_pq W_pq dS_pq/dR_k
     (GradHelpers.jl:65-467 assembly), for the factor-2 density D and the
-    energy-weighted density W, on D's device."""
-    from ..ops.oei_grad import stv_gradients
+    energy-weighted density W, on D's device: kernel K10 on the card, its
+    plain version on the CPU (``ops/oei_grad.py``), neither of which forms
+    the derivative matrices."""
+    from ..ops import oei_grad
 
-    dS, dT, dV = stv_gradients(basis, mol, D.device, work)
-    return (torch.einsum("pq,kdpq->kd", D, dT + dV)
-            - torch.einsum("pq,kdpq->kd", W, dS))
+    return oei_grad.one_electron_gradient(basis, mol, D, W, work)
 
 
 def _two_electron(mol, basis, D, aux, spin_densities, sph_aux, timings,
@@ -180,6 +180,14 @@ def run(mol, basis_sets, scf_flags=None, output: int = 0,
                          device=device)
     if not res.get("Converged?"):
         raise RuntimeError("gradient requested on an unconverged SCF")
+    if device.type == "cuda":
+        # the SCF's builder (its B: 8.2 GB at w32 with Cartesian aux rows)
+        # is released; hand its cached blocks back before the DF gradient
+        # allocates its dense (A|pq) and U (23 GB each at w32)
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
     primary = basis_sets.primary
     if method == "UHF":
         grad = total_gradient_uhf(mol, primary, res, aux, sph_aux, timings)

@@ -17,15 +17,19 @@ Conventional: the permutation-symmetrized two-particle density
     G~_mnls = 1/2 D_mn D_ls - 1/8 (D_ml D_ns + D_ms D_nl)
 
 over every ordered pair of unique shell-pair blocks, Schwarz-screened, each
-side weighted by its pair weight (2 - delta).  Density fitting: the
-3-center derivative over every (aux shell, unique primary pair), the metric
-derivative over every pair of aux shells, and the fit algebra on the
-dense (A|pq) that kernel K1 builds (``ops/eri3c.py::three_center_tensor``).
+side weighted by its pair weight (2 - delta); every class pair is
+evaluated for its shell pairs grouped by whether each shell is contracted
+(``live_groups``): an uncontracted shell never carries the padding of its
+class's most contracted one.  Batches are sized by bytes (``_budget``), and
+the per-atom sums are ``index_add_`` on the device.
 
-Every class pair is evaluated for its shell pairs grouped by whether each
-shell is contracted (``live_groups``): an uncontracted shell never carries
-the padding of its class's most contracted one.  Batches are sized by bytes
-(``_budget``), and the per-atom sums are ``index_add_`` on the device.
+Density fitting: the fit algebra on the dense (A|pq) that kernel K1 builds
+(``ops/eri3c.py::three_center_tensor``), then the 3-center derivative over
+every (aux shell, unique primary pair) and the metric derivative over the
+unordered pairs of aux shells on two atoms, contracted with gamma and
+Omega as they are computed: kernel K11 (csrc/eri3c_grad.cuh) on the card,
+its plain version (the same tables, ``eri_grad_class`` on each primitive
+product) on the CPU.
 """
 
 from __future__ import annotations
@@ -346,39 +350,21 @@ def dense_three_center(primary: Basis, aux: Basis, device) -> torch.Tensor:
     return three_center_tensor(primary, aux, device)
 
 
-def _all_pairs(grad, bra: _Side, ket: _Side, contract, work):
-    """Every (bra row, ket row) combination of two groups, in batches:
-    contract(ib, ik, dA, dC) returns the (fA, fC) to add at the bra's first
-    atom and the ket's first atom; the ket's second atom gets -(fA + fC)
-    when its second shell is a real one (dB of a unit partner is zero)."""
-    b, k = bra.blk, ket.blk
-    dev = grad.device
-    size = batch_size(b.la, b.lb, k.la, k.lb, bra.K2, ket.K2, dev)
-    total = b.n * k.n
-    real_d = bool((k.jsh >= 0).all())
-    for s in range(0, total, size):
-        flat = torch.arange(s, min(s + size, total), device=dev)
-        ib, ik = flat // k.n, flat % k.n
-        dA, _, dC = eri_grad_class(b.la, b.lb, k.la, k.lb, *bra.take(ib),
-                                   *ket.take(ik), need_b=False, work=work)
-        fA, fC = contract(ib, ik, dA, dC)
-        grad.index_add_(0, bra.atom_a[ib], fA)
-        grad.index_add_(0, ket.atom_a[ik], fC)
-        if real_d:
-            grad.index_add_(0, ket.atom_b[ik], -(fA + fC))
-
-
 def df_fit_terms(P3: torch.Tensor, M: torch.Tensor, D: torch.Tensor,
                  spin_densities=None):
     """The fit algebra of the RI gradient: (gamma [A, nbf, nbf], Omega
-    [A, A]) with gamma = M^-1 U and Omega = sym((M^-1 P3) gamma^T), from the
+    [A, A]) with gamma = M^-1 U and Omega = sym(M^-1 (P3 gamma^T)), from the
     (fitted-space) 3-center rows P3 [A, nbf, nbf] and metric M [A, A]:
 
         U_A = 1/2 (P3_A . D) D - 1/4 D P3_A D,  or for spin densities
         U_A = 1/2 (P3_A . Dt) Dt - 1/2 sum_s Ds P3_A Ds.
 
-    D P3_A D is two batched products; one LU factorisation of M serves
-    both solves (the JAX package solves M twice, with U and with P3)."""
+    D P3_A D is two batched products.  One LU factorisation of M serves
+    both solves: gamma is solved by column chunks back into U's storage,
+    and Omega is one [A, A] product P3 gamma^T then a solve on [A, A] (the
+    JAX package solves M with U and with P3, (M^-1 P3) gamma^T: the same
+    numbers).  So no more than two A x nbf^2 tensors, P3 and U, are alive
+    at once (w32's Cartesian (A|pq) is 23 GB)."""
     A, nbf = P3.shape[0], P3.shape[1]
     P3f = P3.reshape(A, -1)
     v = P3f @ D.reshape(-1)
@@ -394,11 +380,278 @@ def df_fit_terms(P3: torch.Tensor, M: torch.Tensor, D: torch.Tensor,
             U[s:s + rows] = (0.5 * v[s:s + rows, None, None] * D[None]
                              - 0.5 * (Da @ blk @ Da + Db @ blk @ Db))
     lu = torch.linalg.lu_factor(M)
-    gamma = torch.linalg.lu_solve(*lu, U.reshape(A, -1))
-    del U
-    Omega = torch.linalg.lu_solve(*lu, P3f) @ gamma.T      # (M^-1 P3) gamma^T
+    Uf = U.reshape(A, -1)
+    cols = max(1, int(_budget(P3.device) / A))
+    for c in range(0, Uf.shape[1], cols):
+        Uf[:, c:c + cols] = torch.linalg.lu_solve(*lu, Uf[:, c:c + cols])
+    Omega = torch.linalg.lu_solve(*lu, P3f @ Uf.T)     # M^-1 (P3 gamma^T)
     Omega = 0.5 * (Omega + Omega.T)
-    return gamma.reshape(A, nbf, nbf), Omega
+    return U, Omega
+
+
+def df_gamma_omega(primary: Basis, aux: Basis, D: torch.Tensor,
+                   spin_densities=None, sph_aux: bool = True, lap=None):
+    """gamma [A, nbf, nbf] and Omega [A, A] of the DF gradient at D, in
+    Cartesian aux rows, on D's device: K1's dense (A|pq) and the metric,
+    projected to the solid-harmonic aux space when ``sph_aux`` (and the
+    aux set has a d shell or higher), ``df_fit_terms``, then lifted back.
+    P3 is dropped before the lift, and the lift goes by column chunks
+    (``_budget``), so that no more than two A x nbf^2 tensors are alive at
+    once.  ``lap(key)``, when given, is called after "three_center",
+    "metric" and "fit"."""
+    from ..basis.spherical import (aux_needs_sph, lift_rows_sph,
+                                   project_metric_sph, project_rows_sph_)
+    from .eri3c import two_center_metric
+
+    lap = lap or (lambda key: None)
+    device = D.device
+    nbf, naux = primary.nbf, aux.nbf
+    P3 = dense_three_center(primary, aux, device)
+    lap("three_center")
+    M = two_center_metric(aux, device)
+    lap("metric")
+    sph = sph_aux and aux_needs_sph(aux)
+    if sph:
+        P3 = project_rows_sph_(aux, P3.reshape(naux, -1)).reshape(-1, nbf, nbf)
+        M = project_metric_sph(aux, M)
+    gamma, Omega = df_fit_terms(P3, M, D, spin_densities)
+    del P3, M
+    if sph:
+        gamma = lift_rows_sph(aux, gamma,
+                              cols=int(_budget(device) / naux))
+        Omega = lift_rows_sph(aux, lift_rows_sph(aux, Omega).T.contiguous())
+    gamma, Omega = gamma.contiguous(), Omega.contiguous()
+    lap("fit")
+    return gamma, Omega
+
+
+# ------------------------------------------------------------------ K11
+
+# angular momenta K11 is instantiated for (csrc/eri3c_grad.cu): the aux
+# shells and the primary shells to g
+DF_GRAD_MAX_L = 4
+
+
+def check_df_grad_classes(primary: Basis, aux: Basis) -> None:
+    """Raise NotImplementedError for a basis K11 is not instantiated for."""
+    for name, b in (("primary", primary), ("auxiliary", aux)):
+        top = max(b.classes)
+        if top > DF_GRAD_MAX_L:
+            raise NotImplementedError(
+                f"K11 is not instantiated for l = {top} in the {name} basis: "
+                "it stops at g shells (l = 4)")
+
+
+def df_grad_tables(primary: Basis, aux: Basis, device):
+    """K11's tables and its plain version's: the aux shells, each with a
+    unit partner (``aux_unit_blocks``), and the unique primary pairs, packed
+    as ``oei.stv_table`` packs them with the shells' atoms (live primitive
+    pairs; sorted by count, then by (p, q)), after checking that K11 has
+    every class (NotImplementedError before anything reaches ``device``)."""
+    from .oei import stv_table
+
+    check_df_grad_classes(primary, aux)
+    atom_a, atom_p = np.asarray(aux.shell_atom), np.asarray(primary.shell_atom)
+    return ([stv_table(b, device, atom_a) for b in aux_unit_blocks(aux)],
+            [stv_table(b, device, atom_p) for b in unique_pair_blocks(primary)])
+
+
+def _counts(tab) -> np.ndarray:
+    return tab.meta[:, 4].cpu().numpy()
+
+
+def _metric_pairs(ti, tj) -> tuple[np.ndarray, np.ndarray]:
+    """The shell pairs (i, j) of two aux tables that the metric term sums:
+    unordered (i < j within one table) and on two different atoms."""
+    mi, mj = ti.meta.cpu().numpy(), tj.meta.cpu().numpy()
+    i, j = np.meshgrid(np.arange(ti.n), np.arange(tj.n), indexing="ij")
+    keep = mi[i, 5] != mj[j, 5]
+    if ti is tj:
+        keep &= i < j
+    return i[keep], j[keep]
+
+
+def _eri_work(work, ti, tj, metric: bool) -> None:
+    """work[("eri", la, -1, lp, lq, ka, kp)] += the items of those live
+    primitive counts (-1: a unit partner; the metric's lq is -1 too)."""
+    if work is None:
+        return
+    ca, cp = _counts(ti), _counts(tj)
+    if not len(ca) or not len(cp):
+        return
+    if metric:
+        i, j = _metric_pairs(ti, tj)
+        hist = np.zeros((ca.max() + 1, cp.max() + 1), dtype=np.int64)
+        np.add.at(hist, (ca[i], cp[j]), 1)
+    else:   # every aux shell meets every pair
+        hist = np.outer(np.bincount(ca), np.bincount(cp))
+    for x, y in zip(*np.nonzero(hist)):
+        work[("eri", ti.la, -1, tj.la, -1 if metric else tj.lb, int(x),
+              int(y))] += int(hist[x, y])
+
+
+def _segs(tab) -> torch.Tensor:
+    """The pair (or aux shell) of each row of a table's ``prim``."""
+    return torch.repeat_interleave(
+        torch.arange(tab.n, device=tab.meta.device), tab.meta[:, 4].long())
+
+
+def _grad_items(ti, tj, seg_i, seg_j, ra, rp):
+    """eri_grad_class on the primitive rows ra of the aux table ti (the
+    bra, with its unit partner) and rp of the table tj (the ket): each row
+    a shell, or shell pair, of one primitive (seg_*: the shell or pair of
+    each row).  Returns (shells of ra, pairs of rp, dA, dC)."""
+    pa, pp = ti.prim[ra], tj.prim[rp]
+    sa, sp = seg_i[ra], seg_j[rp]
+    A, cen = ti.pair[sa, :3], tj.pair[sp]
+    one = torch.ones_like(pa[:, :1])
+    dA, _, dC = eri_grad_class(
+        ti.la, 0, tj.la, tj.lb, pa[:, 0:1], pa[:, 1:2], pa[:, 2:3], one, A, A,
+        pp[:, 0:1], pp[:, 1:2], pp[:, 2:3], one, cen[:, :3], cen[:, 3:],
+        need_b=False)
+    return sa, sp, dA, dC
+
+
+def three_center_grad_plain(aux_t, pair_t, gamma: torch.Tensor,
+                            grad: torch.Tensor,
+                            work: Counter | None = None) -> None:
+    """K11's plain version, 3-center instance: add 2 sum gamma_{A,pq}
+    d(A|pq) over every (aux shell, unique pair) of the tables
+    (``df_grad_tables``) to grad [natom, 3]: every (aux primitive, live
+    primitive pair) through ``eri_grad_class`` in batches, each batch
+    contracted with its gamma blocks at once."""
+    dev = grad.device
+    for ti in aux_t:
+        for tj in pair_t:
+            _eri_work(work, ti, tj, False)
+            nra, nrp = ti.prim.shape[0], tj.prim.shape[0]
+            total = nra * nrp
+            if total == 0:
+                continue
+            nca, ncp, ncq = ncart(ti.la), ncart(tj.la), ncart(tj.lb)
+            ma, mp = ti.meta.long(), tj.meta.long()
+            seg_i, seg_j = _segs(ti), _segs(tj)
+            size = batch_size(ti.la, 0, tj.la, tj.lb, 1, 1, dev)
+            for s in range(0, total, size):
+                flat = torch.arange(s, min(s + size, total), device=dev)
+                sa, sp, dA, dC = _grad_items(ti, tj, seg_i, seg_j,
+                                             flat // nrp, flat % nrp)
+                oa = ma[sa, 0, None] + torch.arange(nca, device=dev)
+                op = mp[sp, 0, None] + torch.arange(ncp, device=dev)
+                oq = mp[sp, 1, None] + torch.arange(ncq, device=dev)
+                g = gamma[oa[:, :, None, None], op[:, None, :, None],
+                          oq[:, None, None, :]].reshape(-1, nca, ncp * ncq)
+                w = (2.0 * (2 - mp[sp, 2])).to(torch.float64)[:, None]
+                fA = w * torch.einsum("nac,ndac->nd", g, dA)
+                fC = w * torch.einsum("nac,ndac->nd", g, dC)
+                grad.index_add_(0, ma[sa, 5], fA)
+                grad.index_add_(0, mp[sp, 5], fC)
+                grad.index_add_(0, mp[sp, 6], -(fA + fC))
+
+
+def metric_grad_plain(aux_t, Omega: torch.Tensor, grad: torch.Tensor,
+                      work: Counter | None = None) -> None:
+    """K11's plain version, 2-center instance: add -sum Omega_AB dM_AB to
+    grad [natom, 3] over the unordered pairs of aux shells on two different
+    atoms (``_metric_pairs``; a pair on one atom adds nothing), each
+    weighted by 2: dM/dA of each (primitive, primitive) through
+    ``eri_grad_class``, its negative to the second shell's atom."""
+    dev = grad.device
+    for a, ti in enumerate(aux_t):
+        for tj in aux_t[a:]:
+            _eri_work(work, ti, tj, True)
+            i, j = _metric_pairs(ti, tj)
+            if not len(i):
+                continue
+            # every (row of shell i, row of shell j) of the kept pairs
+            ci, cj = _counts(ti), _counts(tj)
+            nk = ci[i] * cj[j]
+            ii, jj = np.repeat(i, nk), np.repeat(j, nk)
+            k = np.arange(nk.sum()) - np.repeat(np.cumsum(nk) - nk, nk)
+            p0i = ti.meta[:, 3].cpu().numpy()
+            p0j = tj.meta[:, 3].cpu().numpy()
+            ra = torch.as_tensor(p0i[ii] + k // cj[jj], device=dev)
+            rp = torch.as_tensor(p0j[jj] + k % cj[jj], device=dev)
+            nci, ncj = ncart(ti.la), ncart(tj.la)
+            mi, mj = ti.meta.long(), tj.meta.long()
+            seg_i, seg_j = _segs(ti), _segs(tj)
+            size = batch_size(ti.la, 0, tj.la, 0, 1, 1, dev)
+            for s in range(0, len(ra), size):
+                si, sj, dA, _ = _grad_items(ti, tj, seg_i, seg_j,
+                                            ra[s:s + size], rp[s:s + size])
+                oi = mi[si, 0, None] + torch.arange(nci, device=dev)
+                oj = mj[sj, 0, None] + torch.arange(ncj, device=dev)
+                om = Omega[oi[:, :, None], oj[:, None, :]]
+                fA = -2.0 * torch.einsum("nac,ndac->nd", om, dA)
+                grad.index_add_(0, mi[si, 5], fA)
+                grad.index_add_(0, mj[sj, 5], -fA)
+
+
+def _k11_args(ti, tj, G: torch.Tensor, grad: torch.Tensor, what: str):
+    for x, dt in ((G, torch.float64), (grad, torch.float64),
+                  (ti.prim, torch.float64), (ti.pair, torch.float64),
+                  (ti.meta, torch.int32), (tj.prim, torch.float64),
+                  (tj.pair, torch.float64), (tj.meta, torch.int32)):
+        if x.dtype != dt or x.device != grad.device or not x.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous {dt} on "
+                             f"{grad.device}, got {x.dtype} on {x.device}")
+    if ti.meta.shape[1] != 7 or tj.meta.shape[1] != 7 or grad.shape[1] != 3:
+        raise ValueError(f"{what}: tables with the shells' atoms and grad "
+                         "[natom, 3]")
+    return (ti.prim.data_ptr(), ti.pair.data_ptr(), ti.meta.data_ptr(), ti.n,
+            tj.prim.data_ptr(), tj.pair.data_ptr(), tj.meta.data_ptr(), tj.n,
+            G.data_ptr())
+
+
+def eri3c_grad_class(ti, tj, gamma: torch.Tensor, grad: torch.Tensor,
+                     work: Counter | None = None) -> None:
+    """Kernel K11, 3-center instance: add the class (ti.la | tj.la tj.lb)'s
+    share of 2 sum gamma_{A,pq} d(A|pq) to grad [natom, 3] (f64, on the
+    card); gamma [A, nbf, nbf] contiguous.  Raises ValueError for tensors
+    that are not on the card, NotImplementedError for a class above g."""
+    from . import kernels
+
+    if not grad.is_cuda:
+        raise ValueError(f"eri3c_grad_class: K11 runs on CUDA tensors, got "
+                         f"{grad.device}")
+    if max(ti.la, tj.la, tj.lb) > DF_GRAD_MAX_L:
+        raise NotImplementedError(f"K11 is not instantiated for class "
+                                  f"({ti.la}|{tj.la}{tj.lb})")
+    nbf = gamma.shape[1]
+    if gamma.dim() != 3 or gamma.shape[2] != nbf:
+        raise ValueError("eri3c_grad_class: gamma must be [A, nbf, nbf]")
+    args = _k11_args(ti, tj, gamma, grad, "eri3c_grad_class")
+    _eri_work(work, ti, tj, False)
+    if ti.n == 0 or tj.n == 0:
+        return
+    kernels.launch("jc_eri3c_grad", ti.la, tj.la, tj.lb, 0, *args,
+                   nbf * nbf, nbf, 2.0, grad.data_ptr(), grad.shape[0],
+                   cls=(ti.la, tj.la, tj.lb))
+
+
+def metric_grad_class(ti, tj, Omega: torch.Tensor, grad: torch.Tensor,
+                      work: Counter | None = None) -> None:
+    """Kernel K11, 2-center instance: add the aux class pair (ti.la |
+    tj.la)'s share of -sum Omega_AB dM_AB to grad [natom, 3] (f64, on the
+    card), ti.la <= tj.la (ti is tj for one class); Omega [A, A]
+    contiguous.  Counted as ``launches["metric_grad"]``."""
+    from . import kernels
+
+    if not grad.is_cuda:
+        raise ValueError(f"metric_grad_class: K11 runs on CUDA tensors, got "
+                         f"{grad.device}")
+    if max(ti.la, tj.la) > DF_GRAD_MAX_L or ti.la > tj.la:
+        raise NotImplementedError(f"K11 is not instantiated for the metric "
+                                  f"class ({ti.la}|{tj.la})")
+    if Omega.dim() != 2 or Omega.shape[0] != Omega.shape[1]:
+        raise ValueError("metric_grad_class: Omega must be [A, A]")
+    args = _k11_args(ti, tj, Omega, grad, "metric_grad_class")
+    _eri_work(work, ti, tj, True)
+    if ti.n == 0 or tj.n == 0:
+        return
+    kernels.launch("jc_eri3c_grad", ti.la, tj.la, 0, 1, *args,
+                   Omega.shape[0], 1, -2.0, grad.data_ptr(), grad.shape[0],
+                   count_as="metric_grad", cls=(ti.la, tj.la))
 
 
 def df_two_electron_gradient(primary: Basis, aux: Basis, mol, D: torch.Tensor,
@@ -423,15 +676,12 @@ def df_two_electron_gradient(primary: Basis, aux: Basis, mol, D: torch.Tensor,
     ``timings`` (a dict), the synchronised wall of each part is recorded:
     ``three_center`` (K1's dense (A|pq)), ``metric``, ``fit``,
     ``three_center_derivative``, ``metric_derivative``; ``work`` counts
-    the quartets evaluated (``eri_grad_class``)."""
+    the items the derivative terms evaluate (``_eri_work``).  The
+    derivative terms are kernel K11 on the card (``eri3c_grad_class``,
+    ``metric_grad_class``), its plain versions on the CPU."""
     import time
 
-    from ..basis.spherical import (aux_needs_sph, lift_rows_sph,
-                                   project_metric_sph, project_rows_sph_)
-    from .eri3c import two_center_metric
-
     device = D.device
-    nbf, naux = primary.nbf, aux.nbf
     clock = [time.perf_counter()]
 
     def lap(key):
@@ -443,59 +693,26 @@ def df_two_electron_gradient(primary: Basis, aux: Basis, mol, D: torch.Tensor,
         timings[key] = timings.get(key, 0.0) + t - clock[0]
         clock[0] = t
 
-    P3 = dense_three_center(primary, aux, device)
-    lap("three_center")
-    M = two_center_metric(aux, device)
-    lap("metric")
-    sph = sph_aux and aux_needs_sph(aux)
-    if sph:
-        P3f = project_rows_sph_(aux, P3.reshape(naux, -1))
-        P3 = P3f.reshape(P3f.shape[0], nbf, nbf)
-        M = project_metric_sph(aux, M)
-    gamma, Omega = df_fit_terms(P3, M, D, spin_densities)
-    del P3
-    if sph:
-        gamma = lift_rows_sph(aux, gamma)
-        Omega = lift_rows_sph(aux, lift_rows_sph(aux, Omega).T.contiguous())
-    lap("fit")
+    gamma, Omega = df_gamma_omega(primary, aux, D, spin_densities, sph_aux,
+                                  lap)
 
     grad = torch.zeros((mol.natom, 3), dtype=torch.float64, device=device)
-    atom_p = np.asarray(primary.shell_atom)
-    atom_a = np.asarray(aux.shell_atom)
-    aux_sides = [_Side(g, device, atom_a) for blk in aux_unit_blocks(aux)
-                 for _, g in live_groups(blk)]
-
+    aux_t, pair_t = df_grad_tables(primary, aux, device)
     # ---- 3-center term: 2 sum_{A,pq} gamma d(A|pq) ------------------------
-    for pblk in unique_pair_blocks(primary):
-        for _, pg in live_groups(pblk):
-            ps = _Side(pg, device, atom_p)
-            ncp, ncq = ps.nc
-            for asd in aux_sides:
-                nca = asd.nc[0]
-
-                def contract(ib, ik, dA, dC, asd=asd, ps=ps, nca=nca,
-                             ncp=ncp, ncq=ncq):
-                    oa = asd.rows(ib, "a")
-                    op, oq = ps.rows(ik, "a"), ps.rows(ik, "b")
-                    g = gamma[oa[:, :, None, None], op[:, None, :, None],
-                              oq[:, None, None, :]].reshape(-1, nca,
-                                                            ncp * ncq)
-                    w = (2.0 * ps.w[ik])[:, None]
-                    return (w * torch.einsum("nac,ndac->nd", g, dA),
-                            w * torch.einsum("nac,ndac->nd", g, dC))
-
-                _all_pairs(grad, asd, ps, contract, work)
+    if device.type == "cuda":
+        for ti in aux_t:
+            for tj in pair_t:
+                eri3c_grad_class(ti, tj, gamma, grad, work)
+    else:
+        three_center_grad_plain(aux_t, pair_t, gamma, grad, work)
     lap("three_center_derivative")
-
+    del gamma
     # ---- 2-center (metric) term: - sum Omega_AB dM_AB --------------------
-    for ai in aux_sides:
-        for aj in aux_sides:
-            def contract(ib, ik, dA, dC, ai=ai, aj=aj):
-                op, oq = ai.rows(ib, "a"), aj.rows(ik, "a")
-                om = Omega[op[:, :, None], oq[:, None, :]]
-                return (-torch.einsum("nac,ndac->nd", om, dA),
-                        -torch.einsum("nac,ndac->nd", om, dC))
-
-            _all_pairs(grad, ai, aj, contract, work)
+    if device.type == "cuda":
+        for a, ti in enumerate(aux_t):
+            for tj in aux_t[a:]:
+                metric_grad_class(ti, tj, Omega, grad, work)
+    else:
+        metric_grad_plain(aux_t, Omega, grad, work)
     lap("metric_derivative")
     return grad

@@ -347,6 +347,7 @@ def eri3c_t1_flags() -> tuple:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_D = ctypes.c_double
 # C symbol -> (kernel it launches, argument types before the stream)
 _FUNCS = {
     "jc_eri3c": ("eri3c", [_I, _I, _I, _P, _P, _LL, _I, _I, _P, _P, _P, _P,
@@ -370,6 +371,10 @@ _FUNCS = {
                                    _P, _P, _LL, _P]),
     "jc_stv": ("stv", [_I, _I, _I, _P, _P, _P, _LL, _P, _I, _P, _P, _P,
                        _LL]),
+    "jc_stv_grad": ("stv_grad", [_I, _I, _I, _P, _P, _P, _LL, _P, _I, _P, _P,
+                                 _LL, _P]),
+    "jc_eri3c_grad": ("eri3c_grad", [_I, _I, _I, _I, _P, _P, _P, _LL, _P, _P,
+                                     _P, _LL, _P, _LL, _LL, _D, _P, _I]),
     "jc_mp2_e2": ("e2_rmp2", [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                               _P, _P, _LL, _P]),
 }
@@ -379,7 +384,7 @@ launches = {"eri3c": 0, "eri3c_f32": 0, "df_gather_w": 0,
             "boys_probe_recip": 0, "eri4c": 0,
             "eri4c_jk_list": 0, "eri4c_jk_stair": 0, "digest_jk": 0,
             "e2_rmp2": 0, "e2_ss": 0, "e2_os": 0, "split_fold": 0,
-            "stv": 0}
+            "stv": 0, "stv_grad": 0, "eri3c_grad": 0, "metric_grad": 0}
 
 # integral kernels: kernel name -> {angular-momentum class: launches}, kept
 # beside ``launches`` by the same calls

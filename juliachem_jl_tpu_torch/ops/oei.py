@@ -187,7 +187,8 @@ class StvTable:
     (both coefficients nonzero; a pair's rows contiguous, in the padded
     block's (i, j) order); pair: [n, 6] f64, the centres A, B; meta: [n, 5]
     int32, off_a, off_b, ish == jsh, the pair's first row of ``prim`` and
-    its count.  The pairs are sorted by count, most first, so that the
+    its count (and, for K10 and K11, [n, 7]: the atoms of the two shells;
+    ``stv_table``).  The pairs are sorted by count, most first, so that the
     groups of a warp walk similar counts."""
 
     la: int
@@ -209,8 +210,11 @@ def check_stv_class(la: int, lb: int) -> None:
             "shells (l = 4)")
 
 
-def stv_table(blk: PairBlock, device) -> StvTable:
-    """Pack one unique pair block for K9 (``StvTable``), on ``device``."""
+def stv_table(blk: PairBlock, device, atom_of=None) -> StvTable:
+    """Pack one unique pair block for K9 (``StvTable``), on ``device``.
+    With ``atom_of`` (each shell's atom), for K10 and K11: meta gains two
+    columns, the atoms of the two shells (a unit partner, jsh < 0, takes
+    its first shell's)."""
     ka, kb = blk.aexp.shape[1], blk.bexp.shape[1]
     aexp, bexp, acoef, bcoef = (as_f64(x, device) for x in (
         blk.aexp, blk.bexp, blk.acoef, blk.bcoef))
@@ -226,11 +230,15 @@ def stv_table(blk: PairBlock, device) -> StvTable:
                         acoef.reshape(-1)[ia] * bcoef.reshape(-1)[jb]], dim=1)
     count = count[order]
     idx = order.cpu().numpy()
-    host = np.stack([blk.off_a[idx], blk.off_b[idx],
-                     blk.ish[idx] == blk.jsh[idx]], axis=1)
-    meta = torch.cat([torch.as_tensor(host.astype(np.int64), device=device),
-                      (torch.cumsum(count, 0) - count)[:, None],
-                      count[:, None]], dim=1).to(torch.int32)
+    cols = [blk.off_a[idx], blk.off_b[idx], blk.ish[idx] == blk.jsh[idx]]
+    if atom_of is not None:
+        ish, jsh = blk.ish[idx], blk.jsh[idx]
+        atom_of = np.asarray(atom_of)
+        cols += [atom_of[ish], atom_of[np.where(jsh >= 0, jsh, ish)]]
+    host = np.stack(cols, axis=1)
+    host = torch.as_tensor(host.astype(np.int64), device=device)
+    meta = torch.cat([host[:, :3], (torch.cumsum(count, 0) - count)[:, None],
+                      count[:, None], host[:, 3:]], dim=1).to(torch.int32)
     pair = as_f64(np.concatenate([blk.A, blk.B], axis=1), device)[order]
     return StvTable(la=blk.la, lb=blk.lb, prim=prim.contiguous(),
                     pair=pair.contiguous(), meta=meta.contiguous())

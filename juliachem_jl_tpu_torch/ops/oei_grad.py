@@ -12,8 +12,14 @@ applied inside the primitive contraction (the 2a weight is per primitive).
 For the two-center S and T, translational invariance gives d/dB = -d/dA.
 For the nuclear attraction dV/dA + dV/dB + sum_C dV/dC = 0, with the
 per-nucleus (Hellmann-Feynman) term from the Hermite-Coulomb shift
-dR_tuv/dCx = -R_{t+1,u,v}.  The scatter into the [natom, 3, nbf, nbf]
-matrices is ``index_put_`` with accumulation on the device.
+dR_tuv/dCx = -R_{t+1,u,v}.  ``stv_gradients`` scatters the blocks into the
+[natom, 3, nbf, nbf] matrices with ``index_put_`` (the JAX package's
+assembly, kept for the parity tests).  The gradient itself never forms
+them on the card: ``one_electron_gradient`` is the wrapper of kernel K10
+(csrc/oei_grad.cuh), which contracts each class's derivative blocks with
+D and W into [natom, 3] as it computes them, one launch a class.
+``stv_grad_plain`` is K10's plain version on the same tables (K9's packing
+with the shells' atoms).
 """
 
 from __future__ import annotations
@@ -269,3 +275,148 @@ def stv_gradients(basis: Basis, mol, device, work: Counter | None = None):
         _scatter(dV, blk, at_b, dvb)
         _scatter(dV, blk, None, dvc)
     return dS, dT, dV
+
+
+# ------------------------------------------------------------------ K10
+
+def stv_grad_tables(basis: Basis, device) -> list:
+    """Every class of unique shell pairs of ``basis`` packed for K10 and its
+    plain version (``oei.stv_table`` with the shells' atoms), after
+    checking that K10 has them all (NotImplementedError before anything
+    reaches ``device``)."""
+    from .oei import check_stv_class, stv_table
+
+    for la in basis.classes:
+        check_stv_class(la, la)
+    atom_of = np.asarray(basis.shell_atom)
+    return [stv_table(blk, device, atom_of)
+            for blk in unique_pair_blocks(basis)]
+
+
+def _stv_work(work, tab, natom):
+    if work is None:
+        return
+    c = tab.meta[:, 4].cpu().numpy()
+    vals, n = np.unique(c, return_counts=True)
+    for v, k in zip(vals.tolist(), n.tolist()):
+        work[("stv", tab.la, tab.lb, v, natom)] += k
+
+
+def _stv_grad_rows(tab, s: torch.Tensor, rows: slice, atoms):
+    """``_stv_grad_block`` over the live primitive pairs ``rows`` of one
+    K10 table (``s``: the pair of each), each a pair of one primitive (the
+    blocks are linear in them)."""
+    pr, cen = tab.prim[rows], tab.pair[s]
+    one = torch.ones_like(pr[:, :1])
+    return _stv_grad_block(tab.la, tab.lb, pr[:, 0:1], pr[:, 1:2],
+                              pr[:, 2:3], one, cen[:, :3], cen[:, 3:],
+                              atoms[:, :3], atoms[:, 3])
+
+
+def stv_grad_plain(tables, atoms: torch.Tensor, D: torch.Tensor,
+                   W: torch.Tensor, work: Counter | None = None
+                   ) -> torch.Tensor:
+    """K10's plain version: the same function from the same tables
+    (``stv_grad_tables``; ``atoms`` [natom, 4] from ``oei.atom_table``),
+    on their device: [natom, 3] f64, sum D (dT + dV) - W dS.  The live
+    primitive pairs go through ``_stv_grad_block`` in chunks, each a pair of
+    one primitive, and are contracted with their pair's D and W blocks at
+    once: no [natom, 3, nbf, nbf] matrix exists."""
+    natom = atoms.shape[0]
+    grad = torch.zeros((natom, 3), dtype=torch.float64, device=D.device)
+    for tab in tables:
+        _stv_work(work, tab, natom)
+        if tab.n == 0:
+            continue
+        nca, ncb = ncart(tab.la), ncart(tab.lb)
+        meta = tab.meta.long()
+        ia = meta[:, 0, None] + torch.arange(nca, device=D.device)
+        ib = meta[:, 1, None] + torch.arange(ncb, device=D.device)
+        wt = (2 - meta[:, 2]).to(torch.float64)[:, None, None]
+        Dw = wt * D[ia[:, :, None], ib[:, None, :]]
+        Ww = wt * W[ia[:, :, None], ib[:, None, :]]
+        per = nherm(tab.la + tab.lb + 1) * max(natom, nca * ncb) \
+            + 3 * natom * nca * ncb
+        size = max(16, int(_WORKSET / per))
+        seg = torch.repeat_interleave(
+            torch.arange(tab.n, device=D.device), meta[:, 4])
+        for r0 in range(0, tab.prim.shape[0], size):
+            s = seg[r0:r0 + size]
+            dS, dT, dVA, dVB, dVC = _stv_grad_rows(
+                tab, s, slice(r0, r0 + size), atoms)
+            d, w = Dw[s], Ww[s]
+            gS = (torch.einsum("nab,nkab->nk", d, dT)
+                  - torch.einsum("nab,nkab->nk", w, dS))
+            grad.index_add_(0, meta[s, 5],
+                            gS + torch.einsum("nab,nkab->nk", d, dVA))
+            grad.index_add_(0, meta[s, 6],
+                            torch.einsum("nab,nkab->nk", d, dVB) - gS)
+            grad += torch.einsum("nab,nckab->ck", d, dVC)
+    return grad
+
+
+def stv_grad_class(tab, atoms: torch.Tensor, D: torch.Tensor,
+                   W: torch.Tensor, grad: torch.Tensor,
+                   group: int | None = None,
+                   work: Counter | None = None) -> None:
+    """Kernel K10: add one class's share of sum D (dT + dV) - W dS to grad
+    [natom, 3] (f64, on the card).  It launches K10 with ``group`` lanes a
+    shell pair (default ``kernels.stv_group`` of the nuclei) and raises
+    ValueError for tensors that are not on the card."""
+    from . import kernels
+    from .oei import check_stv_class
+
+    if not grad.is_cuda:
+        raise ValueError(f"stv_grad_class: K10 runs on CUDA tensors, got "
+                         f"{grad.device}")
+    check_stv_class(tab.la, tab.lb)
+    natom = atoms.shape[0]
+    group = kernels.stv_group(natom) if group is None else group
+    if group not in kernels.STV_GROUPS:
+        raise ValueError(f"stv_grad_class: group {group} not in "
+                         f"{kernels.STV_GROUPS}")
+    nbf = D.shape[0]
+    for x, dt in ((D, torch.float64), (W, torch.float64),
+                  (grad, torch.float64), (tab.prim, torch.float64),
+                  (tab.pair, torch.float64), (tab.meta, torch.int32),
+                  (atoms, torch.float64)):
+        if x.dtype != dt or x.device != grad.device or not x.is_contiguous():
+            raise ValueError(f"stv_grad_class: expected contiguous {dt} on "
+                             f"{grad.device}, got {x.dtype} on {x.device}")
+    if (D.shape != (nbf, nbf) or W.shape != D.shape
+            or grad.shape != (natom, 3) or tab.meta.shape[1] != 7):
+        raise ValueError("stv_grad_class: D, W [nbf, nbf], grad [natom, 3] "
+                         "and a table with the shells' atoms")
+    _stv_work(work, tab, natom)
+    if tab.n == 0:
+        return
+    kernels.launch("jc_stv_grad", tab.la, tab.lb, group, tab.prim.data_ptr(),
+                   tab.pair.data_ptr(), tab.meta.data_ptr(), tab.n,
+                   atoms.data_ptr(), natom, D.data_ptr(), W.data_ptr(), nbf,
+                   grad.data_ptr(), cls=(tab.la, tab.lb))
+
+
+def one_electron_gradient(basis: Basis, mol, D: torch.Tensor,
+                          W: torch.Tensor, work: Counter | None = None
+                          ) -> torch.Tensor:
+    """sum_pq D_pq (dT + dV)_pq/dR_k - sum_pq W_pq dS_pq/dR_k [natom, 3] on
+    D's device: K10 on the card, one launch a class (``work`` counts the
+    pairs by class and live primitive count).  On the CPU the contraction
+    of the derivative matrices (``stv_gradients``, the JAX package's
+    assembly): its last bits are the ones the CPU tests' optimizations
+    were written against (a BFGS path flips on one ulp of the gradient),
+    and K10's plain version, ``stv_grad_plain``, is held to it."""
+    from .oei import atom_table
+
+    dev = D.device
+    if dev.type != "cuda":
+        dS, dT, dV = stv_gradients(basis, mol, dev, work)
+        return (torch.einsum("pq,kdpq->kd", D, dT + dV)
+                - torch.einsum("pq,kdpq->kd", W, dS))
+    tables = stv_grad_tables(basis, dev)
+    atoms = atom_table(mol, dev)
+    D, W = D.contiguous(), W.contiguous()
+    grad = torch.zeros((mol.natom, 3), dtype=torch.float64, device=dev)
+    for tab in tables:
+        stv_grad_class(tab, atoms, D, W, grad, work=work)
+    return grad

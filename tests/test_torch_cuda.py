@@ -39,7 +39,14 @@ size on every class of 8 waters in 6-31+G*, two waters in
 6-311++G(3df,3pd) and two in the g basis, into NaN-filled matrices, within
 1e-12 x each matrix's max-abs of the plain version; the card's
 ``overlap_kinetic_nuclear`` launches K9 once a class and no chunk of the
-plain path; (hh) raises.
+plain path; (hh) raises.  K10 (the one-electron gradient) at each group
+size on every class of 8 waters in 6-31+G* and one in the g basis, and
+K11 (the DF gradient's 3-center and metric terms) on every class of one
+water in 6-31+G* and in the g basis with cc-pVTZ-JKFIT and of water 6-31G
+with the contracted 6-31G aux set, each class within 1e-10 x max |g| of
+its plain version on the card (f64 atomics sum in no fixed order); the
+card's DF-RHF gradient runs K10 and K11, none of the plain versions, and
+lands within 1e-10 of the CPU's; a class above g raises.
 """
 
 import pathlib
@@ -1649,3 +1656,146 @@ def test_k9_raises_for_a_class_it_lacks(cuda_device):
                        meta=zeros(1, 5, dtype=torch.int32))
     with pytest.raises(NotImplementedError):
         oei.stv_class(tab, zeros(1, 4), zeros(4, 4), zeros(4, 4), zeros(4, 4))
+
+
+# ------------------------------------------------------------ K10 and K11
+
+def _grad_close(got, ref):
+    """Within 1e-10 x max |g| (1e-10 where that is below 1): the atomics
+    sum in no fixed order."""
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((got - ref).abs().max()) <= 1e-10 * scale
+
+
+def _sym_on(n, seed, dev):
+    X = np.random.default_rng(seed).standard_normal((n, n))
+    return torch.as_tensor(X + X.T, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["w8 6-31+G*", "w1 g"])
+@pytest.mark.parametrize("group", [8, 16, 32])
+def test_k10_every_class_matches_plain(cuda_device, system, group):
+    from juliachem_jl_tpu_torch.ops import oei, oei_grad
+
+    n, name = {"w8 6-31+G*": (8, "6-31+G*"), "w1 g": (1, G_BASIS)}[system]
+    jc.basis.register_basis_file(str(G_FILE), G_BASIS)
+    mol = _waters(n)
+    prim = jc.basis.build(mol, name)
+    D, W = _sym_on(prim.nbf, 1, cuda_device), _sym_on(prim.nbf, 2, cuda_device)
+    tables = oei_grad.stv_grad_tables(prim, cuda_device)
+    atoms = oei.atom_table(mol, cuda_device)
+    kernels.reset_launches()
+    for t in tables:
+        got = torch.zeros((mol.natom, 3), dtype=torch.float64,
+                          device=cuda_device)
+        oei_grad.stv_grad_class(t, atoms, D, W, got, group=group)
+        _grad_close(got, oei_grad.stv_grad_plain([t], atoms, D, W))
+    assert kernels.launches["stv_grad"] == len(tables)
+
+
+def _k11_case(case, dev):
+    jc.basis.register_basis_file(str(G_FILE), G_BASIS)
+    name, aux_name = {"6-31+G*": ("6-31+G*", "cc-pVTZ-JKFIT"),
+                      "g": (G_BASIS, "cc-pVTZ-JKFIT"),
+                      "contracted aux": ("6-31G", "6-31G")}[case]
+    mol = _waters(1)
+    prim = jc.basis.build(mol, name)
+    aux = jc.basis.build_auxiliary(mol, aux_name, name)
+    X = np.random.default_rng(3).standard_normal((aux.nbf, prim.nbf,
+                                                  prim.nbf))
+    gamma = torch.as_tensor(X + X.transpose(0, 2, 1), device=dev)
+    return mol, prim, aux, gamma, _sym_on(aux.nbf, 4, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["6-31+G*", "g", "contracted aux"])
+def test_k11_every_class_matches_plain(cuda_device, case):
+    from juliachem_jl_tpu_torch.ops import eri_grad
+
+    mol, prim, aux, gamma, Omega = _k11_case(case, cuda_device)
+    aux_t, pair_t = eri_grad.df_grad_tables(prim, aux, cuda_device)
+
+    def zeros():
+        return torch.zeros((mol.natom, 3), dtype=torch.float64,
+                           device=cuda_device)
+
+    kernels.reset_launches()
+    for ti in aux_t:
+        for tj in pair_t:
+            got, ref = zeros(), zeros()
+            eri_grad.eri3c_grad_class(ti, tj, gamma, got)
+            eri_grad.three_center_grad_plain([ti], [tj], gamma, ref)
+            _grad_close(got, ref)
+    assert kernels.launches["eri3c_grad"] == len(aux_t) * len(pair_t)
+    for a, ti in enumerate(aux_t):
+        for tj in aux_t[a:]:
+            got, ref = zeros(), zeros()
+            eri_grad.metric_grad_class(ti, tj, Omega, got)
+            # the plain version walks the class pairs of its list: (ti|tj)
+            # alone is [ti, tj] less (ti|ti) and (tj|tj)
+            eri_grad.metric_grad_plain([ti] if ti is tj else [ti, tj], Omega,
+                                       ref)
+            if ti is not tj:
+                for only in (ti, tj):
+                    eri_grad.metric_grad_plain([only], -Omega, ref)
+            _grad_close(got, ref)
+    n = len(aux_t)
+    assert kernels.launches["metric_grad"] == n * (n + 1) // 2
+
+
+@pytest.mark.cuda
+def test_df_gradient_on_card_runs_k10_k11(cuda_device, monkeypatch):
+    """The DF-RHF gradient's derivative terms on the card: K10 and K11,
+    none of the plain versions; within 1e-10 of the CPU's."""
+    from juliachem_jl_tpu_torch.models import gradient
+    from juliachem_jl_tpu_torch.ops import eri_grad, oei_grad
+
+    mol = _waters(2)
+    bsets = jc.basis.run(mol, {"method": "RHF", "basis": "6-31G*",
+                               "auxiliary_basis": "cc-pVDZ-JKFIT"})
+    D = _sym_on(bsets.primary.nbf, 5, CPU) * 0.05
+    W = _sym_on(bsets.primary.nbf, 6, CPU) * 0.05
+    ref = gradient.total_gradient(mol, bsets.primary, D, W,
+                                  bsets.auxiliary)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, fn in ((oei_grad, "stv_grad_plain"),
+                    (eri_grad, "three_center_grad_plain"),
+                    (eri_grad, "metric_grad_plain")):
+        monkeypatch.setattr(mod, fn, refuse)
+    kernels.reset_launches()
+    got = gradient.total_gradient(mol, bsets.primary, D.to(cuda_device),
+                                  W.to(cuda_device), bsets.auxiliary)
+    assert got.is_cuda
+    for k in ("stv_grad", "eri3c_grad", "metric_grad"):
+        assert kernels.launches[k] > 0, k
+    _grad_close(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_k10_k11_raise_for_a_class_they_lack(cuda_device):
+    """(hh) and an h aux shell are not instantiated (both stop at g)."""
+    from juliachem_jl_tpu_torch.ops import eri_grad, oei, oei_grad
+
+    def zeros(*shape, dtype=torch.float64):
+        return torch.zeros(shape, dtype=dtype, device=cuda_device)
+
+    def table(la, lb):
+        return oei.StvTable(la=la, lb=lb, prim=zeros(1, 3), pair=zeros(1, 6),
+                            meta=zeros(1, 7, dtype=torch.int32))
+
+    kernels.reset_launches()
+    with pytest.raises(NotImplementedError):
+        oei_grad.stv_grad_class(table(5, 5), zeros(1, 4), zeros(4, 4),
+                                zeros(4, 4), zeros(1, 3))
+    with pytest.raises(NotImplementedError):
+        eri_grad.eri3c_grad_class(table(5, 0), table(0, 0), zeros(4, 4, 4),
+                                  zeros(1, 3))
+    with pytest.raises(NotImplementedError):
+        eri_grad.metric_grad_class(table(2, 0), table(5, 0), zeros(4, 4),
+                                   zeros(1, 3))
+    assert not any(kernels.launches[k] for k in ("stv_grad", "eri3c_grad",
+                                                 "metric_grad"))

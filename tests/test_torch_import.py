@@ -63,7 +63,9 @@ def test_package_sources_never_import_jax():
              REPO / "tools" / "run_water_cluster.py",
              REPO / "tools" / "make_water_clusters.py",
              REPO / "tools" / "stv_times.py", REPO / "tools" / "oei_rehearsal.py",
-             REPO / "tools" / "stv_candidates.py"]
+             REPO / "tools" / "stv_candidates.py",
+             REPO / "tools" / "grad_rehearsal.py",
+             REPO / "tools" / "grad_fit_variants.py"]
     scanned = {f.relative_to(REPO).as_posix() for f in files}
     for module in ("models/uhf.py", "models/rohf.py", "models/mp2.py",
                    "models/df_screened_jk.py", "interop.py",
@@ -71,7 +73,7 @@ def test_package_sources_never_import_jax():
                    "models/scf.py", "basis/spherical.py",
                    "models/gradient.py", "models/optimize.py",
                    "models/hessian.py", "ops/oei_grad.py", "ops/eri_grad.py",
-                   "ops/oei.py"):
+                   "ops/oei.py", "ops/kernels.py"):
         assert f"juliachem_jl_tpu_torch/{module}" in scanned
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []

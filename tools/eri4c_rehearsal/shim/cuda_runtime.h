@@ -32,7 +32,7 @@
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
 };
-extern thread_local dim3 threadIdx, blockIdx, blockDim;
+extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 struct WarpCtx {
   std::barrier<>* bar;
